@@ -4,11 +4,17 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``molecular_dynamics_neural_operator_tpu_torch/csrc``
-and drives the port's main path, the single-stream BBA free rollout of
-``bench.py`` (28 residues, window 10, width 64, ker_width 1024, depth 6,
-sparse graph with 224 edge slots, predict_delta, bf16, clip 100, the
-trained ``tools/bench_ckpt.npz``, start window from
-``synthetic_trajectory(num_frames=4000, seed=13)``). Phases, each fatal:
+and drives the port's two main paths at full width (BBA: 28 residues,
+window 10, width 64, ker_width 1024, depth 6, predict_delta, bf16, data
+from ``synthetic_trajectory(num_frames=4000, seed=13)``):
+
+- serving: the single-stream free rollout of ``bench.py`` (sparse graph
+  with 224 edge slots, clip 100, the trained ``tools/bench_ckpt.npz``);
+- training: teacher-forced train steps at batch 128 with 256 edge slots,
+  from seeded ``gkn_init`` weights, through ``create_train_state``,
+  ``make_train_step`` and ``train_epoch``.
+
+Phases, each fatal:
 
 1. device: a CUDA card is required; prints its name and power limit.
 2. kernel vs plain: each kernel against its plain PyTorch version on the
@@ -22,13 +28,30 @@ trained ``tools/bench_ckpt.npz``, start window from
    version's time, a library call's time where one computes the same
    function, and the least time the card could take (its bound).
 
-The last lines are the ``kernels`` JSON, the card, and
+5. train_conv vs plain: the forward kernel (output and activation stack)
+   and the backward kernel (dx0, dkt, droot1/2, dbias1/2) of the training
+   conv stack against their plain versions at the training shapes, f32
+   and bf16.
+6. training run: ``TRAIN_STEPS`` train steps in bf16 with
+   ``train_conv_impl="pallas"`` (the main path; both kernels must have
+   launched) and again with ``"xla"`` from the same state and batches:
+   mean losses and updated parameters compared, every loss finite; one
+   eval step on a held-out batch; the same steps with the edge MLP on the
+   exact f32 path instead of the tensor cores.
+7. training timing: device time of both kernels, their plain versions and
+   bounds, wall time of a train step on each path, samples/s, peak memory.
+
+The last lines are the ``kernels`` JSON (five kernels), the card, and
 ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA card.
+``--only rollout`` or ``--only train`` runs one path's phases (for
+development; the ``kernels`` line then lists that path's kernels), and
+``--profile`` adds a ``torch.profiler`` breakdown of one train step.
 Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import sys
@@ -42,9 +65,13 @@ ROOT = Path(__file__).resolve().parent
 CKPT = ROOT / "tools" / "bench_ckpt.npz"
 PKG = "molecular_dynamics_neural_operator_tpu_torch"
 TPU_KERNEL = "molecular_dynamics_neural_operator_tpu/ops/pallas/persistent_rollout.py"
+TPU_TRAIN_KERNEL = "molecular_dynamics_neural_operator_tpu/ops/pallas/train_conv.py"
 THRESHOLD = 8.0
 CLIP = 100.0
 STEPS = 128
+TRAIN_STEPS = 4
+TRAIN_BATCH = 128
+TRAIN_LR = 3e-5
 # Published H100 SXM peaks (dense): bf16 tensor cores, f32 outside them,
 # device memory.
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -71,6 +98,23 @@ TOL_BF16 = 2.0 ** -7
 TOL_HEAD_F32 = 1e-4
 TOL_HEAD_BF16 = 1e-2
 COORD_ULPS = 2
+# Training run, kernel path against per-layer path over TRAIN_STEPS
+# steps in bf16 from the same state and batches. Both paths round at the
+# same places and differ in the order of f32 sums, so now and then a bf16
+# rounding flips. The mean losses are sums over 128 examples of outputs
+# that carry such flips through 12 layers: they agree to about 1e-3; 2e-2
+# would not hold a wrong gradient, which moves every parameter by up to
+# lr per step, four times over. Adam divides each gradient by its own
+# running magnitude, so where an element of the gradient is near zero a
+# flip changes, even reverses, its update of about lr: single elements may
+# differ by as much as they moved. So each leaf's movement is held as a
+# whole, the L2 norm of the difference over the L2 norm of the movement:
+# 5.6e-3 at most on an H100, held to 5e-2. A wrong gradient of one leaf
+# moves it in unrelated directions, a difference of about 1.4 of the norm;
+# the edge MLP on the exact f32 path instead of the tensor cores, which
+# rounds the gradient at one more place, already shows as 0.10.
+TOL_TRAIN_LOSS = 2e-2
+TOL_TRAIN_MOVE = 5e-2
 # Coordinates over the 128-step rollout, both compute types: the kernels
 # are deterministic and the two paths differed by at most 8e-7 A on an H100
 # (f32 0, bf16 at 1 stream 0, at 4 streams 8e-7); 1e-5 A is ~10 units in
@@ -443,6 +487,408 @@ def time_kernels(params, aa, window0, counts: dict, errs: dict) -> list:
     ]
 
 
+# ---- phases 5-7: the training path --------------------------------------
+
+# Tolerances of the training conv stack, each relative to the largest
+# magnitude of the tensor it is held on (with seeded gkn_init weights the
+# activations grow about 6x per layer, so absolute errors say nothing).
+# f32: the kernel sums an edge's 64 products, a node's messages and the
+# 12 layers of dK in another order than the plain version: ulp-level
+# differences (~1e-7) that 12 layers compound, far below 1e-4.
+TOL_TC_F32 = 1e-4
+# bf16: the same f32 sums land now and then on the other side of a bf16
+# rounding boundary where x, a message, dz or dxs is rounded: one unit,
+# 2^-8 of that value, averaged over a node's edges and carried through the
+# layers; 1e-2 of the tensor's scale holds that and would not hold a wrong
+# edge, layer or cast.
+TOL_TC_BF16 = 1e-2
+
+
+def train_cfg(cd: str, impl: str = "pallas", kernel_init_scale: float = 1.0):
+    from molecular_dynamics_neural_operator_tpu_torch.configs import (
+        ModelConfig,
+    )
+
+    return ModelConfig(compute_dtype=cd, graph_mode="sparse", max_edges=256,
+                       predict_delta=True, train_conv_impl=impl,
+                       kernel_init_scale=kernel_init_scale)
+
+
+def training_cfgs(impl: str = "pallas"):
+    """The training run's model and trainer. With the torch-default init
+    the conv stack's activations grow about 6x per layer, and Adam's first
+    steps at the default lr of 0.01 then overflow f32 at the second step,
+    on every path (``probe_default_recipe`` logs it). The run therefore
+    uses the configuration's own knobs for that: ``kernel_init_scale`` 0.1
+    and lr 3e-5; every other field keeps its default."""
+    from molecular_dynamics_neural_operator_tpu_torch.configs import (
+        TrainConfig,
+    )
+
+    return (train_cfg("bfloat16", impl, kernel_init_scale=0.1),
+            TrainConfig(batch_size=TRAIN_BATCH, lr=TRAIN_LR))
+
+
+def train_conv_operands(params, cfg, batch):
+    """The operands the training forward hands to ``train_conv``, made by
+    the port's own modules from a device batch (exact f32 products)."""
+    from molecular_dynamics_neural_operator_tpu_torch.device import (
+        compute_dtype,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.models.gkn import (
+        _encode_nodes,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.ops.edge_conv import (
+        sparse_inv_degree,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.ops.mlp import mlp_apply
+    from molecular_dynamics_neural_operator_tpu_torch.train import (
+        featurize_batch,
+    )
+
+    cd = compute_dtype(cfg)
+    with torch.no_grad():
+        gb = featurize_batch(cfg, batch)
+        x0 = _encode_nodes(params, cfg, gb.aa, gb.window).contiguous()
+        kt = mlp_apply(params["edge_kernel"], gb.graph.edge_feats,
+                       compute_dtype=cd).to(cd)
+        kt = (kt * gb.graph.mask[..., None].to(cd)).contiguous()
+        inv_deg = sparse_inv_degree(gb.graph.edges, gb.graph.mask,
+                                    gb.aa.shape[0]).contiguous()
+    return (x0, kt, gb.graph.edges.to(torch.int32).contiguous(), inv_deg,
+            params["conv1"]["root"], params["conv1"]["bias"],
+            params["conv2"]["root"], params["conv2"]["bias"])
+
+
+def scaled_err(got: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
+    """(max |got - ref|, that over max |ref|)."""
+    err = (got.float() - ref.float()).abs().max().item()
+    return err, err / max(ref.float().abs().max().item(), 1e-30)
+
+
+def check_train_conv(params, batch, cd: str) -> dict:
+    """Both training kernels against their plain versions on one batch.
+    Returns the max abs errors of the output and of dx0."""
+    from molecular_dynamics_neural_operator_tpu_torch.ops.cuda import (
+        train_conv as tc,
+    )
+
+    cfg = train_cfg(cd)
+    tol = TOL_TC_F32 if cd == "float32" else TOL_TC_BF16
+    ops = train_conv_operands(params, cfg, batch)
+    x0, kt, edges, inv_deg, root1, _, root2, _ = ops
+    out, stack = tc.train_conv_forward(*ops, cfg.depth)
+    out_p, stack_p = tc.train_conv_forward_plain(*ops, cfg.depth)
+    torch.cuda.synchronize()
+    require(bool(torch.isfinite(stack).all()),
+            f"train_conv_fwd stack not finite ({cd})")
+    require(torch.equal(out, stack[:, -1]),
+            f"train_conv_fwd out is not the last layer of its stack ({cd})")
+    require(torch.equal(stack[:, 0], x0),
+            f"train_conv_fwd stack does not start at x0 ({cd})")
+    worst = 0.0
+    for layer in range(1, stack.shape[1]):
+        err, rel = scaled_err(stack[:, layer], stack_p[:, layer])
+        worst = max(worst, rel)
+        require(rel <= tol, f"train_conv_fwd layer {layer}: error {err} is "
+                f"{rel:.2e} of the layer's max, over {tol} ({cd})")
+    out_err, out_rel = scaled_err(out, out_p)
+    log(f"train_conv_fwd {cd} B={x0.shape[0]} E={kt.shape[1]}: out max abs "
+        f"err {out_err:.3e} = {out_rel:.2e} of its max "
+        f"{out_p.abs().max().item():.3e}; worst layer of the stack "
+        f"{worst:.2e} (tolerance {tol})")
+
+    # the backward on the plain version's stack, so that both take the
+    # relu mask from the same activations
+    gen = torch.Generator(device=x0.device).manual_seed(5)
+    g_out = torch.randn(out.shape, generator=gen, device=x0.device)
+    bwd_args = (g_out, stack_p, kt, edges, inv_deg, root1, root2, cfg.depth)
+    got = tc.train_conv_backward(*bwd_args)
+    ref = tc.train_conv_backward_plain(*bwd_args)
+    torch.cuda.synchronize()
+    names = ("dx0", "dkt", "droot1", "dbias1", "droot2", "dbias2")
+    report = []
+    errs = {}
+    for name, g, r in zip(names, got, ref):
+        require(g.shape == r.shape and g.dtype == r.dtype,
+                f"train_conv_bwd {name}: {g.shape} {g.dtype} against "
+                f"{r.shape} {r.dtype} ({cd})")
+        require(bool(torch.isfinite(g).all()),
+                f"train_conv_bwd {name} not finite ({cd})")
+        err, rel = scaled_err(g, r)
+        errs[name] = err
+        report.append(f"{name} {rel:.2e}")
+        require(rel <= tol, f"train_conv_bwd {name}: error {err} is "
+                f"{rel:.2e} of its max, over {tol} ({cd})")
+    # the padded slots' dK rows are xs (x) dm of node 0, not zero
+    pad = batch["mask"] == 0
+    if bool(pad.any()):
+        e_pad, r_pad = scaled_err(got[1][pad], ref[1][pad])
+        require(r_pad <= tol, f"train_conv_bwd dkt of padded slots: "
+                f"{r_pad:.2e} ({cd})")
+        report.append(f"dkt[padded] {r_pad:.2e} (max "
+                      f"{ref[1][pad].float().abs().max().item():.2e})")
+    log(f"train_conv_bwd {cd}: error over max, " + ", ".join(report)
+        + f" (tolerance {tol})")
+    return {"train_conv_fwd": out_err, "train_conv_bwd": errs["dx0"]}
+
+
+def tree_items(tree, prefix=""):
+    for k, v in tree.items():
+        name = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, dict):
+            yield from tree_items(v, name)
+        else:
+            yield name, v
+
+
+def run_train_steps(state0, tx, cfg, tcfg, ds, indices):
+    """TRAIN_STEPS steps through train_epoch from ``state0``: (state,
+    metrics)."""
+    from molecular_dynamics_neural_operator_tpu_torch.train import (
+        make_train_step,
+        train_epoch,
+    )
+
+    state, metrics = train_epoch(state0, make_train_step(cfg, tx), ds,
+                                 indices, tcfg.batch_size, seed=tcfg.seed)
+    torch.cuda.synchronize()
+    return state, metrics
+
+
+def check_training(ds, train_idx, valid_idx) -> dict:
+    """The training run on both paths; returns the main path's launch
+    counts."""
+    from molecular_dynamics_neural_operator_tpu_torch.data.prefetch import (
+        to_device,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.ops import mlp
+    from molecular_dynamics_neural_operator_tpu_torch.ops.cuda import (
+        train_conv as tc,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.train import (
+        create_train_state,
+        make_eval_step,
+    )
+
+    (cfg_k, tcfg), (cfg_x, _) = training_cfgs(), training_cfgs("xla")
+    indices = train_idx[:TRAIN_STEPS * TRAIN_BATCH]
+    state0, tx, _ = create_train_state(
+        tcfg.seed, cfg_k, tcfg, steps_per_epoch=TRAIN_STEPS)
+
+    tc.reset_launch_counts()
+    state_k, m_k = run_train_steps(state0, tx, cfg_k, tcfg, ds, indices)
+    counts = tc.launch_counts()
+    state_x, m_x = run_train_steps(state0, tx, cfg_x, tcfg, ds, indices)
+    with mlp.exact_products():
+        state_e, m_e = run_train_steps(state0, tx, cfg_k, tcfg, ds, indices)
+    log(f"training run, {TRAIN_STEPS} steps at B={TRAIN_BATCH} bf16: "
+        f"kernel path {m_k}; per-layer path {m_x}; kernel path with the "
+        f"exact f32 edge MLP {m_e}; launches {counts}")
+    for name, m in (("kernel", m_k), ("per-layer", m_x), ("exact", m_e)):
+        require(all(np.isfinite(m[k]) for k in ("rel_l2", "mse")),
+                f"non-finite training loss on the {name} path: {m}")
+    require(state_k.step == TRAIN_STEPS, "the step count did not advance")
+    for k in ("rel_l2", "mse"):
+        rel = abs(m_k[k] - m_x[k]) / abs(m_x[k])
+        require(rel <= TOL_TRAIN_LOSS, f"mean {k} differs by {rel:.2e} "
+                f"between the kernel and the per-layer path")
+    # each leaf's movement over the steps, kernel path against per-layer
+    # path, as the L2 norm of the difference over the L2 norm of the movement
+    worst, worst_name, moved, max_abs = 0.0, "", 0.0, 0.0
+    for (name, a), (_, b), (_, c) in zip(tree_items(state_k.params),
+                                         tree_items(state_x.params),
+                                         tree_items(state0.params)):
+        require(bool(torch.isfinite(a).all()), f"{name} not finite")
+        move = (b - c).norm().item()
+        require(move > 0, f"{name} did not move")
+        rel = (a - b).norm().item() / move
+        moved = max(moved, (a - c).abs().max().item())
+        max_abs = max(max_abs, (a - b).abs().max().item())
+        if rel > worst:
+            worst, worst_name = rel, name
+    exact_gap = max(
+        (a - b).norm().item() / (b - c).norm().item()
+        for (_, a), (_, b), (_, c) in zip(tree_items(state_k.params),
+                                          tree_items(state_e.params),
+                                          tree_items(state0.params)))
+    log(f"updated parameters, kernel against per-layer path: the movement "
+        f"of a leaf differs by at most {worst:.3e} of its L2 norm (at "
+        f"{worst_name}; tolerance {TOL_TRAIN_MOVE}); largest single "
+        f"difference {max_abs:.3e} where parameters moved by up to "
+        f"{moved:.3e}; tensor-core against exact edge MLP: {exact_gap:.3e} "
+        f"of a leaf's movement, mean rel_l2 "
+        f"{abs(m_k['rel_l2'] - m_e['rel_l2']) / abs(m_e['rel_l2']):.2e} "
+        f"relative")
+    require(worst <= TOL_TRAIN_MOVE, f"the movement of {worst_name} differs "
+            f"by {worst:.3e} of its norm")
+
+    held_out = to_device(ds.get_batch(valid_idx[:TRAIN_BATCH]), "cuda")
+    ev = make_eval_step(cfg_k)(state_k.params, held_out)
+    ev = {k: float(v) for k, v in ev.items()}
+    log(f"eval step on a held-out batch: {ev}")
+    require(ev["n"] == TRAIN_BATCH and np.isfinite(ev["rel_l2"])
+            and np.isfinite(ev["mse"]), f"eval step: {ev}")
+    return counts
+
+
+def probe_default_recipe(batch) -> None:
+    """Logs, and does not judge, the loss of three train steps with
+    ``TrainConfig`` defaults (lr 0.01) from the torch-default init."""
+    from molecular_dynamics_neural_operator_tpu_torch.configs import (
+        TrainConfig,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.train import (
+        create_train_state,
+        make_train_step,
+    )
+
+    cfg = train_cfg("bfloat16")
+    state, tx, _ = create_train_state(0, cfg, TrainConfig())
+    step = make_train_step(cfg, tx)
+    losses = []
+    for _ in range(3):
+        state, m = step(state, batch)
+        losses.append(float(m["rel_l2"]))
+    log(f"for the record, TrainConfig defaults (lr 0.01) from the "
+        f"torch-default init, rel_l2 of three steps on one batch: {losses}")
+
+
+def profile_train_step(batch, wall_ms: float, steps: int = 3) -> None:
+    """``--profile``: where one train step's time goes, from
+    ``torch.profiler`` over ``steps`` steps on the kernel path: device time
+    by kernel name, the device's busy share of ``wall_ms`` (a step's wall
+    time with the profiler off), and the number of device kernels a step
+    launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from molecular_dynamics_neural_operator_tpu_torch.train import (
+        create_train_state,
+        make_train_step,
+    )
+
+    cfg, tcfg = training_cfgs()
+    state, tx, _ = create_train_state(0, cfg, tcfg)
+    step = make_train_step(cfg, tx)
+    state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            state, _ = step(state, batch)
+        torch.cuda.synchronize()
+    rows = [(e.key, e.device_time_total / 1e3 / steps, e.count / steps)
+            for e in prof.key_averages()
+            if e.device_type.name == "CUDA" and e.device_time_total > 0]
+    require(bool(rows), "torch.profiler recorded no device time")
+    rows.sort(key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    log(f"profile of one train step (kernel path): device busy {busy:.2f} "
+        f"ms of the {wall_ms:.2f} ms a step takes with the profiler off "
+        f"({busy / wall_ms:.2f}), in {sum(r[2] for r in rows):.0f} device "
+        f"kernels and copies")
+    for name, ms, n in rows[:12]:
+        log(f"  {ms:7.3f} ms  x{n:5.1f}  {name[:90]}")
+
+
+def time_training(params, ds, train_idx, counts: dict, errs: dict):
+    """The ``kernels`` records of the two training kernels and the wall
+    time in ms of a train step on the kernel path; logs the other paths'
+    step times, samples/s and peak memory."""
+    from molecular_dynamics_neural_operator_tpu_torch.data.prefetch import (
+        to_device,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.ops import mlp
+    from molecular_dynamics_neural_operator_tpu_torch.ops.cuda import (
+        train_conv as tc,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.train import (
+        create_train_state,
+        make_train_step,
+    )
+
+    cfg = train_cfg("bfloat16")
+    batch = to_device(ds.get_batch(train_idx[:TRAIN_BATCH]), "cuda")
+    ops = train_conv_operands(params, cfg, batch)
+    x0, kt, edges, inv_deg, root1, bias1, root2, bias2 = ops
+    out, stack = tc.train_conv_forward(*ops, cfg.depth)
+    g_out = torch.randn_like(out)
+    bwd_args = (g_out, stack, kt, edges, inv_deg, root1, root2, cfg.depth)
+    outs = tc.train_conv_backward(*bwd_args)
+
+    # least work for this run's data: each input read once, each output
+    # written once; of K only the real edges' rows (the padded rows are
+    # zero), of dK every row, since the function returns them all
+    b, e, w, r = x0.shape[0], kt.shape[1], cfg.width, x0.shape[1]
+    real = int(batch["mask"].sum())
+    cdb = kt.element_size()
+    small = nbytes(x0, edges, inv_deg, bias1, bias2) + 2 * w * w * cdb
+    fwd_bytes = small + real * w * w * cdb + nbytes(out, stack)
+    bwd_bytes = (nbytes(g_out, stack, edges, inv_deg) + 2 * w * w * cdb
+                 + real * w * w * cdb + nbytes(*outs))
+    layers = 2 * cfg.depth
+    fwd_ops = layers * (2 * real * w * w + 2 * b * r * w * w)
+    # dxs and dK per edge, droot and dz @ root^T per node
+    bwd_ops = layers * (4 * real * w * w + 4 * b * r * w * w)
+    peak = PEAK_FLOPS[torch.float32]  # each K element meets one operand
+
+    def record(name, src, line, kernel_fn, plain_fn, nbyt, n_ops):
+        t_bytes, t_ops = nbyt / HBM_BYTES_PER_S, n_ops / peak
+        rec = {
+            "name": name, "route": "cuda", "source": f"{PKG}/csrc/{src}",
+            "replaces": f"{TPU_TRAIN_KERNEL}:{line}",
+            "launches": counts[name], "max_abs_err": errs[name],
+            "ms": device_ms(kernel_fn, reps=5, iters=3),
+            "plain_ms": device_ms(plain_fn, reps=1, iters=2),
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None,
+        }
+        log(f"{name}: {rec['ms']:.3f} ms (plain {rec['plain_ms']:.3f} ms, "
+            f"bound {rec['bound_ms']:.4f} ms by {rec['bound_by']}: "
+            f"{nbyt / 1e6:.1f} MB, {n_ops / 1e9:.2f} GFLOP, {real} real "
+            f"edges in {b * e} slots)")
+        return rec
+
+    kernels = [
+        record("train_conv_fwd", "train_conv_fwd.cu", 214,
+               lambda: tc.train_conv_forward(*ops, cfg.depth),
+               lambda: tc.train_conv_forward_plain(*ops, cfg.depth),
+               fwd_bytes, fwd_ops),
+        record("train_conv_bwd", "train_conv_bwd.cu", 272,
+               lambda: tc.train_conv_backward(*bwd_args),
+               lambda: tc.train_conv_backward_plain(*bwd_args),
+               bwd_bytes, bwd_ops),
+    ]
+    del outs, stack, out
+
+    def step_ms(impl: str, n: int = 6) -> float:
+        cfg_i, tcfg = training_cfgs(impl)
+        state, tx, _ = create_train_state(0, cfg_i, tcfg)
+        step = make_train_step(cfg_i, tx)
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e3
+
+    torch.cuda.reset_peak_memory_stats()
+    k_ms = step_ms("pallas")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    x_ms = step_ms("xla", n=3)
+    with mlp.exact_products():
+        e_ms = step_ms("pallas", n=3)
+    both = kernels[0]["ms"] + kernels[1]["ms"]
+    log(f"one train step at B={TRAIN_BATCH} bf16 (wall, device idle at the "
+        f"end): kernel path {k_ms:.2f} ms = {TRAIN_BATCH / k_ms * 1e3:,.0f} "
+        f"samples/s, of which the two kernels take {both:.2f} ms "
+        f"({both / k_ms:.2f}); per-layer path {x_ms:.2f} ms; kernel path "
+        f"with the exact f32 edge MLP {e_ms:.2f} ms; peak memory of the "
+        f"kernel path {peak_gb:.2f} GB; one launch of each kernel per step")
+    return kernels, k_ms
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -451,20 +897,10 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        log("FAIL: torch.cuda.is_available() is false; this smoke run needs "
-            "a CUDA card")
-        return 1
-    from molecular_dynamics_neural_operator_tpu_torch.data import (
-        synthetic_trajectory,
-    )
+def rollout_phases(traj) -> list:
+    """Phases 2-4, the serving path; returns its ``kernels`` records."""
     from molecular_dynamics_neural_operator_tpu_torch.ops.cuda import (
         persistent_rollout as pr,
-    )
-    from molecular_dynamics_neural_operator_tpu_torch.ops.cuda._build import (
-        build_logs,
-        load_kernels,
     )
     from molecular_dynamics_neural_operator_tpu_torch.rollout import (
         make_rollout_fn,
@@ -473,23 +909,8 @@ def main() -> int:
         load_params_npz,
     )
 
-    # the plain versions are the oracle: full-f32 products, no TF32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    card = card_line()
-    log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
-
-    t0 = time.perf_counter()
-    load_kernels()
-    log(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s")
-    for name, text in build_logs().items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
-                log(f"nvcc {name}: {line.strip()}")
-
     dev = torch.device("cuda")
     params = load_params_npz(CKPT, device=dev)
-    traj = synthetic_trajectory(num_frames=4000, num_residues=28, seed=13)
     aa = torch.as_tensor(traj.aminoacids, device=dev)
     t_len = bench_cfg("bfloat16").window_size
     window0 = torch.as_tensor(traj.positions[:t_len], device=dev)
@@ -529,6 +950,77 @@ def main() -> int:
     step_ms, kernels = time_kernels(params, aa, window0, counts, errs)
     log(f"device busy share of the single-stream rollout: "
         f"{step_ms * k_rate / 1e3:.3f} (device time of a step x steps/s)")
+    return kernels
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--only", choices=("rollout", "train"),
+                        help="run one path's phases (development)")
+    parser.add_argument("--profile", action="store_true",
+                        help="also profile a train step with torch.profiler")
+    args = parser.parse_args()
+    only = args.only
+    if not torch.cuda.is_available():
+        log("FAIL: torch.cuda.is_available() is false; this smoke run needs "
+            "a CUDA card")
+        return 1
+    from molecular_dynamics_neural_operator_tpu_torch.data import (
+        WindowDataset,
+        synthetic_trajectory,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.ops.cuda._build import (
+        build_logs,
+        load_kernels,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.train import (
+        train_valid_split,
+    )
+
+    # the plain versions are the oracle: full-f32 products, no TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+
+    t0 = time.perf_counter()
+    load_kernels()
+    log(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s")
+    for name, text in build_logs().items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line or "error" in line:
+                log(f"nvcc {name}: {line.strip()}")
+
+    traj = synthetic_trajectory(num_frames=4000, num_residues=28, seed=13)
+    kernels = []
+    if only != "train":
+        kernels += rollout_phases(traj)
+    if only != "rollout":
+        from molecular_dynamics_neural_operator_tpu_torch.data.prefetch import (  # noqa: E501
+            to_device,
+        )
+        from molecular_dynamics_neural_operator_tpu_torch.models import (
+            gkn_init,
+        )
+
+        cfg = train_cfg("bfloat16")
+        ds = WindowDataset(traj, window_size=cfg.window_size,
+                           graph_mode="sparse", max_edges=cfg.max_edges)
+        train_idx, valid_idx = train_valid_split(len(ds))
+        params = gkn_init(cfg, seed=0, device="cuda")
+        batch = to_device(ds.get_batch(train_idx[:TRAIN_BATCH]), "cuda")
+        check_train_conv(params, batch, "float32")
+        errs = check_train_conv(params, batch, "bfloat16")
+        probe_default_recipe(batch)
+        counts = check_training(ds, train_idx, valid_idx)
+        for name, n in counts.items():
+            require(n > 0, f"kernel {name} was not launched on the "
+                    "training path")
+        train_kernels, step_ms = time_training(params, ds, train_idx, counts,
+                                               errs)
+        kernels += train_kernels
+        if args.profile:
+            profile_train_step(batch, step_ms)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

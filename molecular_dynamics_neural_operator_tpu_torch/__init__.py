@@ -4,14 +4,20 @@ A second package beside the JAX reference
 (``molecular_dynamics_neural_operator_tpu``), laid out like it so each
 counterpart is easy to find:
 
+- ``data``      synthetic trajectories, the sliding-window dataset, the
+                batch stream and host -> device staging.
 - ``geometry``  contact maps, padded edge lists and edge features.
-- ``ops``       linear/MLP, LSTM and edge-conditioned conv in plain
-                PyTorch; ``ops/cuda`` holds the hand-written Hopper kernels
+- ``ops``       linear/MLP, LSTM, edge-conditioned conv and the tied conv
+                stack with its hand-written backward in plain PyTorch;
+                ``ops/cuda`` holds the hand-written Hopper kernels
                 (``csrc/*.cu``) that replace the TPU's Pallas kernels.
-- ``models``    the GKN forward (sparse one-hot path).
+- ``models``    the GKN forward (sparse one-hot path), single and batched,
+                and the losses.
 - ``rollout``   the autoregressive free rollout with the contact graph
                 rebuilt from the predicted coordinates every step.
-- ``utils``     checkpoint loading (the JAX package's flat npz format).
+- ``train``     teacher-forced training: optimizer, train state, input
+                noise, train/eval steps and the epoch loops.
+- ``utils``     checkpoints in the JAX package's flat npz format.
 
 The package imports torch and numpy only. Entry points run on ``cuda``
 unless the caller passes ``device="cpu"``.

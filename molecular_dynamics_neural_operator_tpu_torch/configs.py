@@ -1,6 +1,6 @@
 """Configuration dataclasses of the PyTorch port.
 
-The port's own copy of ``ModelConfig`` and ``RolloutConfig`` from the JAX
+The port's own copy of ``ModelConfig``, ``TrainConfig`` and ``RolloutConfig`` from the JAX
 package (``molecular_dynamics_neural_operator_tpu/configs.py``): the same
 fields, the same defaults, so one configuration describes one model in
 both packages. See the JAX package's file for the reasoning behind each
@@ -62,6 +62,42 @@ class ModelConfig:
     eps_solvent: float = 78.0
     temperature: float = 310.0
     ionic_strength: float = 0.15
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Training-loop parameters. The fields the port does not act on yet
+    (the curriculum, checkpoint cadence, movies, plots, wandb) are kept so
+    that a configuration file reads into both packages."""
+
+    seed: int = 0
+    epochs: int = 200
+    batch_size: int = 128
+    lr: float = 0.01
+    weight_decay: float = 5e-4
+    scheduler_step: int = 50
+    scheduler_gamma: float = 0.8
+    grad_clip_norm: float = 0.0  # >0 enables global-norm gradient clipping
+    skip_nonfinite_updates: bool = False  # reject NaN/inf update steps
+    # average this many micro-batch gradients per optimizer apply
+    grad_accum: int = 1
+    drop_last: bool = True
+    shuffle: bool = True
+    # curriculum: free-rollout steps mixed into the loss (0 = teacher forcing)
+    rollout_steps: int = 0
+    rollout_loss_weight: float = 1.0
+    loss_space: str = "absolute"
+    # random-walk input-noise std (train/noise.py); 0 disables
+    noise_std: float = 0.0
+    run_path: str = "runs/default"
+    checkpoint_every: int = 1
+    generate_movie: bool = True
+    num_movie_frames: int = 5
+    plot_latent: bool = True
+    plot_per_epochs: int = 1
+    latent_frames: int = 10000
+    log_wandb: bool = False
+    wandb_project: str = "bba_gno"
 
 
 @dataclass(frozen=True)

@@ -1,6 +1,13 @@
+from molecular_dynamics_neural_operator_tpu_torch.data.h5 import (
+    TrajectoryData,
+)
 from molecular_dynamics_neural_operator_tpu_torch.data.synthetic import (
-    SyntheticTrajectory,
     synthetic_trajectory,
 )
+from molecular_dynamics_neural_operator_tpu_torch.data.windows import (
+    WindowDataset,
+    batch_iterator,
+)
 
-__all__ = ["SyntheticTrajectory", "synthetic_trajectory"]
+__all__ = ["TrajectoryData", "WindowDataset", "batch_iterator",
+           "synthetic_trajectory"]

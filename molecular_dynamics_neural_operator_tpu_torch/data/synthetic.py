@@ -3,27 +3,18 @@
 The port's own copy of the JAX package's generator
 (``molecular_dynamics_neural_operator_tpu/data/synthetic.py``): the same
 random-number consumption and arithmetic, so a seed gives bit-identical
-positions and amino acids in both packages. The rollout's start window
-comes from ``synthetic_trajectory(num_frames=4000, seed=13)``.
+positions, amino acids, stored contact edges and rmsd in both packages.
+The rollout's start window and the training data come from
+``synthetic_trajectory(num_frames=4000, seed=13)``.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-
 import numpy as np
 
-
-@dataclass
-class SyntheticTrajectory:
-    """positions (N, R, 3) float32 and amino-acid labels (R,) int32."""
-
-    positions: np.ndarray
-    aminoacids: np.ndarray
-
-    @property
-    def num_frames(self) -> int:
-        return self.positions.shape[0]
+from molecular_dynamics_neural_operator_tpu_torch.data.h5 import (
+    TrajectoryData,
+)
 
 
 def _chain_params(num_residues: int, seed: int):
@@ -50,6 +41,24 @@ def _positions_at(base, modes, freqs, phases, t) -> np.ndarray:
     return (base[None] + wobble).astype(np.float32)
 
 
+def _contact_edges(positions: np.ndarray, threshold: float):
+    """Ragged COO contact lists of a block of frames: (list of flattened
+    [rows; cols] int32 arrays, counts (C,)). Distances come from the Gram
+    matrix, |a|^2 + |b|^2 - 2<a, b>, as in the JAX package, so the same
+    pairs pass the strict ``<`` test."""
+    n2 = np.einsum("irk,irk->ir", positions, positions)
+    g = np.matmul(positions, positions.swapaxes(1, 2))
+    d2 = n2[:, :, None] + n2[:, None, :] - 2.0 * g
+    contact = d2 < threshold**2
+    counts = contact.sum(axis=(1, 2))
+    _, s, d = np.nonzero(contact)  # frame-major order
+    splits = np.cumsum(counts)[:-1]
+    s_parts = np.split(s.astype(np.int32), splits)
+    d_parts = np.split(d.astype(np.int32), splits)
+    flat = [np.concatenate([a, b]) for a, b in zip(s_parts, d_parts)]
+    return flat, counts
+
+
 def _time_grid(num_frames: int, dt):
     """One period, ``linspace(0, 2pi, N)``, or ``N`` steps of ``dt``."""
     if dt is None:
@@ -60,11 +69,21 @@ def _time_grid(num_frames: int, dt):
 def synthetic_trajectory(
     num_frames: int = 256,
     num_residues: int = 28,
+    threshold: float = 8.0,
     seed: int = 0,
     dt: float | None = None,
-) -> SyntheticTrajectory:
-    """Random-walk chain breathing smoothly over time."""
+) -> TrajectoryData:
+    """Random-walk chain breathing smoothly over time, with the contact
+    map of every frame at ``threshold`` stored as a ragged edge list."""
     base, modes, freqs, phases, aa = _chain_params(num_residues, seed)
     positions = _positions_at(base, modes, freqs, phases,
                               _time_grid(num_frames, dt))
-    return SyntheticTrajectory(positions=positions, aminoacids=aa)
+    flat, _ = _contact_edges(positions, threshold)
+    rmsd = (np.linalg.norm(positions - positions[0], axis=(1, 2))
+            / np.sqrt(num_residues)).astype(np.float32)
+    return TrajectoryData(
+        positions=positions,
+        edge_indices=[e.reshape(2, -1) for e in flat],
+        aminoacids=aa,
+        rmsd=rmsd,
+    )

@@ -1,8 +1,16 @@
 from molecular_dynamics_neural_operator_tpu_torch.models.gkn import (
+    GKNBatch,
     SparseGraph,
+    gkn_apply,
     gkn_apply_single,
     gkn_init,
     residual_prior,
 )
+from molecular_dynamics_neural_operator_tpu_torch.models.losses import (
+    lp_abs,
+    lp_rel,
+    mse,
+)
 
-__all__ = ["SparseGraph", "gkn_apply_single", "gkn_init", "residual_prior"]
+__all__ = ["GKNBatch", "SparseGraph", "gkn_apply", "gkn_apply_single",
+           "gkn_init", "lp_abs", "lp_rel", "mse", "residual_prior"]

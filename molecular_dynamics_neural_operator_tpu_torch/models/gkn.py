@@ -4,7 +4,17 @@ The sparse one-hot path of ``gkn_apply_single``: per-residue LSTM over the
 window, amino-acid embedding, fc1, 2*depth weight-tied edge convs sharing
 one edge-kernel MLP, fc2 head with the optional residual prior. Any
 leading axes of ``window`` and the graph are batch axes (the JAX
-package's ``vmap`` written out).
+package's ``vmap`` written out). With ``fused_conv_vjp`` the tied stack
+runs through ``ops/conv_stack.tied_conv_stack`` and its hand-written
+backward; both forms are differentiable.
+
+``gkn_apply`` is the batched training and evaluation forward over a
+``GKNBatch``. With ``train_conv_impl="pallas"`` (the JAX package's name
+for its hand-written training kernel, kept so that one configuration
+describes one model in both packages) the conv stack runs as the
+hand-written kernel of ``ops/cuda/train_conv.py``, forward and backward:
+CUDA for CUDA tensors, its plain version for CPU tensors. ``"xla"``
+selects the per-layer path through ``gkn_apply_single``.
 
 Not ported yet (``NotImplementedError``): dense graphs, ``window_diff``,
 ``legacy_no_lstm``, ``electrostatics="dh"``, ``conv_impl="pallas"``,
@@ -19,6 +29,13 @@ import torch
 
 from molecular_dynamics_neural_operator_tpu_torch.configs import ModelConfig
 from molecular_dynamics_neural_operator_tpu_torch.device import compute_dtype
+from molecular_dynamics_neural_operator_tpu_torch.ops.conv_stack import (
+    tied_conv_stack,
+)
+from molecular_dynamics_neural_operator_tpu_torch.ops.cuda.train_conv import (
+    MAX_WIDTH as TRAIN_CONV_MAX_WIDTH,
+    train_conv,
+)
 from molecular_dynamics_neural_operator_tpu_torch.ops.edge_conv import (
     SCATTER_ONEHOT_MAX_NODES,
     edge_conv_init,
@@ -33,6 +50,7 @@ from molecular_dynamics_neural_operator_tpu_torch.ops.lstm import (
 from molecular_dynamics_neural_operator_tpu_torch.ops.mlp import (
     linear_apply,
     linear_init,
+    mlp_apply,
     mlp_init,
 )
 
@@ -46,8 +64,25 @@ class SparseGraph(NamedTuple):
     edge_feats: torch.Tensor
 
 
+class GKNBatch(NamedTuple):
+    """One training or evaluation batch: aa (R,) int amino-acid labels
+    (one protein for the whole batch), window (B, T, R, 3), graph with a
+    leading batch axis B, y (B, R, 3) targets."""
+
+    aa: torch.Tensor
+    window: torch.Tensor
+    graph: SparseGraph
+    y: torch.Tensor
+
+
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for the options this slice of the port does not cover."""
+    """Raise for the options the port does not cover yet. Ported: the
+    sparse one-hot forward (rollout and training), both priors,
+    ``head_scale``, tied and untied edge kernels, ``fused_conv_vjp`` and
+    both values of ``train_conv_impl``."""
+    if cfg.train_conv_impl not in ("xla", "pallas"):
+        raise ValueError(
+            f"unknown train_conv_impl: {cfg.train_conv_impl!r}")
     for flag, name in ((cfg.window_diff, "window_diff"),
                        (cfg.legacy_no_lstm, "legacy_no_lstm")):
         if flag:
@@ -135,9 +170,11 @@ def residual_prior(cfg: ModelConfig, window):
 
 
 def gkn_apply_single(params, cfg: ModelConfig, aa, window,
-                     graph: SparseGraph, return_latent: bool = False):
+                     graph: SparseGraph, return_latent: bool = False,
+                     tensor_cores: bool = False):
     """Forward one example (or a batch along leading axes).
-    window (..., T, R, 3) -> (..., R, out_width)."""
+    window (..., T, R, 3) -> (..., R, out_width). ``tensor_cores`` is
+    passed to the edge-kernel MLP (``ops/mlp.py``)."""
     check_supported(cfg)
     if not isinstance(graph, SparseGraph):
         raise NotImplementedError("dense graphs are not ported yet")
@@ -148,19 +185,84 @@ def gkn_apply_single(params, cfg: ModelConfig, aa, window,
     cd = compute_dtype(cfg)
     x = _encode_nodes(params, cfg, aa, window)
     k1 = edge_kernel_matrices(params["edge_kernel"], graph.edge_feats,
-                              cfg.width, cd)
+                              cfg.width, cd, tensor_cores)
     k2 = k1 if cfg.tie_edge_kernel else edge_kernel_matrices(
-        params["edge_kernel2"], graph.edge_feats, cfg.width, cd)
+        params["edge_kernel2"], graph.edge_feats, cfg.width, cd,
+        tensor_cores)
     inv_deg = sparse_inv_degree(graph.edges, graph.mask, num_nodes)
-    for conv, kernels in (("conv1", k1), ("conv2", k2)):
-        for _ in range(cfg.depth):
-            x = torch.relu(edge_conv_sparse(
-                params[conv], x, kernels, graph.edges, graph.mask, inv_deg,
-                "onehot", cd))
+    if cfg.fused_conv_vjp and cfg.tie_edge_kernel and cfg.depth > 0:
+        # hand-written backward over the whole tied stack: one-pass
+        # kernel-tensor gradient (ops/conv_stack.py)
+        x = tied_conv_stack(
+            cfg.depth, cd, x, k1, graph.edges, graph.mask, inv_deg,
+            params["conv1"]["root"], params["conv1"]["bias"],
+            params["conv2"]["root"], params["conv2"]["bias"])
+    else:
+        for conv, kernels in (("conv1", k1), ("conv2", k2)):
+            for _ in range(cfg.depth):
+                x = torch.relu(edge_conv_sparse(
+                    params[conv], x, kernels, graph.edges, graph.mask,
+                    inv_deg, "onehot", cd))
     latent = x
     out = linear_apply(params["fc2"], x)
     if cfg.predict_delta:
         out = cfg.head_scale * out + residual_prior(cfg, window)
+    if return_latent:
+        return out, latent
+    return out
+
+
+def takes_train_kernel(cfg: ModelConfig, batch: GKNBatch) -> bool:
+    """The JAX package's dispatch rule for ``train_conv_impl="pallas"``:
+    a sparse graph, a tied edge kernel, depth > 0, no quantization, the
+    LSTM encoder and at most 512 nodes. Anything else takes the per-layer
+    path."""
+    return (cfg.train_conv_impl == "pallas"
+            and isinstance(batch.graph, SparseGraph)
+            and cfg.tie_edge_kernel and cfg.depth > 0
+            and cfg.kernel_quant == "none"
+            and not cfg.legacy_no_lstm
+            and batch.aa.shape[0] <= SCATTER_ONEHOT_MAX_NODES)
+
+
+def gkn_apply(params, cfg: ModelConfig, batch: GKNBatch,
+              return_latent: bool = False):
+    """Batched forward over ``batch.window`` and ``batch.graph``:
+    (B, R, out_width) [and the (B, R, width) latent]."""
+    if takes_train_kernel(cfg, batch):
+        return _gkn_apply_kernel_batched(params, cfg, batch, return_latent)
+    return gkn_apply_single(params, cfg, batch.aa, batch.window, batch.graph,
+                            return_latent, tensor_cores=True)
+
+
+def _gkn_apply_kernel_batched(params, cfg: ModelConfig, batch: GKNBatch,
+                              return_latent: bool):
+    """The forward with the conv stack as one kernel over the batch
+    (``ops/cuda/train_conv.py``). The kernel tensor is made once, in the
+    compute dtype, and pre-masked, so the kernel never reads the mask."""
+    check_supported(cfg)
+    if cfg.width % 8 or cfg.width > TRAIN_CONV_MAX_WIDTH:
+        raise ValueError(
+            "train_conv_impl='pallas' needs a width that is a multiple of 8 "
+            f"and at most {TRAIN_CONV_MAX_WIDTH}, got {cfg.width}; use "
+            "train_conv_impl='xla'")
+    cd = compute_dtype(cfg)
+    graph = batch.graph
+    r = batch.aa.shape[0]
+    x = _encode_nodes(params, cfg, batch.aa, batch.window)       # (B, R, w)
+    kt = mlp_apply(params["edge_kernel"], graph.edge_feats, compute_dtype=cd,
+                   tensor_cores=True).to(cd)
+    kt = kt * graph.mask[..., None].to(cd)                       # (B, E, w^2)
+    inv_deg = sparse_inv_degree(graph.edges, graph.mask, r)
+    x = train_conv(
+        x.contiguous(), kt, graph.edges.to(torch.int32).contiguous(),
+        inv_deg.contiguous(),
+        params["conv1"]["root"], params["conv1"]["bias"],
+        params["conv2"]["root"], params["conv2"]["bias"], cfg.depth)
+    latent = x
+    out = linear_apply(params["fc2"], x)
+    if cfg.predict_delta:
+        out = cfg.head_scale * out + residual_prior(cfg, batch.window)
     if return_latent:
         return out, latent
     return out

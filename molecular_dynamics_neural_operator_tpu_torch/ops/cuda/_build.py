@@ -21,7 +21,8 @@ from pathlib import Path
 PACKAGE = Path(__file__).resolve().parents[2]
 CSRC = PACKAGE / "csrc"
 BUILD = PACKAGE / "build"
-SOURCES = ("graph_encode", "edge_mlp", "conv_head")
+SOURCES = ("graph_encode", "edge_mlp", "conv_head", "train_conv_fwd",
+           "train_conv_bwd")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -45,8 +45,14 @@ from molecular_dynamics_neural_operator_tpu_torch.models.gkn import (
     encode_nodes,
     residual_prior,
 )
-from molecular_dynamics_neural_operator_tpu_torch.ops.cuda._build import (
-    load_kernels,
+from molecular_dynamics_neural_operator_tpu_torch.ops.cuda._launch import (
+    check_operand as _check,
+    cd_flag as _cd_flag,
+    current_stream as _stream,
+    kernel_fn as _kernel,
+    on_cpu as _on_cpu,
+    raise_on as _raise_on,
+    register_kernel,
 )
 from molecular_dynamics_neural_operator_tpu_torch.ops.edge_conv import (
     edge_conv_sparse,
@@ -55,66 +61,11 @@ from molecular_dynamics_neural_operator_tpu_torch.ops.edge_conv import (
 from molecular_dynamics_neural_operator_tpu_torch.ops.mlp import linear_apply
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_SIGNATURES = {
-    "graph_encode": ("mdno_graph_encode",
-                     [_P] * 10 + [_I] * 6 + [_F, _I] + [_P] * 8),
-    "edge_mlp": ("mdno_edge_mlp", [_P] * 5 + [_I] * 5 + [_P]),
-    "conv_head": ("mdno_conv_head",
-                  [_P] * 13 + [_I] * 7 + [_F, _I, _F, _I, _F, _I, _P]),
-}
-_fns: dict = {}
-
-
-def _kernel(name: str):
-    """The C entry point of ``csrc/<name>.cu`` with its argument types."""
-    if name not in _fns:
-        symbol, argtypes = _SIGNATURES[name]
-        fn = getattr(load_kernels()[name], symbol)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _fns[name] = fn
-    return _fns[name]
-
-
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
-
-
-def _check(t: torch.Tensor, name: str, dtype, shape, device) -> int:
-    """Validate a kernel operand; returns its device pointer."""
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
-                         f"expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-    return t.data_ptr()
-
-
-def _on_cpu(t: torch.Tensor) -> bool:
-    """True for a CPU tensor (plain version); raises for anything but CPU
-    or CUDA."""
-    if t.device.type == "cpu":
-        return True
-    if t.device.type != "cuda":
-        raise ValueError(f"no kernel for device {t.device}")
-    return False
-
-
-def _raise_on(rc: int, name: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
-
-
-def _cd_flag(dtype) -> int:
-    if dtype == torch.bfloat16:
-        return 1
-    if dtype == torch.float32:
-        return 0
-    raise ValueError(f"compute dtype must be float32 or bfloat16, got {dtype}")
+register_kernel("graph_encode", "mdno_graph_encode",
+                [_P] * 10 + [_I] * 6 + [_F, _I] + [_P] * 8)
+register_kernel("edge_mlp", "mdno_edge_mlp", [_P] * 5 + [_I] * 5 + [_P])
+register_kernel("conv_head", "mdno_conv_head",
+                [_P] * 13 + [_I] * 7 + [_F, _I, _F, _I, _F, _I, _P])
 
 
 class StepBuffers(NamedTuple):

@@ -1,0 +1,216 @@
+"""The training conv stack on hand-written Hopper kernels, forward and
+backward.
+
+Port of the TPU kernel
+``molecular_dynamics_neural_operator_tpu/ops/pallas/train_conv.py``
+(``pallas_tied_conv_stack``, a custom VJP whose forward and backward are
+one kernel each). ``train_conv`` is a ``torch.autograd.Function`` whose
+forward launches ``csrc/train_conv_fwd.cu`` and saves the activation
+stack, and whose backward launches ``csrc/train_conv_bwd.cu`` and returns
+gradients for x0, kt, root1, bias1, root2 and bias2 (none for the edges
+and the inverse degrees). The kernels take the int32 edge list and gather
+and scatter by index; the TPU kernel's one-hot operands, its tile layout
+of K and its column permutation are not carried over.
+
+Beside it stands the plain PyTorch version ``train_conv_plain`` with the
+same signature: ``ops/conv_stack.tied_conv_stack`` with a mask of ones
+(kt is pre-masked). The wrapper runs the plain version for CPU tensors
+only; for CUDA tensors it launches the kernels or raises. ``launches``
+counts the launches of each kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from molecular_dynamics_neural_operator_tpu_torch.ops.conv_stack import (
+    conv_stack_backward,
+    conv_stack_forward,
+    tied_conv_stack,
+)
+from molecular_dynamics_neural_operator_tpu_torch.ops.cuda._launch import (
+    cd_flag,
+    check_operand,
+    current_stream,
+    kernel_fn,
+    on_cpu,
+    raise_on,
+    register_kernel,
+)
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+register_kernel("train_conv_fwd", "mdno_train_conv_fwd",
+                [_P] * 10 + [_I] * 6 + [_P])
+register_kernel("train_conv_bwd", "mdno_train_conv_bwd",
+                [_P] * 13 + [_I] * 6 + [_P])
+
+# the widest conv the backward kernel takes: each of a cluster's 4096
+# threads owns one element of droot
+MAX_WIDTH = 64
+
+launches = {"train_conv_fwd": 0, "train_conv_bwd": 0}
+
+
+def reset_launch_counts() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def launch_counts() -> dict:
+    return dict(launches)
+
+
+def _shapes(x0, kt):
+    b, r, w = x0.shape
+    e = kt.shape[1]
+    if kt.shape != (b, e, w * w):
+        raise ValueError(f"kt has shape {tuple(kt.shape)}, expected "
+                         f"{(b, e, w * w)}")
+    return b, r, w, e
+
+
+def _ones_mask(kt):
+    return torch.ones(kt.shape[:2], device=kt.device)
+
+
+def train_conv_plain(x0, kt, edges, inv_deg, root1, bias1, root2, bias2,
+                     depth: int):
+    """Plain version of ``train_conv``: the same function through
+    ``tied_conv_stack``, differentiable in the same six operands."""
+    if depth < 1:
+        raise ValueError("train_conv requires depth >= 1")
+    b, r, w, e = _shapes(x0, kt)
+    return tied_conv_stack(depth, kt.dtype, x0, kt.reshape(b, e, w, w), edges,
+                           _ones_mask(kt), inv_deg, root1, bias1, root2,
+                           bias2)
+
+
+def train_conv_forward_plain(x0, kt, edges, inv_deg, root1, bias1, root2,
+                             bias2, depth: int):
+    """(out, stack) of the plain forward sweep, as the forward kernel
+    writes them."""
+    b, r, w, e = _shapes(x0, kt)
+    return conv_stack_forward(depth, kt.dtype, x0, kt.reshape(b, e, w, w), edges,
+                              _ones_mask(kt), inv_deg, root1, bias1, root2,
+                              bias2)
+
+
+def train_conv_backward_plain(g_out, stack, kt, edges, inv_deg, root1, root2,
+                              depth: int):
+    """(dx0, dkt, droot1, dbias1, droot2, dbias2) of the plain reverse
+    sweep, droot and dbias per example, as the backward kernel writes
+    them."""
+    b, e = kt.shape[:2]
+    w = stack.shape[-1]
+    dx, dk, dr1, db1, dr2, db2 = conv_stack_backward(
+        depth, kt.dtype, g_out, stack, kt.reshape(b, e, w, w), edges,
+        _ones_mask(kt), inv_deg, root1, root2)
+    return dx, dk.reshape(kt.shape), dr1, db1, dr2, db2
+
+
+def train_conv_forward(x0, kt, edges, inv_deg, root1, bias1, root2, bias2,
+                       depth: int):
+    """Launch the forward kernel: (out (B, R, w), stack (B, 2*depth+1, R, w)),
+    both f32. x0 (B, R, w) f32; kt (B, E, w*w) f32 or bf16, pre-masked;
+    edges (B, 2, E) int32; inv_deg (B, R) f32; roots (w, w) and biases (w,)
+    f32 (the roots are rounded to kt's dtype here, outside the kernel)."""
+    if depth < 1:
+        raise ValueError("train_conv requires depth >= 1")
+    if on_cpu(x0):
+        return train_conv_forward_plain(x0, kt, edges, inv_deg, root1, bias1,
+                                        root2, bias2, depth)
+    b, r, w, e = _shapes(x0, kt)
+    dev, f32, cd = x0.device, torch.float32, kt.dtype
+    if w % 8 or w > MAX_WIDTH:
+        raise ValueError(f"train_conv needs a width that is a multiple of 8 "
+                         f"and at most {MAX_WIDTH}, got {w}")
+    out = torch.empty(b, r, w, device=dev)
+    stack = torch.empty(b, 2 * depth + 1, r, w, device=dev)
+    root1, root2 = root1.to(cd), root2.to(cd)
+    args = [
+        check_operand(x0, "x0", f32, (b, r, w), dev),
+        check_operand(kt, "kt", cd, (b, e, w * w), dev),
+        check_operand(edges, "edges", torch.int32, (b, 2, e), dev),
+        check_operand(inv_deg, "inv_deg", f32, (b, r), dev),
+        check_operand(root1, "root1", cd, (w, w), dev),
+        check_operand(bias1, "bias1", f32, (w,), dev),
+        check_operand(root2, "root2", cd, (w, w), dev),
+        check_operand(bias2, "bias2", f32, (w,), dev),
+        out.data_ptr(), stack.data_ptr(),
+        b, r, w, e, depth, cd_flag(cd), current_stream(),
+    ]
+    raise_on(kernel_fn("train_conv_fwd")(*args), "train_conv_fwd")
+    launches["train_conv_fwd"] += 1
+    return out, stack
+
+
+def train_conv_backward(g_out, stack, kt, edges, inv_deg, root1, root2,
+                        depth: int):
+    """Launch the backward kernel: (dx0 (B, R, w) f32, dkt like kt, droot1
+    (B, w, w), dbias1 (B, w), droot2, dbias2), the last four per example."""
+    if on_cpu(g_out):
+        return train_conv_backward_plain(g_out, stack, kt, edges, inv_deg,
+                                         root1, root2, depth)
+    b, e = kt.shape[:2]
+    _, _, r, w = stack.shape
+    dev, f32, cd = g_out.device, torch.float32, kt.dtype
+    dx0 = torch.empty(b, r, w, device=dev)
+    dkt = torch.empty_like(kt)
+    droot = [torch.empty(b, w, w, device=dev) for _ in range(2)]
+    dbias = [torch.empty(b, w, device=dev) for _ in range(2)]
+    root1, root2 = root1.to(cd), root2.to(cd)
+    args = [
+        check_operand(g_out, "g_out", f32, (b, r, w), dev),
+        check_operand(stack, "stack", f32, (b, 2 * depth + 1, r, w), dev),
+        check_operand(kt, "kt", cd, (b, e, w * w), dev),
+        check_operand(edges, "edges", torch.int32, (b, 2, e), dev),
+        check_operand(inv_deg, "inv_deg", f32, (b, r), dev),
+        check_operand(root1, "root1", cd, (w, w), dev),
+        check_operand(root2, "root2", cd, (w, w), dev),
+        dx0.data_ptr(), dkt.data_ptr(), droot[0].data_ptr(),
+        dbias[0].data_ptr(), droot[1].data_ptr(), dbias[1].data_ptr(),
+        b, r, w, e, depth, cd_flag(cd), current_stream(),
+    ]
+    raise_on(kernel_fn("train_conv_bwd")(*args), "train_conv_bwd")
+    launches["train_conv_bwd"] += 1
+    return dx0, dkt, droot[0], dbias[0], droot[1], dbias[1]
+
+
+class _TrainConv(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x0, kt, edges, inv_deg, root1, bias1, root2, bias2,
+                depth):
+        out, stack = train_conv_forward(x0, kt, edges, inv_deg, root1, bias1,
+                                        root2, bias2, depth)
+        ctx.save_for_backward(stack, kt, edges, inv_deg, root1, root2)
+        ctx.depth = depth
+        return out
+
+    @staticmethod
+    def backward(ctx, g_out):
+        stack, kt, edges, inv_deg, root1, root2 = ctx.saved_tensors
+        dx0, dkt, dr1, db1, dr2, db2 = train_conv_backward(
+            g_out.contiguous(), stack, kt, edges, inv_deg, root1, root2,
+            ctx.depth)
+        # per-example partial sums of the shared parameters, added over the
+        # batch by one deterministic reduction each
+        return (dx0, dkt, None, None, dr1.sum(0), db1.sum(0), dr2.sum(0),
+                db2.sum(0), None)
+
+
+def train_conv(x0, kt, edges, inv_deg, root1, bias1, root2, bias2,
+               depth: int):
+    """Batched tied conv stack: relu(conv1)^depth then relu(conv2)^depth
+    against one pre-masked kernel tensor per example. Shapes as
+    ``train_conv_forward``; returns (B, R, w) f32. CUDA tensors go through
+    the kernels, forward and backward; CPU tensors through the plain
+    version."""
+    if depth < 1:
+        raise ValueError("train_conv requires depth >= 1")
+    if on_cpu(x0):
+        return train_conv_plain(x0, kt, edges, inv_deg, root1, bias1, root2,
+                                bias2, depth)
+    return _TrainConv.apply(x0, kt, edges, inv_deg, root1, bias1, root2,
+                            bias2, depth)

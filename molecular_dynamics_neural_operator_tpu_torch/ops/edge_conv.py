@@ -5,7 +5,9 @@
 Sparse padded edge lists with one-hot incidence products (the JAX
 package's ``"onehot"`` scatter mode), every function batched over any
 leading axes. The kernel matrices are computed once per forward and shared
-by all 2*depth layers.
+by all 2*depth layers. Every function is differentiable; the whole tied
+stack with a hand-written backward is ``ops/conv_stack.py``, and as a
+CUDA kernel ``ops/cuda/train_conv.py``.
 
 Not ported yet (they raise ``NotImplementedError``): the ``"segment"`` and
 ``"blocked"`` scatter modes, ``edge_conv_dense`` and the int8
@@ -41,10 +43,12 @@ def edge_conv_init(gen: torch.Generator, width: int, device=None):
 
 
 def edge_kernel_matrices(mlp_params, edge_feats: torch.Tensor, width: int,
-                         compute_dtype=None) -> torch.Tensor:
+                         compute_dtype=None,
+                         tensor_cores: bool = False) -> torch.Tensor:
     """h(e) for every edge as (..., width, width) in ``compute_dtype``
     (f32 if unset). edge_feats: (..., F)."""
-    h = mlp_apply(mlp_params, edge_feats, compute_dtype=compute_dtype)
+    h = mlp_apply(mlp_params, edge_feats, compute_dtype=compute_dtype,
+                  tensor_cores=tensor_cores)
     out_dtype = compute_dtype or torch.float32
     return h.reshape(edge_feats.shape[:-1] + (width, width)).to(out_dtype)
 

@@ -12,9 +12,62 @@ reproduces that exactly (a bf16 x bf16 product is exact in f32).
 
 from __future__ import annotations
 
+import contextlib
 from typing import Sequence
 
 import torch
+
+
+_exact_only = False
+
+
+@contextlib.contextmanager
+def exact_products():
+    """Within the block every product takes the exact f32 path, whatever
+    ``tensor_cores`` says."""
+    global _exact_only
+    before, _exact_only = _exact_only, True
+    try:
+        yield
+    finally:
+        _exact_only = before
+
+
+def mm_f32_out(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b for 2-D bf16 CUDA operands, accumulated and returned in f32
+    (``torch.mm`` with ``out_dtype``, which the CUDA build provides)."""
+    return torch.mm(a, b, out_dtype=torch.float32)
+
+
+class _TensorCoreMatmul(torch.autograd.Function):
+    """x @ w with both rounded to bf16, f32 accumulation and result. The
+    gradients are rounded to bf16 as the cast of an operand rounds them
+    (straight through), after f32 accumulation."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        xb = x.reshape(-1, x.shape[-1]).to(torch.bfloat16)
+        wb = w.to(torch.bfloat16)
+        ctx.save_for_backward(xb, wb)
+        ctx.x_shape = x.shape
+        return mm_f32_out(xb, wb).reshape(x.shape[:-1] + (w.shape[-1],))
+
+    @staticmethod
+    def backward(ctx, g):
+        xb, wb = ctx.saved_tensors
+        gb = g.reshape(-1, g.shape[-1]).to(torch.bfloat16)
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            gx = mm_f32_out(gb, wb.t()).to(torch.bfloat16).float().reshape(
+                ctx.x_shape)
+        if ctx.needs_input_grad[1]:
+            gw = mm_f32_out(xb.t(), gb).to(torch.bfloat16).float()
+        return gx, gw
+
+
+def _on_tensor_cores(x, w, compute_dtype, tensor_cores: bool) -> bool:
+    return (tensor_cores and not _exact_only and x.is_cuda
+            and compute_dtype == torch.bfloat16 and w.shape[0] % 8 == 0)
 
 
 def round_to(x: torch.Tensor, compute_dtype) -> torch.Tensor:
@@ -34,10 +87,14 @@ def linear_init(gen: torch.Generator, in_dim: int, out_dim: int,
     return {"w": w.to(device), "b": b.to(device)}
 
 
-def linear_apply(params, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
+def linear_apply(params, x: torch.Tensor, compute_dtype=None,
+                 tensor_cores: bool = False) -> torch.Tensor:
     """y = x @ w + b with optional low-precision operands, f32 accumulation."""
-    y = torch.matmul(round_to(x, compute_dtype),
-                     round_to(params["w"], compute_dtype))
+    if _on_tensor_cores(x, params["w"], compute_dtype, tensor_cores):
+        y = _TensorCoreMatmul.apply(x, params["w"])
+    else:
+        y = torch.matmul(round_to(x, compute_dtype),
+                         round_to(params["w"], compute_dtype))
     return y + params["b"].float()
 
 
@@ -50,11 +107,11 @@ def mlp_init(gen: torch.Generator, sizes: Sequence[int], device=None):
 
 
 def mlp_apply(params, x: torch.Tensor, activation=torch.relu,
-              compute_dtype=None) -> torch.Tensor:
+              compute_dtype=None, tensor_cores: bool = False) -> torch.Tensor:
     """Activation between layers, none after the last."""
     n = len(params)
     for i in range(n):
-        x = linear_apply(params[f"layer_{i}"], x, compute_dtype)
+        x = linear_apply(params[f"layer_{i}"], x, compute_dtype, tensor_cores)
         if i != n - 1:
             x = activation(x)
     return x

@@ -55,11 +55,15 @@ def test_the_check_tells_the_port_from_the_jax_package():
 
 def test_every_kernel_source_names_what_it_replaces_and_its_bound():
     sources = sorted((PORT / "csrc").glob("*.cu"))
-    assert {p.stem for p in sources} == {"graph_encode", "edge_mlp",
-                                         "conv_head"}
+    replaced = {"graph_encode": "ops/pallas/persistent_rollout.py",
+                "edge_mlp": "ops/pallas/persistent_rollout.py",
+                "conv_head": "ops/pallas/persistent_rollout.py",
+                "train_conv_fwd": "ops/pallas/train_conv.py",
+                "train_conv_bwd": "ops/pallas/train_conv.py"}
+    assert {p.stem for p in sources} == set(replaced)
     for p in sources:
         text = p.read_text()
-        assert "ops/pallas/persistent_rollout.py" in text
+        assert replaced[p.stem] in text
         assert "Bound:" in text
         assert "cudaGetLastError" in text
 
@@ -67,6 +71,10 @@ def test_every_kernel_source_names_what_it_replaces_and_its_bound():
 def test_entry_points_default_to_the_card(monkeypatch):
     from molecular_dynamics_neural_operator_tpu_torch.configs import (
         ModelConfig,
+        TrainConfig,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.train import (
+        create_train_state,
     )
     from molecular_dynamics_neural_operator_tpu_torch.ops.cuda.persistent_rollout import (  # noqa: E501
         make_persistent_rollout_fn,
@@ -82,6 +90,7 @@ def test_entry_points_default_to_the_card(monkeypatch):
     cfg = ModelConfig(graph_mode="sparse")
     for make in (lambda: make_rollout_fn(cfg, 2),
                  lambda: make_persistent_rollout_fn(cfg, 2),
+                 lambda: create_train_state(0, cfg, TrainConfig()),
                  lambda: load_params_npz(ROOT / "tools" / "bench_ckpt.npz")):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()

@@ -1,4 +1,5 @@
-"""The port's CUDA kernel wrappers (ops/cuda/persistent_rollout.py).
+"""The port's CUDA kernel wrappers (ops/cuda/persistent_rollout.py and
+ops/cuda/train_conv.py).
 
 On the CPU a wrapper runs its kernel's plain version; those tests run
 everywhere. The tests marked ``gpu`` launch the kernels and hold each
@@ -21,6 +22,12 @@ from molecular_dynamics_neural_operator_tpu_torch.models.gkn import (
 )
 from molecular_dynamics_neural_operator_tpu_torch.ops.cuda import (
     persistent_rollout as pr,
+)
+from molecular_dynamics_neural_operator_tpu_torch.ops.cuda import (
+    train_conv as tc,
+)
+from molecular_dynamics_neural_operator_tpu_torch.ops.edge_conv import (
+    sparse_inv_degree,
 )
 from molecular_dynamics_neural_operator_tpu_torch.rollout import (
     make_rollout_fn,
@@ -166,3 +173,52 @@ def test_kernel_rollout_matches_plain_rollout_on_the_card(cuda):
     torch.testing.assert_close(final, want_final, rtol=0, atol=1e-3)
     assert pr.launch_counts() == {"graph_encode": 8, "edge_mlp": 24,
                                   "conv_head": 8}
+
+
+def _train_conv_operands(seed, cd, device, b=6, r=12, w=16, e=128, real=90):
+    """Seeded operands of the training conv stack with ``e - real`` padded
+    slots (src = dst = 0, kt rows zero) at the end."""
+    rng = np.random.default_rng(seed)
+    mask = np.zeros((b, e), np.float32)
+    mask[:, :real] = 1.0
+    edges = (rng.integers(0, r, size=(b, 2, e))
+             * mask[:, None, :]).astype(np.int32)
+    kt = (rng.normal(size=(b, e, w * w)) * 0.3 * mask[..., None])
+    bound = 1.0 / np.sqrt(w)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+    edges_t = torch.as_tensor(edges, device=device)
+    return (t(rng.normal(size=(b, r, w))), t(kt).to(cd), edges_t,
+            sparse_inv_degree(edges_t, t(mask), r),
+            t(rng.uniform(-bound, bound, (w, w))),
+            t(rng.uniform(-bound, bound, w)),
+            t(rng.uniform(-bound, bound, (w, w))),
+            t(rng.uniform(-bound, bound, w)),
+            t(rng.normal(size=(b, r, w))))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cd", [torch.float32, torch.bfloat16])
+def test_train_conv_kernels_match_the_plain_version_on_the_card(cuda, cd):
+    *ops, g_out = _train_conv_operands(7, cd, cuda)
+    grad_slots = (0, 1, 4, 5, 6, 7)  # x0, kt, root1, bias1, root2, bias2
+    leaves = [t.clone().requires_grad_(i in grad_slots)
+              for i, t in enumerate(ops)]
+    ref_leaves = [t.clone().requires_grad_(i in grad_slots)
+                  for i, t in enumerate(ops)]
+    tc.reset_launch_counts()
+    out = tc.train_conv(*leaves, 2)
+    want = tc.train_conv_plain(*ref_leaves, 2)
+    (out * g_out).sum().backward()
+    (want * g_out).sum().backward()
+    torch.cuda.synchronize()
+    assert tc.launch_counts() == {"train_conv_fwd": 1, "train_conv_bwd": 1}
+    # f32: sums in another order; bf16: now and then a flipped rounding,
+    # 2^-8 of a value, carried through 4 layers
+    tol = 1e-4 if cd == torch.float32 else 2.0 ** -6
+    for got, ref in [(out, want)] + [(leaves[i].grad, ref_leaves[i].grad)
+                                     for i in grad_slots]:
+        scale = ref.float().abs().max().item()
+        assert (got.float() - ref.float()).abs().max().item() <= tol * scale

@@ -1,0 +1,109 @@
+"""The port's optimizer (train/optim.py) against the JAX package's optax
+chain: the same seeded gradients go through both for five updates, so
+bias correction, eps placement, the schedule's boundary, clipping, the
+finiteness guard and gradient accumulation all show."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from molecular_dynamics_neural_operator_tpu.train.optim import (
+    make_optimizer as jax_make_optimizer,
+    step_lr_schedule as jax_step_lr_schedule,
+)
+from molecular_dynamics_neural_operator_tpu_torch.train.optim import (
+    make_optimizer,
+    step_lr_schedule,
+    tree_map,
+)
+
+# elementwise f32 arithmetic in the same order; pow and sqrt may differ in
+# the last place between XLA and torch
+RTOL, ATOL = 1e-5, 1e-7
+SHAPES = {"a": {"w": (6, 5), "b": (5,)}, "c": (3,)}
+
+
+def _tree(rng, scale=1.0):
+    def make(shape):
+        return (rng.normal(size=shape) * scale).astype(np.float32)
+
+    return {"a": {"w": make(SHAPES["a"]["w"]), "b": make(SHAPES["a"]["b"])},
+            "c": make(SHAPES["c"])}
+
+
+def _run_both(kw, grads_seq, params0):
+    jtx, _ = jax_make_optimizer(**kw)
+    tx, _ = make_optimizer(**kw)
+    jparams = jax.tree.map(jnp.asarray, params0)
+    jstate = jtx.init(jparams)
+    params = tree_map(torch.as_tensor, params0)
+    state = tx.init(params)
+    for i, g in enumerate(grads_seq):
+        jupd, jstate = jtx.update(jax.tree.map(jnp.asarray, g), jstate,
+                                  jparams)
+        jparams = jax.tree.map(lambda p, u: p + u, jparams, jupd)
+        upd, state = tx.update(tree_map(torch.as_tensor, g), state, params)
+        params = tree_map(lambda p, u: p + u, params, upd)
+        for got, want in zip(jax.tree.leaves(tree_map(lambda t: t.numpy(),
+                                                      params)),
+                             jax.tree.leaves(jparams)):
+            np.testing.assert_allclose(got, np.asarray(want), RTOL, ATOL,
+                                       err_msg=f"after update {i + 1}")
+    return state
+
+
+@pytest.mark.parametrize("kw", [
+    dict(),
+    dict(lr=0.05, weight_decay=0.0, scheduler_step=1, steps_per_epoch=2,
+         scheduler_gamma=0.5),
+    dict(grad_clip_norm=0.5),
+    dict(grad_clip_norm=1e6),
+], ids=["defaults", "schedule-boundary-at-2", "clip", "clip-inactive"])
+def test_five_updates_match_optax(kw):
+    rng = np.random.default_rng(0)
+    state = _run_both(kw, [_tree(rng) for _ in range(5)], _tree(rng, 0.3))
+    assert state.count == 5
+
+
+def test_nonfinite_gradient_skips_the_apply_and_leaves_the_state_alone():
+    rng = np.random.default_rng(1)
+    grads = [_tree(rng) for _ in range(5)]
+    grads[2]["a"]["w"][1, 1] = np.nan
+    kw = dict(skip_nonfinite_updates=True, grad_clip_norm=1.0)
+    state = _run_both(kw, grads, _tree(rng, 0.3))
+    assert state.count == 4  # four applies out of five steps
+
+    tx, _ = make_optimizer(**kw)
+    params = tree_map(torch.as_tensor, _tree(rng))
+    s0 = tx.init(params)
+    upd, s1 = tx.update(tree_map(torch.as_tensor, grads[2]), s0, params)
+    assert s1 is s0
+    assert all(not u.any() for u in (upd["a"]["w"], upd["a"]["b"], upd["c"]))
+
+
+@pytest.mark.parametrize("kw", [
+    dict(grad_accum=2),
+    dict(grad_accum=2, scheduler_step=1, steps_per_epoch=3,
+         scheduler_gamma=0.5, lr=0.02),
+    dict(grad_accum=2, skip_nonfinite_updates=True),
+], ids=["accum-2", "accum-2-ceil-boundary", "accum-2-guarded"])
+def test_grad_accum_matches_optax(kw):
+    rng = np.random.default_rng(2)
+    grads = [_tree(rng) for _ in range(5)]
+    if kw.get("skip_nonfinite_updates"):
+        grads[1]["c"][0] = np.inf
+    state = _run_both(kw, grads, _tree(rng, 0.3))
+    skipped = 1 if kw.get("skip_nonfinite_updates") else 0
+    assert state.count == (5 - skipped) // 2
+    assert state.mini_step == (5 - skipped) % 2
+
+
+@pytest.mark.parametrize("args", [(0.01, 50, 0.8, 7), (0.1, 1, 0.5, 3),
+                                  (0.01, 0, 0.8, 4)])
+def test_step_lr_schedule_matches_optax(args):
+    want, got = jax_step_lr_schedule(*args), step_lr_schedule(*args)
+    # optax takes gamma^n in f32, the port in double: 1e-5 relative
+    for count in (0, 1, 2, 3, 6, 349, 350, 351):
+        np.testing.assert_allclose(got(count), float(want(count)), rtol=1e-5)
