@@ -4,15 +4,19 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``molecular_dynamics_neural_operator_tpu_torch/csrc``
-and drives the port's two main paths at full width (BBA: 28 residues,
+and drives the port's three main paths at full width (BBA: 28 residues,
 window 10, width 64, ker_width 1024, depth 6, predict_delta, bf16, data
 from ``synthetic_trajectory(num_frames=4000, seed=13)``):
 
-- serving: the single-stream free rollout of ``bench.py`` (sparse graph
+- rollout: the single-stream free rollout of ``bench.py`` (sparse graph
   with 224 edge slots, clip 100, the trained ``tools/bench_ckpt.npz``);
 - training: teacher-forced train steps at batch 128 with 256 edge slots,
   from seeded ``gkn_init`` weights, through ``create_train_state``,
-  ``make_train_step`` and ``train_epoch``.
+  ``make_train_step`` and ``train_epoch``;
+- serving: concurrent requests through ``RolloutServer`` in process, on
+  the rollout kernels (``impl="persistent"``, also with
+  ``electrostatics="dh"``) and on the plain scan with the fused kernel
+  (``impl="scan"``, ``conv_impl="pallas"``).
 
 Phases, each fatal:
 
@@ -41,12 +45,28 @@ Phases, each fatal:
 7. training timing: device time of both kernels, their plain versions and
    bounds, wall time of a train step on each path, samples/s, peak memory.
 
-The last lines are the ``kernels`` JSON (five kernels), the card, and
+8. serve, kernel vs plain: ``graph_encode`` with the Debye-Hückel branch
+   (f32 and bf16, 1 and 4 streams) and ``fused_edge_conv_stack`` (f32 and
+   bf16, 1 and 8 streams, on seeded weights whose conv layers are all
+   alive and on the checkpoint) against their plain versions.
+9. serving run: (a) eight 256-step requests at once and then a mixed,
+   staggered trace of twelve on ``impl="persistent"`` with the checkpoint,
+   every result held against a dedicated single-stream kernel rollout;
+   (b) four 128-step requests with ``electrostatics="dh"`` on seeded live
+   weights, held against the dedicated kernel rollout and the plain
+   rollout; (c) four 64-step requests with one sequence each on
+   ``impl="scan"`` with ``conv_impl="pallas"``, held against the same
+   server with ``conv_impl="xla"``. Launch counts are set to 0 before each
+   run and read after it; ``stats`` must read as the trace implies.
+10. serve timing: served steps/s, occupancy, the device's busy share, and
+   the two new kernels' times with their plain versions and bounds.
+
+The last lines are the ``kernels`` JSON (seven kernels), the card, and
 ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA card.
-``--only rollout`` or ``--only train`` runs one path's phases (for
-development; the ``kernels`` line then lists that path's kernels), and
-``--profile`` adds a ``torch.profiler`` breakdown of one train step.
-Imports nothing of JAX.
+``--only rollout``, ``--only train`` or ``--only serve`` runs one path's
+phases (for development; the ``kernels`` line then lists that path's
+kernels), and ``--profile`` adds a ``torch.profiler`` breakdown of one
+train step. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -889,6 +909,605 @@ def time_training(params, ds, train_idx, counts: dict, errs: dict):
     return kernels, k_ms
 
 
+# ---- phases 8-10: the serving path --------------------------------------
+
+TPU_FUSED_KERNEL = "molecular_dynamics_neural_operator_tpu/ops/pallas/fused_gkn.py"
+SEGMENT = 64
+SATURATED_STEPS = 256   # eight such requests at once
+MIXED_HORIZONS = (7, 64, 100, 300)
+DH_STEPS = 128
+# graph_encode with the Debye-Hückel branch: x0 = relu(fc1([emb; lstm; phi]))
+# with phi a sum over 27 sources of l_B q exp(-kappa d) / d. The kernel's
+# expf, sqrtf and division round in the last place unlike PyTorch's and the
+# sum runs in another order: about 1e-6 of phi, which one fc1 row carries
+# into x0. Held to 1e-5 of x0's scale, as the LSTM's transcendentals are.
+# The contact test does not read phi, so the graph stays equal to the bit.
+TOL_X0_DH = 1e-5
+# A rollout on live weights, kernels against the plain version over n steps:
+# each step's head output may differ by TOL_HEAD_* of its size (reasons
+# above), and the differences add up along the trajectory, so n steps are
+# held to TOL_HEAD_* x n x the largest displacement of one step.
+# Seeded weights on which the bench rollout stays finite, inside the clip,
+# without edge overflow and with every conv layer alive at every node:
+LIVE = dict(kernel_init_scale=0.1, head_scale=0.05)
+
+
+def live_cfg(cd: str, **kw):
+    import dataclasses
+
+    return dataclasses.replace(bench_cfg(cd), **LIVE, **kw)
+
+
+def layers_alive(params, cfg, aa, window) -> bool:
+    """True if after every conv layer every node has a positive feature."""
+    from molecular_dynamics_neural_operator_tpu_torch.device import (
+        compute_dtype,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.models.gkn import (
+        _encode_nodes,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.ops.edge_conv import (
+        edge_conv_sparse,
+        edge_kernel_matrices,
+        sparse_inv_degree,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.rollout.scan import (
+        _build_graph,
+    )
+
+    cd = compute_dtype(cfg)
+    graph, _ = _build_graph(cfg, window[-1], THRESHOLD)
+    x = _encode_nodes(params, cfg, aa, window)
+    k = edge_kernel_matrices(params["edge_kernel"], graph.edge_feats,
+                             cfg.width, cd)
+    inv = sparse_inv_degree(graph.edges, graph.mask, window.shape[-2])
+    alive = True
+    for layer in range(2 * cfg.depth):
+        conv = params["conv1" if layer < cfg.depth else "conv2"]
+        x = torch.relu(edge_conv_sparse(conv, x, k, graph.edges, graph.mask,
+                                        inv, "onehot", cd))
+        alive = alive and bool((x.amax(-1) > 0).all())
+    return alive
+
+
+def check_graph_encode_dh(params, aa, windows, cd: str) -> float:
+    """graph_encode with dh against its plain version; returns the max
+    abs error of x0."""
+    from molecular_dynamics_neural_operator_tpu_torch.ops.cuda import (
+        persistent_rollout as pr,
+    )
+
+    cfg = live_cfg(cd, electrostatics="dh")
+    dev = windows.device
+    s, _, r, _ = windows.shape
+    tag = f"dh {cd} S={s}"
+    weights = pr.rollout_weights(params, cfg, aa, dev)
+    bufs = pr.alloc_buffers(cfg, s, r, dev)
+    pr.graph_encode(windows, weights, THRESHOLD, bufs)
+    edges, mask, count, over, inv_deg, ef, x0 = pr.graph_encode_plain(
+        windows, weights, THRESHOLD, cfg.max_edges, bufs.ef.dtype)
+    torch.cuda.synchronize()
+    for name, got, ref in (("edges", bufs.edges, edges),
+                           ("mask", bufs.mask, mask),
+                           ("count", bufs.count.long(), count),
+                           ("inv_deg", bufs.inv_deg, inv_deg),
+                           ("ef", bufs.ef, ef)):
+        require(torch.equal(got, ref), f"graph_encode {name} differs ({tag})")
+    require(bool(bufs.overflow[0] > 0) == bool(over.any()),
+            f"graph_encode overflow differs ({tag})")
+    err, rel = rel_err(bufs.x0, x0)
+    require(rel <= TOL_X0_DH, f"graph_encode x0 error {err} ({tag})")
+    # the potential must matter: without charges x0 moves by far more
+    no_q = dict(weights, charges=torch.zeros_like(weights["charges"]))
+    moved = (pr.graph_encode_plain(windows, no_q, THRESHOLD, cfg.max_edges,
+                                   bufs.ef.dtype)[-1] - x0).abs().max().item()
+    require(moved > 1e3 * max(err, 1e-7), f"the potential moves x0 by only "
+            f"{moved}: the check could not see a wrong phi ({tag})")
+    log(f"graph_encode {tag}: edges/mask/count/inv_deg/ef exact, x0 max abs "
+        f"err {err:.3e} ({rel:.2e} of scale, tolerance {TOL_X0_DH}); the "
+        f"potential moves x0 by up to {moved:.3e}")
+    return err
+
+
+def fused_operands(params, cfg, aa, windows):
+    """The operands the scan path hands to ``fused_edge_conv_stack``, made
+    by the plain modules from ``windows`` (S, T, R, 3)."""
+    from molecular_dynamics_neural_operator_tpu_torch.ops.cuda import (
+        fused_gkn as fg,
+        persistent_rollout as pr,
+    )
+
+    dev = windows.device
+    weights = pr.rollout_weights(params, cfg, aa, dev)
+    cd = weights["mlp"][0]["w"].dtype
+    edges, mask, count, _, inv_deg, ef, x0 = pr.graph_encode_plain(
+        windows, weights, THRESHOLD, cfg.max_edges, cd)
+    ops = (ef.contiguous(), mask.contiguous(),
+           edges.to(torch.int32).contiguous(), inv_deg.contiguous(),
+           x0.contiguous(), *fg.fused_weights(params, cfg), cfg.depth)
+    return ops, int(count.clamp(max=cfg.max_edges).sum())
+
+
+def check_fused(params, aa, windows, cd: str, what: str) -> float:
+    """fused_edge_conv_stack against its plain version; returns the max
+    abs error."""
+    from molecular_dynamics_neural_operator_tpu_torch.ops.cuda import (
+        fused_gkn as fg,
+    )
+
+    cfg = live_cfg(cd) if what == "live" else bench_cfg(cd)
+    tag = f"{cd} S={windows.shape[0]} {what} weights"
+    ops, _ = fused_operands(params, cfg, aa, windows)
+    got = fg.fused_edge_conv_stack(*ops)
+    ref = fg.fused_edge_conv_stack_plain(*ops)
+    torch.cuda.synchronize()
+    require(got.shape == ref.shape and got.dtype == torch.float32,
+            f"fused_edge_conv_stack gives {got.shape} {got.dtype} ({tag})")
+    require(bool(torch.isfinite(got).all()),
+            f"fused_edge_conv_stack not finite ({tag})")
+    tol = TOL_TC_F32 if cd == "float32" else TOL_TC_BF16
+    # relative to the larger of the output's and the input's scale: on the
+    # checkpoint the last layer is dead and the output is all zero
+    scale = max(ref.abs().max().item(), 1e-30)
+    err = (got - ref).abs().max().item()
+    alive = int((ref.amax(-1) > 0).sum())
+    if what == "live":
+        require(alive == ref.shape[0] * ref.shape[1],
+                f"only {alive} nodes alive after the last layer ({tag})")
+        require(err <= tol * scale, f"fused_edge_conv_stack error {err} is "
+                f"{err / scale:.2e} of the output's max ({tag})")
+    else:
+        x0_scale = ops[4].abs().max().item()
+        require(err <= tol * max(scale, x0_scale), f"fused_edge_conv_stack "
+                f"error {err} ({tag})")
+    log(f"fused_edge_conv_stack {tag}: max abs err {err:.3e} = "
+        f"{err / scale:.2e} of the output's max {scale:.3e} (tolerance "
+        f"{tol}); nodes alive after the last layer {alive}")
+    return err
+
+
+def same_edge_lists(w0, a, b) -> int:
+    """Steps at which the graphs of two rollouts a, b (n, R, 3) from the
+    window w0 (T, R, 3) differ."""
+    from molecular_dynamics_neural_operator_tpu_torch.geometry.contact import (
+        contact_map,
+    )
+
+    fa = torch.cat([w0[-1:], a])
+    fb = torch.cat([w0[-1:], b])
+    same = (contact_map(fa, THRESHOLD)
+            == contact_map(fb, THRESHOLD)).flatten(1).all(-1)
+    return int((~same).sum())
+
+
+def hold_result(res, w0, ref, tol: float, tag: str) -> float:
+    """One served request against a reference rollout ``ref`` (n, R, 3)
+    from w0: finite, inside the clip, no overflow, the final window is the
+    last T frames, same edge lists, coordinates within ``tol``."""
+    dev = ref.device
+    coords = torch.as_tensor(res.coords, device=dev)
+    n, t_len = coords.shape[0], w0.shape[0]
+    require(coords.shape == ref.shape, f"{tag}: coords {coords.shape}")
+    require(bool(torch.isfinite(coords).all()), f"{tag}: not finite")
+    require(coords.abs().max().item() < CLIP, f"{tag}: the clip was reached")
+    require(res.edge_overflow is False, f"{tag}: edge overflow")
+    final = torch.cat([w0, coords])[n:n + t_len]
+    require(torch.equal(torch.as_tensor(res.final_window, device=dev), final),
+            f"{tag}: final window is not the last {t_len} frames")
+    differing = same_edge_lists(w0, coords, ref)
+    require(differing == 0, f"{tag}: edge lists differ at {differing} steps")
+    err = (coords - ref).abs().max().item()
+    require(err <= tol, f"{tag}: error {err} A > {tol}")
+    return err
+
+
+def step_device_ms(prepared, streams: int, windows) -> dict:
+    """Device time in ms of one rollout step at ``streams`` streams
+    (``step``) and of its three parts."""
+    from molecular_dynamics_neural_operator_tpu_torch.ops.cuda import (
+        persistent_rollout as pr,
+    )
+
+    win = windows[:streams].clone().contiguous()
+    s, _, r, _ = win.shape
+    bufs = prepared.buffers(s, r)
+    weights, cfg = prepared.weights, prepared.cfg
+    coords = torch.empty(s, r, 3, device=win.device)
+    (l0, l1, l2), e = weights["mlp"], cfg.max_edges
+
+    def mlp():
+        pr.edge_mlp(bufs.ef.view(s * e, 6), l0["w"], l0["b"], True,
+                    out=bufs.h1)
+        pr.edge_mlp(bufs.h1, l1["w"], l1["b"], True, out=bufs.h2)
+        pr.edge_mlp(bufs.h2, l2["w"], l2["b"], False,
+                    row_mask=bufs.mask.view(-1), out=bufs.kmat)
+
+    return {
+        "step": device_ms(lambda: pr.step(bufs, weights, cfg, THRESHOLD,
+                                          CLIP, win, coords)),
+        "graph_encode": device_ms(lambda: pr.graph_encode(
+            win, weights, THRESHOLD, bufs)),
+        "edge_mlp": device_ms(mlp),
+        "conv_head": device_ms(lambda: pr.conv_head(
+            bufs, weights, cfg, CLIP, win, coords)),
+    }
+
+
+def serve_persistent(params, aa_np, traj) -> dict:
+    """Phase 9a: the checkpoint on ``impl="persistent"``; returns the
+    launch counts of the saturated run."""
+    from molecular_dynamics_neural_operator_tpu_torch.ops.cuda import (
+        persistent_rollout as pr,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.serving import (
+        RolloutServer,
+    )
+
+    cfg = bench_cfg("bfloat16")
+    dev = torch.device("cuda")
+    t_len = cfg.window_size
+    prepared = pr.PreparedRollout(params, cfg, aa_np, THRESHOLD, CLIP, dev)
+
+    def dedicated(w0, n):
+        return prepared(torch.as_tensor(w0, device=dev), n)[0]
+
+    def serve(requests, staggered: bool):
+        """A fresh server per trace, so that ``stats`` are the trace's own.
+        The first server of a process also pays for the first pinned
+        buffers and the streams' first use; the caller times the second."""
+        with RolloutServer(params, cfg, segment_steps=SEGMENT, max_streams=8,
+                           threshold=THRESHOLD, clip=CLIP, impl="persistent",
+                           aa=aa_np) as srv:
+            srv.warmup()
+            pr.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if staggered:
+                futs = srv.submit_many(requests[:5])
+                time.sleep(0.01)
+                for r in requests[5:9]:
+                    futs.append(srv.submit(*r))
+                time.sleep(0.02)
+                futs += srv.submit_many(requests[9:])
+            else:
+                futs = srv.submit_many(requests)
+            results = [f.result(timeout=300) for f in futs]
+            wall = time.perf_counter() - t0
+            return results, wall, srv.stats, pr.launch_counts()
+
+    def hold_all(requests, results, tag):
+        worst, exact = 0.0, True
+        for i, ((_, w0, n), res) in enumerate(zip(requests, results)):
+            ref = dedicated(w0, n)
+            err = hold_result(res, torch.as_tensor(w0, device=dev), ref,
+                              TOL_ROLL, f"{tag} request {i} ({n} steps)")
+            worst = max(worst, err)
+            exact = exact and err == 0.0
+        return worst, exact
+
+    # saturated: eight 256-step requests at once
+    starts = [500 * i for i in range(8)]
+    n_sat = SATURATED_STEPS
+    requests = [(aa_np, traj.positions[i:i + t_len], n_sat) for i in starts]
+    _, cold_wall, _, _ = serve(requests, staggered=False)
+    results, wall, stats, counts = serve(requests, staggered=False)
+    want = {"segments_run": n_sat // SEGMENT, "steps_computed": 8 * n_sat,
+            "steps_served": 8 * n_sat, "requests_completed": 8,
+            "occupancy": 1.0}
+    require(stats == want, f"saturated stats {stats}, expected {want}")
+    require(counts == {"graph_encode": n_sat, "edge_mlp": 3 * n_sat,
+                       "conv_head": n_sat},
+            f"saturated run launched {counts}")
+    worst, exact = hold_all(requests, results, "saturated")
+    windows8 = torch.as_tensor(np.stack([r[1] for r in requests]), device=dev)
+    parts8 = step_device_ms(prepared, 8, windows8)
+    step8 = parts8["step"]
+    rate = stats["steps_served"] / wall
+    log(f"serve persistent, 8 x {n_sat} steps at once: {rate:,.0f} served "
+        f"steps/s in all ({wall * 1e3:.1f} ms; the process's first server "
+        f"took {cold_wall * 1e3:.1f} ms for the same trace), occupancy "
+        f"{stats['occupancy']:.3f}, {stats['segments_run']} segments; one "
+        f"8-stream step takes {step8 * 1e3:.2f} us on the device "
+        f"(graph_encode {parts8['graph_encode'] * 1e3:.2f}, edge_mlp x 3 "
+        f"{parts8['edge_mlp'] * 1e3:.2f}, conv_head "
+        f"{parts8['conv_head'] * 1e3:.2f}), so the "
+        f"device was busy {n_sat * step8 / 1e3 / wall:.3f} of the time; every "
+        f"result against a dedicated single-stream kernel rollout: max abs "
+        f"err {worst:.3e} A ({'equal to the bit' if exact else 'not bitwise'}"
+        f"), same edge lists; launches {counts}")
+
+    # mixed: twelve requests on eight streams, staggered, four horizons
+    horizons = list(MIXED_HORIZONS)
+    mixed = [(aa_np, traj.positions[300 * i:300 * i + t_len],
+              horizons[i % 4]) for i in range(12)]
+    results, wall, stats, mcounts = serve(mixed, staggered=True)
+    total = sum(r[2] for r in mixed)
+    require(stats["steps_served"] == total
+            and stats["requests_completed"] == 12
+            and stats["steps_computed"] >= total
+            and stats["steps_computed"] % SEGMENT == 0
+            and stats["segments_run"] >= -(-max(horizons) // SEGMENT)
+            and mcounts["graph_encode"] == stats["segments_run"] * SEGMENT,
+            f"mixed stats {stats}, launches {mcounts}")
+    worst, exact = hold_all(mixed, results, "mixed")
+    log(f"serve persistent, mixed trace of 12 requests ({total} steps, "
+        f"horizons {horizons}): {total / wall:,.0f} served steps/s "
+        f"({wall * 1e3:.1f} ms), stats {stats}; against dedicated rollouts "
+        f"max abs err {worst:.3e} A "
+        f"({'equal to the bit' if exact else 'not bitwise'})")
+    return counts
+
+
+def serve_dh(aa_np, traj) -> tuple[dict, float]:
+    """Phase 9b: ``electrostatics="dh"`` on seeded live weights through
+    ``impl="persistent"``; returns the launch counts and the largest
+    error against the plain rollout."""
+    from molecular_dynamics_neural_operator_tpu_torch.models import gkn_init
+    from molecular_dynamics_neural_operator_tpu_torch.ops.cuda import (
+        persistent_rollout as pr,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.rollout import (
+        make_rollout_fn,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.serving import (
+        RolloutServer,
+    )
+
+    dev = torch.device("cuda")
+    aa = torch.as_tensor(aa_np, device=dev)
+    steps = DH_STEPS
+    worst_plain = 0.0
+    for cd in ("float32", "bfloat16"):
+        cfg = live_cfg(cd, electrostatics="dh")
+        params = gkn_init(cfg, seed=0, device=dev)
+        require(params["fc1"]["w"].shape[0] == 8, "fc1 has no row for phi")
+        t_len = cfg.window_size
+        requests = [(aa_np, traj.positions[i:i + t_len], steps)
+                    for i in (0, 1000, 2000, 3000)]
+        with RolloutServer(params, cfg, segment_steps=SEGMENT, max_streams=4,
+                           threshold=THRESHOLD, clip=CLIP, impl="persistent",
+                           aa=aa_np) as srv:
+            srv.warmup()
+            pr.reset_launch_counts()
+            results = [f.result(timeout=300)
+                       for f in srv.submit_many(requests)]
+            stats, counts = srv.stats, pr.launch_counts()
+        segs = steps // SEGMENT
+        require(stats == {"segments_run": segs,
+                          "steps_computed": 4 * steps,
+                          "steps_served": 4 * steps, "requests_completed": 4,
+                          "occupancy": 1.0}, f"dh stats {stats}")
+        require(counts == {"graph_encode": steps, "edge_mlp": 3 * steps,
+                           "conv_head": steps}, f"dh run launched {counts}")
+        prepared = pr.PreparedRollout(params, cfg, aa_np, THRESHOLD, CLIP,
+                                      dev)
+        plain = make_rollout_fn(cfg, steps, THRESHOLD, clip=CLIP, device=dev)
+        head_tol = TOL_HEAD_F32 if cd == "float32" else TOL_HEAD_BF16
+        worst_k = moved = 0.0
+        for i, ((_, w0, n), res) in enumerate(zip(requests, results)):
+            w0 = torch.as_tensor(w0, device=dev)
+            tag = f"dh {cd} request {i}"
+            err_k = hold_result(res, w0, prepared(w0, n)[0], TOL_ROLL,
+                                f"{tag} against the dedicated kernel rollout")
+            ref, ref_final, diags = plain(params, aa, w0)
+            require(not bool(diags["edge_overflow"]), f"{tag}: overflow in "
+                    "the plain rollout")
+            step_move = torch.cat([w0[-1:], ref]).diff(dim=0).abs().max().item()
+            tol = head_tol * n * step_move
+            err_p = hold_result(res, w0, ref, tol,
+                                f"{tag} against the plain rollout")
+            require(layers_alive(params, cfg, aa, w0)
+                    and layers_alive(params, cfg, aa, ref_final),
+                    f"{tag}: a conv layer is dead at some node")
+            worst_k = max(worst_k, err_k)
+            worst_plain = max(worst_plain, err_p)
+            moved = max(moved, (ref[-1] - w0[-1]).abs().max().item())
+        log(f"serve persistent with electrostatics='dh', {cd}, seeded "
+            f"weights {LIVE}: 4 x {steps} steps, every conv layer alive at "
+            f"every node at the first and the last window, trajectories "
+            f"moved up to {moved:.3f} A ({step_move:.3e} A a step); max abs "
+            f"err against the dedicated kernel rollout {worst_k:.3e} A, "
+            f"against the plain rollout {worst_plain:.3e} A (tolerance "
+            f"{tol:.3e} A), same edge lists; launches {counts}")
+    return counts, worst_plain
+
+
+def serve_scan_fused(aa_np, traj) -> tuple[int, float]:
+    """Phase 9c: ``impl="scan"`` with ``conv_impl="pallas"`` and one
+    sequence per request against ``conv_impl="xla"``; returns the fused
+    kernel's launch count and the largest error."""
+    from molecular_dynamics_neural_operator_tpu_torch.models import gkn_init
+    from molecular_dynamics_neural_operator_tpu_torch.ops.cuda import (
+        fused_gkn as fg,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.serving import (
+        RolloutServer,
+    )
+
+    dev = torch.device("cuda")
+    steps = SEGMENT
+    cfg_k = live_cfg("bfloat16", conv_impl="pallas")
+    cfg_x = live_cfg("bfloat16", conv_impl="xla")
+    params = gkn_init(cfg_k, seed=0, device=dev)
+    t_len = cfg_k.window_size
+    requests = [((aa_np + 3 * i) % 20, traj.positions[j:j + t_len], steps)
+                for i, j in enumerate((0, 1000, 2000, 3000))]
+
+    def serve(cfg):
+        with RolloutServer(params, cfg, segment_steps=SEGMENT, max_streams=4,
+                           threshold=THRESHOLD, clip=CLIP,
+                           impl="scan") as srv:
+            srv.warmup([4])
+            fg.fused_edge_conv_stack.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            results = [f.result(timeout=600)
+                       for f in srv.submit_many(requests)]
+            wall = time.perf_counter() - t0
+            return results, wall, srv.stats, fg.fused_edge_conv_stack.launches
+
+    got, wall_k, stats, launches = serve(cfg_k)
+    ref, wall_x, stats_x, launches_x = serve(cfg_x)
+    require(stats == stats_x and stats["segments_run"] == 1
+            and stats["steps_computed"] == 4 * steps
+            and stats["occupancy"] == 1.0, f"scan stats {stats} / {stats_x}")
+    require(launches == stats["segments_run"] * SEGMENT and launches_x == 0,
+            f"the fused kernel launched {launches} times (xla: {launches_x})")
+    worst = 0.0
+    for i, ((_, w0, n), res, res_x) in enumerate(zip(requests, got, ref)):
+        w0 = torch.as_tensor(w0, device=dev)
+        want = torch.as_tensor(res_x.coords, device=dev)
+        step_move = torch.cat([w0[-1:], want]).diff(dim=0).abs().max().item()
+        tol = TOL_HEAD_BF16 * n * step_move
+        worst = max(worst, hold_result(
+            res, w0, want, tol, f"scan request {i}, pallas against xla"))
+    log(f"serve scan, 4 x {steps} steps, one sequence per request, bf16, "
+        f"seeded weights {LIVE}: conv_impl='pallas' {4 * steps / wall_k:,.0f} "
+        f"served steps/s, 'xla' {4 * steps / wall_x:,.0f}; max abs err "
+        f"between them {worst:.3e} A (tolerance {tol:.3e} A), same edge "
+        f"lists; fused kernel launches {launches}")
+    return launches, worst
+
+
+def time_serve_kernels(aa, window0, dh_counts: dict, dh_err: float,
+                       fused_launches: int, fused_err: float) -> list:
+    """The ``kernels`` records of the two kernels this path adds, at one
+    stream in bf16."""
+    from molecular_dynamics_neural_operator_tpu_torch.models import gkn_init
+    from molecular_dynamics_neural_operator_tpu_torch.ops.cuda import (
+        fused_gkn as fg,
+        persistent_rollout as pr,
+    )
+
+    cd = torch.bfloat16
+    dev = window0.device
+    windows = window0[None].contiguous()
+    s, t, r, _ = windows.shape
+
+    def record(name, src, replaces, launches, err, kernel_fn, plain_fn, nbyt,
+               ops, peak):
+        t_bytes, t_ops = nbyt / HBM_BYTES_PER_S, ops / peak
+        rec = {
+            "name": name, "route": "cuda", "source": f"{PKG}/csrc/{src}",
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": device_ms(kernel_fn), "plain_ms": device_ms(plain_fn),
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None,
+        }
+        log(f"{name}: {rec['ms'] * 1e3:.2f} us (plain "
+            f"{rec['plain_ms'] * 1e3:.2f} us, bound "
+            f"{rec['bound_ms'] * 1e3:.3f} us by {rec['bound_by']}: "
+            f"{nbyt / 1e6:.2f} MB, {ops / 1e9:.3f} GFLOP)")
+        return rec
+
+    # graph_encode with the dh branch
+    cfg = live_cfg("bfloat16", electrostatics="dh")
+    params = gkn_init(cfg, seed=0, device=dev)
+    weights = pr.rollout_weights(params, cfg, aa, dev)
+    bufs = pr.alloc_buffers(cfg, s, r, dev)
+    pr.graph_encode(windows, weights, THRESHOLD, bufs)
+    e, w, kw = cfg.max_edges, cfg.width, cfg.ker_width
+    real = int(bufs.count.clamp(max=e).sum())
+    cdb = 2
+    enc_w = [weights["emb_aa"], weights["charges"],
+             *weights["lstm"].values(), *weights["lstm_fc"].values(),
+             *weights["fc1"].values()]
+    ge_bytes = (nbytes(windows, *enc_w, bufs.inv_deg, bufs.x0, bufs.count)
+                + real * (2 * 4 + 4 + 6 * cdb))
+    # contact test 8 a pair, potential about 16 a pair, LSTM, fc1 (8 inputs)
+    ge_ops = s * (r * r * (8 + 16) + r * t * 12 * 13 + r * 8 * w * 2)
+    records = [record(
+        "graph_encode_dh", "graph_encode.cu", f"{TPU_KERNEL}:248",
+        dh_counts["graph_encode"], dh_err,
+        lambda: pr.graph_encode(windows, weights, THRESHOLD, bufs),
+        lambda: pr.graph_encode_plain(windows, weights, THRESHOLD, e, cd),
+        ge_bytes, ge_ops, PEAK_FLOPS[torch.float32])]
+
+    # fused_edge_conv_stack
+    cfg = live_cfg("bfloat16", conv_impl="pallas")
+    params = gkn_init(cfg, seed=0, device=dev)
+    ops, real = fused_operands(params, cfg, aa, windows)
+    ef, mask, edges, inv_deg, x0, *wts, depth = ops
+    out = fg.fused_edge_conv_stack(*ops)
+    # each input read once, the output written once; of the per-edge inputs
+    # the real edges only; h1, h2 and K need not leave the chip
+    f_bytes = (nbytes(*wts, inv_deg, x0, out)
+               + real * (6 * cdb + 4 + 2 * 4))
+    f_ops = (2 * real * (6 * kw + kw * kw + kw * w * w)
+             + 2 * depth * (2 * real * w * w + 2 * s * r * w * w))
+    records.append(record(
+        "fused_edge_conv_stack", "fused_gkn.cu", f"{TPU_FUSED_KERNEL}:189",
+        fused_launches, fused_err,
+        lambda: fg.fused_edge_conv_stack(*ops),
+        lambda: fg.fused_edge_conv_stack_plain(*ops), f_bytes, f_ops,
+        PEAK_FLOPS[cd]))
+    w1, b1, w2, b2, w3, b3 = wts[:6]
+    a = ef.reshape(-1, 6)
+    bias_cd = [b.to(cd) for b in (b1, b2, b3)]
+
+    def library_mlp():
+        h1 = torch.addmm(bias_cd[0], a, w1)
+        h2 = torch.addmm(bias_cd[1], h1, w2)
+        return torch.addmm(bias_cd[2], h2, w3)
+
+    log(f"fused_edge_conv_stack has no library call for the whole function; "
+        f"its MLP alone as three torch.addmm: "
+        f"{device_ms(library_mlp) * 1e3:.2f} us")
+    windows8 = windows.expand(8, -1, -1, -1).contiguous()
+    ops8, _ = fused_operands(params, cfg, aa, windows8)
+    log(f"fused_edge_conv_stack at 8 streams: "
+        f"{device_ms(lambda: fg.fused_edge_conv_stack(*ops8)) * 1e3:.2f} us")
+    return records
+
+
+def serve_phases(traj) -> list:
+    """Phases 8-10, the serving path; returns the ``kernels`` records of
+    the two kernels it adds."""
+    from molecular_dynamics_neural_operator_tpu_torch.models import gkn_init
+    from molecular_dynamics_neural_operator_tpu_torch.utils.checkpoint import (
+        load_params_npz,
+    )
+
+    dev = torch.device("cuda")
+    ckpt = load_params_npz(CKPT, device=dev)
+    aa_np = np.asarray(traj.aminoacids)
+    aa = torch.as_tensor(aa_np, device=dev)
+    t_len = bench_cfg("bfloat16").window_size
+
+    def windows(n):
+        step = 4000 // n
+        return torch.as_tensor(np.stack(
+            [traj.positions[i * step:i * step + t_len] for i in range(n)]),
+            device=dev)
+
+    dh_err = fused_err = 0.0
+    for cd in ("float32", "bfloat16"):
+        dh_params = gkn_init(live_cfg(cd, electrostatics="dh"), seed=0,
+                             device=dev)
+        live = gkn_init(live_cfg(cd), seed=0, device=dev)
+        for n in (1, 4):
+            err = check_graph_encode_dh(dh_params, aa, windows(n), cd)
+            if cd == "bfloat16" and n == 1:
+                dh_err = err
+        for n in (1, 8):
+            err = check_fused(live, aa, windows(n), cd, "live")
+            if cd == "bfloat16" and n == 1:
+                fused_err = err
+            check_fused(ckpt, aa, windows(n), cd, "bench_ckpt")
+
+    counts = serve_persistent(ckpt, aa_np, traj)
+    for name, n in counts.items():
+        require(n > 0, f"kernel {name} was not launched on the serving path")
+    dh_counts, _ = serve_dh(aa_np, traj)
+    fused_launches, _ = serve_scan_fused(aa_np, traj)
+    require(dh_counts["graph_encode"] > 0 and fused_launches > 0,
+            "a kernel of the serving path was not launched")
+    return time_serve_kernels(aa, windows(1)[0], dh_counts, dh_err,
+                              fused_launches, fused_err)
+
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -955,7 +1574,7 @@ def rollout_phases(traj) -> list:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--only", choices=("rollout", "train"),
+    parser.add_argument("--only", choices=("rollout", "train", "serve"),
                         help="run one path's phases (development)")
     parser.add_argument("--profile", action="store_true",
                         help="also profile a train step with torch.profiler")
@@ -993,9 +1612,10 @@ def main() -> int:
 
     traj = synthetic_trajectory(num_frames=4000, num_residues=28, seed=13)
     kernels = []
-    if only != "train":
+    if only in (None, "rollout"):
         kernels += rollout_phases(traj)
-    if only != "rollout":
+    serve_kernels = serve_phases(traj) if only in (None, "serve") else []
+    if only in (None, "train"):
         from molecular_dynamics_neural_operator_tpu_torch.data.prefetch import (  # noqa: E501
             to_device,
         )
@@ -1021,6 +1641,7 @@ def main() -> int:
         kernels += train_kernels
         if args.profile:
             profile_train_step(batch, step_ms)
+    kernels += serve_kernels
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

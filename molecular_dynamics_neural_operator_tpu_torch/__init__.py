@@ -11,12 +11,18 @@ counterpart is easy to find:
                 stack with its hand-written backward in plain PyTorch;
                 ``ops/cuda`` holds the hand-written Hopper kernels
                 (``csrc/*.cu``) that replace the TPU's Pallas kernels.
-- ``models``    the GKN forward (sparse one-hot path), single and batched,
-                and the losses.
+- ``models``    the GKN forward (sparse one-hot path, with the optional
+                Debye-Hückel node feature), single and batched, and the
+                losses.
+- ``preprocess`` the Debye-Hückel potential at the residue sites.
 - ``rollout``   the autoregressive free rollout with the contact graph
                 rebuilt from the predicted coordinates every step.
 - ``train``     teacher-forced training: optimizer, train state, input
                 noise, train/eval steps and the epoch loops.
+- ``serving``   the continuous-batching rollout server: concurrent
+                requests share the stream axis of one segment after
+                another.
+- ``cli``       ``cli/serve.py``, the server behind a TCP socket.
 - ``utils``     checkpoints in the JAX package's flat npz format.
 
 The package imports torch and numpy only. Entry points run on ``cuda``

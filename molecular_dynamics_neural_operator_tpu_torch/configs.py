@@ -9,6 +9,7 @@ field; the short notes here say what each one selects.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 
@@ -109,3 +110,11 @@ class RolloutConfig:
     # which window frame the rebuilt graph comes from
     graph_frame: str = "last"
     collect: str = "coords"  # "coords" | "contact_maps" | "both"
+
+
+def _from_dict(cls, d: dict):
+    """``cls`` from a dict as a run's ``config.json`` stores it: unknown
+    keys are dropped, lists become tuples."""
+    names = {f.name for f in dataclasses.fields(cls)}
+    return cls(**{k: tuple(v) if isinstance(v, list) else v
+                  for k, v in d.items() if k in names})

@@ -1,6 +1,5 @@
-// Shared helpers of the port's kernels (graph_encode.cu, edge_mlp.cu,
-// conv_head.cu, train_conv_fwd.cu, train_conv_bwd.cu). CD is the compute dtype of the products:
-// float or __nv_bfloat16. Every product accumulates in f32; a value is
+// Shared helpers of the port's kernels (every .cu and .cuh here). CD is
+// the compute dtype of the products: float or __nv_bfloat16. Every product accumulates in f32; a value is
 // rounded to CD exactly where the JAX package casts it.
 #pragma once
 

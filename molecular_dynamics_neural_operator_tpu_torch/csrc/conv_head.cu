@@ -24,37 +24,13 @@
 // memory in rank order (deterministic, no atomics), applies root, bias and
 // ReLU, and writes them into every block's shared memory; the cluster
 // syncs again. Rank 0 then runs the head and slides the window in place.
+// The layers live in conv_stack.cuh, which fused_gkn.cu includes too.
 
-#include <cooperative_groups.h>
-
-#include "common.cuh"
-
-namespace cg = cooperative_groups;
+#include "conv_stack.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kMaxSmem = 227 * 1024;
-constexpr int NCL = 16;  // blocks per stream (one cluster)
-
-// Four consecutive CD values as floats (16 bytes of f32, 8 of bf16).
-__device__ __forceinline__ void load4(const float* p, float* out) {
-  const float4 f = *reinterpret_cast<const float4*>(p);
-  out[0] = f.x;
-  out[1] = f.y;
-  out[2] = f.z;
-  out[3] = f.w;
-}
-
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* out) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  out[0] = a.x;
-  out[1] = a.y;
-  out[2] = b.x;
-  out[3] = b.y;
-}
+using conv_stack::kThreads;
 
 template <typename CD>
 __global__ void __launch_bounds__(kThreads) conv_head_kernel(
@@ -72,126 +48,13 @@ __global__ void __launch_bounds__(kThreads) conv_head_kernel(
     int R, int W, int E, int T, int depth, int eb, int stage_k,
     int predict_delta, float head_scale, int extrapolate, float gamma,
     int has_clip, float clip) {
-  constexpr int V = 4;     // outputs per message item
-  constexpr int V16 = 16 / sizeof(CD);  // CD values per 16-byte copy
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = (int)cluster.block_rank();
-  const int s = blockIdx.x / NCL;
+  const float* xc = conv_stack::run<CD>(smem_raw, x0, K, edges, mask, inv_deg,
+                                        root1, bias1, root2, bias2, R, W, E,
+                                        depth, eb, stage_k);
+  if (cooperative_groups::this_cluster().block_rank() != 0) return;
+  const int s = blockIdx.x / conv_stack::NCL;
   const int tid = threadIdx.x, nt = blockDim.x;
-  const int RW = R * W, G = W / V;
-
-  // shared layout: [K slice (if staged)] [root] xa xb ra rb part msl msk
-  // src dst; x* hold node features, r* the same rounded to CD
-  CD* ks_smem = reinterpret_cast<CD*>(smem_raw);
-  CD* root_s = ks_smem + (stage_k ? (size_t)eb * W * W : 0);
-  float* xa = reinterpret_cast<float*>(root_s + W * W);
-  float* xb = xa + RW;
-  float* ra = xb + RW;
-  float* rb = ra + RW;
-  float* part = rb + RW;
-  float* msl = part + RW;
-  float* msk = msl + eb * W;
-  int* src = reinterpret_cast<int*>(msk + eb);
-  int* dst = src + eb;
-
-  const int e0 = rank * eb;
-  const int ne = max(0, min(eb, E - e0));
-  for (int i = tid; i < ne; i += nt) {
-    src[i] = edges[(size_t)s * 2 * E + e0 + i];
-    dst[i] = edges[(size_t)s * 2 * E + E + e0 + i];
-    msk[i] = mask[(size_t)s * E + e0 + i];
-  }
-  for (int i = tid; i < RW; i += nt) {
-    xa[i] = x0[(size_t)s * RW + i];
-    ra[i] = round_cd<CD>(xa[i]);
-  }
-
-  const CD* kg = K + ((size_t)s * E + e0) * W * W;
-  const CD* kb = kg;
-  if (stage_k) {
-    const uint4* from = reinterpret_cast<const uint4*>(kg);
-    uint4* to = reinterpret_cast<uint4*>(ks_smem);
-    const int n16 = ne * W * W / V16;
-#pragma unroll 4
-    for (int i = tid; i < n16; i += nt) to[i] = from[i];
-    kb = ks_smem;
-  }
-  const int nb_out = (RW + NCL - 1) / NCL;  // outputs each block reduces
-
-  const float* invd = inv_deg + (size_t)s * R;
-  float* xc = xa;
-  float* xn = xb;
-  float* xr = ra;
-  float* xrn = rb;
-
-  for (int layer = 0; layer < 2 * depth; ++layer) {
-    const float* bias = layer < depth ? bias1 : bias2;
-    if (layer == 0 || layer == depth) {
-      const uint4* from = reinterpret_cast<const uint4*>(layer < depth ? root1 : root2);
-      uint4* to = reinterpret_cast<uint4*>(root_s);
-      for (int i = tid; i < W * W / V16; i += nt) to[i] = from[i];
-    }
-    __syncthreads();
-
-    // messages m[e] = cd(x[src[e]]) @ K[e], f32 sums, masked, rounded to CD
-    for (int item = tid; item < ne * G; item += nt) {
-      const int e = item / G, v0 = (item % G) * V;
-      const float* xs = xr + src[e] * W;
-      const CD* kp = kb + (size_t)e * W * W + v0;
-      float acc[V];
-      for (int j = 0; j < V; ++j) acc[j] = 0.f;
-#pragma unroll 8
-      for (int wi = 0; wi < W; ++wi) {
-        float kv[V];
-        load4(kp + wi * W, kv);
-        const float xv = xs[wi];
-        for (int j = 0; j < V; ++j) acc[j] = fmaf(xv, kv[j], acc[j]);
-      }
-      for (int j = 0; j < V; ++j) msl[e * W + v0 + j] = round_cd<CD>(acc[j] * msk[e]);
-    }
-    __syncthreads();
-
-    // per-target sums over this block's edges: one thread per column
-    // walks the edges in order
-    for (int i = tid; i < RW; i += nt) part[i] = 0.f;
-    __syncthreads();
-    for (int v = tid; v < W; v += nt)
-      for (int e = 0; e < ne; ++e) part[dst[e] * W + v] += msl[e * W + v];
-    cluster.sync();
-
-    // this block's share of the outputs: add the cluster's partial sums in
-    // rank order, x' = relu(agg * inv_deg + cd(x) @ cd(root) + bias), and
-    // write x' into every block of the cluster
-    for (int idx = rank * nb_out + tid; idx < min(RW, (rank + 1) * nb_out);
-         idx += nt) {
-      const int j = idx / W, v = idx % W;
-      float agg = 0.f;
-#pragma unroll
-      for (int r = 0; r < NCL; ++r) agg += cluster.map_shared_rank(part, r)[idx];
-      float rx = 0.f;
-      const float* xj = xr + j * W;
-#pragma unroll 8
-      for (int wi = 0; wi < W; ++wi) rx = fmaf(xj[wi], to_f32<CD>(root_s[wi * W + v]), rx);
-      const float z = __fadd_rn(__fadd_rn(__fmul_rn(agg, invd[j]), rx), bias[v]);
-      const float out = relu_nan(z);
-      const float out_r = round_cd<CD>(out);
-#pragma unroll
-      for (int r = 0; r < NCL; ++r) {
-        cluster.map_shared_rank(xn, r)[idx] = out;
-        cluster.map_shared_rank(xrn, r)[idx] = out_r;
-      }
-    }
-    cluster.sync();  // x' complete everywhere; partial sums free again
-    float* t = xc;
-    xc = xn;
-    xn = t;
-    t = xr;
-    xr = xrn;
-    xrn = t;
-  }
-
-  if (rank != 0) return;
   float* win = window + (size_t)s * T * R * 3;
   const int F = R * 3;
   for (int idx = tid; idx < F; idx += nt) {
@@ -216,11 +79,6 @@ __global__ void __launch_bounds__(kThreads) conv_head_kernel(
   }
 }
 
-size_t smem_bytes(int R, int W, int eb, int cd_size, bool stage_k) {
-  return (stage_k ? (size_t)eb * W * W * cd_size : 0) + (size_t)W * W * cd_size +
-         (size_t)5 * R * W * 4 + (size_t)eb * W * 4 + (size_t)eb * 3 * 4;
-}
-
 // Returns a CUDA error code; cudaErrorInvalidConfiguration when the slice
 // does not fit shared memory or the card cannot co-schedule the cluster.
 template <typename CD>
@@ -231,43 +89,15 @@ int launch(const float* x0, const void* K, const int* edges, const float* mask,
            int W, int E, int T, int depth, int predict_delta, float head_scale,
            int extrapolate, float gamma, int has_clip, float clip,
            cudaStream_t st) {
-  auto kernel = conv_head_kernel<CD>;
-  const int eb = (E + NCL - 1) / NCL;
-  // stage each block's K slice in shared memory when it fits
-  const bool stage = smem_bytes(R, W, eb, sizeof(CD), true) <= (size_t)kMaxSmem;
-  const size_t smem = smem_bytes(R, W, eb, sizeof(CD), stage);
-  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidConfiguration;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-  if (err != cudaSuccess) return (int)err;
-
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = NCL;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t config = {};
-  config.gridDim = dim3(S * NCL);
-  config.blockDim = dim3(kThreads);
-  config.dynamicSmemBytes = smem;
-  config.stream = st;
-  config.attrs = attr;
-  config.numAttrs = 1;
-  int clusters = 0;
-  err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &config);
-  if (err != cudaSuccess) return (int)err;
-  if (clusters < 1) return (int)cudaErrorInvalidConfiguration;
-  err = cudaLaunchKernelEx(&config, kernel, x0, static_cast<const CD*>(K), edges,
-                           mask, inv_deg, static_cast<const CD*>(root1), bias1,
-                           static_cast<const CD*>(root2), bias2, fc2_w, fc2_b,
-                           window, coords, R, W, E, T, depth, eb, (int)stage,
-                           predict_delta, head_scale, extrapolate, gamma,
-                           has_clip, clip);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  conv_stack::Plan p;
+  const int rc = conv_stack::plan(R, W, E, sizeof(CD), &p);
+  if (rc != 0) return rc;
+  return conv_stack::launch_clusters(
+      conv_head_kernel<CD>, S, p.smem, st, x0, static_cast<const CD*>(K), edges,
+      mask, inv_deg, static_cast<const CD*>(root1), bias1,
+      static_cast<const CD*>(root2), bias2, fc2_w, fc2_b, window, coords, R, W,
+      E, T, depth, p.eb, p.stage_k, predict_delta, head_scale, extrapolate,
+      gamma, has_clip, clip);
 }
 
 }  // namespace
@@ -284,14 +114,16 @@ extern "C" int mdno_conv_head(
       (predict_delta && extrapolate && T < 2))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (cd_bf16)
-    return launch<__nv_bfloat16>(x0, K, edges, mask, inv_deg, root1, bias1,
-                                 root2, bias2, fc2_w, fc2_b, window, coords,
-                                 S, R, W, E, T, depth, predict_delta,
-                                 head_scale, extrapolate, gamma, has_clip,
-                                 clip, st);
-  return launch<float>(x0, K, edges, mask, inv_deg, root1, bias1, root2,
-                       bias2, fc2_w, fc2_b, window, coords, S, R, W, E, T,
-                       depth, predict_delta, head_scale, extrapolate, gamma,
-                       has_clip, clip, st);
+  const int rc =
+      cd_bf16
+          ? launch<__nv_bfloat16>(x0, K, edges, mask, inv_deg, root1, bias1,
+                                  root2, bias2, fc2_w, fc2_b, window, coords,
+                                  S, R, W, E, T, depth, predict_delta,
+                                  head_scale, extrapolate, gamma, has_clip,
+                                  clip, st)
+          : launch<float>(x0, K, edges, mask, inv_deg, root1, bias1, root2,
+                          bias2, fc2_w, fc2_b, window, coords, S, R, W, E, T,
+                          depth, predict_delta, head_scale, extrapolate, gamma,
+                          has_clip, clip, st);
+  return rc != 0 ? rc : (int)cudaGetLastError();
 }

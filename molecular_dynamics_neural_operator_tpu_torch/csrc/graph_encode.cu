@@ -4,7 +4,9 @@
 // molecular_dynamics_neural_operator_tpu/ops/pallas/persistent_rollout.py
 // (persistent_rollout, body _kernel): the contact test on the window's last
 // frame (:164-172), the row-major padded edge extraction with its overflow
-// flag (:174-223), and the LSTM + embedding + fc1 node encoder (:225-262).
+// flag (:174-223), and the LSTM + embedding + fc1 node encoder (:225-262)
+// with its electrostatics="dh" branch (:248-261, set-up :475-505): the
+// Debye-Hueckel potential at each residue, fc1's eighth input.
 // One block per stream.
 //
 // Bound: neither bytes nor operations. Per stream it reads the (T, R, 3)
@@ -18,6 +20,14 @@
 // registers, and computes the squared distances with round-to-nearest
 // intrinsics in the order (dx*dx + dy*dy) + dz*dz so the contact bits equal
 // those of the plain PyTorch version.
+//
+// The dh branch forms the same d2 again (same intrinsics, same order, so
+// the same value the contact test saw) for a row per warp and sums
+// l_B q_j exp(-kappa d) / d over the sources j != i with a warp reduction
+// in a fixed order. expf, sqrtf and the division round in the last place
+// unlike PyTorch's and the sum runs in another order, so phi, and with it
+// x0, agrees with the plain version to about 1e-6 of its scale, not to the
+// bit; the contact bits do not depend on it. No fast-math flags.
 
 #include "common.cuh"
 
@@ -44,9 +54,11 @@ __global__ void __launch_bounds__(kThreads) graph_encode_kernel(
     const float* __restrict__ b_hh,     // (12)
     const float* __restrict__ lfc_w,    // (3, 3)
     const float* __restrict__ lfc_b,    // (3)
-    const float* __restrict__ fc1_w,    // (D + 3, W)
+    const float* __restrict__ fc1_w,    // (D + 3 + dh, W)
     const float* __restrict__ fc1_b,    // (W)
+    const float* __restrict__ charges,  // (R) or null without dh
     int T, int R, int D, int W, int E, float thr2,
+    int dh, float dh_kappa, float dh_lb, float dh_min_dist,
     int* __restrict__ edges,            // (S, 2, E)
     float* __restrict__ mask,           // (S, E)
     int* __restrict__ count,            // (S)
@@ -143,6 +155,28 @@ __global__ void __launch_bounds__(kThreads) graph_encode_kernel(
     }
   }
 
+  // 3b. Debye-Hueckel potential at residue i from the sources j != i:
+  // phi_i = l_B sum_j q_j exp(-kappa d_ij) / d_ij, d = sqrt(max(d2, min^2))
+  if (dh) {
+    const float min2 = dh_min_dist * dh_min_dist;
+    for (int i = warp; i < R; i += nwarps) {
+      float acc = 0.f;
+      for (int j = lane; j < R; j += 32) {
+        if (j == i) continue;
+        const float dx = __fsub_rn(pos[i * 3 + 0], pos[j * 3 + 0]);
+        const float dy = __fsub_rn(pos[i * 3 + 1], pos[j * 3 + 1]);
+        const float dz = __fsub_rn(pos[i * 3 + 2], pos[j * 3 + 2]);
+        const float d2 = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
+                                   __fmul_rn(dz, dz));
+        const float d = sqrtf(fmaxf(d2, min2));
+        acc += dh_lb * charges[j] * expf(-dh_kappa * d) / d;
+      }
+      for (int off = 16; off > 0; off >>= 1)
+        acc += __shfl_xor_sync(0xffffffffu, acc, off);
+      if (lane == 0) feat[i * kMaxFeat + D + 3] = acc;
+    }
+  }
+
   // 4. LSTM over the T frames: four lanes per residue, lane g computes the
   // gates g*3 .. g*3+2 (i, f, g, o blocks) and the four exchange them
   float wi[3][kHidden], wh[kHidden][kHidden], bi[kHidden], bh[kHidden];
@@ -195,7 +229,7 @@ __global__ void __launch_bounds__(kThreads) graph_encode_kernel(
     inv_deg[(size_t)s * R + j] = 1.f / (float)max(deg[j], 1);
 
   // 5. fc1 + ReLU -> x0
-  const int nf = D + 3;
+  const int nf = D + 3 + (dh ? 1 : 0);  // [emb ; lstm ; phi]
   for (int idx = tid; idx < R * W; idx += nt) {
     const int r = idx / W, o = idx % W;
     float a = 0.f;
@@ -210,21 +244,23 @@ extern "C" int mdno_graph_encode(
     const float* window, const float* emb_aa, const float* w_ih,
     const float* w_hh, const float* b_ih, const float* b_hh,
     const float* lfc_w, const float* lfc_b, const float* fc1_w,
-    const float* fc1_b, int S, int T, int R, int D, int W, int E,
-    float thr2, int cd_bf16, int* edges, float* mask, int* count,
+    const float* fc1_b, const float* charges, int S, int T, int R, int D,
+    int W, int E, float thr2, int cd_bf16, int dh, float dh_kappa,
+    float dh_lb, float dh_min_dist, int* edges, float* mask, int* count,
     int* overflow, float* inv_deg, void* ef, float* x0, void* stream) {
-  if (R > kMaxR || T * R * 3 > kMaxWin || D + 3 > kMaxFeat || S < 1 || T < 1)
+  if (R > kMaxR || T * R * 3 > kMaxWin || D + 3 + (dh ? 1 : 0) > kMaxFeat ||
+      S < 1 || T < 1 || (dh && charges == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (cd_bf16) {
     graph_encode_kernel<__nv_bfloat16><<<S, kThreads, 0, st>>>(
         window, emb_aa, w_ih, w_hh, b_ih, b_hh, lfc_w, lfc_b, fc1_w, fc1_b,
-        T, R, D, W, E, thr2, edges, mask, count, overflow, inv_deg,
+        charges, T, R, D, W, E, thr2, dh, dh_kappa, dh_lb, dh_min_dist, edges, mask, count, overflow, inv_deg,
         static_cast<__nv_bfloat16*>(ef), x0);
   } else {
     graph_encode_kernel<float><<<S, kThreads, 0, st>>>(
         window, emb_aa, w_ih, w_hh, b_ih, b_hh, lfc_w, lfc_b, fc1_w, fc1_b,
-        T, R, D, W, E, thr2, edges, mask, count, overflow, inv_deg,
+        charges, T, R, D, W, E, thr2, dh, dh_kappa, dh_lb, dh_min_dist, edges, mask, count, overflow, inv_deg,
         static_cast<float*>(ef), x0);
   }
   return (int)cudaGetLastError();

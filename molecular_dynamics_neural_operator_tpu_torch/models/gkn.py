@@ -16,9 +16,15 @@ hand-written kernel of ``ops/cuda/train_conv.py``, forward and backward:
 CUDA for CUDA tensors, its plain version for CPU tensors. ``"xla"``
 selects the per-layer path through ``gkn_apply_single``.
 
+With ``electrostatics="dh"`` the Debye-Hückel potential at each residue,
+from the window's last frame, is the eighth fc1 input
+(``preprocess/grid.py``). With ``conv_impl="pallas"`` (again the JAX
+package's name) the edge MLP and both conv stacks run as the fused
+hand-written kernel of ``ops/cuda/fused_gkn.py``, forward only.
+
 Not ported yet (``NotImplementedError``): dense graphs, ``window_diff``,
-``legacy_no_lstm``, ``electrostatics="dh"``, ``conv_impl="pallas"``,
-``kernel_quant="int8"`` and the segment/blocked scatter modes.
+``legacy_no_lstm``, ``kernel_quant="int8"`` and the segment/blocked
+scatter modes.
 """
 
 from __future__ import annotations
@@ -31,6 +37,9 @@ from molecular_dynamics_neural_operator_tpu_torch.configs import ModelConfig
 from molecular_dynamics_neural_operator_tpu_torch.device import compute_dtype
 from molecular_dynamics_neural_operator_tpu_torch.ops.conv_stack import (
     tied_conv_stack,
+)
+from molecular_dynamics_neural_operator_tpu_torch.ops.cuda.fused_gkn import (
+    fused_conv_stack_from_graph,
 )
 from molecular_dynamics_neural_operator_tpu_torch.ops.cuda.train_conv import (
     MAX_WIDTH as TRAIN_CONV_MAX_WIDTH,
@@ -52,6 +61,10 @@ from molecular_dynamics_neural_operator_tpu_torch.ops.mlp import (
     linear_init,
     mlp_apply,
     mlp_init,
+)
+from molecular_dynamics_neural_operator_tpu_torch.preprocess.grid import (
+    debye_huckel_at_atoms,
+    residue_charges,
 )
 
 
@@ -78,21 +91,26 @@ class GKNBatch(NamedTuple):
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for the options the port does not cover yet. Ported: the
     sparse one-hot forward (rollout and training), both priors,
-    ``head_scale``, tied and untied edge kernels, ``fused_conv_vjp`` and
-    both values of ``train_conv_impl``."""
+    ``head_scale``, tied and untied edge kernels, ``fused_conv_vjp``,
+    ``electrostatics="dh"`` and both values of ``train_conv_impl`` and
+    ``conv_impl``."""
     if cfg.train_conv_impl not in ("xla", "pallas"):
         raise ValueError(
             f"unknown train_conv_impl: {cfg.train_conv_impl!r}")
+    if cfg.conv_impl not in ("xla", "pallas"):
+        raise ValueError(f"unknown conv_impl: {cfg.conv_impl!r}")
+    if cfg.electrostatics not in ("none", "dh"):
+        raise ValueError(f"unknown electrostatics: {cfg.electrostatics!r}")
+    if cfg.legacy_no_lstm and cfg.conv_impl == "pallas":
+        raise ValueError(
+            "legacy_no_lstm (single conv stack) supports conv_impl='xla' "
+            "only: the fused kernel bakes in both stacks")
     for flag, name in ((cfg.window_diff, "window_diff"),
                        (cfg.legacy_no_lstm, "legacy_no_lstm")):
         if flag:
             raise NotImplementedError(f"{name}=True is not ported yet")
-    if cfg.electrostatics != "none":
-        raise NotImplementedError("electrostatics='dh' is not ported yet")
     if cfg.graph_mode != "sparse":
         raise NotImplementedError("only graph_mode='sparse' is ported")
-    if cfg.conv_impl != "xla":
-        raise NotImplementedError("conv_impl='pallas' is not ported yet")
     if cfg.kernel_quant != "none":
         raise NotImplementedError("kernel_quant='int8' is not ported yet")
     if cfg.scatter_mode not in ("auto", "onehot"):
@@ -101,6 +119,12 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.neighbor_impl != "dense_rank":
         raise NotImplementedError(
             f"neighbor_impl={cfg.neighbor_impl!r} is not ported yet")
+
+
+def _node_in_features(cfg: ModelConfig) -> int:
+    """fc1 input width: the 7 base features plus the electrostatic
+    potential under ``electrostatics="dh"``."""
+    return cfg.node_features + (1 if cfg.electrostatics == "dh" else 0)
 
 
 def gkn_init(cfg: ModelConfig, seed: int = 0, device=None):
@@ -114,7 +138,7 @@ def gkn_init(cfg: ModelConfig, seed: int = 0, device=None):
         "lstm": lstm_init(gen, cfg.x_position_dim, cfg.x_position_dim, device),
         "lstm_fc": linear_init(gen, cfg.x_position_dim, cfg.x_position_dim,
                                device),
-        "fc1": linear_init(gen, cfg.node_features, w, device),
+        "fc1": linear_init(gen, _node_in_features(cfg), w, device),
         "edge_kernel": mlp_init(
             gen, [cfg.edge_features, cfg.ker_width, cfg.ker_width, w * w],
             device),
@@ -140,18 +164,34 @@ def gkn_init(cfg: ModelConfig, seed: int = 0, device=None):
     return params
 
 
-def encode_nodes(params, emb_aa, window):
-    """window (..., T, R, 3) + embedding rows emb_aa (R, D) -> node
-    features (..., R, width): LSTM over time, lstm_fc, concat with the
-    embedding, fc1, ReLU. All f32."""
+def encode_nodes(params, emb_aa, window, phi=None):
+    """window (..., T, R, 3) + embedding rows emb_aa (R, D) or (..., R, D)
+    -> node features (..., R, width): LSTM over time, lstm_fc, concat with
+    the embedding [and the potential phi (..., R)], fc1, ReLU. All f32."""
     h = lstm_apply(params["lstm"], window.movedim(-3, 0))       # (..., R, 3)
     h = linear_apply(params["lstm_fc"], h)
-    x = torch.cat([emb_aa.expand(h.shape[:-1] + (-1,)), h], dim=-1)
-    return torch.relu(linear_apply(params["fc1"], x))
+    feats = [emb_aa.expand(h.shape[:-1] + (-1,)), h]
+    if phi is not None:
+        feats.append(phi[..., None])
+    return torch.relu(linear_apply(params["fc1"], torch.cat(feats, dim=-1)))
+
+
+def dh_potential(cfg: ModelConfig, charges, frame):
+    """The Debye-Hückel node feature of ``frame`` (..., R, 3) with the
+    configuration's solvent; charges (R,) or (..., R)."""
+    return debye_huckel_at_atoms(
+        frame, charges, eps_s=cfg.eps_solvent, temperature=cfg.temperature,
+        ionic_strength_M=cfg.ionic_strength)
 
 
 def _encode_nodes(params, cfg: ModelConfig, aa, window):
-    return encode_nodes(params, params["emb"][aa.long()], window)
+    """aa (R,) or, one sequence per leading index of window, (..., R)."""
+    phi = None
+    if cfg.electrostatics == "dh":
+        # from the window's last frame: recomputed from the predicted
+        # coordinates at every rollout step
+        phi = dh_potential(cfg, residue_charges(aa), window[..., -1, :, :])
+    return encode_nodes(params, params["emb"][aa.long()], window, phi)
 
 
 def residual_prior(cfg: ModelConfig, window):
@@ -184,6 +224,11 @@ def gkn_apply_single(params, cfg: ModelConfig, aa, window,
             "more than 512 nodes needs the segment scatter, not ported yet")
     cd = compute_dtype(cfg)
     x = _encode_nodes(params, cfg, aa, window)
+    if cfg.conv_impl == "pallas":
+        # edge MLP and both conv stacks as one hand-written kernel
+        x = fused_conv_stack_from_graph(params, cfg, x, graph.edges,
+                                        graph.mask, graph.edge_feats)
+        return _head(params, cfg, window, x, return_latent)
     k1 = edge_kernel_matrices(params["edge_kernel"], graph.edge_feats,
                               cfg.width, cd, tensor_cores)
     k2 = k1 if cfg.tie_edge_kernel else edge_kernel_matrices(
@@ -203,12 +248,17 @@ def gkn_apply_single(params, cfg: ModelConfig, aa, window,
                 x = torch.relu(edge_conv_sparse(
                     params[conv], x, kernels, graph.edges, graph.mask,
                     inv_deg, "onehot", cd))
-    latent = x
+    return _head(params, cfg, window, x, return_latent)
+
+
+def _head(params, cfg: ModelConfig, window, x, return_latent: bool):
+    """fc2 on the conv stack's output x, plus the prior under
+    ``predict_delta``; x is the latent."""
     out = linear_apply(params["fc2"], x)
     if cfg.predict_delta:
         out = cfg.head_scale * out + residual_prior(cfg, window)
     if return_latent:
-        return out, latent
+        return out, x
     return out
 
 
@@ -259,10 +309,4 @@ def _gkn_apply_kernel_batched(params, cfg: ModelConfig, batch: GKNBatch,
         inv_deg.contiguous(),
         params["conv1"]["root"], params["conv1"]["bias"],
         params["conv2"]["root"], params["conv2"]["bias"], cfg.depth)
-    latent = x
-    out = linear_apply(params["fc2"], x)
-    if cfg.predict_delta:
-        out = cfg.head_scale * out + residual_prior(cfg, batch.window)
-    if return_latent:
-        return out, latent
-    return out
+    return _head(params, cfg, batch.window, x, return_latent)

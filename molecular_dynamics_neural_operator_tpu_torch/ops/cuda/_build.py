@@ -22,7 +22,7 @@ PACKAGE = Path(__file__).resolve().parents[2]
 CSRC = PACKAGE / "csrc"
 BUILD = PACKAGE / "build"
 SOURCES = ("graph_encode", "edge_mlp", "conv_head", "train_conv_fwd",
-           "train_conv_bwd")
+           "train_conv_bwd", "fused_gkn")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -43,7 +43,8 @@ def _nvcc() -> str:
 def _target(name: str) -> Path:
     h = hashlib.sha256(" ".join(FLAGS).encode())
     h.update((CSRC / f"{name}.cu").read_bytes())
-    h.update((CSRC / "common.cuh").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     return BUILD / f"{name}-{h.hexdigest()[:16]}.so"
 
 

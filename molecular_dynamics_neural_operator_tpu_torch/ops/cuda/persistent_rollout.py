@@ -22,6 +22,16 @@ Where the plain versions serve as the oracle on the card, the caller turns
 TF32 off (``torch.backends.cuda.matmul.allow_tf32 = False``,
 ``torch.backends.cudnn.allow_tf32 = False``) so their f32 products are
 full f32.
+
+With ``electrostatics="dh"`` ``graph_encode`` also forms the Debye-Hückel
+potential at each residue from the squared distances of its contact test
+and feeds it to fc1 as the eighth input.
+
+``PreparedRollout`` splits preparation from the step loop: the weights
+are cast once and the step buffers are kept per stream count, so a server
+that runs segment after segment allocates nothing but the coordinates.
+``rollout_kernels`` and ``make_persistent_rollout_fn`` are one-shot calls
+of it.
 """
 
 from __future__ import annotations
@@ -42,6 +52,7 @@ from molecular_dynamics_neural_operator_tpu_torch.geometry.contact import (
     padded_edges_device,
 )
 from molecular_dynamics_neural_operator_tpu_torch.models.gkn import (
+    dh_potential,
     encode_nodes,
     residual_prior,
 )
@@ -54,15 +65,24 @@ from molecular_dynamics_neural_operator_tpu_torch.ops.cuda._launch import (
     raise_on as _raise_on,
     register_kernel,
 )
+from molecular_dynamics_neural_operator_tpu_torch.ops.cuda._plain import (
+    conv_stack_plain,
+    edge_mlp_plain,
+)
 from molecular_dynamics_neural_operator_tpu_torch.ops.edge_conv import (
-    edge_conv_sparse,
     sparse_inv_degree,
 )
 from molecular_dynamics_neural_operator_tpu_torch.ops.mlp import linear_apply
+from molecular_dynamics_neural_operator_tpu_torch.preprocess.grid import (
+    DH_MIN_DIST,
+    bjerrum_length,
+    debye_kappa,
+    residue_charges,
+)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 register_kernel("graph_encode", "mdno_graph_encode",
-                [_P] * 10 + [_I] * 6 + [_F, _I] + [_P] * 8)
+                [_P] * 11 + [_I] * 6 + [_F, _I, _I, _F, _F, _F] + [_P] * 8)
 register_kernel("edge_mlp", "mdno_edge_mlp", [_P] * 5 + [_I] * 5 + [_P])
 register_kernel("conv_head", "mdno_conv_head",
                 [_P] * 13 + [_I] * 7 + [_F, _I, _F, _I, _F, _I, _P])
@@ -108,7 +128,9 @@ def alloc_buffers(cfg: ModelConfig, streams: int, num_nodes: int,
 def rollout_weights(params, cfg: ModelConfig, aa, device):
     """The parameters as the kernels take them: encoder, fc2 and biases in
     f32, the edge-MLP weights and conv roots in the compute dtype, the
-    embedding rows of ``aa`` gathered once."""
+    embedding rows of ``aa`` gathered once. Under ``electrostatics="dh"``
+    fc1 keeps its eighth row (the potential's) and ``charges`` holds the
+    residues' charges; ``cfg`` rides along for the solvent's constants."""
     cd = compute_dtype(cfg)
 
     def f32(t):
@@ -122,6 +144,9 @@ def rollout_weights(params, cfg: ModelConfig, aa, device):
         raise ValueError("the edge-kernel MLP must be 6 -> kw -> kw -> w^2")
     aa = torch.as_tensor(aa, device=device).long()
     return {
+        "cfg": cfg,
+        "charges": (f32(residue_charges(aa))
+                    if cfg.electrostatics == "dh" else None),
         "emb_aa": f32(params["emb"].to(device)[aa]),
         "lstm": {k: f32(v) for k, v in params["lstm"].items()},
         "lstm_fc": lin(params["lstm_fc"]),
@@ -149,7 +174,10 @@ def graph_encode_plain(window, weights, threshold: float, max_edges: int,
                                              return_count=True)
     ef = edge_features_from_edges(pos, edges).to(cd)
     inv_deg = sparse_inv_degree(edges, mask, window.shape[2])
-    x0 = encode_nodes(weights, weights["emb_aa"], window)
+    phi = None
+    if weights["charges"] is not None:
+        phi = dh_potential(weights["cfg"], weights["charges"], pos)
+    x0 = encode_nodes(weights, weights["emb_aa"], window, phi)
     return edges, mask, count, count > max_edges, inv_deg, ef, x0
 
 
@@ -174,10 +202,13 @@ def graph_encode(window: torch.Tensor, weights, threshold: float,
     d = emb.shape[-1]
     lstm, lfc, fc1 = weights["lstm"], weights["lstm_fc"], weights["fc1"]
     f32, i32, cd = torch.float32, torch.int32, out.ef.dtype
-    if r > 128 or t * r * 3 > 4096 or d + 3 > 16:
+    charges, cfg = weights["charges"], weights["cfg"]
+    dh = charges is not None
+    nf = d + 3 + int(dh)            # fc1 inputs: [emb ; lstm ; phi]
+    if r > 128 or t * r * 3 > 4096 or nf > 16:
         raise ValueError("graph_encode takes at most 128 residues, a window "
-                         "of at most 4096 coordinates and an embedding of at "
-                         "most 13")
+                         "of at most 4096 coordinates and at most 16 node "
+                         "features")
     args = [
         _check(window, "window", f32, (s, t, r, 3), dev),
         _check(emb, "emb_aa", f32, (r, d), dev),
@@ -187,9 +218,15 @@ def graph_encode(window: torch.Tensor, weights, threshold: float,
         _check(lstm["b_hh"], "b_hh", f32, (12,), dev),
         _check(lfc["w"], "lstm_fc.w", f32, (3, 3), dev),
         _check(lfc["b"], "lstm_fc.b", f32, (3,), dev),
-        _check(fc1["w"], "fc1.w", f32, (d + 3, w), dev),
+        _check(fc1["w"], "fc1.w", f32, (nf, w), dev),
         _check(fc1["b"], "fc1.b", f32, (w,), dev),
+        _check(charges, "charges", f32, (r,), dev) if dh else None,
         s, t, r, d, w, e, float(threshold) * float(threshold), _cd_flag(cd),
+        int(dh),
+        debye_kappa(cfg.ionic_strength, cfg.eps_solvent,
+                    cfg.temperature) if dh else 0.0,
+        bjerrum_length(cfg.eps_solvent, cfg.temperature) if dh else 0.0,
+        DH_MIN_DIST,
         _check(out.edges, "edges", i32, (s, 2, e), dev),
         _check(out.mask, "mask", f32, (s, e), dev),
         _check(out.count, "count", i32, (s,), dev),
@@ -207,17 +244,6 @@ graph_encode.launches = 0
 
 
 # ---- edge_mlp -----------------------------------------------------------
-
-def edge_mlp_plain(a, w, b, relu: bool, row_mask=None):
-    """Plain version: act(a @ w + b) * row_mask in a's dtype, with the
-    products of the (already rounded) operands summed in f32."""
-    y = a.float() @ w.float() + b
-    if relu:
-        y = torch.relu(y)
-    if row_mask is not None:
-        y = y * row_mask[:, None]
-    return y.to(a.dtype)
-
 
 def edge_mlp(a: torch.Tensor, w: torch.Tensor, b: torch.Tensor, relu: bool,
              row_mask: torch.Tensor | None = None,
@@ -258,14 +284,8 @@ def conv_head_plain(x0, kmat, edges, mask, inv_deg, weights,
                     cfg: ModelConfig, clip, window):
     """Plain version: tied conv stack, fc2 head, prior and clip; slides
     window (S, T, R, 3) in place and returns this step's (S, R, 3)."""
-    s, e = mask.shape
-    w = x0.shape[-1]
-    kernels = kmat.reshape(s, e, w, w)
-    x = x0
-    for layer in range(2 * cfg.depth):
-        conv = weights["conv1" if layer < cfg.depth else "conv2"]
-        x = torch.relu(edge_conv_sparse(conv, x, kernels, edges, mask,
-                                        inv_deg, "onehot", kmat.dtype))
+    x = conv_stack_plain(x0, kmat, edges, mask, inv_deg, weights["conv1"],
+                         weights["conv2"], cfg.depth)
     out = linear_apply(weights["fc2"], x)
     if cfg.predict_delta:
         out = cfg.head_scale * out + residual_prior(cfg, window)
@@ -333,7 +353,7 @@ def launch_counts() -> dict:
 # ---- the rollout --------------------------------------------------------
 
 def _guard(cfg: ModelConfig) -> None:
-    """The JAX kernel's refusals, plus what this port has not done yet."""
+    """The JAX kernel's refusals."""
     if not cfg.tie_edge_kernel:
         raise ValueError("persistent rollout requires tie_edge_kernel=True")
     if cfg.legacy_no_lstm:
@@ -345,8 +365,8 @@ def _guard(cfg: ModelConfig) -> None:
     if cfg.kernel_quant != "none":
         raise ValueError("kernel_quant is not supported by the persistent "
                          "rollout kernels")
-    if cfg.electrostatics != "none":
-        raise NotImplementedError("electrostatics='dh' is not ported yet")
+    if cfg.electrostatics not in ("none", "dh"):
+        raise ValueError(f"unknown electrostatics: {cfg.electrostatics!r}")
 
 
 def step(bufs: StepBuffers, weights, cfg: ModelConfig, threshold: float,
@@ -362,29 +382,61 @@ def step(bufs: StepBuffers, weights, cfg: ModelConfig, threshold: float,
     conv_head(bufs, weights, cfg, clip, window, coords)
 
 
+class PreparedRollout:
+    """A rollout with its preparation done once: the configuration is
+    checked and the weights are cast when the object is made, and the step
+    buffers are kept per stream count for its lifetime. A call runs the
+    step loop and allocates only the coordinates. Not re-entrant: two
+    calls at one stream count share their buffers, so a caller with
+    several threads serialises its calls and keeps them on one stream."""
+
+    def __init__(self, params, cfg: ModelConfig, aa, threshold: float = 8.0,
+                 clip: float | None = None, device=None):
+        _guard(cfg)
+        self.cfg, self.threshold, self.clip = cfg, float(threshold), clip
+        self.device = resolve_device(device)
+        self.weights = rollout_weights(params, cfg, aa, self.device)
+        self._buffers: dict = {}
+
+    def buffers(self, streams: int, num_nodes: int) -> StepBuffers:
+        key = (streams, num_nodes)
+        if key not in self._buffers:
+            self._buffers[key] = alloc_buffers(self.cfg, streams, num_nodes,
+                                               self.device)
+        return self._buffers[key]
+
+    def __call__(self, window0, num_steps: int):
+        """(coords, final_window, diags) of a ``num_steps`` rollout from
+        window0 (T, R, 3) or (S, T, R, 3); coords is stream-major. The
+        final window is the kernels' own window buffer: the last T frames
+        of [window0 ; coords], also when num_steps < T."""
+        window = torch.as_tensor(window0, dtype=torch.float32,
+                                 device=self.device)
+        batched = window.dim() == 4
+        if window.dim() not in (3, 4):
+            raise ValueError(f"window0 must be (T, R, 3) or (S, T, R, 3), "
+                             f"got {tuple(window.shape)}")
+        window = (window if batched else window[None]).clone().contiguous()
+        s, _, r, _ = window.shape
+        bufs = self.buffers(s, r)
+        bufs.overflow.zero_()
+        coords = torch.empty(num_steps, s, r, 3, device=self.device)
+        for i in range(num_steps):
+            step(bufs, self.weights, self.cfg, self.threshold, self.clip,
+                 window, coords[i])
+        diags = {"edge_overflow": bufs.overflow[0] > 0}
+        if batched:
+            return coords.transpose(0, 1).contiguous(), window, diags
+        return coords[:, 0], window[0], diags
+
+
 def rollout_kernels(params, cfg: ModelConfig, aa, window0, num_steps: int,
                     threshold: float = 8.0, clip: float | None = None,
                     device=None):
     """(coords, final_window, diags) of a ``num_steps`` rollout from
     window0 (T, R, 3) or (S, T, R, 3)."""
-    _guard(cfg)
-    dev = resolve_device(device)
-    window = torch.as_tensor(window0, dtype=torch.float32, device=dev)
-    batched = window.dim() == 4
-    if window.dim() not in (3, 4):
-        raise ValueError(f"window0 must be (T, R, 3) or (S, T, R, 3), got "
-                         f"{tuple(window.shape)}")
-    window = (window if batched else window[None]).clone().contiguous()
-    s, _, r, _ = window.shape
-    weights = rollout_weights(params, cfg, aa, dev)
-    bufs = alloc_buffers(cfg, s, r, dev)
-    coords = torch.empty(num_steps, s, r, 3, device=dev)
-    for i in range(num_steps):
-        step(bufs, weights, cfg, threshold, clip, window, coords[i])
-    diags = {"edge_overflow": bufs.overflow[0] > 0}
-    if batched:
-        return coords.transpose(0, 1).contiguous(), window, diags
-    return coords[:, 0], window[0], diags
+    return PreparedRollout(params, cfg, aa, threshold, clip, device)(
+        window0, num_steps)
 
 
 def persistent_rollout(params, cfg: ModelConfig, aa, window0,
@@ -403,12 +455,21 @@ def make_persistent_rollout_fn(cfg: ModelConfig, num_steps: int,
     """fn(params, aa, window0) -> (coords, final_window, diags), as
     ``make_rollout_fn``. The final window is the kernels' own window
     buffer: the last T frames of [window0 ; coords], also when
-    num_steps < T."""
+    num_steps < T.
+
+    ``fn.prepare(params, aa)`` returns ``run(window0)`` with the same
+    result, the weights cast once and the step buffers kept per stream
+    count (``PreparedRollout``): the form for a caller that runs many
+    rollouts of one model, such as the server."""
     _guard(cfg)
     dev = resolve_device(device)
 
-    def fn(params, aa, window0):
-        return rollout_kernels(params, cfg, aa, window0, num_steps,
-                               threshold, clip, dev)
+    def prepare(params, aa):
+        prepared = PreparedRollout(params, cfg, aa, threshold, clip, dev)
+        return lambda window0: prepared(window0, num_steps)
 
+    def fn(params, aa, window0):
+        return prepare(params, aa)(window0)
+
+    fn.prepare = prepare
     return fn

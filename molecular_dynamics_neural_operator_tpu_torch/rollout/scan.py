@@ -56,7 +56,8 @@ def _step(params, cfg: ModelConfig, aa, window, threshold: float,
 def rollout_scan(params, cfg: ModelConfig, aa, window0, num_steps: int,
                  threshold: float = 8.0, graph_frame: str = "last",
                  collect: str = "coords", clip: float | None = None):
-    """Roll ``num_steps`` steps from window0 (..., T, R, 3).
+    """Roll ``num_steps`` steps from window0 (..., T, R, 3); aa is (R,),
+    or (..., R) with one sequence per leading index.
 
     collect: "coords" -> (..., num_steps, R, 3); "contact_maps" ->
     (..., num_steps, R, R); "both" -> the tuple of the two. Returns
@@ -87,14 +88,51 @@ def rollout_scan(params, cfg: ModelConfig, aa, window0, num_steps: int,
     return collected, window, {"edge_overflow": overflowed}
 
 
+def rollout_scan_chunked(params, cfg: ModelConfig, aa, window0,
+                         num_steps: int, stream_chunk: int | None,
+                         threshold: float = 8.0, graph_frame: str = "last",
+                         collect: str = "coords", clip: float | None = None):
+    """``rollout_scan`` of window0 (S, T, R, 3) with the streams taken in
+    sequential chunks of ``stream_chunk``: the live kernel tensors are
+    (C, E, w, w) instead of (S, E, w, w), the work is the same. aa is
+    (R,) or, one sequence per stream, (S, R). ``None`` runs all streams
+    at once."""
+    def run(a, w):
+        return rollout_scan(params, cfg, a, w, num_steps, threshold,
+                            graph_frame, collect, clip)
+
+    s = window0.shape[0]
+    if stream_chunk is None:
+        return run(aa, window0)
+    if s % stream_chunk:
+        raise ValueError(f"stream count {s} not divisible by stream_chunk "
+                         f"{stream_chunk}")
+    parts = [run(aa[i:i + stream_chunk] if aa.dim() == 2 else aa,
+                 window0[i:i + stream_chunk])
+             for i in range(0, s, stream_chunk)]
+
+    def cat(xs):
+        if isinstance(xs[0], tuple):
+            return tuple(cat(list(group)) for group in zip(*xs))
+        return torch.cat(xs, dim=0)
+
+    return (cat([p[0] for p in parts]), cat([p[1] for p in parts]),
+            {"edge_overflow": cat([p[2]["edge_overflow"] for p in parts])})
+
+
 def make_rollout_fn(cfg: ModelConfig, num_steps: int, threshold: float = 8.0,
                     graph_frame: str = "last", collect: str = "coords",
                     batched: bool = False, clip: float | None = None,
-                    device=None):
+                    stream_chunk: int | None = None, device=None):
     """fn(params, aa, window0) -> (collected, final_window, diags) on
     ``device`` (``cuda`` unless the caller asks for the CPU). With
-    ``batched=True`` window0 is (S, T, R, 3): S independent streams of one
-    protein, stream-major outputs."""
+    ``batched=True`` window0 is (S, T, R, 3): S independent streams,
+    stream-major outputs, aa (R,) for one protein or (S, R) for one
+    sequence per stream. ``stream_chunk=C`` (batched only, S % C == 0)
+    runs the streams in sequential chunks of C."""
+    if stream_chunk is not None and not batched:
+        raise ValueError("stream_chunk only applies to batched=True "
+                         "rollouts (single-stream has no stream axis)")
     dev = resolve_device(device)
 
     def fn(params, aa, window0):
@@ -104,6 +142,10 @@ def make_rollout_fn(cfg: ModelConfig, num_steps: int, threshold: float = 8.0,
                 f"window0 must be {'(S, T, R, 3)' if batched else '(T, R, 3)'}"
                 f", got {tuple(window0.shape)}")
         aa = torch.as_tensor(aa, device=dev)
+        if batched:
+            return rollout_scan_chunked(params, cfg, aa, window0, num_steps,
+                                        stream_chunk, threshold, graph_frame,
+                                        collect, clip)
         return rollout_scan(params, cfg, aa, window0, num_steps, threshold,
                             graph_frame, collect, clip)
 

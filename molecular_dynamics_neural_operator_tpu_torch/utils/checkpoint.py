@@ -7,8 +7,10 @@ load, as the JAX package's restore casts to its f32 template: the
 committed ``tools/bench_ckpt.npz`` stores its leaves as float16.
 ``save_checkpoint`` writes that format with the JSON sidecar the JAX
 package's ``restore_checkpoint`` reads, so a model trained by either
-package is rolled out by the other. Parameters only: the optimizer state,
-``restore_subtree`` and ``BestCheckpointer`` are not ported yet.
+package is rolled out by the other. ``restore_subtree`` reads the
+parameters out of a bare-params npz or out of a TrainState npz of the JAX
+package into a template's structure. Parameters only: the optimizer state
+and ``BestCheckpointer`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -43,6 +45,47 @@ def load_params_npz(path, device=None):
                 node = node.setdefault(p, {})
             node[leaf] = data[key]
     return params_from_jax(nested, device)
+
+
+def restore_subtree(path, like, prefix: str, device=None):
+    """(tree, metadata): the leaves stored under ``prefix`` restored into
+    the structure of the template ``like`` (nested dicts of tensors, e.g.
+    ``gkn_init(cfg)``), as f32 tensors on ``device``.
+
+    ``restore_subtree(path, gkn_init(cfg), ".params")`` reads the
+    parameters of a TrainState checkpoint (keys ``.params/fc1/w``) without
+    rebuilding the optimizer the run used, and equally a params-only
+    checkpoint with bare keys (``fc1/w``, e.g. ``tools/bench_ckpt.npz``).
+    A leaf whose shape differs from the template's is named in the error:
+    the model flags must match training."""
+    dev = resolve_device(device)
+    path = Path(path)
+    if path.suffix != ".npz":
+        path = path.with_suffix(".npz")
+    side_path = path.with_suffix(path.suffix + ".json")
+    side = json.loads(side_path.read_text()) if side_path.exists() else {}
+
+    def restore(node, bare: str, data):
+        if isinstance(node, dict):
+            return {k: restore(v, f"{bare}/{k}" if bare else str(k), data)
+                    for k, v in node.items()}
+        key = f"{prefix}/{bare}" if bare else prefix
+        if key not in data:
+            if not bare or bare not in data:
+                raise KeyError(f"checkpoint missing leaf {key}")
+            key = bare
+        arr = data[key]
+        if tuple(arr.shape) != tuple(node.shape):
+            raise ValueError(
+                f"checkpoint leaf {key} has shape {tuple(arr.shape)} but "
+                f"the template expects {tuple(node.shape)}: model config "
+                "mismatch (width/depth/electrostatics flags must match "
+                "training)")
+        return torch.as_tensor(np.array(arr, dtype=np.float32), device=dev)
+
+    with np.load(path) as data:
+        tree = restore(like, "", data)
+    return tree, side.get("metadata", {})
 
 
 def _flatten(tree, prefix: str = "") -> dict:

@@ -59,13 +59,42 @@ def test_every_kernel_source_names_what_it_replaces_and_its_bound():
                 "edge_mlp": "ops/pallas/persistent_rollout.py",
                 "conv_head": "ops/pallas/persistent_rollout.py",
                 "train_conv_fwd": "ops/pallas/train_conv.py",
-                "train_conv_bwd": "ops/pallas/train_conv.py"}
+                "train_conv_bwd": "ops/pallas/train_conv.py",
+                "fused_gkn": "ops/pallas/fused_gkn.py"}
     assert {p.stem for p in sources} == set(replaced)
     for p in sources:
         text = p.read_text()
         assert replaced[p.stem] in text
         assert "Bound:" in text
         assert "cudaGetLastError" in text
+    # the headers two sources share say which; _build.py hashes them all
+    for header in ("edge_mlp.cuh", "conv_stack.cuh"):
+        assert "fused_gkn.cu" in (PORT / "csrc" / header).read_text()
+
+
+def test_the_new_modules_are_among_the_checked_sources():
+    checked = {str(p.relative_to(PORT)) for p in SOURCES[:-1]}
+    assert {"serving/server.py", "serving/__init__.py", "cli/serve.py",
+            "cli/__init__.py", "preprocess/grid.py", "preprocess/__init__.py",
+            "ops/cuda/fused_gkn.py", "ops/cuda/_plain.py"} <= checked
+
+
+def test_an_edited_header_rebuilds_every_kernel(tmp_path, monkeypatch):
+    from molecular_dynamics_neural_operator_tpu_torch.ops.cuda import _build
+
+    before = {name: _build._target(name).name for name in _build.SOURCES}
+    assert set(_build.SOURCES) == {p.stem
+                                   for p in (PORT / "csrc").glob("*.cu")}
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for p in (PORT / "csrc").iterdir():
+        (csrc / p.name).write_bytes(p.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    assert {n: _build._target(n).name for n in _build.SOURCES} == before
+    with open(csrc / "conv_stack.cuh", "a") as f:
+        f.write("// edited\n")
+    after = {name: _build._target(name).name for name in _build.SOURCES}
+    assert all(after[name] != before[name] for name in before)
 
 
 def test_entry_points_default_to_the_card(monkeypatch):
@@ -86,10 +115,18 @@ def test_entry_points_default_to_the_card(monkeypatch):
         load_params_npz,
     )
 
+    from molecular_dynamics_neural_operator_tpu_torch.cli import serve
+    from molecular_dynamics_neural_operator_tpu_torch.serving import (
+        RolloutServer,
+    )
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = ModelConfig(graph_mode="sparse")
     for make in (lambda: make_rollout_fn(cfg, 2),
                  lambda: make_persistent_rollout_fn(cfg, 2),
+                 lambda: RolloutServer({}, cfg),
+                 lambda: RolloutServer({}, cfg, impl="persistent", aa=[0]),
+                 lambda: serve._load(serve.parse_args([])),
                  lambda: create_train_state(0, cfg, TrainConfig()),
                  lambda: load_params_npz(ROOT / "tools" / "bench_ckpt.npz")):
         with pytest.raises(RuntimeError, match="no CUDA device"):

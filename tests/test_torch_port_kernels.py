@@ -1,5 +1,5 @@
-"""The port's CUDA kernel wrappers (ops/cuda/persistent_rollout.py and
-ops/cuda/train_conv.py).
+"""The port's CUDA kernel wrappers (ops/cuda/persistent_rollout.py,
+ops/cuda/train_conv.py and ops/cuda/fused_gkn.py).
 
 On the CPU a wrapper runs its kernel's plain version; those tests run
 everywhere. The tests marked ``gpu`` launch the kernels and hold each
@@ -19,6 +19,9 @@ from molecular_dynamics_neural_operator_tpu_torch.data import (
 from molecular_dynamics_neural_operator_tpu_torch.models import gkn_init
 from molecular_dynamics_neural_operator_tpu_torch.models.gkn import (
     residual_prior,
+)
+from molecular_dynamics_neural_operator_tpu_torch.ops.cuda import (
+    fused_gkn as fg,
 )
 from molecular_dynamics_neural_operator_tpu_torch.ops.cuda import (
     persistent_rollout as pr,
@@ -222,3 +225,62 @@ def test_train_conv_kernels_match_the_plain_version_on_the_card(cuda, cd):
                                      for i in grad_slots]:
         scale = ref.float().abs().max().item()
         assert (got.float() - ref.float()).abs().max().item() <= tol * scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cd", ["float32", "bfloat16"])
+@pytest.mark.parametrize("streams", [1, 3])
+def test_graph_encode_with_dh_matches_plain_on_the_card(cuda, cd, streams):
+    cfg = ModelConfig(**SMALL, compute_dtype=cd, electrostatics="dh")
+    _, _, aa, windows = _setup(cd, streams, cuda)
+    params = gkn_init(cfg, seed=0, device=cuda)
+    weights = pr.rollout_weights(params, cfg, aa, cuda)
+    bufs = pr.alloc_buffers(cfg, streams, 12, cuda)
+    pr.reset_launch_counts()
+    pr.graph_encode(windows, weights, 8.0, bufs)
+    edges, mask, count, over, inv_deg, ef, x0 = pr.graph_encode_plain(
+        windows, weights, 8.0, cfg.max_edges, bufs.ef.dtype)
+    torch.cuda.synchronize()
+    assert pr.launch_counts()["graph_encode"] == 1
+    # the contact test does not read the potential: the graph stays exact
+    for got, want in ((bufs.edges, edges), (bufs.mask, mask),
+                      (bufs.count.long(), count), (bufs.inv_deg, inv_deg),
+                      (bufs.ef, ef)):
+        assert torch.equal(got, want)
+    # expf, sqrtf and the division round in the last place unlike
+    # PyTorch's, and the 11 sources are summed in another order
+    torch.testing.assert_close(bufs.x0, x0, rtol=1e-5, atol=1e-5)
+    no_q = dict(weights, charges=torch.zeros_like(weights["charges"]))
+    x0_no_q = pr.graph_encode_plain(windows, no_q, 8.0, cfg.max_edges,
+                                    bufs.ef.dtype)[-1]
+    assert (x0_no_q - x0).abs().max().item() > 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cd", ["float32", "bfloat16"])
+def test_fused_kernel_matches_its_plain_version_on_the_card(cuda, cd):
+    cfg = ModelConfig(**SMALL, compute_dtype=cd)
+    params = gkn_init(cfg, seed=0, device=cuda)
+    rng = np.random.default_rng(0)
+    s, r, e, w = 3, 12, 128, 16
+    mask = torch.zeros(s, e, device=cuda)
+    mask[:, :90] = 1.0
+    edges = torch.as_tensor(rng.integers(0, r, (s, 2, e)), dtype=torch.int32,
+                            device=cuda)
+    edges[:, :, 90:] = 0
+    cdt = torch.float32 if cd == "float32" else torch.bfloat16
+    ef = torch.as_tensor(rng.normal(size=(s, e, 6)).astype(np.float32),
+                         device=cuda).to(cdt)
+    x0 = torch.as_tensor(rng.normal(size=(s, r, w)).astype(np.float32),
+                         device=cuda)
+    ops = (ef, mask, edges, sparse_inv_degree(edges, mask, r), x0,
+           *fg.fused_weights(params, cfg), 2)
+    fg.fused_edge_conv_stack.launches = 0
+    got = fg.fused_edge_conv_stack(*ops)
+    want = fg.fused_edge_conv_stack_plain(*ops)
+    torch.cuda.synchronize()
+    assert fg.fused_edge_conv_stack.launches == 1
+    # f32: sums in another order; bf16: now and then a flipped rounding
+    tol = 1e-4 if cd == "float32" else 2.0 ** -6
+    scale = want.abs().max().item()
+    assert (got - want).abs().max().item() <= tol * scale

@@ -126,9 +126,9 @@ def test_gkn_init_matches_jax_structure():
 
 @pytest.mark.parametrize("opts", [dict(window_diff=True),
                                   dict(legacy_no_lstm=True),
-                                  dict(electrostatics="dh"),
+                                  dict(scatter_mode="segment"),
                                   dict(kernel_quant="int8"),
-                                  dict(conv_impl="pallas"),
+                                  dict(neighbor_impl="cell_list"),
                                   dict(graph_mode="dense")])
 def test_unported_options_raise(opts):
     cfg = dataclasses.replace(ModelConfig(**BASE), **opts)

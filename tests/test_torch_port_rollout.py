@@ -169,7 +169,9 @@ def test_final_window_when_steps_fewer_than_window():
     (dict(legacy_no_lstm=True), ValueError),
     (dict(kernel_quant="int8"), ValueError),
     (dict(tie_edge_kernel=False), ValueError),
-    (dict(electrostatics="dh"), NotImplementedError),
+    # "dh" is ported; a value neither package knows is still refused
+    pytest.param(dict(electrostatics="pb"), ValueError,
+                 id="opts4-NotImplementedError"),
 ])
 def test_kernel_rollout_keeps_the_jax_kernels_guards(opts, err):
     cfg = dataclasses.replace(ModelConfig(**SMALL), **opts)
