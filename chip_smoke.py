@@ -22,9 +22,15 @@ Phases, each fatal:
 
 1. device: a CUDA card is required; prints its name and power limit.
 2. kernel vs plain: each kernel against its plain PyTorch version on the
-   same inputs at the bench shapes (1 and 4 streams, f32 and bf16);
-   conv_head also with seeded random weights, whose conv stack stays
-   alive where the checkpoint's does not.
+   same inputs at the bench shapes (1 and 4 streams in f32; 1, 3, 4 and 8
+   in bf16: 224, 672, 896 and 1,792 edge rows with their real masks, which
+   take different tilings of the edge MLP); the three-launch
+   ``edge_mlp_stack`` against three plain layers; conv_head also with
+   seeded random weights, whose conv stack stays alive where the
+   checkpoint's does not, and on edge lists made to stress the way it
+   deals edges to blocks (a hub whose in-degree exceeds what a block
+   stages and holds at a time, a node without incoming edges, every slot
+   taken with the overflow flagged).
 3. full slice: the kernel rollout against the plain rollout over 128
    steps in f32 and bf16 (and 4 streams in bf16); the bf16 single-stream
    run is the main path, and every kernel must have launched in it.
@@ -48,7 +54,8 @@ Phases, each fatal:
 8. serve, kernel vs plain: ``graph_encode`` with the Debye-Hückel branch
    (f32 and bf16, 1 and 4 streams) and ``fused_edge_conv_stack`` (f32 and
    bf16, 1 and 8 streams, on seeded weights whose conv layers are all
-   alive and on the checkpoint) against their plain versions.
+   alive, on the checkpoint, and on the stress edge lists of phase 2)
+   against their plain versions.
 9. serving run: (a) eight 256-step requests at once and then a mixed,
    staggered trace of twelve on ``impl="persistent"`` with the checkpoint,
    every result held against a dedicated single-stream kernel rollout;
@@ -239,18 +246,63 @@ def check_conv_head(weights, cfg, clip, windows, edges, mask, inv_deg, x0,
     require(err <= tol, f"conv_head coords error {err} > {tol} ({tag})")
     require(torch.equal(win_k[:, :-1], win_p[:, :-1]) and win_err <= tol,
             f"conv_head window slide differs ({tag})")
-    log(f"conv_head {tag} (one 16-block cluster per stream): coords max abs "
+    log(f"conv_head {tag} (one 8-block cluster per stream): coords max abs "
         f"err {err:.3e} A = {err / head_out:.2e} of the head output's max "
         f"{head_out:.3e} A (tolerance {tol:.3e} A)")
     return err
 
 
+HUB_DEGREE = 60  # above the K rows a block stages and holds in registers (23 + 12)
+
+
+def stress_graphs(windows, max_edges: int):
+    """Edge lists (name, edges (S, 2, E) int32, mask (S, E)) that stress how
+    the conv stack deals edges to blocks: (a) node 3 a hub with HUB_DEGREE
+    incoming edges, more than a block stages in shared memory and more than
+    it holds messages for at a time, node 5 with none, 150 real edges in
+    random slots; (b) every slot taken, the contact list of a 12 A
+    threshold cut at ``max_edges`` (the overflow the encoder would flag)."""
+    from molecular_dynamics_neural_operator_tpu_torch.geometry.contact import (
+        contact_map,
+        padded_edges_device,
+    )
+
+    s, _, r, _ = windows.shape
+    dev = windows.device
+    rng = np.random.default_rng(17)
+    edges = np.zeros((s, 2, max_edges), np.int32)
+    mask = np.zeros((s, max_edges), np.float32)
+    for i in range(s):
+        slots = rng.permutation(max_edges)[:150]
+        src = rng.integers(0, r, 150)
+        dst = rng.choice([j for j in range(r) if j not in (3, 5)], 150)
+        dst[:HUB_DEGREE] = 3
+        edges[i, 0, slots], edges[i, 1, slots], mask[i, slots] = src, dst, 1.0
+    hub = (torch.as_tensor(edges, device=dev), torch.as_tensor(mask, device=dev))
+    require(int((hub[0][0, 1][hub[1][0] > 0] == 3).sum()) == HUB_DEGREE
+            and not bool((hub[0][:, 1][hub[1] > 0] == 5).any()),
+            "the hub edge list is not what it says")
+    full_edges, full_mask, count = padded_edges_device(
+        contact_map(windows[:, -1], 12.0), max_edges, return_count=True)
+    require(bool((count > max_edges).all()) and bool((full_mask == 1).all()),
+            f"a 12 A threshold does not fill the {max_edges} slots: {count}")
+    return [("hub of in-degree %d, a node with none" % HUB_DEGREE, *hub),
+            ("every slot taken, overflow cut", full_edges.to(torch.int32),
+             full_mask)]
+
+
 def check_kernels(params, aa, windows, cd: str) -> dict:
     """Each kernel against its plain version on the same inputs. Returns
     the max abs errors by kernel name."""
+    from molecular_dynamics_neural_operator_tpu_torch.geometry.contact import (
+        edge_features_from_edges,
+    )
     from molecular_dynamics_neural_operator_tpu_torch.models import gkn_init
     from molecular_dynamics_neural_operator_tpu_torch.ops.cuda import (
         persistent_rollout as pr,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.ops.edge_conv import (
+        sparse_inv_degree,
     )
 
     cfg = bench_cfg(cd)
@@ -295,6 +347,19 @@ def check_kernels(params, aa, windows, cd: str) -> dict:
         mlp_err = max(mlp_err, err)
         a = ref
 
+    # the step's own entry: one call, three launches
+    h1 = torch.empty(s * e, cfg.ker_width, dtype=ef.dtype, device=dev)
+    h2, kmat = torch.empty_like(h1), torch.empty_like(a)
+    pr.edge_mlp_stack(ef.reshape(s * e, 6), weights["mlp"], mask.reshape(-1),
+                      h1, h2, kmat)
+    torch.cuda.synchronize()
+    err, rel = rel_err(kmat, a)
+    # two more layers of flipped roundings than a single layer carries
+    require(rel <= 3 * tol, f"edge_mlp_stack error {err} ({tag})")
+    log(f"edge_mlp_stack {tag}, M = {s * e} rows: max abs err {err:.3e} "
+        f"({rel:.2e} of scale)")
+    mlp_err = max(mlp_err, err)
+
     head_err = check_conv_head(weights, cfg, CLIP, windows, edges, mask,
                                inv_deg, x0, a, f"{tag} bench_ckpt")
     # On bench_ckpt.npz the last conv layer's ReLU gives zero at every node,
@@ -312,6 +377,15 @@ def check_kernels(params, aa, windows, cd: str) -> dict:
                               mask.reshape(-1) if i == 2 else None)
     check_conv_head(rnd, cfg, None, windows, edges, mask, inv_deg, x0, a,
                     f"{tag} random weights, no clip")
+    for name, g_edges, g_mask in stress_graphs(windows, e):
+        g_ef = edge_features_from_edges(windows[:, -1], g_edges).to(ef.dtype)
+        g_a = g_ef.reshape(s * e, 6)
+        for i, layer in enumerate(rnd["mlp"]):
+            g_a = pr.edge_mlp_plain(g_a, layer["w"], layer["b"], i < 2,
+                                    g_mask.reshape(-1) if i == 2 else None)
+        check_conv_head(rnd, cfg, None, windows, g_edges, g_mask,
+                        sparse_inv_degree(g_edges, g_mask, r), x0, g_a,
+                        f"{tag} random weights, {name}")
     return {"graph_encode": x0_err, "edge_mlp": mlp_err,
             "conv_head": head_err}
 
@@ -393,6 +467,42 @@ def steps_per_s(make, params, aa, window0, n1: int, n2: int) -> float:
     return (n2 - n1) / max(t2 - t1, 1e-9)
 
 
+def make_library_mlp(ef, mlp, row_mask):
+    """The edge MLP as PyTorch's own calls, the yardstick and nothing the
+    port uses: three ``torch.addmm`` with the two ReLUs and the row mask,
+    bf16 biases, the same function as ``edge_mlp_stack``."""
+    bias_cd = [layer["b"].to(ef.dtype) for layer in mlp]
+    mask_cd = row_mask.to(ef.dtype)[:, None]
+
+    def library_mlp():
+        h1 = torch.relu_(torch.addmm(bias_cd[0], ef, mlp[0]["w"]))
+        h2 = torch.relu_(torch.addmm(bias_cd[1], h1, mlp[1]["w"]))
+        return torch.addmm(bias_cd[2], h2, mlp[2]["w"]).mul_(mask_cd)
+
+    return library_mlp
+
+
+def edge_mlp_layer_ms(ef, mlp, row_mask, bufs) -> list:
+    """(kernel ms, ``torch.addmm`` ms) of each of the three layers alone,
+    on the buffers of a step (h1 and h2 as the stack left them)."""
+    from molecular_dynamics_neural_operator_tpu_torch.ops.cuda import (
+        persistent_rollout as pr,
+    )
+
+    bias_cd = [layer["b"].to(ef.dtype) for layer in mlp]
+    ins = (ef, bufs.h1, bufs.h2)
+    outs = (torch.empty_like(bufs.h1), torch.empty_like(bufs.h2),
+            torch.empty_like(bufs.kmat))
+    times = []
+    for i, layer in enumerate(mlp):
+        rm = row_mask if i == 2 else None
+        ms = device_ms(lambda: pr.edge_mlp(ins[i], layer["w"], layer["b"],
+                                           i < 2, rm, out=outs[i]))
+        lib = device_ms(lambda: torch.addmm(bias_cd[i], ins[i], layer["w"]))
+        times.append((ms, lib))
+    return times
+
+
 def time_kernels(params, aa, window0, counts: dict, errs: dict) -> list:
     """The ``kernels`` records at the main path's shapes."""
     from molecular_dynamics_neural_operator_tpu_torch.ops.cuda import (
@@ -411,31 +521,33 @@ def time_kernels(params, aa, window0, counts: dict, errs: dict) -> list:
     mlp = weights["mlp"]
     ef = bufs.ef.view(s * e, 6)
 
-    def run_mlp(fn):
-        def go():
-            h1 = fn(ef, mlp[0]["w"], mlp[0]["b"], True, None)
-            h2 = fn(h1, mlp[1]["w"], mlp[1]["b"], True, None)
-            return fn(h2, mlp[2]["w"], mlp[2]["b"], False,
-                      bufs.mask.view(-1))
-        return go
+    row_mask = bufs.mask.view(-1)
 
-    def kernel_mlp(a, wt, b, relu, rm):
-        return pr.edge_mlp(a, wt, b, relu, rm)
+    def kernel_mlp():
+        return pr.edge_mlp_stack(ef, mlp, row_mask, bufs.h1, bufs.h2,
+                                 bufs.kmat)
 
-    bias_cd = [layer["b"].to(cd) for layer in mlp]
+    def plain_mlp():
+        h1 = pr.edge_mlp_plain(ef, mlp[0]["w"], mlp[0]["b"], True)
+        h2 = pr.edge_mlp_plain(h1, mlp[1]["w"], mlp[1]["b"], True)
+        return pr.edge_mlp_plain(h2, mlp[2]["w"], mlp[2]["b"], False, row_mask)
 
-    def library_mlp():
-        h1 = torch.addmm(bias_cd[0], ef, mlp[0]["w"])
-        h2 = torch.addmm(bias_cd[1], h1, mlp[1]["w"])
-        return torch.addmm(bias_cd[2], h2, mlp[2]["w"])
-
-    pr.edge_mlp(ef, mlp[0]["w"], mlp[0]["b"], True, out=bufs.h1)
-    pr.edge_mlp(bufs.h1, mlp[1]["w"], mlp[1]["b"], True, out=bufs.h2)
-    pr.edge_mlp(bufs.h2, mlp[2]["w"], mlp[2]["b"], False,
-                row_mask=bufs.mask.view(-1), out=bufs.kmat)
+    library_mlp = make_library_mlp(ef, mlp, row_mask)
+    kernel_mlp()
+    layers = edge_mlp_layer_ms(ef, mlp, row_mask, bufs)
+    log("edge_mlp at one stream, the three launches apart: "
+        + ", ".join(f"layer {i} {ms * 1e3:.2f} us (torch.addmm alone "
+                    f"{lib * 1e3:.2f} us)" for i, (ms, lib) in enumerate(layers)))
+    clusters = pr.conv_head_clusters(r, w, e, cd)
+    log(f"conv_head: the card holds {clusters} of its 8-block clusters at "
+        f"once (cudaOccupancyMaxActiveClusters), so {min(clusters, 8)} of 8 "
+        f"streams run in the first wave")
     win_k = windows.clone()
     coords = torch.empty(s, r, 3, device=dev)
 
+    # Both slide win_k in place, so each call first restores the window:
+    # the copy is part of the conv_head time in the ``kernels`` line, as it
+    # always was. The kernel alone is timed beside it on a line of its own.
     def head_kernel():
         win_k.copy_(windows)
         pr.conv_head(bufs, weights, cfg, CLIP, win_k, coords)
@@ -444,6 +556,12 @@ def time_kernels(params, aa, window0, counts: dict, errs: dict) -> list:
         win_k.copy_(windows)
         pr.conv_head_plain(bufs.x0, bufs.kmat, bufs.edges, bufs.mask,
                            bufs.inv_deg, weights, cfg, CLIP, win_k)
+
+    alone = device_ms(lambda: pr.conv_head(bufs, weights, cfg, CLIP, win_k,
+                                           coords))
+    log(f"conv_head at one stream without the copy that restores its window "
+        f"(the window only feeds the prior): {alone * 1e3:.2f} us; with the "
+        f"copy, as in the kernels line: {device_ms(head_kernel) * 1e3:.2f} us")
 
     def encode_plain():
         pr.graph_encode_plain(windows, weights, THRESHOLD, e, cd)
@@ -499,9 +617,8 @@ def time_kernels(params, aa, window0, counts: dict, errs: dict) -> list:
         record("graph_encode", "graph_encode.cu", 164,
                lambda: pr.graph_encode(windows, weights, THRESHOLD, bufs),
                encode_plain, None, ge_bytes, ge_ops, PEAK_FLOPS[torch.float32]),
-        record("edge_mlp", "edge_mlp.cu", 264, run_mlp(kernel_mlp),
-               run_mlp(pr.edge_mlp_plain), library_mlp, mlp_bytes, mlp_ops,
-               PEAK_FLOPS[cd]),
+        record("edge_mlp", "edge_mlp.cu", 264, kernel_mlp, plain_mlp,
+               library_mlp, mlp_bytes, mlp_ops, PEAK_FLOPS[cd]),
         record("conv_head", "conv_head.cu", 282, head_kernel, head_plain,
                None, ch_bytes, ch_ops, PEAK_FLOPS[cd]),
     ]
@@ -1028,16 +1145,30 @@ def fused_operands(params, cfg, aa, windows):
     return ops, int(count.clamp(max=cfg.max_edges).sum())
 
 
-def check_fused(params, aa, windows, cd: str, what: str) -> float:
+def check_fused(params, aa, windows, cd: str, what: str,
+                graph=None) -> float:
     """fused_edge_conv_stack against its plain version; returns the max
-    abs error."""
+    abs error. ``graph`` (name, edges, mask) replaces the contact graph."""
+    from molecular_dynamics_neural_operator_tpu_torch.geometry.contact import (
+        edge_features_from_edges,
+    )
     from molecular_dynamics_neural_operator_tpu_torch.ops.cuda import (
         fused_gkn as fg,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.ops.edge_conv import (
+        sparse_inv_degree,
     )
 
     cfg = live_cfg(cd) if what == "live" else bench_cfg(cd)
     tag = f"{cd} S={windows.shape[0]} {what} weights"
     ops, _ = fused_operands(params, cfg, aa, windows)
+    if graph is not None:
+        name, edges, mask = graph
+        tag += f", {name}"
+        ef = edge_features_from_edges(windows[:, -1], edges).to(ops[0].dtype)
+        ops = (ef.contiguous(), mask.contiguous(), edges.contiguous(),
+               sparse_inv_degree(edges, mask, windows.shape[2]).contiguous(),
+               *ops[4:])
     got = fg.fused_edge_conv_stack(*ops)
     ref = fg.fused_edge_conv_stack_plain(*ops)
     torch.cuda.synchronize()
@@ -1051,7 +1182,7 @@ def check_fused(params, aa, windows, cd: str, what: str) -> float:
     scale = max(ref.abs().max().item(), 1e-30)
     err = (got - ref).abs().max().item()
     alive = int((ref.amax(-1) > 0).sum())
-    if what == "live":
+    if what == "live" and graph is None:
         require(alive == ref.shape[0] * ref.shape[1],
                 f"only {alive} nodes alive after the last layer ({tag})")
         require(err <= tol * scale, f"fused_edge_conv_stack error {err} is "
@@ -1103,7 +1234,10 @@ def hold_result(res, w0, ref, tol: float, tag: str) -> float:
 
 def step_device_ms(prepared, streams: int, windows) -> dict:
     """Device time in ms of one rollout step at ``streams`` streams
-    (``step``) and of its three parts."""
+    (``step``), of its three parts, of the edge MLP's layers apart
+    (``edge_mlp_layers``: kernel and bare ``torch.addmm``) and of the edge
+    MLP as PyTorch's own calls at the same rows (``library_mlp``, the
+    yardstick)."""
     from molecular_dynamics_neural_operator_tpu_torch.ops.cuda import (
         persistent_rollout as pr,
     )
@@ -1113,21 +1247,20 @@ def step_device_ms(prepared, streams: int, windows) -> dict:
     bufs = prepared.buffers(s, r)
     weights, cfg = prepared.weights, prepared.cfg
     coords = torch.empty(s, r, 3, device=win.device)
-    (l0, l1, l2), e = weights["mlp"], cfg.max_edges
-
-    def mlp():
-        pr.edge_mlp(bufs.ef.view(s * e, 6), l0["w"], l0["b"], True,
-                    out=bufs.h1)
-        pr.edge_mlp(bufs.h1, l1["w"], l1["b"], True, out=bufs.h2)
-        pr.edge_mlp(bufs.h2, l2["w"], l2["b"], False,
-                    row_mask=bufs.mask.view(-1), out=bufs.kmat)
-
+    e = cfg.max_edges
+    ef, row_mask = bufs.ef.view(s * e, 6), bufs.mask.view(-1)
+    pr.graph_encode(win, weights, THRESHOLD, bufs)
     return {
         "step": device_ms(lambda: pr.step(bufs, weights, cfg, THRESHOLD,
                                           CLIP, win, coords)),
         "graph_encode": device_ms(lambda: pr.graph_encode(
             win, weights, THRESHOLD, bufs)),
-        "edge_mlp": device_ms(mlp),
+        "edge_mlp": device_ms(lambda: pr.edge_mlp_stack(
+            ef, weights["mlp"], row_mask, bufs.h1, bufs.h2, bufs.kmat)),
+        "edge_mlp_layers": edge_mlp_layer_ms(ef, weights["mlp"], row_mask,
+                                             bufs),
+        "library_mlp": device_ms(make_library_mlp(ef, weights["mlp"],
+                                                  row_mask)),
         "conv_head": device_ms(lambda: pr.conv_head(
             bufs, weights, cfg, CLIP, win, coords)),
     }
@@ -1209,8 +1342,15 @@ def serve_persistent(params, aa_np, traj) -> dict:
         f"{stats['occupancy']:.3f}, {stats['segments_run']} segments; one "
         f"8-stream step takes {step8 * 1e3:.2f} us on the device "
         f"(graph_encode {parts8['graph_encode'] * 1e3:.2f}, edge_mlp x 3 "
-        f"{parts8['edge_mlp'] * 1e3:.2f}, conv_head "
-        f"{parts8['conv_head'] * 1e3:.2f}), so the "
+        f"{parts8['edge_mlp'] * 1e3:.2f} against "
+        f"{parts8['library_mlp'] * 1e3:.2f} for three torch.addmm with the "
+        f"ReLUs and the row mask at the same 1,792 rows; its layers apart "
+        + ", ".join(f"{ms * 1e3:.2f} (torch.addmm alone {lib * 1e3:.2f})"
+                    for ms, lib in parts8["edge_mlp_layers"])
+        + f"; conv_head "
+        f"{parts8['conv_head'] * 1e3:.2f} with "
+        f"{pr.conv_head_clusters(28, cfg.width, cfg.max_edges, torch.bfloat16)}"
+        f" clusters resident at once), so the "
         f"device was busy {n_sat * step8 / 1e3 / wall:.3f} of the time; every "
         f"result against a dedicated single-stream kernel rollout: max abs "
         f"err {worst:.3e} A ({'equal to the bit' if exact else 'not bitwise'}"
@@ -1444,15 +1584,12 @@ def time_serve_kernels(aa, window0, dh_counts: dict, dh_err: float,
         PEAK_FLOPS[cd]))
     w1, b1, w2, b2, w3, b3 = wts[:6]
     a = ef.reshape(-1, 6)
-    bias_cd = [b.to(cd) for b in (b1, b2, b3)]
-
-    def library_mlp():
-        h1 = torch.addmm(bias_cd[0], a, w1)
-        h2 = torch.addmm(bias_cd[1], h1, w2)
-        return torch.addmm(bias_cd[2], h2, w3)
+    library_mlp = make_library_mlp(
+        a, [{"w": w1, "b": b1}, {"w": w2, "b": b2}, {"w": w3, "b": b3}],
+        mask.reshape(-1))
 
     log(f"fused_edge_conv_stack has no library call for the whole function; "
-        f"its MLP alone as three torch.addmm: "
+        f"its MLP alone as three torch.addmm with the ReLUs and the row mask: "
         f"{device_ms(library_mlp) * 1e3:.2f} us")
     windows8 = windows.expand(8, -1, -1, -1).contiguous()
     ops8, _ = fused_operands(params, cfg, aa, windows8)
@@ -1495,6 +1632,8 @@ def serve_phases(traj) -> list:
             if cd == "bfloat16" and n == 1:
                 fused_err = err
             check_fused(ckpt, aa, windows(n), cd, "bench_ckpt")
+        for graph in stress_graphs(windows(2), bench_cfg(cd).max_edges):
+            check_fused(live, aa, windows(2), cd, "live", graph)
 
     counts = serve_persistent(ckpt, aa_np, traj)
     for name, n in counts.items():
@@ -1538,8 +1677,15 @@ def rollout_phases(traj) -> list:
         device=dev)
 
     errs = {}
-    for cd in ("float32", "bfloat16"):
-        for windows in (window0[None].contiguous(), windows4):
+    def spread(n):
+        return torch.as_tensor(np.stack(
+            [traj.positions[i * (4000 // n):i * (4000 // n) + t_len]
+             for i in range(n)]), device=dev)
+
+    for cd, sets in (("float32", (window0[None].contiguous(), windows4)),
+                     ("bfloat16", (window0[None].contiguous(), spread(3),
+                                   windows4, spread(8)))):
+        for windows in sets:
             e = check_kernels(params, aa, windows, cd)
             if cd == "bfloat16" and windows.shape[0] == 1:
                 errs = e

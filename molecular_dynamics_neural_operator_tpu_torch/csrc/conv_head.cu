@@ -12,28 +12,57 @@
 // Bound: every layer contracts the stream's whole kernel tensor K (E, w, w):
 // 1.84 MB in bf16 at the bench shapes, against 22 MFLOP for all 12 layers.
 // Read once from device memory K takes ~0.55 us at 3.35 TB/s, so bytes
-// bound it. On the TPU K sat in VMEM across the layers. Here one SM's
-// shared memory cannot hold it, so each stream is one thread-block cluster
-// of 16 blocks (a non-portable cluster size, which Hopper allows), each
-// owning E/16 edges: a block copies its slice of K into shared memory once, when
-// it fits (bf16 at the bench shapes), and all 2*depth layers then read it
-// there instead of from L2. A layer: each block forms the messages of its
-// edges and sums them per target node in edge order;
-// the cluster syncs; each block then owns 1/16 of the next node features:
-// it adds the cluster's partial sums for them through distributed shared
-// memory in rank order (deterministic, no atomics), applies root, bias and
-// ReLU, and writes them into every block's shared memory; the cluster
-// syncs again. Rank 0 then runs the head and slides the window in place.
-// The layers live in conv_stack.cuh, which fused_gkn.cu includes too.
+// bound it. What an H100 makes scarce is something else. Every element of K
+// meets one operand a layer (a matrix-vector product, nothing to reuse), so
+// a layer costs one pass over K wherever it lives, and the 12 layers are
+// dependent, so each also costs an exchange of x across the stream's SMs.
+// On the TPU K sat in VMEM across the layers. Here one SM's shared memory
+// cannot hold it, so each stream is one thread-block cluster of 8 blocks
+// (the card holds 15 such clusters at once, so 8 streams run in one wave;
+// of the 16-block clusters this kernel used at first it holds 7, and 8
+// streams took two waves, 1.9 times one stream's time). Edges are dealt to
+// blocks by target node, so a block owns the whole sum of each node it
+// owns. In bf16 (conv_stack.cuh, run_mma) the products run on the tensor
+// cores with K_e^T as the mma's A operand, a warp per (node, 32 columns);
+// a block's ~26 K rows live in its registers (the first 4 edges of each
+// node, about 14 rows) and in shared memory (the rest, swizzled for
+// ldmatrix), so a layer reads about half of the slice from shared memory,
+// 128 bytes a clock; and x' crosses the cluster as counted stores against
+// an mbarrier per x buffer, with no cluster barrier between the layers.
+// Rank 0 then runs the head and slides the window in place.
+//
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py;
+// tools/port_conv_stack_profile.py for the SM clocks): 39.4 us at one
+// stream and 44.8 at eight; 40.2 at one stream timed, as the figures before
+// it were, together with a copy that restores the window (the CUDA-core
+// body before it 60.0 and 59.7, the first port's 16-block clusters 74.6 and
+// 139.8). Of the 68,700 SM clocks of a call the prologue takes 14,900
+// (degrees 2,800, deal 3,200, edge lists 1,700, the K rows from L2 7,100:
+// 28 bytes a clock an SM) and a layer 4,480: 500 from the last x' sent to
+// the warps released, 1,350 for the root product and the edges in
+// registers, up to 1,900 for the other edges of the largest node, 450 to
+// form and send x'.
+// What the 12 layers still wait for is the longest item: a node of
+// in-degree 13 is one warp's 9 reads of 4 KB from shared memory while the
+// warps of small nodes are done, and all start the next layer together.
+// Tried and dropped, none faster on the card: the block's edges dealt round
+// four warps whatever their node, with partial sums joined after a
+// 128-thread barrier (balanced, and 48 us: each warp's messages then run
+// one after the other); a spare pair of warps taking half of the largest
+// node's edges; two staged edges in flight a warp; 2 or 3 edges a warp in
+// registers instead of 4 (1.7 and 0.7 us slower at one stream; 5 spill);
+// 512 threads with a warp per (node, 16 columns) (46 us); the cluster
+// barrier between layers (52 us); and on CUDA cores (the body f32 still
+// runs, 60 us): 1,024 threads, K rows in registers, the per-node sum by
+// the last finisher.
 
 #include "conv_stack.cuh"
 
 namespace {
 
-using conv_stack::kThreads;
-
-template <typename CD>
-__global__ void __launch_bounds__(kThreads) conv_head_kernel(
+template <typename CD, bool MMA>
+__global__ void __launch_bounds__(
+    MMA ? conv_stack::kMmaThreads : conv_stack::kThreads, 1) conv_head_kernel(
     const float* __restrict__ x0,       // (S, R, W)
     const CD* __restrict__ K,           // (S, E, W*W), padded rows zero
     const int* __restrict__ edges,      // (S, 2, E)
@@ -45,15 +74,16 @@ __global__ void __launch_bounds__(kThreads) conv_head_kernel(
     const float* __restrict__ fc2_b,    // (3)
     float* __restrict__ window,         // (S, T, R, 3), slid in place
     float* __restrict__ coords,         // (S, R, 3), this step's output
-    int R, int W, int E, int T, int depth, int eb, int stage_k,
+    int R, int W, int E, int T, int depth, int cap,
     int predict_delta, float head_scale, int extrapolate, float gamma,
     int has_clip, float clip) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const float* xc = conv_stack::run<CD>(smem_raw, x0, K, edges, mask, inv_deg,
-                                        root1, bias1, root2, bias2, R, W, E,
-                                        depth, eb, stage_k);
-  if (cooperative_groups::this_cluster().block_rank() != 0) return;
-  const int s = blockIdx.x / conv_stack::NCL;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const float* xc = conv_stack::run<CD, MMA>(smem_raw, x0, K, edges, mask,
+                                             inv_deg, root1, bias1, root2,
+                                             bias2, R, W, E, depth, cap);
+  const auto cluster = cooperative_groups::this_cluster();
+  if (cluster.block_rank() != 0) return;
+  const int s = blockIdx.x / (int)cluster.num_blocks();
   const int tid = threadIdx.x, nt = blockDim.x;
   float* win = window + (size_t)s * T * R * 3;
   const int F = R * 3;
@@ -92,15 +122,53 @@ int launch(const float* x0, const void* K, const int* edges, const float* mask,
   conv_stack::Plan p;
   const int rc = conv_stack::plan(R, W, E, sizeof(CD), &p);
   if (rc != 0) return rc;
-  return conv_stack::launch_clusters(
-      conv_head_kernel<CD>, S, p.smem, st, x0, static_cast<const CD*>(K), edges,
-      mask, inv_deg, static_cast<const CD*>(root1), bias1,
-      static_cast<const CD*>(root2), bias2, fc2_w, fc2_b, window, coords, R, W,
-      E, T, depth, p.eb, p.stage_k, predict_delta, head_scale, extrapolate,
-      gamma, has_clip, clip);
+  auto go = [&](auto kernel) {
+    return conv_stack::launch_clusters(
+        kernel, S, p, st, x0, static_cast<const CD*>(K), edges, mask, inv_deg,
+        static_cast<const CD*>(root1), bias1, static_cast<const CD*>(root2),
+        bias2, fc2_w, fc2_b, window, coords, R, W, E, T, depth, p.cap,
+        predict_delta, head_scale, extrapolate, gamma, has_clip, clip);
+  };
+  if constexpr (sizeof(CD) == 2) {
+    if (p.mma) return go(conv_head_kernel<CD, true>);
+  }
+  return go(conv_head_kernel<CD, false>);
 }
 
 }  // namespace
+
+// How many of the conv stack's clusters (one a stream) the card holds at
+// once, at these shapes: what cudaOccupancyMaxActiveClusters says of the
+// launch mdno_conv_head makes.
+extern "C" int mdno_conv_head_clusters(int R, int W, int E, int cd_bf16,
+                                       int* out) {
+  conv_stack::Plan p;
+  const int rc = conv_stack::plan(R, W, E, cd_bf16 ? 2 : 4, &p);
+  if (rc != 0) return rc;
+  if (!cd_bf16)
+    return conv_stack::max_active_clusters(conv_head_kernel<float, false>, p,
+                                           out);
+  return p.mma ? conv_stack::max_active_clusters(
+                     conv_head_kernel<__nv_bfloat16, true>, p, out)
+               : conv_stack::max_active_clusters(
+                     conv_head_kernel<__nv_bfloat16, false>, p, out);
+}
+
+#ifdef MDNO_CONV_PROFILE
+// The clock marks of the last launch's block 0 (conv_stack.cuh), 64 values.
+extern "C" int mdno_conv_profile(long long* out) {
+  return (int)cudaMemcpyFromSymbol(out, conv_stack::conv_profile,
+                                   sizeof(long long) * 64);
+}
+
+// Layer 3 of the last launch's stream 0 by block and warp (conv_stack.cuh),
+// NCL * 32 * 8 values.
+extern "C" int mdno_conv_warp_profile(long long* out) {
+  return (int)cudaMemcpyFromSymbol(
+      out, conv_stack::conv_warp_profile,
+      sizeof(long long) * conv_stack::NCL * 32 * 8);
+}
+#endif
 
 extern "C" int mdno_conv_head(
     const float* x0, const void* K, const int* edges, const float* mask,

@@ -1,20 +1,68 @@
 // The 2*depth weight-tied edge convs of one stream on one thread-block
 // cluster, shared by conv_head.cu (the rollout step: stack, head, slide) and
 // fused_gkn.cu (the fused MLP + conv stack, no head). See conv_head.cu for
-// the design and its bound.
+// what bounds it on an H100 and what was measured.
 //
-// One stream is one cluster of NCL blocks, each owning E/NCL edges: a block
-// copies its slice of K into shared memory once, when it fits (bf16 at the
-// bench shapes; an f32 K of 224 edges does not, and is read from L2), and
-// all 2*depth layers then read it there. A layer: each block forms the
-// messages of its edges and sums them per target node in edge order; the
-// cluster syncs; each block then owns 1/NCL of the next node features: it
-// adds the cluster's partial sums for them through distributed shared
-// memory in rank order (deterministic, no atomics), applies root, bias and
-// ReLU, and writes them into every block's shared memory; the cluster syncs
-// again. The math follows the XLA path (models/gkn.py::gkn_apply_single):
-// gathered rows, messages and the root product's operands are rounded to
-// CD, every sum is f32.
+// One stream is one cluster of NCL blocks. Edges are dealt to blocks by
+// TARGET node (deal()): every block reads the stream's edge list, counts the
+// real (mask > 0) incoming edges of each node and deals the nodes, in index
+// order, each to the block with the least load so far (a node weighs its
+// in-degree plus one, for its root product; ties go to the lowest rank), a
+// rule that sees the stream's own graph only. A block keeps its nodes'
+// incoming edge slots grouped by node, in slot order, and so owns the whole
+// sum of every node it owns: no partial sums cross blocks. As many of its
+// edges' K rows as fit are copied into shared memory once; the 2*depth
+// layers read them there, and the edges left over from L2. x' of a layer is
+// stored into the other of two x buffers in every block of the cluster
+// through distributed shared memory; the buffers alternate, so a block still
+// reading layer l's input is never written under.
+//
+// Two bodies share that frame.
+//
+// run_mma (bf16 at width 64, the rollout's shapes, 256 threads): the tensor
+// cores. A message x_src @ K_e is one row times a 64x64 matrix, so the
+// product is turned over: K_e^T is the mma's A operand (16 output columns by
+// 16 of the sum a fragment, read from the staged row by ldmatrix.trans; the
+// rows are stored with their 16-byte chunks XOR-swizzled by the row index,
+// so the eight rows of a fragment fall on eight different bank groups) and
+// x_src fills every column of B, so each lane ends with the outputs of two
+// columns. No element of K is unpacked or multiplied by a CUDA core. A work
+// item is (owned node, 32 output columns), one warp: it walks the node's
+// incoming edges in slot order, rounds each message to bf16 on the
+// accumulator registers (the XLA path's cast point), adds them in f32, adds
+// the root product (the same mma against root, not rounded), scales, adds
+// the bias, applies the ReLU and sends x' to all blocks: no message ever
+// touches shared memory. The first edges of a warp's node stay in its
+// registers across the layers, so about half of a block's K is read from
+// shared memory once and never again. x is kept in bf16 (exact: x' is
+// rounded to bf16 anyway) in an order in which the B registers of a lane
+// and k-step are 8 consecutive bytes and an item's output 2 x 32; the last
+// layer's output, which is not rounded, goes to an f32 buffer of its own.
+// The layers have no cluster barrier between them: x' travels as counted
+// stores (st.async) against an mbarrier per x buffer, and a warp starts a
+// layer when its input buffer's bytes are all there (see run_mma).
+//
+// run_fma (f32, the parity configuration, and bf16 at other widths, 512
+// threads): CUDA cores, and ONE cluster barrier a layer, split: arrive
+// (release) after the stores of x', wait (acquire) before the next layer
+// reads them; a writer of layer l + 1's output has passed barrier l, which a
+// block joins only after its reads. A layer, every thread busy in each phase:
+//   items    one warp an item, an item being a local edge (K_e) or an owned
+//            node's root product (root): lanes split the item's w columns
+//            into 16-byte groups and its w-deep sum into parts, and add the
+//            parts by a butterfly of shuffles, an order fixed by the code.
+//            A message is masked and rounded to CD; a root product is not.
+//   combine  four lanes per owned node and 4 columns add the node's messages
+//            (each every fourth, in slot order, then (0 + 1) + (2 + 3)),
+//            x' = relu(agg * inv_deg + root product + bias), and write x'
+//            (rounded to CD, the operand the next layer reads; unrounded
+//            after the last layer) into the next x buffer of every block.
+//
+// The math follows the XLA path (models/gkn.py::gkn_apply_single): gathered
+// rows, messages and the root product's operands are rounded to CD, every
+// sum is f32 and taken in an order the edge list alone fixes. Padded slots
+// (mask 0) add exactly zero to a finite sum and are skipped. Nothing depends
+// on the number of streams in the launch.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -25,9 +73,39 @@ namespace conv_stack {
 
 namespace cg = cooperative_groups;
 
-constexpr int kThreads = 256;
+// The launch shape is one per body, fixed here.
+constexpr int kThreads = 512;  // run_fma's block
 constexpr int kMaxSmem = 227 * 1024;
-constexpr int NCL = 16;  // blocks per stream (one cluster)
+constexpr int NCL = 8;  // blocks per stream (one cluster, a portable size)
+constexpr int kMsgRows = 48;  // messages a block of run_fma holds at a time
+constexpr int kMmaW = 64;     // the width run_mma is written for
+constexpr int kMmaRow = kMmaW * kMmaW * 2;  // bytes of one of its K rows
+// run_mma's block and the edges a warp of it keeps in registers across the
+// layers (32 registers a thread each).
+constexpr int kMmaThreads = 256;
+constexpr int kRegEdges = 4;
+
+// With -DMDNO_CONV_PROFILE (tools/port_conv_stack_profile.py) thread 0 of block 0 leaves the SM clock at the
+// marks below in conv_profile: 0 start, 1 degrees and x0, 2 nodes dealt,
+// 3 edge lists, 4 cluster up, 5 K staged; then for layer l: 6 + 3 l
+// messages formed, 7 + 3 l x' written (run_mma: the same moment, its items
+// do both), 8 + 3 l barrier passed.
+#ifdef MDNO_CONV_PROFILE
+__device__ long long conv_profile[64];
+#define MDNO_MARK(k) \
+  if (blockIdx.x == 0 && threadIdx.x == 0 && (k) < 64) conv_profile[k] = clock64();
+// and every warp of stream 0's blocks at moments of layer 3: 0 before the
+// wait for x, 1 after it, 2 after the root product and the edges held in
+// registers, 3 after the other edges, 5 x' sent (its first item), 6 through
+// with the layer
+__device__ long long conv_warp_profile[NCL * 32 * 8];
+#define MDNO_WARP_MARK(layer, k) \
+  if ((layer) == 3 && blockIdx.x < NCL && threadIdx.x % 32 == 0)         \
+    conv_warp_profile[(blockIdx.x * 32 + threadIdx.x / 32) * 8 + (k)] = clock64();
+#else
+#define MDNO_MARK(k)
+#define MDNO_WARP_MARK(layer, k)
+#endif
 
 // Four consecutive CD values as floats (16 bytes of f32, 8 of bf16).
 __device__ __forceinline__ void load4(const float* p, float* out) {
@@ -48,11 +126,923 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p, float* out) {
   out[3] = b.y;
 }
 
-// Runs the 2*depth layers of stream blockIdx.x / NCL. Every thread of every
-// block of the cluster calls it. Returns the final node features (R, W) f32
-// in this block's shared memory, complete in every block of the cluster
-// (the last cluster sync has passed).
+// Sixteen bytes of CD values as floats: 4 of f32, 8 of bf16.
+__device__ __forceinline__ void load16(const float* p, float* out) {
+  load4(p, out);
+}
+
+__device__ __forceinline__ void load16(const __nv_bfloat16* p, float* out) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const unsigned w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    out[2 * i] = f.x;
+    out[2 * i + 1] = f.y;
+  }
+}
+
+// acc += x * (the eight bf16 of one 16-byte word), f32.
+__device__ __forceinline__ void fma_row(const uint4& k, float x, float (&acc)[8]) {
+  const unsigned w[4] = {k.x, k.y, k.z, k.w};
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    acc[2 * c] = fmaf(x, __uint_as_float(w[c] << 16), acc[2 * c]);
+    acc[2 * c + 1] = fmaf(x, __uint_as_float(w[c] & 0xffff0000u), acc[2 * c + 1]);
+  }
+}
+
+__device__ __forceinline__ void fma_row(const uint4&, float, float (&)[4]) {}
+
+__host__ __device__ inline size_t up16(size_t n) { return (n + 15) / 16 * 16; }
+
+// ---- the deal: which nodes and edges a block owns ---------------------------
+
+// A block's share of the stream's graph, in its shared memory.
+struct Lists {
+  int* gdst;        // (E) target of a real slot, -1 of a padded one
+  int* gsrc;        // (E) source of every slot
+  float* gmsk;      // (E) mask of every slot
+  int* lslot;       // (ne) this block's slots, grouped by node, in slot order
+  int* lsrc;        // (ne) their source nodes
+  float* lmsk;      // (ne) their mask values
+  int* deg;         // (R) real in-degree of every node of the stream
+  int* mynode;      // (nown) the nodes this block owns, ascending
+  int* nstart;      // (nown + 1) where each owned node's edges start in lslot
+  int* regoff;      // (nown + 1) register-held edges before each owned node
+  int* lrow;        // (ne) the staged row of an edge's K, -1 if it has none
+  int* pslot;       // (ne) the slots again, by place (see deal)
+  int* counts;      // nown, ne, nreg
+  float* own_invd;  // (nown) inv_deg of the owned nodes
+  int nown, ne, nreg;
+};
+
+__host__ __device__ inline size_t lists_bytes(int R, int E) {
+  return ((size_t)8 * E + 5 * R + 2 + 3) * 4;
+}
+
+// Every thread of the block calls it; the lists are complete when it returns
+// (it ends in a block barrier, which also covers what the caller wrote to
+// shared memory before the call).
+//
+// Where an edge's K row lives: the first ``reg_edges`` edges of each of the
+// block's first ``reg_nodes`` owned nodes are held in registers by the body
+// (run_mma; run_fma holds none), nreg in all and at most ``cap``. Every edge
+// has a place p: the register-held ones 0 .. nreg - 1 in list order, then
+// the others in list order. Places below cap are staged in shared-memory row
+// p at once; the register-held rows leave shared memory for the registers,
+// and places cap .. cap + nreg - 1 then take their rows (p - cap); an edge
+// beyond has no row and is read from L2 in every layer.
+__device__ inline Lists deal(unsigned char* at, const int* __restrict__ src_g,
+                             const int* __restrict__ dst_g,
+                             const float* __restrict__ mask_g,
+                             const float* __restrict__ inv_deg_s, int R, int E,
+                             int rank, int ncl, int cap, int reg_nodes,
+                             int reg_edges) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int lane = tid % 32, wid = tid / 32, nw = nt / 32;
+  Lists L;
+  L.gdst = reinterpret_cast<int*>(at);
+  L.gsrc = L.gdst + E;
+  L.gmsk = reinterpret_cast<float*>(L.gsrc + E);
+  L.lslot = reinterpret_cast<int*>(L.gmsk + E);
+  L.lsrc = L.lslot + E;
+  L.lmsk = reinterpret_cast<float*>(L.lsrc + E);
+  L.deg = reinterpret_cast<int*>(L.lmsk + E);
+  L.mynode = L.deg + R;
+  L.nstart = L.mynode + R;
+  L.regoff = L.nstart + R + 1;
+  L.lrow = L.regoff + R + 1;
+  L.pslot = L.lrow + E;
+  L.counts = L.pslot + E;
+  L.own_invd = reinterpret_cast<float*>(L.counts + 3);
+
+  for (int i = tid; i < R; i += nt) L.deg[i] = 0;
+  for (int e = tid; e < E; e += nt) {
+    // the three reads at once, not one after the other
+    const int d = dst_g[e], sr = src_g[e];
+    const float mk = mask_g[e];
+    L.gdst[e] = mk > 0.f ? d : -1;
+    L.gsrc[e] = sr;
+    L.gmsk[e] = mk;
+  }
+  __syncthreads();
+  for (int e = tid; e < E; e += nt)
+    if (L.gdst[e] >= 0) atomicAdd(&L.deg[L.gdst[e]], 1);
+  __syncthreads();
+  MDNO_MARK(1)
+  if (wid == 0) {
+    // One warp deals, every lane the same: key[r] is block r's load so far
+    // with r in its low bits, so the least key names the least loaded block
+    // of lowest rank.
+    unsigned key[NCL];
+#pragma unroll
+    for (int r = 0; r < NCL; ++r) key[r] = r < ncl ? (unsigned)r : 0xffffffffu;
+    int nown = 0, ne = 0, nreg = 0;
+#pragma unroll 4
+    for (int j = 0; j < R; ++j) {
+      const int d = L.deg[j];
+      unsigned least = key[0];
+#pragma unroll
+      for (int r = 1; r < NCL; ++r) least = min(least, key[r]);
+      const int b = (int)(least & 31u);
+#pragma unroll
+      for (int r = 0; r < NCL; ++r)
+        if (r == b) key[r] += (unsigned)(d + 1) << 5;
+      if (b == rank) {
+        if (lane == 0) {
+          L.mynode[nown] = j;
+          L.nstart[nown] = ne;
+          L.regoff[nown] = nreg;
+        }
+        if (nown < reg_nodes) nreg += min(min(reg_edges, d), cap - nreg);
+        ne += d;
+        ++nown;
+      }
+    }
+    if (lane == 0) {
+      L.nstart[nown] = ne;
+      L.regoff[nown] = nreg;
+      L.counts[0] = nown;
+      L.counts[1] = ne;
+      L.counts[2] = nreg;
+    }
+  }
+  __syncthreads();
+  MDNO_MARK(2)
+  L.nown = L.counts[0];
+  L.ne = L.counts[1];
+  L.nreg = L.counts[2];
+  const unsigned lanes_below = (1u << lane) - 1u;
+  for (int n = tid; n < L.nown; n += nt) L.own_invd[n] = inv_deg_s[L.mynode[n]];
+  for (int n = wid; n < L.nown; n += nw) {
+    const int j = L.mynode[n];
+    const int first = L.nstart[n], regs_before = L.regoff[n];
+    const int c = L.regoff[n + 1] - regs_before;  // this node's register-held
+    int pos = first;
+    for (int e0 = 0; e0 < E; e0 += 32) {
+      const int e = e0 + lane;
+      const bool hit = e < E && L.gdst[e] == j;
+      const unsigned bits = __ballot_sync(0xffffffffu, hit);
+      if (hit) {
+        const int i = pos + __popc(bits & lanes_below);
+        const int li = i - first;
+        const int p = li < c ? regs_before + li : L.nreg + i - regs_before - c;
+        L.lslot[i] = e;
+        L.lsrc[i] = L.gsrc[e];
+        L.lmsk[i] = L.gmsk[e];
+        L.pslot[p] = e;
+        L.lrow[i] = p < cap ? p : p < cap + L.nreg ? p - cap : -1;
+      }
+      pos += __popc(bits);
+    }
+  }
+  __syncthreads();
+  MDNO_MARK(3)
+  return L;
+}
+
+// ---- shared memory ------------------------------------------------------------
+
+// Byte offsets of a block's dynamic shared memory, the same on the host
+// (sizes) and the device (pointers). run_mma uses ks, root, xa, xb (bf16),
+// xout, bias, bar (two barriers), meta and the lists; run_fma all but xout
+// and meta.
+struct Layout {
+  size_t ks, root, xa, xb, xout, msl, aggs, rxs, bias, bar, meta, ints, total;
+};
+
+__host__ __device__ inline bool takes_mma(int W, int cd_size) {
+  return cd_size == 2 && W == kMmaW;
+}
+
+__host__ __device__ inline Layout layout(int R, int W, int E, int cd_size,
+                                         int cap) {
+  Layout l;
+  const bool mma = takes_mma(W, cd_size);
+  const size_t x_bytes = (size_t)R * W * (mma ? 2 : 4);
+  l.ks = 0;
+  l.root = up16((size_t)cap * W * W * cd_size);
+  l.xa = l.root + up16((size_t)W * W * cd_size);
+  l.xb = l.xa + up16(x_bytes);
+  l.xout = l.xb + up16(x_bytes);
+  l.msl = l.xout + (mma ? up16((size_t)R * W * 4) : 0);
+  l.aggs = l.msl + (mma ? 0 : up16((size_t)kMsgRows * W * cd_size));
+  l.rxs = l.aggs + (mma ? 0 : up16((size_t)R * W * 4));
+  l.bias = l.rxs + (mma ? 0 : up16((size_t)R * W * 4));
+  l.bar = l.bias + up16((size_t)2 * W * 4);
+  l.meta = l.bar + 16;
+  l.ints = l.meta + (mma ? (size_t)E * 16 : 0);
+  l.total = l.ints + lists_bytes(R, E);
+  return l;
+}
+
+// ---- run_mma ----------------------------------------------------------------------
+
+// Where column m of a node's features lies in its 64-value bf16 row: the
+// mma's B fragment of k-step ks gives lane t (of four) the values
+// 16 ks + 2 t + {0, 1} and 16 ks + 8 + 2 t + {0, 1}; in this order they are
+// the 8 consecutive bytes at 32 ks + 8 t, and the 16 columns an item
+// produces stay 32 consecutive bytes.
+__device__ __forceinline__ int xpos(int m) {
+  return (m & ~15) + ((m & 7) >> 1) * 4 + ((m >> 3) & 1) * 2 + (m & 1);
+}
+
+// Two floats rounded to bf16, ``lo`` in the low half.
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// Byte offset of 16-byte chunk c of row k in a swizzled (64, 64) bf16 matrix.
+__device__ __forceinline__ unsigned swizzled(int k, int c) {
+  return (unsigned)(k * 128 + ((c ^ (k & 7)) << 4));
+}
+
+__device__ __forceinline__ void cp_async16(unsigned dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Four 8x8 bf16 matrices, each transposed on the way: with the addresses
+// run_mma gives it, the A fragment (16 output columns x 16 of the sum).
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&a)[4], unsigned addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+      : "r"(addr));
+}
+
+// Eight bytes at a shared address. Explicit, because the x buffer of a layer
+// is chosen at run time and the compiler would fall back to generic loads.
+__device__ __forceinline__ uint2 lds64(unsigned addr) {
+  uint2 v;
+  asm volatile("ld.shared.v2.u32 {%0, %1}, [%2];\n"
+               : "=r"(v.x), "=r"(v.y)
+               : "r"(addr));
+  return v;
+}
+
+// d += A (16x16, row) * B (16x8, col), bf16 operands, f32 sums.
+__device__ __forceinline__ void mma_16816(float (&d)[4], const unsigned (&a)[4],
+                                          unsigned b0, unsigned b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Sixteen bytes into another block's shared memory, counted on that block's
+// mbarrier ``bar`` (both shared::cluster addresses): whoever sees the
+// barrier's phase complete sees the bytes.
+__device__ __forceinline__ void store_counted16(unsigned dst, const uint4& v,
+                                                unsigned bar) {
+  asm volatile(
+      "st.async.weak.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 "
+      "[%0], {%1, %2, %3, %4}, [%5];\n" ::"r"(dst),
+      "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w), "r"(bar)
+      : "memory");
+}
+
+// The body for bf16 at width 64 (kMmaThreads threads a block). Same
+// contract as run().
+//
+// A work item is (owned node, 32 output columns), one warp: two of the
+// mma's 16-column tiles share one load of x_src. The first kRegEdges edges
+// of the node of a warp's first item stay in its registers across the
+// layers (32 registers a thread each), so half of a block's K is never read
+// again; the rest and root come from shared memory by ldmatrix.
+//
+// Between the layers there is no cluster barrier: x' travels as counted
+// stores (st.async) and each block's two x buffers have an mbarrier each,
+// armed with the bytes of one full x (R rows from all blocks, its own
+// included). A warp waits for its input buffer's phase, runs its items and
+// sends. A block's buffer b is written again two layers on, by senders that
+// have by then received every item's output of the layer between, and an
+// item sends only after its reads: nothing is overwritten while it is read.
+// Only the last layer, whose output is f32 and read by the caller, ends in
+// plain remote stores and the cluster barrier.
+__device__ inline float* run_mma(
+    unsigned char* smem_raw, const float* __restrict__ x0,
+    const __nv_bfloat16* __restrict__ K, const int* __restrict__ edges,
+    const float* __restrict__ mask, const float* __restrict__ inv_deg,
+    const __nv_bfloat16* __restrict__ root1, const float* __restrict__ bias1,
+    const __nv_bfloat16* __restrict__ root2, const float* __restrict__ bias2,
+    int R, int E, int depth, int cap) {
+  using bf16 = __nv_bfloat16;
+  constexpr int W = kMmaW;
+  constexpr int RE = kRegEdges;
+  MDNO_MARK(0)
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int ncl = (int)cluster.num_blocks();
+  const int s = blockIdx.x / ncl;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int lane = tid % 32, wid = tid / 32, nw = nt / 32;
+  const int g = lane >> 2, t = lane & 3;  // the mma's row group and lane of four
+  const int nlayers = 2 * depth;
+
+  const Layout l = layout(R, W, E, 2, cap);
+  unsigned char* ks = smem_raw + l.ks;
+  unsigned char* root_s = smem_raw + l.root;
+  bf16* xbuf[2] = {reinterpret_cast<bf16*>(smem_raw + l.xa),
+                   reinterpret_cast<bf16*>(smem_raw + l.xb)};
+  float* xout = reinterpret_cast<float*>(smem_raw + l.xout);
+  float* bias_s = reinterpret_cast<float*>(smem_raw + l.bias);
+  unsigned long long* xbar = reinterpret_cast<unsigned long long*>(smem_raw + l.bar);
+  int4* meta = reinterpret_cast<int4*>(smem_raw + l.meta);
+  const unsigned x_bytes = (unsigned)(R * W * 2);
+
+  // ---- prologue: x0, the deal, this block's K rows, root ----------------------
+  if (tid == 0) {
+    // layer l < nlayers - 1 fills buffer (l + 1) % 2: the first phase of
+    // each barrier is armed here, the later ones by whoever waited last
+    mbar_init(&xbar[0], 1);
+    mbar_init(&xbar[1], 1);
+    mbar_init_fence();
+    if (nlayers >= 2) mbar_arrive_expect_tx(&xbar[1], x_bytes);
+    if (nlayers >= 3) mbar_arrive_expect_tx(&xbar[0], x_bytes);
+  }
+  cluster_arrive();  // every block's barriers are up before a remote store
+  auto stage_root = [&](const bf16* root) {
+    for (int ch = tid; ch < 512; ch += nt)
+      cp_async16(smem_u32(root_s) + swizzled(ch >> 3, ch & 7),
+                 reinterpret_cast<const uint4*>(root) + ch);
+  };
+  stage_root(root1);
+  const int* src_g = edges + (size_t)s * 2 * E;
+  const Lists L = deal(smem_raw + l.ints, src_g, src_g + E, mask + (size_t)s * E,
+                       inv_deg + (size_t)s * R, R, E, rank, ncl, cap, nw / 2,
+                       kRegEdges);
+  const int nown = L.nown, ne = L.ne;
+  const unsigned char* Kb = reinterpret_cast<const unsigned char*>(K);
+  // the K rows of places p0 .. p1 - 1 into rows p0 - row0 ..
+  auto stage_rows = [&](int p0, int p1, int row0) {
+    for (int idx = tid + p0 * 512; idx < p1 * 512; idx += nt) {
+      const int p = idx >> 9, ch = idx & 511;
+      cp_async16(smem_u32(ks) + (p - row0) * kMmaRow + swizzled(ch >> 3, ch & 7),
+                 Kb + ((size_t)s * E + L.pslot[p]) * kMmaRow + ch * 16);
+    }
+  };
+  stage_rows(0, min(ne, cap), 0);
+  // with the rows on their way, what is off the critical path:
+  // a thread's reads of x0 four at a time before their writes: few trips
+  for (int base = tid; base < R * W; base += 4 * nt) {
+    float v[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int i = base + q * nt;
+      v[q] = i < R * W ? x0[(size_t)s * R * W + i] : 0.f;
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int i = base + q * nt;
+      if (i < R * W) {
+        xbuf[0][(i / W) * W + xpos(i % W)] = __float2bfloat16_rn(v[q]);
+        xout[i] = v[q];  // what a stack of no layers returns
+      }
+    }
+  }
+  for (int i = tid; i < 2 * W; i += nt)
+    bias_s[i] = i < W ? bias1[i] : bias2[i - W];
+  // what an item reads of edge i, one 16-byte load: the byte offset of its
+  // staged row (-1: none), of its source's x row, its mask and its slot
+  for (int i = tid; i < ne; i += nt)
+    meta[i] = make_int4(L.lrow[i] < 0 ? -1 : L.lrow[i] * kMmaRow,
+                        L.lsrc[i] * W * 2, __float_as_int(L.lmsk[i]), L.lslot[i]);
+  cluster_wait();
+  MDNO_MARK(4)
+  cp_async_wait_all();
+  __syncthreads();
+  MDNO_MARK(5)
+
+  // This lane's byte offset inside a swizzled matrix for the fragment of
+  // output columns 16 mt .. 16 mt + 15 at k-step 0; k-step ks lies 2048 ks
+  // further.
+  const int lq = lane >> 3, lr = lane & 7;
+  auto frag_off = [&](int mt) {
+    return swizzled((lq >> 1) * 8 + lr, mt * 2 + (lq & 1));
+  };
+  // d[m][0] + d[m][1] = x (the row at byte offset ``xoff`` of buffer xc) @ a
+  // (64, 64) matrix, columns 32 h + 16 m .., whose fragments are a[m]; [0]
+  // sums the first 32 products and [1] the last 32, so four chains run side
+  // by side. Lane (g, t) ends with column 16 mt + g in [..][0] (and [1]) and
+  // 16 mt + 8 + g in [..][2] (and [3]).
+  auto product = [&](float (&d)[2][2][4], const unsigned (&a)[2][4][4],
+                     unsigned xc, int xoff) {
+    const unsigned xp = xc + xoff + t * 8;
+    const uint2 b0 = lds64(xp), b1 = lds64(xp + 32), b2 = lds64(xp + 64),
+                b3 = lds64(xp + 96);
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      mma_16816(d[m][0], a[m][0], b0.x, b0.y);
+      mma_16816(d[m][1], a[m][2], b2.x, b2.y);
+    }
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      mma_16816(d[m][0], a[m][1], b1.x, b1.y);
+      mma_16816(d[m][1], a[m][3], b3.x, b3.y);
+    }
+  };
+  // the same with the fragments of the two tiles at shared addresses at[m]
+  auto product_staged = [&](float (&d)[2][2][4], unsigned at0, unsigned at1,
+                            unsigned xc, int xoff) {
+    unsigned a[2][4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      ldmatrix_x4_trans(a[0][kk], at0 + kk * 2048);
+      ldmatrix_x4_trans(a[1][kk], at1 + kk * 2048);
+    }
+    product(d, a, xc, xoff);
+  };
+  // the same from a K row in global memory (an edge without a staged row)
+  auto product_global = [&](float (&d)[2][2][4], const unsigned short* kg,
+                            int h, unsigned xc, int xoff) {
+    unsigned a[2][4][4];
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const unsigned short* p = kg + (kk * 16 + 2 * t) * W + (2 * h + m) * 16 + g;
+        a[m][kk][0] = (unsigned)p[0] | (unsigned)p[W] << 16;
+        a[m][kk][1] = (unsigned)p[8] | (unsigned)p[W + 8] << 16;
+        a[m][kk][2] = (unsigned)p[8 * W] | (unsigned)p[9 * W] << 16;
+        a[m][kk][3] = (unsigned)p[8 * W + 8] | (unsigned)p[9 * W + 8] << 16;
+      }
+    product(d, a, xc, xoff);
+  };
+
+  // An item: node n (j of the stream), its edges first .. past - 1 of which
+  // those below staged_end have a row, its 32 columns' fragment offsets.
+  struct Item {
+    int j, first, past, staged_end;
+    float invd;
+    unsigned off0, off1;
+  };
+  auto item_of = [&](int u, int nheld) {
+    const int n = u >> 1, h = u & 1;
+    Item it;
+    it.j = L.mynode[n];
+    it.first = L.nstart[n] + nheld;
+    it.past = L.nstart[n + 1];
+    it.staged_end = max(it.first, min(it.past, cap + L.regoff[n + 1]));
+    it.invd = L.own_invd[n];
+    it.off0 = frag_off(2 * h);
+    it.off1 = frag_off(2 * h + 1);
+    return it;
+  };
+  const bool works = wid < 2 * nown;  // this warp has items
+  // its first item keeps the fragments of its node's first edges in
+  // registers; their rows then go to the edges that had none
+  unsigned held[RE][2][4][4];
+  int nheld = 0;
+  Item mine = {};
+  if (works) {
+    const int n = wid >> 1;
+    nheld = L.regoff[n + 1] - L.regoff[n];
+    mine = item_of(wid, nheld);
+#pragma unroll
+    for (int e = 0; e < RE; ++e) {
+      const unsigned at =
+          smem_u32(ks) + (e < nheld ? L.regoff[n] + e : 0) * kMmaRow;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        ldmatrix_x4_trans(held[e][0][kk], at + mine.off0 + kk * 2048);
+        ldmatrix_x4_trans(held[e][1][kk], at + mine.off1 + kk * 2048);
+      }
+    }
+  }
+  if (ne > cap) {
+    __syncthreads();
+    stage_rows(cap, min(ne, cap + L.nreg), cap);
+    cp_async_wait_all();
+    __syncthreads();
+  }
+
+  // where this lane sends its 16 bytes of a tile's output: block
+  // 4 (g % 4) + t, the x buffers and their barriers there
+  const int to_rank = (g & 3) * 4 + t;
+  const bool sends = to_rank < ncl;
+  unsigned to_x[2], to_bar[2];
+#pragma unroll
+  for (int b = 0; b < 2; ++b) {
+    to_x[b] = map_to_block(smem_u32(xbuf[b]), sends ? to_rank : rank);
+    to_bar[b] = map_to_block(smem_u32(&xbar[b]), sends ? to_rank : rank);
+  }
+
+  for (int layer = 0; layer < nlayers; ++layer) {
+    const float* bias = layer < depth ? bias_s : bias_s + W;
+    const bool last = layer == nlayers - 1;
+    if (layer == depth) {  // the only block barriers of the layers
+      __syncthreads();     // every reader of root1 is through
+      stage_root(root2);
+      cp_async_wait_all();
+      __syncthreads();
+    }
+    MDNO_WARP_MARK(layer, 0)
+    if (layer > 0 && (works || wid == 0)) {
+      mbar_wait(&xbar[layer & 1], ((layer - 1) >> 1) & 1);
+      // this buffer is filled again by layer + 1, unless that is the last
+      if (tid == 0 && layer + 2 < nlayers)
+        mbar_arrive_expect_tx(&xbar[layer & 1], x_bytes);
+      MDNO_MARK(8 + 3 * (layer - 1))
+    }
+    MDNO_WARP_MARK(layer, 1)
+    // the shared address of this layer's input buffer
+    const unsigned xc = smem_u32(smem_raw) + (unsigned)(layer & 1 ? l.xb : l.xa);
+    for (int u = wid; u < 2 * nown; u += nw) {
+      const bool first_item = u == wid;
+      const Item it = first_item ? mine : item_of(u, 0);
+      const int h = u & 1;
+      float bs[2][2];
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        bs[m][0] = bias[(2 * h + m) * 16 + g];
+        bs[m][1] = bias[(2 * h + m) * 16 + g + 8];
+      }
+      // the root product first: it waits for nothing but x
+      float dr[2][2][4] = {};
+      product_staged(dr, smem_u32(root_s) + it.off0, smem_u32(root_s) + it.off1,
+                     xc, it.j * W * 2);
+      float agg[2][2] = {};
+      // a message: the two half sums added, masked, rounded to bf16 (both
+      // columns of a tile by one conversion)
+      auto add = [&](const float (&d)[2][2][4], int mk) {
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+          const unsigned p = pack_bf16((d[m][0][0] + d[m][1][0]) * __int_as_float(mk),
+                                       (d[m][0][2] + d[m][1][2]) * __int_as_float(mk));
+          agg[m][0] += __uint_as_float(p << 16);
+          agg[m][1] += __uint_as_float(p & 0xffff0000u);
+        }
+      };
+      // The node's edges in slot order: those held in registers, those with
+      // a staged row, those read from L2. Rows are given in list order, so
+      // each kind is a run.
+      if (first_item && nheld > 0) {
+#pragma unroll
+        for (int e = 0; e < RE; ++e) {
+          // an edge this warp does not hold repeats the first and is dropped
+          const int4 me = meta[it.first - nheld + (e < nheld ? e : 0)];
+          float d[2][2][4] = {};
+          product(d, held[e], xc, me.y);
+          if (e < nheld) add(d, me.z);
+        }
+      }
+      MDNO_WARP_MARK(layer, 2)
+      int i = it.first;
+      for (; i < it.staged_end; ++i) {
+        const int4 me = meta[i];
+        float d[2][2][4] = {};
+        product_staged(d, smem_u32(ks) + me.x + it.off0,
+                       smem_u32(ks) + me.x + it.off1, xc, me.y);
+        add(d, me.z);
+      }
+      for (; i < it.past; ++i) {
+        float d[2][2][4] = {};
+        const int4 me = meta[i];
+        product_global(d,
+                       reinterpret_cast<const unsigned short*>(K) +
+                           ((size_t)s * E + me.w) * (W * W),
+                       h, xc, me.y);
+        add(d, me.z);
+      }
+      MDNO_WARP_MARK(layer, 3)
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        // x' = relu(agg * inv_deg + cd(x) @ cd(root) + bias)
+        const int mt = 2 * h + m, col = mt * 16 + g;
+        const float z0 = __fadd_rn(
+            __fadd_rn(__fmul_rn(agg[m][0], it.invd), dr[m][0][0] + dr[m][1][0]),
+            bs[m][0]);
+        const float z1 = __fadd_rn(
+            __fadd_rn(__fmul_rn(agg[m][1], it.invd), dr[m][0][2] + dr[m][1][2]),
+            bs[m][1]);
+        const float o0 = relu_nan(z0), o1 = relu_nan(z1);
+        if (last) {
+          // the four lanes of a row group hold the same two values: each
+          // stores them into its share of the cluster's blocks
+          for (int r = t; r < ncl; r += 4) {
+            float* to = cluster.map_shared_rank(xout, r) + it.j * W + col;
+            to[0] = o0;
+            to[8] = o1;
+          }
+        } else {
+          // The tile's 16 values are 32 consecutive bytes of the node's row
+          // (xpos). Three shuffles bring every lane the 16-byte half its
+          // 8-lane group g / 4 stands for; lane (g % 4, t) sends it.
+          const unsigned own = pack_bf16(o0, o1);
+          const unsigned other = __shfl_xor_sync(0xffffffffu, own, 4);
+          const unsigned even = g & 1 ? other : own, odd = g & 1 ? own : other;
+          const unsigned w0 = __byte_perm(even, odd, 0x5410);  // columns g, g + 1
+          const unsigned w1 = __byte_perm(even, odd, 0x7632);  // and 8 further
+          const unsigned v0 = __shfl_xor_sync(0xffffffffu, w0, 8);
+          const unsigned v1 = __shfl_xor_sync(0xffffffffu, w1, 8);
+          const uint4 half = g & 2 ? make_uint4(v0, v1, w0, w1)
+                                   : make_uint4(w0, w1, v0, v1);
+          if (sends)
+            store_counted16(to_x[(layer + 1) & 1] +
+                                (it.j * W + mt * 16 + (g >> 2) * 8) * 2,
+                            half, to_bar[(layer + 1) & 1]);
+        }
+      }
+      MDNO_WARP_MARK(layer, 5)
+    }
+    MDNO_WARP_MARK(layer, 6)
+    MDNO_MARK(6 + 3 * layer)
+    MDNO_MARK(7 + 3 * layer)
+  }
+  if (nlayers > 0) {
+    cluster_arrive();
+    cluster_wait();  // the last x' is complete everywhere
+    MDNO_MARK(8 + 3 * (nlayers - 1))
+  }
+  return xout;
+}
+
+// ---- run_fma ----------------------------------------------------------------------
+
+// The body on CUDA cores, any CD and width. Same contract as run().
 template <typename CD>
+__device__ float* run_fma(
+    unsigned char* smem_raw, const float* __restrict__ x0,
+    const CD* __restrict__ K, const int* __restrict__ edges,
+    const float* __restrict__ mask, const float* __restrict__ inv_deg,
+    const CD* __restrict__ root1, const float* __restrict__ bias1,
+    const CD* __restrict__ root2, const float* __restrict__ bias2,
+    int R, int W, int E, int depth, int cap) {
+  constexpr int CPL = 16 / sizeof(CD);  // columns a lane owns in an item
+  MDNO_MARK(0)
+  cluster_arrive();  // every block of the cluster runs before a remote store
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int ncl = (int)cluster.num_blocks();
+  const int s = blockIdx.x / ncl;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int lane = tid % 32, wid = tid / 32, nw = nt / 32;
+  const int RW = R * W, WW = W * W;
+
+  const Layout l = layout(R, W, E, sizeof(CD), cap);
+  CD* ks = reinterpret_cast<CD*>(smem_raw + l.ks);
+  CD* root_s = reinterpret_cast<CD*>(smem_raw + l.root);
+  float* xa = reinterpret_cast<float*>(smem_raw + l.xa);
+  float* xb = reinterpret_cast<float*>(smem_raw + l.xb);
+  CD* msl = reinterpret_cast<CD*>(smem_raw + l.msl);
+  float* aggs = reinterpret_cast<float*>(smem_raw + l.aggs);
+  float* rxs = reinterpret_cast<float*>(smem_raw + l.rxs);
+  unsigned long long* bar = reinterpret_cast<unsigned long long*>(smem_raw + l.bar);
+  float* bias_s = reinterpret_cast<float*>(smem_raw + l.bias);
+
+  // ---- prologue: x0, the deal, this block's K rows ----------------------------
+  if (tid == 0) {
+    mbar_init(bar, 1);
+    mbar_init_fence();
+  }
+  for (int i = tid; i < RW; i += nt) {
+    const float v = x0[(size_t)s * RW + i];
+    xa[i] = depth > 0 ? round_cd<CD>(v) : v;
+  }
+  for (int i = tid; i < 2 * W; i += nt)
+    bias_s[i] = i < W ? bias1[i] : bias2[i - W];
+  const int* src_g = edges + (size_t)s * 2 * E;
+  const Lists L = deal(smem_raw + l.ints, src_g, src_g + E, mask + (size_t)s * E,
+                       inv_deg + (size_t)s * R, R, E, rank, ncl, cap, 0, 0);
+  const int nown = L.nown, ne = L.ne;
+  const int* lslot = L.lslot;
+  const int* lsrc = L.lsrc;
+  const float* lmsk = L.lmsk;
+  const int* mynode = L.mynode;
+  const int* nstart = L.nstart;
+  const float* own_invd = L.own_invd;
+  const int nst = min(ne, cap);  // edges whose K row is staged
+
+  // ---- lanes of an item -------------------------------------------------------
+  const int groups = W / CPL;  // 16-byte column groups, at most 32
+  const int splits = (groups & (groups - 1)) == 0 ? 32 / groups : 1;
+  const int g = lane % groups, sp = lane / groups;
+  const int nwi = (W + splits - 1) / splits;
+  const int wi0 = min(W, sp * nwi);
+  const int wi1 = sp < splits ? min(W, wi0 + nwi) : wi0;
+  const bool writer = sp == 0 && lane < groups;
+
+  // one bulk copy a row by the copy engine, counted on the mbarrier
+  if (tid == 0 && nst > 0) {
+    const unsigned row_bytes = (unsigned)(WW * sizeof(CD));
+    mbar_arrive_expect_tx(bar, nst * row_bytes);
+    for (int i = 0; i < nst; ++i)
+      bulk_copy_g2s(ks + (size_t)i * WW,
+                    K + ((size_t)s * E + lslot[i]) * WW, row_bytes, bar);
+  }
+  cluster_wait();
+  MDNO_MARK(4)
+  if (nst > 0) mbar_wait(bar, 0);
+  MDNO_MARK(5)
+
+  // An output of the per-node sums: owned node n (node j of the stream),
+  // columns c4 .. c4 + 3, one of four lanes that share the node's messages.
+  struct Slot {
+    bool valid;
+    int part, n, c4, first, past, j;
+    float invd;
+  };
+  const int W4 = W / 4;
+  const int total = nown * W4 * 4;
+  auto slot_of = [&](int idx) {
+    Slot sl;
+    sl.valid = idx < total;
+    sl.part = idx & 3;
+    const int q = idx >> 2;
+    sl.n = sl.valid ? q / W4 : 0;
+    sl.c4 = (q % W4) * 4;
+    sl.first = nstart[sl.n];
+    sl.past = nstart[sl.n + 1];
+    sl.j = mynode[sl.n];
+    sl.invd = own_invd[sl.n];
+    return sl;
+  };
+  const Slot mine = slot_of(tid);
+
+  float* xc = xa;
+  float* xn = xb;
+
+  for (int layer = 0; layer < 2 * depth; ++layer) {
+    const float* bias = layer < depth ? bias_s : bias_s + W;
+    const bool last = layer == 2 * depth - 1;
+    if (layer == 0 || layer == depth) {
+      const uint4* from = reinterpret_cast<const uint4*>(layer < depth ? root1 : root2);
+      uint4* to = reinterpret_cast<uint4*>(root_s);
+      for (int i = tid; i < WW / CPL; i += nt) to[i] = from[i];
+      __syncthreads();
+    }
+
+    // the block's edges in chunks of kMsgRows (one chunk at the bench shapes)
+    for (int base = 0; base == 0 || base < ne; base += kMsgRows) {
+      const int nchunk = max(0, min(kMsgRows, ne - base));
+      const int nitems = nchunk + (base == 0 ? nown : 0);
+      // the parts of an item's sum, added across its lanes, and the result
+      // stored: a message masked and rounded to CD, a root product as it is
+      auto finish = [&](float (&acc)[CPL], int it, bool is_edge, int i, int n) {
+        if (CPL == 8 && splits == 4) {
+          // pairwise, (0 + 1) + (2 + 3), while the lanes of a column group
+          // share out its columns: a lane ends with two, 6 shuffles in all
+          const bool up1 = lane & groups, up2 = lane & (2 * groups);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const float got = __shfl_xor_sync(
+                0xffffffffu, up1 ? acc[c] : acc[c + 4], groups);
+            acc[c] = (up1 ? acc[c + 4] : acc[c]) + got;
+          }
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const float got = __shfl_xor_sync(
+                0xffffffffu, up2 ? acc[c] : acc[c + 2], 2 * groups);
+            acc[c] = (up2 ? acc[c + 2] : acc[c]) + got;
+          }
+          const int col = g * CPL + (up1 ? 4 : 0) + (up2 ? 2 : 0);
+          if (is_edge) {
+            const float mk = lmsk[i];
+            msl[it * W + col] = from_f32<CD>(acc[0] * mk);
+            msl[it * W + col + 1] = from_f32<CD>(acc[1] * mk);
+          } else {
+            rxs[n * W + col] = acc[0];
+            rxs[n * W + col + 1] = acc[1];
+          }
+          return;
+        }
+        for (int off = groups; off < groups * splits; off <<= 1)
+#pragma unroll
+          for (int c = 0; c < CPL; ++c)
+            acc[c] += __shfl_xor_sync(0xffffffffu, acc[c], off);
+        if (writer) {
+          if (is_edge) {
+            const float mk = lmsk[i];
+#pragma unroll
+            for (int c = 0; c < CPL; ++c)
+              msl[it * W + g * CPL + c] = from_f32<CD>(acc[c] * mk);
+          } else {
+#pragma unroll
+            for (int c = 0; c < CPL; ++c) rxs[n * W + g * CPL + c] = acc[c];
+          }
+        }
+      };
+
+      // last items first: the root products and the edges read from L2,
+      // whose latency the staged items then hide
+      for (int rev = wid; rev < nitems; rev += nw) {
+        const int it = nitems - 1 - rev;
+        const bool is_edge = it < nchunk;
+        const int i = base + it, n = it - nchunk;
+        const CD* kp = !is_edge ? root_s
+                       : i < nst ? ks + (size_t)i * WW
+                                 : K + ((size_t)s * E + lslot[i]) * WW;
+        const float* xs = xc + (is_edge ? lsrc[i] : mynode[n]) * W;
+        float acc[CPL];
+#pragma unroll
+        for (int c = 0; c < CPL; ++c) acc[c] = 0.f;
+        const CD* p = kp + (size_t)wi0 * W + g * CPL;
+        bool done = false;
+        if constexpr (sizeof(CD) == 2) {
+          // 16-deep parts (bf16 at width 64), eight rows in flight at a time
+          if (wi1 - wi0 == 16) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              uint4 raw[8];
+#pragma unroll
+              for (int r = 0; r < 8; ++r)
+                raw[r] = *reinterpret_cast<const uint4*>(p + (8 * h + r) * W);
+              float xv[8];
+              load4(xs + wi0 + 8 * h, xv);
+              load4(xs + wi0 + 8 * h + 4, xv + 4);
+#pragma unroll
+              for (int r = 0; r < 8; ++r) fma_row(raw[r], xv[r], acc);
+            }
+            done = true;
+          }
+        }
+        if (!done) {
+#pragma unroll 8
+          for (int wi = wi0; wi < wi1; ++wi, p += W) {
+            float kv[CPL];
+            load16(p, kv);
+            const float xv = xs[wi];
+#pragma unroll
+            for (int c = 0; c < CPL; ++c) acc[c] = fmaf(xv, kv[c], acc[c]);
+          }
+        }
+        finish(acc, it, is_edge, i, n);
+      }
+      __syncthreads();
+      MDNO_MARK(6 + 3 * layer)
+
+      // per owned node and 4 columns, four lanes: each adds every fourth of
+      // the node's messages of this chunk (in slot order), a butterfly adds
+      // the four parts, (0 + 1) + (2 + 3)
+      const bool more = base + kMsgRows < ne;
+      for (int idx0 = 0; idx0 < total; idx0 += nt) {
+        // this thread's output on the first pass (the only one unless a
+        // block owns more than threads / w nodes) was decoded once, before
+        // the layers
+        Slot sl = mine;
+        if (idx0 > 0) sl = slot_of(idx0 + tid);
+        const bool valid = sl.valid;
+        const int part = sl.part, n = sl.n, c4 = sl.c4;
+        const int lo = max(sl.first, base);
+        const int hi = valid ? min(sl.past, base + nchunk) : lo;
+        float agg[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 3
+        for (int i = lo + part; i < hi; i += 4) {
+          float m[4];
+          load4(msl + (i - base) * W + c4, m);
+          for (int k = 0; k < 4; ++k) agg[k] += m[k];
+        }
+        for (int k = 0; k < 4; ++k) {
+          agg[k] += __shfl_xor_sync(0xffffffffu, agg[k], 1);
+          agg[k] += __shfl_xor_sync(0xffffffffu, agg[k], 2);
+        }
+        if (!valid) continue;
+        if (base > 0)
+          for (int k = 0; k < 4; ++k) agg[k] += aggs[n * W + c4 + k];
+        if (more) {
+          if (part == 0)
+            for (int k = 0; k < 4; ++k) aggs[n * W + c4 + k] = agg[k];
+          continue;
+        }
+        // x' = relu(agg * inv_deg + cd(x) @ cd(root) + bias); each of the
+        // four lanes writes it into its share of the cluster's blocks
+        float rx[4], bs[4], out[4];
+        load4(rxs + n * W + c4, rx);
+        load4(bias + c4, bs);
+        for (int k = 0; k < 4; ++k) {
+          const float z =
+              __fadd_rn(__fadd_rn(__fmul_rn(agg[k], sl.invd), rx[k]), bs[k]);
+          out[k] = relu_nan(z);
+          if (!last) out[k] = round_cd<CD>(out[k]);
+        }
+        const float4 v = make_float4(out[0], out[1], out[2], out[3]);
+        for (int r = part; r < ncl; r += 4)
+          *reinterpret_cast<float4*>(cluster.map_shared_rank(xn, r) + sl.j * W + c4) = v;
+      }
+      if (more) __syncthreads();  // the next chunk overwrites the messages
+    }
+    MDNO_MARK(7 + 3 * layer)
+    cluster_arrive();
+    cluster_wait();  // x' complete everywhere; messages free again
+    MDNO_MARK(8 + 3 * layer)
+    { float* t = xc; xc = xn; xn = t; }
+  }
+  return xc;
+}
+
+// Runs the 2*depth layers of stream blockIdx.x / (blocks of the cluster).
+// Every thread of every block of the cluster calls it. Returns the final
+// node features (R, W) f32 in this block's shared memory, complete in every
+// block of the cluster (the last cluster barrier has passed). MMA chooses
+// the body, as Plan::mma says; the block has Plan::threads threads.
+template <typename CD, bool MMA>
 __device__ float* run(
     unsigned char* smem_raw,
     const float* __restrict__ x0,       // (S, R, W)
@@ -62,181 +1052,89 @@ __device__ float* run(
     const float* __restrict__ inv_deg,  // (S, R)
     const CD* __restrict__ root1, const float* __restrict__ bias1,
     const CD* __restrict__ root2, const float* __restrict__ bias2,
-    int R, int W, int E, int depth, int eb, int stage_k) {
-  constexpr int V = 4;     // outputs per message item
-  constexpr int V16 = 16 / sizeof(CD);  // CD values per 16-byte copy
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = (int)cluster.block_rank();
-  const int s = blockIdx.x / NCL;
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const int RW = R * W, G = W / V;
-
-  // shared layout: [K slice (if staged)] [root] xa xb ra rb part msl msk
-  // src dst; x* hold node features, r* the same rounded to CD
-  CD* ks_smem = reinterpret_cast<CD*>(smem_raw);
-  CD* root_s = ks_smem + (stage_k ? (size_t)eb * W * W : 0);
-  float* xa = reinterpret_cast<float*>(root_s + W * W);
-  float* xb = xa + RW;
-  float* ra = xb + RW;
-  float* rb = ra + RW;
-  float* part = rb + RW;
-  float* msl = part + RW;
-  float* msk = msl + eb * W;
-  int* src = reinterpret_cast<int*>(msk + eb);
-  int* dst = src + eb;
-
-  const int e0 = rank * eb;
-  const int ne = max(0, min(eb, E - e0));
-  for (int i = tid; i < ne; i += nt) {
-    src[i] = edges[(size_t)s * 2 * E + e0 + i];
-    dst[i] = edges[(size_t)s * 2 * E + E + e0 + i];
-    msk[i] = mask[(size_t)s * E + e0 + i];
-  }
-  for (int i = tid; i < RW; i += nt) {
-    xa[i] = x0[(size_t)s * RW + i];
-    ra[i] = round_cd<CD>(xa[i]);
-  }
-
-  const CD* kg = K + ((size_t)s * E + e0) * W * W;
-  const CD* kb = kg;
-  if (stage_k) {
-    const uint4* from = reinterpret_cast<const uint4*>(kg);
-    uint4* to = reinterpret_cast<uint4*>(ks_smem);
-    const int n16 = ne * W * W / V16;
-#pragma unroll 4
-    for (int i = tid; i < n16; i += nt) to[i] = from[i];
-    kb = ks_smem;
-  }
-  const int nb_out = (RW + NCL - 1) / NCL;  // outputs each block reduces
-
-  const float* invd = inv_deg + (size_t)s * R;
-  float* xc = xa;
-  float* xn = xb;
-  float* xr = ra;
-  float* xrn = rb;
-
-  // with no layer to run, the barrier that orders the loads above
-  if (depth <= 0) __syncthreads();
-  for (int layer = 0; layer < 2 * depth; ++layer) {
-    const float* bias = layer < depth ? bias1 : bias2;
-    if (layer == 0 || layer == depth) {
-      const uint4* from = reinterpret_cast<const uint4*>(layer < depth ? root1 : root2);
-      uint4* to = reinterpret_cast<uint4*>(root_s);
-      for (int i = tid; i < W * W / V16; i += nt) to[i] = from[i];
-    }
-    __syncthreads();
-
-    // messages m[e] = cd(x[src[e]]) @ K[e], f32 sums, masked, rounded to CD
-    for (int item = tid; item < ne * G; item += nt) {
-      const int e = item / G, v0 = (item % G) * V;
-      const float* xs = xr + src[e] * W;
-      const CD* kp = kb + (size_t)e * W * W + v0;
-      float acc[V];
-      for (int j = 0; j < V; ++j) acc[j] = 0.f;
-#pragma unroll 8
-      for (int wi = 0; wi < W; ++wi) {
-        float kv[V];
-        load4(kp + wi * W, kv);
-        const float xv = xs[wi];
-        for (int j = 0; j < V; ++j) acc[j] = fmaf(xv, kv[j], acc[j]);
-      }
-      for (int j = 0; j < V; ++j) msl[e * W + v0 + j] = round_cd<CD>(acc[j] * msk[e]);
-    }
-    __syncthreads();
-
-    // per-target sums over this block's edges: one thread per column
-    // walks the edges in order
-    for (int i = tid; i < RW; i += nt) part[i] = 0.f;
-    __syncthreads();
-    for (int v = tid; v < W; v += nt)
-      for (int e = 0; e < ne; ++e) part[dst[e] * W + v] += msl[e * W + v];
-    cluster.sync();
-
-    // this block's share of the outputs: add the cluster's partial sums in
-    // rank order, x' = relu(agg * inv_deg + cd(x) @ cd(root) + bias), and
-    // write x' into every block of the cluster
-    for (int idx = rank * nb_out + tid; idx < min(RW, (rank + 1) * nb_out);
-         idx += nt) {
-      const int j = idx / W, v = idx % W;
-      float agg = 0.f;
-#pragma unroll
-      for (int r = 0; r < NCL; ++r) agg += cluster.map_shared_rank(part, r)[idx];
-      float rx = 0.f;
-      const float* xj = xr + j * W;
-#pragma unroll 8
-      for (int wi = 0; wi < W; ++wi) rx = fmaf(xj[wi], to_f32<CD>(root_s[wi * W + v]), rx);
-      const float z = __fadd_rn(__fadd_rn(__fmul_rn(agg, invd[j]), rx), bias[v]);
-      const float out = relu_nan(z);
-      const float out_r = round_cd<CD>(out);
-#pragma unroll
-      for (int r = 0; r < NCL; ++r) {
-        cluster.map_shared_rank(xn, r)[idx] = out;
-        cluster.map_shared_rank(xrn, r)[idx] = out_r;
-      }
-    }
-    cluster.sync();  // x' complete everywhere; partial sums free again
-    float* t = xc;
-    xc = xn;
-    xn = t;
-    t = xr;
-    xr = xrn;
-    xrn = t;
-  }
-  return xc;
+    int R, int W, int E, int depth, int cap) {
+  if constexpr (MMA)
+    return run_mma(smem_raw, x0, K, edges, mask, inv_deg, root1, bias1, root2,
+                   bias2, R, E, depth, cap);
+  else
+    return run_fma<CD>(smem_raw, x0, K, edges, mask, inv_deg, root1, bias1,
+                       root2, bias2, R, W, E, depth, cap);
 }
 
-inline size_t smem_bytes(int R, int W, int eb, int cd_size, bool stage_k) {
-  return (stage_k ? (size_t)eb * W * W * cd_size : 0) + (size_t)W * W * cd_size +
-         (size_t)5 * R * W * 4 + (size_t)eb * W * 4 + (size_t)eb * 3 * 4;
-}
-
-// The launch shape of a kernel that calls run(): edges per block, whether
-// the K slice is staged, and the dynamic shared memory.
+// The launch shape of a kernel that calls run(): the body (one per width
+// and compute dtype), its threads a block, the K rows staged per block and
+// the dynamic shared memory.
 struct Plan {
-  int eb;
-  int stage_k;
+  bool mma;
+  int threads;
+  int cap;
   size_t smem;
 };
 
-// cudaErrorInvalidConfiguration when the slice does not fit shared memory.
+// cudaErrorInvalidValue for a width the item lanes do not cover,
+// cudaErrorInvalidConfiguration when the buffers alone exceed shared memory.
 inline int plan(int R, int W, int E, int cd_size, Plan* out) {
-  out->eb = (E + NCL - 1) / NCL;
-  // stage each block's K slice in shared memory when it fits
-  out->stage_k = smem_bytes(R, W, out->eb, cd_size, true) <= (size_t)kMaxSmem;
-  out->smem = smem_bytes(R, W, out->eb, cd_size, out->stage_k != 0);
-  return out->smem > (size_t)kMaxSmem ? (int)cudaErrorInvalidConfiguration : 0;
+  if (W % 8 != 0 || W * cd_size > 32 * 16) return (int)cudaErrorInvalidValue;
+  const size_t fixed = layout(R, W, E, cd_size, 0).total;
+  if (fixed > (size_t)kMaxSmem) return (int)cudaErrorInvalidConfiguration;
+  const size_t row = (size_t)W * W * cd_size;
+  const size_t fit = ((size_t)kMaxSmem - fixed) / row;
+  out->mma = takes_mma(W, cd_size);
+  out->threads = out->mma ? kMmaThreads : kThreads;
+  out->cap = (int)(fit < (size_t)E ? fit : (size_t)E);
+  out->smem = layout(R, W, E, cd_size, out->cap).total;
+  return 0;
 }
 
-// Launches ``kernel`` as S clusters of NCL blocks with ``smem`` bytes of
-// dynamic shared memory on ``st``. Returns a CUDA error code;
-// cudaErrorInvalidConfiguration when the card cannot co-schedule the cluster.
-template <typename... Params, typename... Args>
-int launch_clusters(void (*kernel)(Params...), int S, size_t smem,
-                    cudaStream_t st, Args... args) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-  if (err != cudaSuccess) return (int)err;
-
+// The launch of ``kernel`` as S clusters of NCL blocks of ``p.threads``
+// threads with ``p.smem`` bytes of dynamic shared memory on ``st``.
+struct ClusterLaunch {
   cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = NCL;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t config = {};
-  config.gridDim = dim3(S * NCL);
-  config.blockDim = dim3(kThreads);
-  config.dynamicSmemBytes = smem;
-  config.stream = st;
-  config.attrs = attr;
-  config.numAttrs = 1;
-  int clusters = 0;
-  err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &config);
+  cudaLaunchConfig_t config;
+};
+
+template <typename... Params>
+int prepare(void (*kernel)(Params...), int S, const Plan& p, cudaStream_t st,
+            ClusterLaunch* cl) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
   if (err != cudaSuccess) return (int)err;
+  cl->attr[0].id = cudaLaunchAttributeClusterDimension;
+  cl->attr[0].val.clusterDim.x = NCL;
+  cl->attr[0].val.clusterDim.y = 1;
+  cl->attr[0].val.clusterDim.z = 1;
+  cl->config = cudaLaunchConfig_t{};
+  cl->config.gridDim = dim3(S * NCL);
+  cl->config.blockDim = dim3(p.threads);
+  cl->config.dynamicSmemBytes = p.smem;
+  cl->config.stream = st;
+  cl->config.attrs = cl->attr;
+  cl->config.numAttrs = 1;
+  return 0;
+}
+
+// How many clusters of this launch shape the card holds at once.
+template <typename... Params>
+int max_active_clusters(void (*kernel)(Params...), const Plan& p, int* out) {
+  ClusterLaunch cl;
+  const int rc = prepare(kernel, 1, p, nullptr, &cl);
+  if (rc != 0) return rc;
+  return (int)cudaOccupancyMaxActiveClusters(out, kernel, &cl.config);
+}
+
+// Returns a CUDA error code; cudaErrorInvalidConfiguration when the card
+// cannot co-schedule the cluster.
+template <typename... Params, typename... Args>
+int launch_clusters(void (*kernel)(Params...), int S, const Plan& p,
+                    cudaStream_t st, Args... args) {
+  ClusterLaunch cl;
+  int rc = prepare(kernel, S, p, st, &cl);
+  if (rc != 0) return rc;
+  int clusters = 0;
+  rc = (int)cudaOccupancyMaxActiveClusters(&clusters, kernel, &cl.config);
+  if (rc != 0) return rc;
   if (clusters < 1) return (int)cudaErrorInvalidConfiguration;
-  err = cudaLaunchKernelEx(&config, kernel, args...);
+  const cudaError_t err = cudaLaunchKernelEx(&cl.config, kernel, args...);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -1,145 +1,245 @@
-// The edge-kernel MLP layer shared by edge_mlp.cu (the rollout step's three
-// launches) and fused_gkn.cu (the fused MLP + conv stack): the bf16 tensor
-// core kernel, the f32 FMA kernel and the host function that picks one and
-// enqueues it. See edge_mlp.cu for the design and its bound.
+// The edge-kernel MLP shared by edge_mlp.cu (the rollout step) and
+// fused_gkn.cu (the fused MLP + conv stack): the bf16 warpgroup-MMA kernel,
+// the narrow first-layer kernel, the FMA kernel (f32, and bf16 layers whose
+// K is no multiple of 64), the
+// TMA descriptors and the host functions that pick a kernel and enqueue it.
+// See edge_mlp.cu for what bounds the function on an H100 and why the
+// design is what it is.
+//
+// bf16 kernel, one launch per layer C = act(A @ B + bias) * row_mask:
+//   - a block owns a (64 * NC) x BN output tile; NC consumer warpgroups of
+//     128 threads each hold 64 rows of it in wgmma accumulators (f32), one
+//     more warp is the producer;
+//   - the producer's lane 0 keeps TMA loads in flight into a ring of
+//     kStages stages; A (M, K) arrives as 64-column boxes (K-major, 128-byte
+//     swizzle), B (K, N) as 64 x 64 boxes straight from the row-major weight
+//     (N contiguous: the "MN-major" operand form, transposed by the
+//     descriptor, same swizzle). Stages are handed over through mbarriers:
+//     full[] counts the TMA bytes, empty[] one arrival per consumer warp;
+//   - every product is the same wgmma shape, m64n64k16, run in k
+//     order, so the order in which an output's K products are summed does
+//     not depend on the tile shape, the grid or M;
+//   - bias, ReLU, the row mask and the single rounding to bf16 are applied
+//     on the accumulator registers; two lanes swap halves so that each
+//     writes 8 contiguous bytes.
+// The 6-wide first layer has a kernel of its own (edge_mlp_narrow_kernel):
+// a thread forms eight outputs of a row from the row's K inputs by FMAs.
 #pragma once
 
 #include <cstdint>
-#include <mma.h>
+#include <cuda.h>
+#include <dlfcn.h>
+#include <map>
+#include <mutex>
+#include <tuple>
 
 #include "common.cuh"
 
 namespace edge_mlp {
 
-using namespace nvcuda;
+// ---- bf16: TMA + wgmma -----------------------------------------------------
+constexpr int BK = 64;          // k-tile: 128 bytes of bf16, one swizzle row
+constexpr int kStages = 4;      // depth of the TMA ring
+constexpr int kBoxBytes = 64 * 128;  // one 64-row box of 128-byte rows
 
-// ---- bf16: tensor cores ----------------------------------------------------
-constexpr int BM = 64, BN = 64, BK = 32, kWmmaThreads = 128, kStages = 3;
-constexpr int kFragM = BM / 32;  // 16-row fragments per warp (2 x 2 warps)
-constexpr int LDA = BK + 8, LDB = BN + 8, LDC = BN + 4;
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           int src_bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(src_bytes));
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            unsigned long long* bar, int c0,
+                                            int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+// Shared-memory matrix descriptor of a 128-byte-swizzled tile whose 8-row
+// groups lie 1024 bytes apart. ``lbo16`` is the leading byte offset in
+// 16-byte units: unused (1) for a K-major operand; for the MN-major B it is
+// the distance between 64-column blocks, of which one wgmma spans
+// exactly one.
+__device__ __forceinline__ uint64_t smem_desc(unsigned addr, unsigned lbo16) {
+  return (uint64_t)((addr & 0x3FFFFu) >> 4) | ((uint64_t)lbo16 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
 
 template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending) : "memory");
 }
 
-// kVec: K % BK == 0 and 16-byte aligned rows, so tiles arrive by 16-byte
-// cp.async copies through a kStages ring that overlaps the next tiles'
-// loads with this tile's products; otherwise (the 6-wide first layer)
-// element loads with zero fill.
-template <bool kVec>
-__global__ void __launch_bounds__(kWmmaThreads) edge_mlp_bf16_kernel(
-    const __nv_bfloat16* __restrict__ A,   // (M, K)
-    const __nv_bfloat16* __restrict__ B,   // (K, N)
-    const float* __restrict__ bias,        // (N)
-    const float* __restrict__ row_mask,    // (M) or null
-    __nv_bfloat16* __restrict__ C,         // (M, N)
+#define MDNO_ACC32(d)                                                         \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),     \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),            \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),        \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),        \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),        \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),        \
+      "+f"(d[31])
+
+#define MDNO_ACC32_REGS                                                       \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "   \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "    \
+  "%30, %31}"
+
+// d (64 x 64, f32) += A (64 x 16, K-major, shared) @ B (16 x 64, MN-major,
+// shared), bf16 operands.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a,
+                                         uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " MDNO_ACC32_REGS
+      ", %32, %33, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : MDNO_ACC32(d)
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+// Dynamic shared memory of the kernel below, with 1024 bytes of slack to
+// align the first stage to the swizzle pattern's period.
+constexpr size_t wgmma_smem_bytes(int nc, int bn) {
+  return 1024 + (size_t)kStages * (nc + bn / 64) * kBoxBytes + 2 * kStages * 8;
+}
+
+template <int NC, int BN>
+__global__ void __launch_bounds__(NC * 128 + 32) edge_mlp_wgmma_kernel(
+    const __grid_constant__ CUtensorMap map_a,  // A (M, K)
+    const __grid_constant__ CUtensorMap map_b,  // B (K, N)
+    const float* __restrict__ bias,             // (N)
+    const float* __restrict__ row_mask,         // (M) or null
+    __nv_bfloat16* __restrict__ C,              // (M, N)
     int M, int N, int K, int relu) {
-  __shared__ __align__(128) __nv_bfloat16 As[kStages][BM * LDA];
-  __shared__ __align__(128) __nv_bfloat16 Bs[kStages][BK * LDB];
-  __shared__ __align__(128) float Cs[BM * LDC];
+  constexpr int NJ = BN / 64;                       // 64-column blocks of B
+  constexpr int kABytes = NC * kBoxBytes;
+  constexpr int kStageBytes = kABytes + NJ * kBoxBytes;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* stages = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned long long* full =
+      reinterpret_cast<unsigned long long*>(stages + kStages * kStageBytes);
+  unsigned long long* empty = full + kStages;
 
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int wm = warp / 2, wn = warp % 2;  // 2 x 2 warps of BM/2 x 32
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int nk = (K + BK - 1) / BK;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int m0 = blockIdx.y * (NC * 64), n0 = blockIdx.x * BN;
+  const int nk = K / BK;
 
-  auto load_async = [&](int stage, int k0) {
-    for (int c = tid; c < BM * BK / 8; c += kWmmaThreads) {
-      const int r = c / (BK / 8), cc = (c % (BK / 8)) * 8;
-      const int gm = m0 + r;
-      cp_async16(&As[stage][r * LDA + cc],
-                 A + (size_t)min(gm, M - 1) * K + k0 + cc, gm < M ? 16 : 0);
+  if (tid == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], NC * 4);
     }
-    for (int c = tid; c < BK * BN / 8; c += kWmmaThreads) {
-      const int r = c / (BN / 8), cc = (c % (BN / 8)) * 8;
-      cp_async16(&Bs[stage][r * LDB + cc], B + (size_t)(k0 + r) * N + n0 + cc, 16);
-    }
-  };
-  auto load_sync = [&](int stage, int k0) {
-    const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
-    for (int c = tid; c < BM * BK; c += kWmmaThreads) {
-      const int r = c / BK, cc = c % BK;
-      const int gm = m0 + r, gk = k0 + cc;
-      As[stage][r * LDA + cc] = (gm < M && gk < K) ? A[(size_t)gm * K + gk] : zero;
-    }
-    for (int c = tid; c < BK * BN; c += kWmmaThreads) {
-      const int r = c / BN, cc = c % BN;
-      const int gk = k0 + r;
-      Bs[stage][r * LDB + cc] = gk < K ? B[(size_t)gk * N + n0 + cc] : zero;
-    }
-  };
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kFragM][2];
-  for (int i = 0; i < kFragM; ++i)
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  if constexpr (kVec) {
-    for (int st = 0; st < kStages - 1; ++st) {
-      if (st < nk) load_async(st, st * BK);
-      cp_async_commit();
-    }
+    mbar_init_fence();
   }
+  __syncthreads();
+
+  if (warp == NC * 4) {
+    // ---- producer: one lane keeps the ring full ---------------------------
+    if (lane == 0) {
+      for (int kt = 0; kt < nk; ++kt) {
+        const int stage = kt % kStages, round = kt / kStages;
+        if (round > 0) mbar_wait(&empty[stage], (round - 1) & 1);
+        unsigned char* st = stages + stage * kStageBytes;
+        mbar_arrive_expect_tx(&full[stage], kStageBytes);
+        tma_load_2d(st, &map_a, &full[stage], kt * BK, m0);
+        for (int j = 0; j < NJ; ++j)
+          tma_load_2d(st + kABytes + j * kBoxBytes, &map_b, &full[stage],
+                      n0 + j * 64, kt * BK);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup wg holds rows m0 + 64 wg .. + 63 ---------------
+  const int wg = warp / 4;
+  const int quad = lane % 4;
+  const int row_a = m0 + wg * 64 + (warp % 4) * 16 + lane / 4, row_b = row_a + 8;
+  float acc[NJ][32];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[j][i] = 0.f;
+
   for (int kt = 0; kt < nk; ++kt) {
     const int stage = kt % kStages;
-    if constexpr (kVec) {
-      cp_async_wait<kStages - 2>();  // tile kt has landed
-      __syncthreads();               // ... for every thread; stage kt-1 is free
-      const int pf = kt + kStages - 1;
-      if (pf < nk) load_async(pf % kStages, pf * BK);
-      cp_async_commit();
-    } else {
-      load_sync(stage, kt * BK);
-      __syncthreads();
+    mbar_wait(&full[stage], (kt / kStages) & 1);
+    const unsigned a_addr = smem_u32(stages + stage * kStageBytes) + wg * kBoxBytes;
+    const unsigned b_addr = smem_u32(stages + stage * kStageBytes) + kABytes;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      // 16 columns of a K-major row are 32 bytes; 16 rows of the
+      // MN-major B are two 8-row groups
+      const uint64_t da = smem_desc(a_addr + kk * 32, 1);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+        wgmma_ss(acc[j], da,
+                 smem_desc(b_addr + j * kBoxBytes + kk * 2048, 1024 >> 4));
     }
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[kFragM];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b[2];
-      for (int i = 0; i < kFragM; ++i)
-        wmma::load_matrix_sync(a[i], &As[stage][(wm * 16 * kFragM + i * 16) * LDA + kk], LDA);
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], &Bs[stage][kk * LDB + wn * 32 + j * 16], LDB);
-      for (int i = 0; i < kFragM; ++i)
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
+    wgmma_commit();
+    if (kt > 0) {
+      wgmma_wait<1>();  // tile kt - 1 is done with its stage
+      if (lane == 0) mbar_arrive(&empty[(kt - 1) % kStages]);
     }
-    if constexpr (!kVec) __syncthreads();
   }
+  wgmma_wait<0>();
 
-  for (int i = 0; i < kFragM; ++i)
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wm * 16 * kFragM + i * 16) * LDC + wn * 32 + j * 16,
-                              acc[i][j], LDC, wmma::mem_row_major);
-  __syncthreads();
-  for (int idx = tid; idx < BM * BN; idx += kWmmaThreads) {
-    const int r = idx / BN, c = idx % BN;
-    const int gm = m0 + r;
-    if (gm >= M) continue;
-    float v = Cs[r * LDC + c] + bias[n0 + c];
-    if (relu) v = relu_nan(v);
-    if (row_mask) v = v * row_mask[gm];
-    C[(size_t)gm * N + n0 + c] = __float2bfloat16_rn(v);
-  }
+  // ---- epilogue on the accumulators ---------------------------------------
+  // d[4 c + 0, 1] is (row_a, 8 c + 2 quad + 0, 1), d[4 c + 2, 3] the same
+  // columns of row_b. Lanes quad and quad ^ 1 swap so that the even lane
+  // stores four columns of chunk c and the odd lane four of chunk c + 1.
+  const float mask_a = (row_mask && row_a < M) ? row_mask[row_a] : 1.f;
+  const float mask_b = (row_mask && row_b < M) ? row_mask[row_b] : 1.f;
+  const bool odd = quad & 1;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int c = 0; c < 8; c += 2) {
+      const int col = n0 + j * 64 + c * 8 + quad * 2;
+      const float2 bc0 = *reinterpret_cast<const float2*>(bias + col);
+      const float2 bc1 = *reinterpret_cast<const float2*>(bias + col + 8);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float mk = h ? mask_b : mask_a;
+        float v[4] = {acc[j][4 * c + 2 * h] + bc0.x,
+                      acc[j][4 * c + 2 * h + 1] + bc0.y,
+                      acc[j][4 * (c + 1) + 2 * h] + bc1.x,
+                      acc[j][4 * (c + 1) + 2 * h + 1] + bc1.y};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if (relu) v[i] = relu_nan(v[i]);
+          if (row_mask) v[i] = v[i] * mk;
+        }
+        const __nv_bfloat162 q0 = __floats2bfloat162_rn(v[0], v[1]);
+        const __nv_bfloat162 q1 = __floats2bfloat162_rn(v[2], v[3]);
+        const uint32_t p0 = *reinterpret_cast<const uint32_t*>(&q0);
+        const uint32_t p1 = *reinterpret_cast<const uint32_t*>(&q1);
+        const uint32_t got = __shfl_xor_sync(0xffffffffu, odd ? p0 : p1, 1);
+        const int row = h ? row_b : row_a;
+        if (row < M) {
+          const uint2 out = odd ? make_uint2(got, p1) : make_uint2(p0, got);
+          *reinterpret_cast<uint2*>(C + (size_t)row * N + (odd ? col + 6 : col)) = out;
+        }
+      }
+    }
 }
 
-// ---- f32: shared-memory tiled FMA -----------------------------------------
+// ---- FMA kernel: f32, and bf16 layers the wgmma kernel does not take --------
 constexpr int FBM = 64, FBN = 64, FBK = 16, kFmaThreads = 256;
 
-__global__ void __launch_bounds__(kFmaThreads) edge_mlp_f32_kernel(
-    const float* __restrict__ A, const float* __restrict__ B,
+template <typename CD>
+__global__ void __launch_bounds__(kFmaThreads) edge_mlp_fma_kernel(
+    const CD* __restrict__ A, const CD* __restrict__ B,
     const float* __restrict__ bias, const float* __restrict__ row_mask,
-    float* __restrict__ C, int M, int N, int K, int relu) {
+    CD* __restrict__ C, int M, int N, int K, int relu) {
   __shared__ float As[FBK][FBM + 4];  // transposed tile: As[k][m]
   __shared__ float Bs[FBK][FBN];
   const int tid = threadIdx.x;
@@ -151,12 +251,12 @@ __global__ void __launch_bounds__(kFmaThreads) edge_mlp_f32_kernel(
     for (int idx = tid; idx < FBM * FBK; idx += kFmaThreads) {
       const int r = idx / FBK, c = idx % FBK;
       const int gm = m0 + r, gk = k0 + c;
-      As[c][r] = (gm < M && gk < K) ? A[(size_t)gm * K + gk] : 0.f;
+      As[c][r] = (gm < M && gk < K) ? to_f32<CD>(A[(size_t)gm * K + gk]) : 0.f;
     }
     for (int idx = tid; idx < FBK * FBN; idx += kFmaThreads) {
       const int r = idx / FBN, c = idx % FBN;
       const int gk = k0 + r;
-      Bs[r][c] = gk < K ? B[(size_t)gk * N + n0 + c] : 0.f;
+      Bs[r][c] = gk < K ? to_f32<CD>(B[(size_t)gk * N + n0 + c]) : 0.f;
     }
     __syncthreads();
     for (int kk = 0; kk < FBK; ++kk) {
@@ -176,37 +276,196 @@ __global__ void __launch_bounds__(kFmaThreads) edge_mlp_f32_kernel(
       float v = acc[i][j] + bias[gn];
       if (relu) v = relu_nan(v);
       if (row_mask) v = v * row_mask[gm];
-      C[(size_t)gm * N + gn] = v;
+      C[(size_t)gm * N + gn] = from_f32<CD>(v);
     }
   }
 }
 
+// ---- bf16 layers with a few inputs (the MLP's first, K = 6) -------------------
+constexpr int kNarrowMaxK = 16;
+
+// A thread forms eight neighbouring outputs of one row: the row's K inputs
+// times eight columns of B (one 16-byte load a k), f32 sums in k order,
+// bias, ReLU, row mask, one 16-byte store.
+__global__ void __launch_bounds__(kFmaThreads) edge_mlp_narrow_kernel(
+    const __nv_bfloat16* __restrict__ A, const __nv_bfloat16* __restrict__ B,
+    const float* __restrict__ bias, const float* __restrict__ row_mask,
+    __nv_bfloat16* __restrict__ C, int M, int N, int K, int relu) {
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  const int n8 = N / 8;
+  if (idx >= M * n8) return;
+  const int row = idx / n8, col = (idx % n8) * 8;
+  float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  for (int k = 0; k < K; ++k) {
+    const float a = __bfloat162float(A[(size_t)row * K + k]);
+    const uint4 raw = *reinterpret_cast<const uint4*>(B + (size_t)k * N + col);
+    const unsigned w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      acc[2 * c] = fmaf(a, __uint_as_float(w[c] << 16), acc[2 * c]);
+      acc[2 * c + 1] = fmaf(a, __uint_as_float(w[c] & 0xffff0000u), acc[2 * c + 1]);
+    }
+  }
+  const float mk = row_mask ? row_mask[row] : 1.f;
+  uint32_t out[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    float v[2] = {acc[2 * c] + bias[col + 2 * c], acc[2 * c + 1] + bias[col + 2 * c + 1]};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (relu) v[i] = relu_nan(v[i]);
+      if (row_mask) v[i] = v[i] * mk;
+    }
+    const __nv_bfloat162 q = __floats2bfloat162_rn(v[0], v[1]);
+    out[c] = *reinterpret_cast<const uint32_t*>(&q);
+  }
+  *reinterpret_cast<uint4*>(C + (size_t)row * N + col) =
+      make_uint4(out[0], out[1], out[2], out[3]);
+}
+
+// ---- host side ---------------------------------------------------------------
+
+// The TMA descriptor of a row-major bf16 matrix (rows, cols) read in boxes
+// of 64 columns (128 bytes) by ``box_rows`` rows with the 128-byte swizzle.
+// A descriptor holds only the address and the shape, so the ones made are
+// kept by those: a step's buffers and weights are encoded once, not at
+// every launch. Returns a CUDA error code.
+inline int tensor_map(const void* base, uint64_t rows, uint64_t cols,
+                      uint32_t box_rows, CUtensorMap* out) {
+  using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                              void*, const cuuint64_t*, const cuuint64_t*,
+                              const cuuint32_t*, const cuuint32_t*,
+                              CUtensorMapInterleave, CUtensorMapSwizzle,
+                              CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+  static std::mutex lock;
+  static Encode encode = nullptr;
+  static std::map<std::tuple<const void*, uint64_t, uint64_t, uint32_t>,
+                  CUtensorMap> made;
+  std::lock_guard<std::mutex> guard(lock);
+  const auto key = std::make_tuple(base, rows, cols, box_rows);
+  const auto hit = made.find(key);
+  if (hit != made.end()) {
+    *out = hit->second;
+    return 0;
+  }
+  if (!encode) {
+    // libcuda is already in the process (the CUDA runtime loaded it)
+    void* libcuda = dlopen("libcuda.so.1", RTLD_NOW | RTLD_GLOBAL);
+    if (libcuda)
+      encode = reinterpret_cast<Encode>(dlsym(libcuda, "cuTensorMapEncodeTiled"));
+    if (!encode) return (int)cudaErrorSharedObjectSymbolNotFound;
+  }
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {cols * sizeof(__nv_bfloat16)};
+  const cuuint32_t box[2] = {64, box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult rc = encode(
+      out, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (rc != CUDA_SUCCESS) return (int)cudaErrorInvalidValue;
+  if (made.size() >= 256) made.clear();
+  made.emplace(key, *out);
+  return 0;
+}
+
+inline bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+template <int NC, int BN>
+int launch_wgmma(const void* A, const void* B, const float* bias,
+                 const float* row_mask, void* C, int M, int N, int K, int relu,
+                 cudaStream_t st) {
+  CUtensorMap map_a, map_b;
+  int rc = tensor_map(B, K, N, 64, &map_b);
+  if (rc == 0) rc = tensor_map(A, M, K, NC * 64, &map_a);
+  if (rc != 0) return rc;
+  auto kernel = edge_mlp_wgmma_kernel<NC, BN>;
+  constexpr size_t smem = wgmma_smem_bytes(NC, BN);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(N / BN, (M + NC * 64 - 1) / (NC * 64));
+  kernel<<<grid, NC * 128 + 32, smem, st>>>(map_a, map_b, bias, row_mask,
+                                            static_cast<__nv_bfloat16*>(C), M,
+                                            N, K, relu);
+  return (int)cudaGetLastError();
+}
+
+// 128 x 128 tiles (two consumer warpgroups) where they still give the card
+// about a block an SM, 64 x 64 tiles otherwise: at one stream (224 rows)
+// the wide layer is 256 small blocks, two an SM, in one wave. The choice
+// changes which block computes an output, never the order of its sum.
+inline bool big_tiles(int M, int N) {
+  return N % 128 == 0 && ((M + 127) / 128) * (N / 128) >= 96;
+}
+
+// 128 x 64 tiles (two consumer warpgroups, half the A traffic of 64 x 64)
+// where those cover the card and the 128 x 128 ones do not.
+inline bool tall_tiles(int M, int N) {
+  return !big_tiles(M, N) && ((M + 127) / 128) * (N / 64) >= 96;
+}
 
 // Enqueues one layer C = act(A @ B + bias) * row_mask on ``st``; A (M, K),
-// B (K, N), C (M, N) in the compute dtype, N a multiple of 64. Returns a
-// CUDA error code.
+// B (K, N), C (M, N) in the compute dtype, N a multiple of 64, any K.
+// Which kernel runs depends on the dtype and K alone: bf16 with K a multiple
+// of 64 the wgmma kernel, bf16 with K <= 16 the narrow kernel, anything else
+// the FMA kernel. The first two need 16-byte-aligned matrices (A too for
+// TMA); a misaligned one is cudaErrorInvalidValue, never another kernel.
+// Returns a CUDA error code.
 inline int launch(const void* A, const void* B, const float* bias,
                   const float* row_mask, void* C, int M, int N, int K,
                   int relu, int cd_bf16, cudaStream_t st) {
-  if (M < 1 || K < 1 || N % BN != 0) return (int)cudaErrorInvalidValue;
-  const dim3 grid(N / BN, (M + BM - 1) / BM);
-  const dim3 fgrid(N / FBN, (M + FBM - 1) / FBM);
-  if (cd_bf16) {
-    const auto* a = static_cast<const __nv_bfloat16*>(A);
-    const auto* b = static_cast<const __nv_bfloat16*>(B);
-    auto* c = static_cast<__nv_bfloat16*>(C);
-    const bool vec = K % BK == 0 && reinterpret_cast<uintptr_t>(A) % 16 == 0 &&
-                     reinterpret_cast<uintptr_t>(B) % 16 == 0;
-    if (vec)
-      edge_mlp_bf16_kernel<true><<<grid, kWmmaThreads, 0, st>>>(a, b, bias, row_mask, c, M, N, K, relu);
-    else
-      edge_mlp_bf16_kernel<false><<<grid, kWmmaThreads, 0, st>>>(a, b, bias, row_mask, c, M, N, K, relu);
-  } else {
-    edge_mlp_f32_kernel<<<fgrid, kFmaThreads, 0, st>>>(
+  if (M < 1 || K < 1 || N % FBN != 0) return (int)cudaErrorInvalidValue;
+  if (cd_bf16 && K % BK == 0) {
+    if (!aligned16(A) || !aligned16(B) || !aligned16(C))
+      return (int)cudaErrorInvalidValue;
+    if (big_tiles(M, N))
+      return launch_wgmma<2, 128>(A, B, bias, row_mask, C, M, N, K, relu, st);
+    if (tall_tiles(M, N))
+      return launch_wgmma<2, 64>(A, B, bias, row_mask, C, M, N, K, relu, st);
+    return launch_wgmma<1, 64>(A, B, bias, row_mask, C, M, N, K, relu, st);
+  }
+  if (cd_bf16 && K <= kNarrowMaxK) {
+    if (!aligned16(B) || !aligned16(C)) return (int)cudaErrorInvalidValue;
+    const int items = M * (N / 8);
+    edge_mlp_narrow_kernel<<<(items + kFmaThreads - 1) / kFmaThreads,
+                             kFmaThreads, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(A), static_cast<const __nv_bfloat16*>(B),
+        bias, row_mask, static_cast<__nv_bfloat16*>(C), M, N, K, relu);
+    return (int)cudaGetLastError();
+  }
+  const dim3 grid(N / FBN, (M + FBM - 1) / FBM);
+  if (cd_bf16)
+    edge_mlp_fma_kernel<__nv_bfloat16><<<grid, kFmaThreads, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(A), static_cast<const __nv_bfloat16*>(B),
+        bias, row_mask, static_cast<__nv_bfloat16*>(C), M, N, K, relu);
+  else
+    edge_mlp_fma_kernel<float><<<grid, kFmaThreads, 0, st>>>(
         static_cast<const float*>(A), static_cast<const float*>(B), bias,
         row_mask, static_cast<float*>(C), M, N, K, relu);
-  }
   return (int)cudaGetLastError();
+}
+
+// Enqueues the whole edge-kernel MLP on ``st``, three launches:
+//   kmat = (relu(relu(ef @ w1 + b1) @ w2 + b2) @ w3 + b3) * row_mask
+// ef (M, F), w1 (F, KW), w2 (KW, KW), w3 (KW, N3); h1, h2 (M, KW) scratch.
+// Returns a CUDA error code.
+inline int launch_stack(const void* ef, const void* w1, const float* b1,
+                        const void* w2, const float* b2, const void* w3,
+                        const float* b3, const float* row_mask, void* h1,
+                        void* h2, void* kmat, int M, int KW, int N3, int F,
+                        int cd_bf16, cudaStream_t st) {
+  if (M < 1 || F < 1 || KW % FBN != 0 || N3 % FBN != 0)
+    return (int)cudaErrorInvalidValue;
+  int rc = launch(ef, w1, b1, nullptr, h1, M, KW, F, 1, cd_bf16, st);
+  if (rc == 0)
+    rc = launch(h1, w2, b2, nullptr, h2, M, KW, KW, 1, cd_bf16, st);
+  if (rc == 0)
+    rc = launch(h2, w3, b3, row_mask, kmat, M, N3, KW, 0, cd_bf16, st);
+  return rc;
 }
 
 }  // namespace edge_mlp

@@ -19,13 +19,18 @@
 // One SM can hold neither the weights nor K (1.84 MB in bf16), and the three
 // products want the whole card while the 12 dependent layers want K close
 // to one small group of SMs. So the host entry enqueues, on one stream and
-// with no host sync, the three MLP layers as tensor-core tile kernels over
-// all S*E rows (edge_mlp.cuh, shared with the rollout step; the last one
-// writes K with padded rows zeroed) and then one cluster kernel per call
-// that runs the 2*depth layers with each block's slice of K staged in
-// shared memory (conv_stack.cuh, shared with conv_head.cu) and writes x.
-// h1, h2 and K pass through device memory (L2-resident at these sizes)
-// between the four launches; the wrapper owns that scratch.
+// with no host sync, the three MLP layers over all S*E rows (edge_mlp.cuh,
+// shared with the rollout step: TMA-fed wgmma kernels for the two wide
+// layers, a small FMA kernel for the 6-wide first; the last one writes K
+// with padded rows zeroed) and then one cluster kernel per call that runs
+// the 2*depth layers with edges dealt to the cluster's 8 blocks by target
+// node, their K rows in registers and shared memory, in bf16 on the tensor
+// cores (conv_stack.cuh, shared with conv_head.cu), and writes x. h1, h2 and K
+// pass through device memory (L2-resident at these sizes) between the four
+// launches; the wrapper owns that scratch. What bounds the two halves on
+// this card, and what was tried, is in edge_mlp.cu and conv_head.cu.
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py): 53.3 us at
+// S = 1 and 95.5 at S = 8 (the first port: 117.9 and 314.2).
 //
 // Cast points follow the XLA path (gkn_apply_single with conv_impl="xla"),
 // not the Pallas body, which rounds every product xs * K to the compute
@@ -38,10 +43,10 @@
 
 namespace {
 
-using conv_stack::kThreads;
-
-template <typename CD>
-__global__ void __launch_bounds__(kThreads) fused_conv_stack_kernel(
+template <typename CD, bool MMA>
+__global__ void __launch_bounds__(
+    MMA ? conv_stack::kMmaThreads : conv_stack::kThreads, 1)
+    fused_conv_stack_kernel(
     const float* __restrict__ x0,       // (S, R, W)
     const CD* __restrict__ K,           // (S, E, W*W), padded rows zero
     const int* __restrict__ edges,      // (S, 2, E)
@@ -50,16 +55,18 @@ __global__ void __launch_bounds__(kThreads) fused_conv_stack_kernel(
     const CD* __restrict__ root1, const float* __restrict__ bias1,
     const CD* __restrict__ root2, const float* __restrict__ bias2,
     float* __restrict__ out,            // (S, R, W)
-    int R, int W, int E, int depth, int eb, int stage_k) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const float* x = conv_stack::run<CD>(smem_raw, x0, K, edges, mask, inv_deg,
-                                       root1, bias1, root2, bias2, R, W, E,
-                                       depth, eb, stage_k);
+    int R, int W, int E, int depth, int cap) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const float* x = conv_stack::run<CD, MMA>(smem_raw, x0, K, edges, mask,
+                                            inv_deg, root1, bias1, root2,
+                                            bias2, R, W, E, depth, cap);
   // every block holds all of x: each writes its share
-  const int rank = (int)cooperative_groups::this_cluster().block_rank();
-  const int s = blockIdx.x / conv_stack::NCL;
+  const auto cluster = cooperative_groups::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int ncl = (int)cluster.num_blocks();
+  const int s = blockIdx.x / ncl;
   const int RW = R * W;
-  const int nb_out = (RW + conv_stack::NCL - 1) / conv_stack::NCL;
+  const int nb_out = (RW + ncl - 1) / ncl;
   for (int idx = rank * nb_out + threadIdx.x;
        idx < min(RW, (rank + 1) * nb_out); idx += blockDim.x)
     out[(size_t)s * RW + idx] = x[idx];
@@ -74,11 +81,16 @@ int launch_stack(const float* x0, const void* K, const int* edges,
   conv_stack::Plan p;
   const int rc = conv_stack::plan(R, W, E, sizeof(CD), &p);
   if (rc != 0) return rc;
-  return conv_stack::launch_clusters(
-      fused_conv_stack_kernel<CD>, S, p.smem, st, x0,
-      static_cast<const CD*>(K), edges, mask, inv_deg,
-      static_cast<const CD*>(root1), bias1, static_cast<const CD*>(root2),
-      bias2, out, R, W, E, depth, p.eb, p.stage_k);
+  auto go = [&](auto kernel) {
+    return conv_stack::launch_clusters(
+        kernel, S, p, st, x0, static_cast<const CD*>(K), edges, mask, inv_deg,
+        static_cast<const CD*>(root1), bias1, static_cast<const CD*>(root2),
+        bias2, out, R, W, E, depth, p.cap);
+  };
+  if constexpr (sizeof(CD) == 2) {
+    if (p.mma) return go(fused_conv_stack_kernel<CD, true>);
+  }
+  return go(fused_conv_stack_kernel<CD, false>);
 }
 
 }  // namespace
@@ -94,15 +106,13 @@ extern "C" int mdno_fused_edge_conv_stack(
     void* h2, void* kmat, float* out, int S, int R, int W, int E, int KW, int F,
     int depth, int cd_bf16, void* stream) {
   if (S < 1 || R < 1 || E < 1 || F < 1 || depth < 0 || W % 8 != 0 ||
-      KW % edge_mlp::BN != 0)
+      KW % edge_mlp::FBN != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int M = S * E;
-  int rc = edge_mlp::launch(ef, w1, b1, nullptr, h1, M, KW, F, 1, cd_bf16, st);
-  if (rc == 0)
-    rc = edge_mlp::launch(h1, w2, b2, nullptr, h2, M, KW, KW, 1, cd_bf16, st);
-  if (rc == 0)
-    rc = edge_mlp::launch(h2, w3, b3, mask, kmat, M, W * W, KW, 0, cd_bf16, st);
+  int rc = edge_mlp::launch_stack(
+      ef, w1, b1, w2, b2, w3, b3, mask, h1, h2, kmat, M, KW, W * W, F, cd_bf16,
+      st);
   if (rc != 0) return rc;
   rc = cd_bf16 ? launch_stack<__nv_bfloat16>(x0, kmat, edges, mask, inv_deg,
                                              root1, bias1, root2, bias2, out,

@@ -24,7 +24,7 @@ BUILD = PACKAGE / "build"
 SOURCES = ("graph_encode", "edge_mlp", "conv_head", "train_conv_fwd",
            "train_conv_bwd", "fused_gkn")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-ldl")
 
 _libs: dict[str, ctypes.CDLL] = {}
 _logs: dict[str, str] = {}

@@ -16,17 +16,19 @@ _signatures: dict = {}
 _fns: dict = {}
 
 
-def register_kernel(name: str, symbol: str, argtypes: list) -> None:
-    """Declare the C entry point ``symbol`` of ``csrc/<name>.cu``."""
-    _signatures[name] = (symbol, argtypes)
+def register_kernel(name: str, symbol: str, argtypes: list,
+                    source: str | None = None) -> None:
+    """Declare the C entry point ``symbol`` of ``csrc/<source>.cu``
+    (``source`` defaults to ``name``)."""
+    _signatures[name] = (symbol, argtypes, source or name)
 
 
 def kernel_fn(name: str):
-    """The C entry point of ``csrc/<name>.cu`` with its argument types;
+    """The registered C entry point ``name`` with its argument types;
     builds and loads the kernels on first use."""
     if name not in _fns:
-        symbol, argtypes = _signatures[name]
-        fn = getattr(load_kernels()[name], symbol)
+        symbol, argtypes, source = _signatures[name]
+        fn = getattr(load_kernels()[source], symbol)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         _fns[name] = fn

@@ -9,8 +9,9 @@ stream, with no host sync inside the loop:
 
 1. ``graph_encode`` (``csrc/graph_encode.cu``): contact test, padded edge
    list, overflow flag, inverse degrees, edge features, LSTM + fc1.
-2. ``edge_mlp`` x 3 (``csrc/edge_mlp.cu``): the edge-kernel MLP over the
-   S*E edge rows; the last launch writes K with padded rows zeroed.
+2. ``edge_mlp_stack`` (``csrc/edge_mlp.cu``): the edge-kernel MLP over the
+   S*E edge rows, three launches enqueued by one call; the last writes K
+   with padded rows zeroed. ``edge_mlp`` is one layer of it, for any K.
 3. ``conv_head`` (``csrc/conv_head.cu``): 2*depth tied convs, fc2 head,
    prior, clip, window slide, this step's coordinates.
 
@@ -84,8 +85,12 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 register_kernel("graph_encode", "mdno_graph_encode",
                 [_P] * 11 + [_I] * 6 + [_F, _I, _I, _F, _F, _F] + [_P] * 8)
 register_kernel("edge_mlp", "mdno_edge_mlp", [_P] * 5 + [_I] * 5 + [_P])
+register_kernel("edge_mlp_stack", "mdno_edge_mlp_stack",
+                [_P] * 11 + [_I] * 5 + [_P], source="edge_mlp")
 register_kernel("conv_head", "mdno_conv_head",
                 [_P] * 13 + [_I] * 7 + [_F, _I, _F, _I, _F, _I, _P])
+register_kernel("conv_head_clusters", "mdno_conv_head_clusters",
+                [_I] * 4 + [ctypes.POINTER(ctypes.c_int)], source="conv_head")
 
 
 class StepBuffers(NamedTuple):
@@ -245,6 +250,25 @@ graph_encode.launches = 0
 
 # ---- edge_mlp -----------------------------------------------------------
 
+def _check_mlp_alignment(a, w, out, k: int, tag: str) -> None:
+    """The bf16 kernels read and write 16 bytes at a time (TMA boxes,
+    vector loads and stores): K a multiple of 64 needs a, w and out on
+    16-byte boundaries, K <= 16 needs w and out there. A view that starts
+    elsewhere raises; no other kernel takes its place."""
+    if a.dtype != torch.bfloat16:
+        return
+    if k % 64 == 0:
+        operands = (("a", a), ("w", w), ("out", out))
+    elif k <= 16:
+        operands = (("w", w), ("out", out))
+    else:
+        return
+    for name, t in operands:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{tag}: {name} must start on a 16-byte "
+                             f"boundary (offset {t.data_ptr() % 16})")
+
+
 def edge_mlp(a: torch.Tensor, w: torch.Tensor, b: torch.Tensor, relu: bool,
              row_mask: torch.Tensor | None = None,
              out: torch.Tensor | None = None) -> torch.Tensor:
@@ -261,6 +285,7 @@ def edge_mlp(a: torch.Tensor, w: torch.Tensor, b: torch.Tensor, relu: bool,
     dev, cd = a.device, a.dtype
     if n % 64:
         raise ValueError(f"edge_mlp needs N % 64 == 0, got N={n}")
+    _check_mlp_alignment(a, w, out, k, "edge_mlp")
     args = [
         _check(a, "a", cd, (m, k), dev),
         _check(w, "w", cd, (k, n), dev),
@@ -276,6 +301,48 @@ def edge_mlp(a: torch.Tensor, w: torch.Tensor, b: torch.Tensor, relu: bool,
 
 
 edge_mlp.launches = 0
+
+
+def edge_mlp_stack(ef: torch.Tensor, mlp, row_mask: torch.Tensor,
+                   h1: torch.Tensor, h2: torch.Tensor,
+                   out: torch.Tensor) -> torch.Tensor:
+    """The whole edge-kernel MLP of a step: ef (M, F), ``mlp`` three layers
+    ``{"w", "b"}`` (F -> kw -> kw -> n), row_mask (M,) f32; h1, h2 (M, kw)
+    scratch and out (M, n) in the compute dtype. Equal to three ``edge_mlp``
+    calls (ReLU, ReLU, row mask). On the card one C call enqueues the three
+    launches; ``edge_mlp.launches`` counts them."""
+    (l0, l1, l2) = mlp
+    if _on_cpu(ef):
+        edge_mlp(ef, l0["w"], l0["b"], True, out=h1)
+        edge_mlp(h1, l1["w"], l1["b"], True, out=h2)
+        return edge_mlp(h2, l2["w"], l2["b"], False, row_mask=row_mask,
+                        out=out)
+    dev, cd, f32 = ef.device, ef.dtype, torch.float32
+    m, f = ef.shape
+    kw, n = l1["w"].shape[0], l2["w"].shape[1]
+    if kw % 64 or n % 64:
+        raise ValueError(f"edge_mlp_stack needs widths that are multiples "
+                         f"of 64, got {kw} and {n}")
+    for a_i, layer, out_i in ((ef, l0, h1), (h1, l1, h2), (h2, l2, out)):
+        _check_mlp_alignment(a_i, layer["w"], out_i, layer["w"].shape[0],
+                             "edge_mlp_stack")
+    args = [
+        _check(ef, "ef", cd, (m, f), dev),
+        _check(l0["w"], "w1", cd, (f, kw), dev),
+        _check(l0["b"], "b1", f32, (kw,), dev),
+        _check(l1["w"], "w2", cd, (kw, kw), dev),
+        _check(l1["b"], "b2", f32, (kw,), dev),
+        _check(l2["w"], "w3", cd, (kw, n), dev),
+        _check(l2["b"], "b3", f32, (n,), dev),
+        _check(row_mask, "row_mask", f32, (m,), dev),
+        _check(h1, "h1", cd, (m, kw), dev),
+        _check(h2, "h2", cd, (m, kw), dev),
+        _check(out, "out", cd, (m, n), dev),
+        m, kw, n, f, _cd_flag(cd), _stream(),
+    ]
+    _raise_on(_kernel("edge_mlp_stack")(*args), "edge_mlp_stack")
+    edge_mlp.launches += 3
+    return out
 
 
 # ---- conv_head ----------------------------------------------------------
@@ -338,6 +405,18 @@ def conv_head(bufs: StepBuffers, weights, cfg: ModelConfig, clip,
 
 conv_head.launches = 0
 
+
+def conv_head_clusters(num_nodes: int, width: int, max_edges: int,
+                       cd) -> int:
+    """How many of ``conv_head``'s clusters (one a stream) the card holds at
+    once at these shapes: streams beyond that wait for a second wave."""
+    out = ctypes.c_int(0)
+    _raise_on(_kernel("conv_head_clusters")(
+        num_nodes, width, max_edges, _cd_flag(cd), ctypes.byref(out)),
+        "conv_head_clusters")
+    return out.value
+
+
 KERNELS = (graph_encode, edge_mlp, conv_head)
 
 
@@ -374,11 +453,8 @@ def step(bufs: StepBuffers, weights, cfg: ModelConfig, threshold: float,
     """One rollout step: five launches on the current stream."""
     s, e = bufs.mask.shape
     graph_encode(window, weights, threshold, bufs)
-    (l0, l1, l2) = weights["mlp"]
-    edge_mlp(bufs.ef.view(s * e, 6), l0["w"], l0["b"], True, out=bufs.h1)
-    edge_mlp(bufs.h1, l1["w"], l1["b"], True, out=bufs.h2)
-    edge_mlp(bufs.h2, l2["w"], l2["b"], False, row_mask=bufs.mask.view(-1),
-             out=bufs.kmat)
+    edge_mlp_stack(bufs.ef.view(s * e, 6), weights["mlp"],
+                   bufs.mask.view(-1), bufs.h1, bufs.h2, bufs.kmat)
     conv_head(bufs, weights, cfg, clip, window, coords)
 
 

@@ -110,6 +110,134 @@ def test_operand_checks_raise():
         pr._on_cpu(torch.empty(2, device="meta"))
 
 
+@pytest.mark.parametrize("k,which", [(64, "a"), (64, "w"), (64, "out"),
+                                     (6, "w"), (6, "out")])
+def test_misaligned_bf16_operands_of_the_edge_mlp_raise(k, which):
+    """A bf16 layer's kernel is fixed by K; an operand view that does not
+    start on a 16-byte boundary raises and is handed to no other kernel."""
+    bf16 = torch.bfloat16
+    ops = {"a": torch.zeros(8 * k + 8, dtype=bf16),
+           "w": torch.zeros(k * 64 + 8, dtype=bf16),
+           "out": torch.zeros(8 * 64 + 8, dtype=bf16)}
+    shapes = {"a": (8, k), "w": (k, 64), "out": (8, 64)}
+
+    def views(shifted):
+        return [ops[n][(1 if n == shifted else 0):][:np.prod(shapes[n])]
+                .view(shapes[n]) for n in ("a", "w", "out")]
+
+    pr._check_mlp_alignment(*views(None), k, "edge_mlp")
+    with pytest.raises(ValueError, match=f"{which} must start on a 16-byte"):
+        pr._check_mlp_alignment(*views(which), k, "edge_mlp")
+
+
+def test_alignment_rule_leaves_the_fma_layers_alone():
+    """f32 layers, bf16 layers with another K, and the 6-wide layer's input
+    (12-byte rows, read by element) carry no alignment rule."""
+    for cd, k in ((torch.float32, 64), (torch.bfloat16, 40),
+                  (torch.bfloat16, 6)):
+        a = torch.zeros(8 * k + 8, dtype=cd)[1:][:8 * k].view(8, k)
+        w = torch.zeros(k * 64 + 8, dtype=cd)
+        out = torch.zeros(8 * 64 + 8, dtype=cd)
+        shift = 0 if (cd, k) == (torch.bfloat16, 6) else 1
+        pr._check_mlp_alignment(a, w[shift:][:k * 64].view(k, 64),
+                                out[shift:][:8 * 64].view(8, 64), k, "edge_mlp")
+
+
+def _mlp_operands(seed, cd, m, kw, n, device="cpu"):
+    """Seeded operands of the edge-kernel MLP, made with numpy: ef (m, 6),
+    three layers 6 -> kw -> kw -> n, a row mask with holes."""
+    rng = np.random.default_rng(seed)
+
+    def t(a, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(a, np.float32),
+                               device=device).to(dtype)
+
+    ef = t(rng.normal(size=(m, 6)) * 4.0, cd)
+    mlp = [{"w": t(rng.normal(size=(k, o)) / np.sqrt(k), cd),
+            "b": t(rng.normal(size=o))}
+           for k, o in ((6, kw), (kw, kw), (kw, n))]
+    row_mask = t(rng.random(m) > 0.25)
+    return ef, mlp, row_mask
+
+
+@pytest.mark.parametrize("cd", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,kw,n", [(5, 64, 64), (224, 64, 256),
+                                    (130, 128, 192)])
+def test_edge_mlp_stack_on_cpu_equals_the_three_call_form_to_the_bit(
+        cd, m, kw, n):
+    ef, mlp, row_mask = _mlp_operands(3, cd, m, kw, n)
+    h1 = torch.full((m, kw), 7.0, dtype=cd)
+    h2, out = torch.empty(m, kw, dtype=cd), torch.empty(m, n, dtype=cd)
+    pr.reset_launch_counts()
+    got = pr.edge_mlp_stack(ef, mlp, row_mask, h1, h2, out)
+    a = pr.edge_mlp(ef, mlp[0]["w"], mlp[0]["b"], True)
+    b = pr.edge_mlp(a, mlp[1]["w"], mlp[1]["b"], True)
+    want = pr.edge_mlp(b, mlp[2]["w"], mlp[2]["b"], False, row_mask)
+    assert got is out and got.dtype == cd
+    assert torch.equal(h1, a) and torch.equal(h2, b)
+    assert torch.equal(got, want)
+    assert not got[row_mask == 0].any()
+    assert pr.launch_counts()["edge_mlp"] == 0
+
+
+def test_edge_mlp_stack_is_what_a_step_runs_on_cpu():
+    cfg, params, aa, windows = _setup(streams=2)
+    weights = pr.rollout_weights(params, cfg, aa, "cpu")
+    bufs = pr.alloc_buffers(cfg, 2, 12, "cpu")
+    win, coords = windows.clone(), torch.empty(2, 12, 3)
+    pr.step(bufs, weights, cfg, 8.0, 100.0, win, coords)
+    a = bufs.ef.view(-1, 6)
+    for i, layer in enumerate(weights["mlp"]):
+        a = pr.edge_mlp_plain(a, layer["w"], layer["b"], i < 2,
+                              bufs.mask.view(-1) if i == 2 else None)
+    assert torch.equal(bufs.kmat, a)
+    assert torch.equal(win[:, -1], coords)
+    assert torch.equal(win[:, :-1], windows[:, 1:])
+
+
+def _stress_graphs(seed, s, r, e, real, hub_degree, device):
+    """Edge lists (name, edges (s, 2, e) int32, mask (s, e)), made with
+    numpy, that stress how the conv stack deals edges to blocks: a hub
+    (node 3) whose in-degree exceeds the messages a block holds at a time
+    beside a node (5) without incoming edges, real edges in random slots;
+    and every slot taken."""
+    rng = np.random.default_rng(seed)
+    edges = np.zeros((s, 2, e), np.int32)
+    mask = np.zeros((s, e), np.float32)
+    others = [j for j in range(r) if j not in (3, 5)]
+    for i in range(s):
+        slots = rng.permutation(e)[:real]
+        dst = rng.choice(others, real)
+        dst[:hub_degree] = 3
+        edges[i, 0, slots] = rng.integers(0, r, real)
+        edges[i, 1, slots] = dst
+        mask[i, slots] = 1.0
+    full = rng.integers(0, r, (s, 2, e)).astype(np.int32)
+
+    def t(a):
+        return torch.as_tensor(a, device=device)
+
+    return [("hub", t(edges), t(mask)),
+            ("full", t(full), t(np.ones((s, e), np.float32)))]
+
+
+def test_stress_graphs_are_what_they_say():
+    (_, edges, mask), (_, full, full_mask) = _stress_graphs(
+        11, 3, 12, 128, 90, 60, "cpu")
+    for i in range(3):
+        dst = edges[i, 1][mask[i] > 0]
+        assert int((dst == 3).sum()) == 60 and not bool((dst == 5).any())
+        assert int(mask[i].sum()) == 90
+    inv = sparse_inv_degree(edges, mask, 12)
+    assert torch.equal(inv[:, 3], torch.full((3,), 1 / 60))
+    assert torch.equal(inv[:, 5], torch.ones(3))    # no edge: degree floor 1
+    assert bool((full_mask == 1).all())
+    # padded slots name node 0 and count toward no degree
+    pads = int((mask[0] == 0).sum())
+    assert pads == 38 and not edges[0][:, mask[0] == 0].any()
+    assert inv[0, 0] == 1 / max(1, int(((edges[0, 1] == 0) & (mask[0] > 0)).sum()))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("cd", ["float32", "bfloat16"])
 @pytest.mark.parametrize("streams", [1, 3])
@@ -142,25 +270,91 @@ def test_kernels_match_plain_versions_on_the_card(cuda, cd, streams):
         assert (got.float() - want.float()).abs().max().item() <= tol * scale
         a = want
 
-    for dst, src in ((bufs.edges, edges), (bufs.mask, mask),
-                     (bufs.inv_deg, inv_deg), (bufs.x0, x0), (bufs.kmat, a)):
-        dst.copy_(src)
-    win_k, win_p = windows.clone(), windows.clone()
-    coords = torch.empty(streams, 12, 3, device=cuda)
-    pr.conv_head(bufs, weights, cfg, 100.0, win_k, coords)
-    want = pr.conv_head_plain(x0, a, edges, mask, inv_deg, weights, cfg,
-                              100.0, win_p)
+    # the step's entry: one call, three launches, the same function
+    pr.reset_launch_counts()
+    pr.edge_mlp_stack(ef.reshape(-1, 6), weights["mlp"], mask.reshape(-1),
+                      bufs.h1, bufs.h2, bufs.kmat)
     torch.cuda.synchronize()
-    # held on the head's own output, the coordinates minus the prior: f32
-    # ulp-level sums; bf16 a message rounding flipped by one unit (2^-8
-    # relative), averaged over edges and layers. The output is rounded
-    # into f32 coordinates after the prior is added: 2 ulps on top.
-    head_out = (want - residual_prior(cfg, windows)).abs().max().item()
-    ulp = torch.finfo(torch.float32).eps * want.abs().max().item()
-    tol = (1e-4 if cd == "float32" else 1e-2) * head_out + 2 * ulp
-    assert tol < 0.1 * head_out
-    assert (coords - want).abs().max().item() <= tol
-    assert torch.equal(win_k[:, :-1], win_p[:, :-1])
+    assert pr.launch_counts()["edge_mlp"] == 3
+    scale = max(1.0, a.float().abs().max().item())
+    assert (bufs.kmat.float() - a.float()).abs().max().item() <= 3 * tol * scale
+
+    graphs = [("contacts", edges, mask)] + _stress_graphs(
+        5, streams, 12, cfg.max_edges, 90, 60, cuda)
+    for name, g_edges, g_mask in graphs:
+        g_inv = sparse_inv_degree(g_edges, g_mask, 12)
+        kmat = a if name == "contacts" else a * g_mask.reshape(-1, 1).to(a.dtype)
+        for dst, src in ((bufs.edges, g_edges), (bufs.mask, g_mask),
+                         (bufs.inv_deg, g_inv), (bufs.x0, x0),
+                         (bufs.kmat, kmat)):
+            dst.copy_(src)
+        win_k, win_p = windows.clone(), windows.clone()
+        coords = torch.empty(streams, 12, 3, device=cuda)
+        pr.conv_head(bufs, weights, cfg, 100.0, win_k, coords)
+        want = pr.conv_head_plain(x0, kmat, g_edges, g_mask, g_inv, weights,
+                                  cfg, 100.0, win_p)
+        torch.cuda.synchronize()
+        # held on the head's own output, the coordinates minus the prior:
+        # f32 ulp-level sums; bf16 a message rounding flipped by one unit
+        # (2^-8 relative), averaged over edges and layers. The output is
+        # rounded into f32 coordinates after the prior is added: 2 ulps on
+        # top.
+        head_out = (want - residual_prior(cfg, windows)).abs().max().item()
+        ulp = torch.finfo(torch.float32).eps * want.abs().max().item()
+        tol_head = (1e-4 if cd == "float32" else 1e-2) * head_out + 2 * ulp
+        assert tol_head < 0.1 * head_out, name
+        assert (coords - want).abs().max().item() <= tol_head, name
+        assert torch.equal(win_k[:, :-1], win_p[:, :-1]), name
+    # 12 nodes over 8 blocks of 512 threads: the card holds two a GPC at least
+    assert pr.conv_head_clusters(12, cfg.width, cfg.max_edges,
+                                 bufs.kmat.dtype) >= 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [224, 672, 896, 1792])
+def test_edge_mlp_tilings_match_plain_on_the_card(cuda, m):
+    """The bench widths at 1, 3, 4 and 8 streams' rows: each row count takes
+    another tiling of the tensor-core kernel (672 is no multiple of 128)."""
+    ef, mlp, row_mask = _mlp_operands(9, torch.bfloat16, m, 1024, 4096, cuda)
+    h1 = torch.empty(m, 1024, dtype=torch.bfloat16, device=cuda)
+    h2, out = torch.empty_like(h1), torch.empty(
+        m, 4096, dtype=torch.bfloat16, device=cuda)
+    pr.edge_mlp_stack(ef, mlp, row_mask, h1, h2, out)
+    a = ef
+    for i, (layer, got) in enumerate(zip(mlp, (h1, h2, out))):
+        rm = row_mask if i == 2 else None
+        want = pr.edge_mlp_plain(a, layer["w"], layer["b"], i < 2, rm)
+        alone = pr.edge_mlp(a, layer["w"], layer["b"], i < 2, rm)
+        torch.cuda.synchronize()
+        scale = max(1.0, want.float().abs().max().item())
+        # one flipped bf16 rounding of the output, 2^-8 relative
+        assert (alone.float() - want.float()).abs().max().item() <= 2.0 ** -7 * scale
+        # the stack ran the same kernels on its own previous layer
+        assert (got.float() - want.float()).abs().max().item() <= 3 * 2.0 ** -7 * scale
+        a = want
+    assert not out[row_mask == 0].any()
+    # a stream's rows do not depend on how many streams share the launch
+    first = torch.empty(224, 4096, dtype=torch.bfloat16, device=cuda)
+    pr.edge_mlp_stack(ef[:224].contiguous(), mlp, row_mask[:224].contiguous(),
+                      torch.empty_like(h1[:224]), torch.empty_like(h1[:224]),
+                      first)
+    torch.cuda.synchronize()
+    assert torch.equal(first, out[:224])
+
+
+@pytest.mark.gpu
+def test_edge_mlp_raises_on_a_misaligned_view_on_the_card(cuda):
+    ef, mlp, row_mask = _mlp_operands(9, torch.bfloat16, 224, 64, 64, cuda)
+    h1 = pr.edge_mlp(ef, mlp[0]["w"], mlp[0]["b"], True)
+    shifted = torch.empty(224 * 64 + 1, dtype=torch.bfloat16,
+                          device=cuda)[1:].view(224, 64)
+    shifted.copy_(h1)
+    pr.reset_launch_counts()
+    with pytest.raises(ValueError, match="16-byte"):
+        pr.edge_mlp(shifted, mlp[1]["w"], mlp[1]["b"], True)
+    with pytest.raises(ValueError, match="16-byte"):
+        pr.edge_mlp(h1, mlp[1]["w"], mlp[1]["b"], True, out=shifted)
+    assert pr.launch_counts()["edge_mlp"] == 0
 
 
 @pytest.mark.gpu
@@ -258,23 +452,33 @@ def test_graph_encode_with_dh_matches_plain_on_the_card(cuda, cd, streams):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("cd", ["float32", "bfloat16"])
-def test_fused_kernel_matches_its_plain_version_on_the_card(cuda, cd):
-    cfg = ModelConfig(**SMALL, compute_dtype=cd)
+@pytest.mark.parametrize("graph", ["random", "hub", "full"])
+@pytest.mark.parametrize("w,depth", [(16, 2), (64, 2), (64, 1)])
+def test_fused_kernel_matches_its_plain_version_on_the_card(cuda, cd, graph,
+                                                            w, depth):
+    """Width 64 in bf16 takes the conv stack's tensor-core body, every other
+    case the CUDA-core body; 12 nodes leave some of a cluster's 8 blocks
+    with one node or none, and a depth of 1 is two layers, the fewest."""
+    cfg = ModelConfig(**{**SMALL, "width": w, "depth": depth},
+                      compute_dtype=cd)
     params = gkn_init(cfg, seed=0, device=cuda)
     rng = np.random.default_rng(0)
-    s, r, e, w = 3, 12, 128, 16
+    s, r, e = 3, 12, 128
     mask = torch.zeros(s, e, device=cuda)
     mask[:, :90] = 1.0
     edges = torch.as_tensor(rng.integers(0, r, (s, 2, e)), dtype=torch.int32,
                             device=cuda)
     edges[:, :, 90:] = 0
+    if graph != "random":
+        _, edges, mask = dict(
+            (g[0], g) for g in _stress_graphs(5, s, r, e, 90, 60, cuda))[graph]
     cdt = torch.float32 if cd == "float32" else torch.bfloat16
     ef = torch.as_tensor(rng.normal(size=(s, e, 6)).astype(np.float32),
                          device=cuda).to(cdt)
     x0 = torch.as_tensor(rng.normal(size=(s, r, w)).astype(np.float32),
                          device=cuda)
     ops = (ef, mask, edges, sparse_inv_degree(edges, mask, r), x0,
-           *fg.fused_weights(params, cfg), 2)
+           *fg.fused_weights(params, cfg), depth)
     fg.fused_edge_conv_stack.launches = 0
     got = fg.fused_edge_conv_stack(*ops)
     want = fg.fused_edge_conv_stack_plain(*ops)

@@ -1,0 +1,81 @@
+#!/usr/bin/env python3
+"""Mutation check of the port's two rollout-step kernels on an NVIDIA GPU.
+
+    python3 tools/port_kernel_mutants.py
+
+Makes six deliberately broken copies of the repository in a temporary
+directory (one source line changed in each: see MUTANTS), builds each on
+the card and runs ``chip_smoke.py --only rollout`` in it. Every copy must
+exit non-zero; the script prints each copy's exit code and failure line
+and exits 0 only if all six failed. A pattern that no longer matches the
+source raises: bring the pattern up to date with the kernel.
+"""
+
+from __future__ import annotations
+
+import shutil
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+CSRC = "molecular_dynamics_neural_operator_tpu_torch/csrc/"
+
+# (what is broken, file, the line as it is, the line as broken)
+MUTANTS = [
+    ("edge_mlp: k-tile 1 of every product skipped", "edge_mlp.cuh",
+     "        wgmma_ss(acc[j], da,",
+     "        if (kt != 1) wgmma_ss(acc[j], da,"),
+    ("edge_mlp: B tile read one swizzle row off", "edge_mlp.cuh",
+     "kk * 2048, 1024 >> 4)", "kk * 2048 + 128, 1024 >> 4)"),
+    ("edge_mlp: first layer (narrow kernel) without its ReLU", "edge_mlp.cuh",
+     "      if (relu) v[i] = relu_nan(v[i]);\n"
+     "      if (row_mask) v[i] = v[i] * mk;",
+     "      if (row_mask) v[i] = v[i] * mk;"),
+    ("conv stack: the last incoming edge of one node dropped",
+     "conv_stack.cuh", "        L.lmsk[i] = L.gmsk[e];",
+     "        L.lmsk[i] = (rank == 0 && n == 0 && i == L.nstart[n + 1] - 1)"
+     " ? 0.f : L.gmsk[e];"),
+    ("conv stack, tensor-core body: the x buffers not swapped for layer 3",
+     "conv_stack.cuh", "(unsigned)(layer & 1 ? l.xb : l.xa)",
+     "(unsigned)((layer & 1) && layer != 3 ? l.xb : l.xa)"),
+    ("conv stack, CUDA-core body: the x buffers not swapped after layer 3",
+     "conv_stack.cuh", "{ float* t = xc; xc = xn; xn = t; }",
+     "if (layer != 3) { float* t = xc; xc = xn; xn = t; }"),
+]
+
+
+def mutate(text: str, old: str, new: str) -> str:
+    """``text`` with the first ``old`` replaced; raises if there is none."""
+    if old not in text:
+        raise ValueError(f"pattern not in the source any more: {old!r}")
+    return text.replace(old, new, 1)
+
+
+def main() -> int:
+    work = Path(tempfile.mkdtemp(prefix="port_mutants_"))
+    passed = []
+    for i, (name, header, old, new) in enumerate(MUTANTS):
+        copy = work / f"mutant{i}"
+        shutil.copytree(ROOT, copy, ignore=shutil.ignore_patterns(
+            "build", ".git", "__pycache__", "runs"))
+        source = copy / CSRC / header
+        source.write_text(mutate(source.read_text(), old, new))
+        run = subprocess.run([sys.executable, "chip_smoke.py", "--only",
+                              "rollout"], cwd=copy, capture_output=True,
+                             text=True)
+        fails = [line for line in run.stdout.splitlines() if "FAIL" in line]
+        print(f"mutant {i} ({name}): exit {run.returncode}; "
+              f"{fails[-1] if fails else run.stdout[-300:] + run.stderr[-600:]}",
+              flush=True)
+        if run.returncode == 0:
+            passed.append(name)
+    shutil.rmtree(work, ignore_errors=True)
+    print("A MUTANT PASSED: " + "; ".join(passed) if passed
+          else "ALL MUTANTS FAILED THE SMOKE RUN")
+    return 1 if passed else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
