@@ -49,7 +49,10 @@ Phases, each fatal:
    eval step on a held-out batch; the same steps with the edge MLP on the
    exact f32 path instead of the tensor cores.
 7. training timing: device time of both kernels, their plain versions and
-   bounds, wall time of a train step on each path, samples/s, peak memory.
+   bounds, the clusters the card holds at once and the waves of a batch,
+   wall time of a train step on each path, samples/s, peak memory, and a
+   ``torch.profiler`` breakdown of one train step (device time by kernel,
+   the device's busy share).
 
 8. serve, kernel vs plain: ``graph_encode`` with the Debye-Hückel branch
    (f32 and bf16, 1 and 4 streams) and ``fused_edge_conv_stack`` (f32 and
@@ -72,8 +75,7 @@ The last lines are the ``kernels`` JSON (seven kernels), the card, and
 ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA card.
 ``--only rollout``, ``--only train`` or ``--only serve`` runs one path's
 phases (for development; the ``kernels`` line then lists that path's
-kernels), and ``--profile`` adds a ``torch.profiler`` breakdown of one
-train step. Imports nothing of JAX.
+kernels). Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -136,7 +138,8 @@ COORD_ULPS = 2
 # flip changes, even reverses, its update of about lr: single elements may
 # differ by as much as they moved. So each leaf's movement is held as a
 # whole, the L2 norm of the difference over the L2 norm of the movement:
-# 5.6e-3 at most on an H100, held to 5e-2. A wrong gradient of one leaf
+# 1.4e-2 at most on an H100 (5.6e-3 while the forward kernel summed in the
+# per-layer path's order), held to 5e-2. A wrong gradient of one leaf
 # moves it in unrelated directions, a difference of about 1.4 of the norm;
 # the edge MLP on the exact f32 path instead of the tensor cores, which
 # rounds the gradient at one more place, already shows as 0.10.
@@ -692,7 +695,8 @@ def train_conv_operands(params, cfg, batch):
         kt = (kt * gb.graph.mask[..., None].to(cd)).contiguous()
         inv_deg = sparse_inv_degree(gb.graph.edges, gb.graph.mask,
                                     gb.aa.shape[0]).contiguous()
-    return (x0, kt, gb.graph.edges.to(torch.int32).contiguous(), inv_deg,
+    return (x0, kt, gb.graph.edges.to(torch.int32).contiguous(),
+            gb.graph.mask.to(torch.float32).contiguous(), inv_deg,
             params["conv1"]["root"], params["conv1"]["bias"],
             params["conv2"]["root"], params["conv2"]["bias"])
 
@@ -713,7 +717,7 @@ def check_train_conv(params, batch, cd: str) -> dict:
     cfg = train_cfg(cd)
     tol = TOL_TC_F32 if cd == "float32" else TOL_TC_BF16
     ops = train_conv_operands(params, cfg, batch)
-    x0, kt, edges, inv_deg, root1, _, root2, _ = ops
+    x0, kt, edges, mask, inv_deg, root1, _, root2, _ = ops
     out, stack = tc.train_conv_forward(*ops, cfg.depth)
     out_p, stack_p = tc.train_conv_forward_plain(*ops, cfg.depth)
     torch.cuda.synchronize()
@@ -739,7 +743,8 @@ def check_train_conv(params, batch, cd: str) -> dict:
     # relu mask from the same activations
     gen = torch.Generator(device=x0.device).manual_seed(5)
     g_out = torch.randn(out.shape, generator=gen, device=x0.device)
-    bwd_args = (g_out, stack_p, kt, edges, inv_deg, root1, root2, cfg.depth)
+    bwd_args = (g_out, stack_p, kt, edges, mask, inv_deg, root1, root2,
+                cfg.depth)
     got = tc.train_conv_backward(*bwd_args)
     ref = tc.train_conv_backward_plain(*bwd_args)
     torch.cuda.synchronize()
@@ -892,7 +897,7 @@ def probe_default_recipe(batch) -> None:
 
 
 def profile_train_step(batch, wall_ms: float, steps: int = 3) -> None:
-    """``--profile``: where one train step's time goes, from
+    """Phase 7: where one train step's time goes, from
     ``torch.profiler`` over ``steps`` steps on the kernel path: device time
     by kernel name, the device's busy share of ``wall_ms`` (a step's wall
     time with the profiler off), and the number of device kernels a step
@@ -946,10 +951,11 @@ def time_training(params, ds, train_idx, counts: dict, errs: dict):
     cfg = train_cfg("bfloat16")
     batch = to_device(ds.get_batch(train_idx[:TRAIN_BATCH]), "cuda")
     ops = train_conv_operands(params, cfg, batch)
-    x0, kt, edges, inv_deg, root1, bias1, root2, bias2 = ops
+    x0, kt, edges, mask, inv_deg, root1, bias1, root2, bias2 = ops
     out, stack = tc.train_conv_forward(*ops, cfg.depth)
     g_out = torch.randn_like(out)
-    bwd_args = (g_out, stack, kt, edges, inv_deg, root1, root2, cfg.depth)
+    bwd_args = (g_out, stack, kt, edges, mask, inv_deg, root1, root2,
+                cfg.depth)
     outs = tc.train_conv_backward(*bwd_args)
 
     # least work for this run's data: each input read once, each output
@@ -957,6 +963,11 @@ def time_training(params, ds, train_idx, counts: dict, errs: dict):
     # zero), of dK every row, since the function returns them all
     b, e, w, r = x0.shape[0], kt.shape[1], cfg.width, x0.shape[1]
     real = int(batch["mask"].sum())
+    resident = tc.train_conv_clusters(r, w, e, cfg.depth, kt.dtype)
+    log("clusters the card holds at once (one an example) at B="
+        f"{b}: " + ", ".join(
+            f"{name} {n}, so {-(-b // n)} waves" for name, n in
+            resident.items()))
     cdb = kt.element_size()
     small = nbytes(x0, edges, inv_deg, bias1, bias2) + 2 * w * w * cdb
     fwd_bytes = small + real * w * w * cdb + nbytes(out, stack)
@@ -1722,8 +1733,6 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--only", choices=("rollout", "train", "serve"),
                         help="run one path's phases (development)")
-    parser.add_argument("--profile", action="store_true",
-                        help="also profile a train step with torch.profiler")
     args = parser.parse_args()
     only = args.only
     if not torch.cuda.is_available():
@@ -1785,8 +1794,7 @@ def main() -> int:
         train_kernels, step_ms = time_training(params, ds, train_idx, counts,
                                                errs)
         kernels += train_kernels
-        if args.profile:
-            profile_train_step(batch, step_ms)
+        profile_train_step(batch, step_ms)
     kernels += serve_kernels
     print(json.dumps({"kernels": kernels}))
     print(card)

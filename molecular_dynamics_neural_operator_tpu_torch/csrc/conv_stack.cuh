@@ -1,7 +1,11 @@
 // The 2*depth weight-tied edge convs of one stream on one thread-block
-// cluster, shared by conv_head.cu (the rollout step: stack, head, slide) and
-// fused_gkn.cu (the fused MLP + conv stack, no head). See conv_head.cu for
-// what bounds it on an H100 and what was measured.
+// cluster, shared by conv_head.cu (the rollout step: stack, head, slide),
+// fused_gkn.cu (the fused MLP + conv stack, no head) and train_conv_fwd.cu
+// (the training forward, one example a stream, which also keeps every
+// layer's activations: the optional ``stack``). The training backward
+// (conv_stack_bwd.cuh) runs in the same frame and shares deal(), the
+// staging of K rows, mma_row() and the counted-store exchange. See
+// conv_head.cu for what bounds it on an H100 and what was measured.
 //
 // One stream is one cluster of NCL blocks. Edges are dealt to blocks by
 // TARGET node (deal()): every block reads the stream's edge list, counts the
@@ -396,6 +400,74 @@ __device__ __forceinline__ void mma_16816(float (&d)[4], const unsigned (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// d[m][0] + d[m][1] = the bf16 row whose B registers start at the shared
+// address ``xp`` (its 32 ks + 8 t bytes, see xpos) times the (64, 64) matrix
+// whose fragments are a[m]: [0] sums the first 32 products and [1] the last
+// 32, so four chains run side by side. Lane (g, t) ends with row 16 m + g of
+// the matrix's tile m in [..][0] (and [1]) and 16 m + 8 + g in [..][2] (and
+// [3]).
+__device__ __forceinline__ void mma_row(float (&d)[2][2][4],
+                                        const unsigned (&a)[2][4][4],
+                                        unsigned xp) {
+  const uint2 b0 = lds64(xp), b1 = lds64(xp + 32), b2 = lds64(xp + 64),
+              b3 = lds64(xp + 96);
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {
+    mma_16816(d[m][0], a[m][0], b0.x, b0.y);
+    mma_16816(d[m][1], a[m][2], b2.x, b2.y);
+  }
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {
+    mma_16816(d[m][0], a[m][1], b1.x, b1.y);
+    mma_16816(d[m][1], a[m][3], b3.x, b3.y);
+  }
+}
+
+// The K rows of places p0 .. p1 - 1 of stream s (slot pslot[p]) into the
+// swizzled shared rows p0 - row0 .. from the shared address ``ks``, by
+// cp.async; every thread of the block calls it.
+__device__ __forceinline__ void stage_rows(unsigned ks, const unsigned char* Kb,
+                                           int s, int E, const int* pslot,
+                                           int p0, int p1, int row0) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  for (int idx = tid + p0 * 512; idx < p1 * 512; idx += nt) {
+    const int p = idx >> 9, ch = idx & 511;
+    cp_async16(ks + (p - row0) * kMmaRow + swizzled(ch >> 3, ch & 7),
+               Kb + ((size_t)s * E + pslot[p]) * kMmaRow + ch * 16);
+  }
+}
+
+// A (64, 64) bf16 matrix into the swizzled shared matrix at ``dst``, by
+// cp.async; every thread of the block calls it.
+__device__ __forceinline__ void stage_matrix(unsigned dst, const void* src) {
+  for (int ch = threadIdx.x; ch < 512; ch += blockDim.x)
+    cp_async16(dst + swizzled(ch >> 3, ch & 7),
+               reinterpret_cast<const uint4*>(src) + ch);
+}
+
+// This lane's ldmatrix.trans row inside a swizzled (64, 64) matrix for the
+// A fragment of the stored columns 16 mt .. 16 mt + 15 (A's rows) at
+// k-step 0 (the stored rows 0 .. 15); k-step ks lies 2048 ks further.
+__device__ __forceinline__ unsigned frag_cols(int lane, int mt) {
+  const int lq = lane >> 3, lr = lane & 7;
+  return swizzled((lq >> 1) * 8 + lr, mt * 2 + (lq & 1));
+}
+
+// An item's output of one 16-column tile, o0 (row 16 m + g) and o1 (+ 8)
+// on lane (g, t), rounded to bf16: the tile is 32 consecutive bytes of its
+// row (xpos); three shuffles bring every lane the 16-byte half that its
+// 8-lane group g / 4 stands for.
+__device__ __forceinline__ uint4 tile_half(float o0, float o1, int g) {
+  const unsigned own = pack_bf16(o0, o1);
+  const unsigned other = __shfl_xor_sync(0xffffffffu, own, 4);
+  const unsigned even = g & 1 ? other : own, odd = g & 1 ? own : other;
+  const unsigned w0 = __byte_perm(even, odd, 0x5410);  // columns g, g + 1
+  const unsigned w1 = __byte_perm(even, odd, 0x7632);  // and 8 further
+  const unsigned v0 = __shfl_xor_sync(0xffffffffu, w0, 8);
+  const unsigned v1 = __shfl_xor_sync(0xffffffffu, w1, 8);
+  return g & 2 ? make_uint4(v0, v1, w0, w1) : make_uint4(w0, w1, v0, v1);
+}
+
 // Sixteen bytes into another block's shared memory, counted on that block's
 // mbarrier ``bar`` (both shared::cluster addresses): whoever sees the
 // barrier's phase complete sees the bytes.
@@ -432,7 +504,7 @@ __device__ inline float* run_mma(
     const float* __restrict__ mask, const float* __restrict__ inv_deg,
     const __nv_bfloat16* __restrict__ root1, const float* __restrict__ bias1,
     const __nv_bfloat16* __restrict__ root2, const float* __restrict__ bias2,
-    int R, int E, int depth, int cap) {
+    int R, int E, int depth, int cap, float* __restrict__ stack) {
   using bf16 = __nv_bfloat16;
   constexpr int W = kMmaW;
   constexpr int RE = kRegEdges;
@@ -468,27 +540,14 @@ __device__ inline float* run_mma(
     if (nlayers >= 3) mbar_arrive_expect_tx(&xbar[0], x_bytes);
   }
   cluster_arrive();  // every block's barriers are up before a remote store
-  auto stage_root = [&](const bf16* root) {
-    for (int ch = tid; ch < 512; ch += nt)
-      cp_async16(smem_u32(root_s) + swizzled(ch >> 3, ch & 7),
-                 reinterpret_cast<const uint4*>(root) + ch);
-  };
-  stage_root(root1);
+  stage_matrix(smem_u32(root_s), root1);
   const int* src_g = edges + (size_t)s * 2 * E;
   const Lists L = deal(smem_raw + l.ints, src_g, src_g + E, mask + (size_t)s * E,
                        inv_deg + (size_t)s * R, R, E, rank, ncl, cap, nw / 2,
                        kRegEdges);
   const int nown = L.nown, ne = L.ne;
   const unsigned char* Kb = reinterpret_cast<const unsigned char*>(K);
-  // the K rows of places p0 .. p1 - 1 into rows p0 - row0 ..
-  auto stage_rows = [&](int p0, int p1, int row0) {
-    for (int idx = tid + p0 * 512; idx < p1 * 512; idx += nt) {
-      const int p = idx >> 9, ch = idx & 511;
-      cp_async16(smem_u32(ks) + (p - row0) * kMmaRow + swizzled(ch >> 3, ch & 7),
-                 Kb + ((size_t)s * E + L.pslot[p]) * kMmaRow + ch * 16);
-    }
-  };
-  stage_rows(0, min(ne, cap), 0);
+  stage_rows(smem_u32(ks), Kb, s, E, L.pslot, 0, min(ne, cap), 0);
   // with the rows on their way, what is off the critical path:
   // a thread's reads of x0 four at a time before their writes: few trips
   for (int base = tid; base < R * W; base += 4 * nt) {
@@ -523,31 +582,12 @@ __device__ inline float* run_mma(
   // This lane's byte offset inside a swizzled matrix for the fragment of
   // output columns 16 mt .. 16 mt + 15 at k-step 0; k-step ks lies 2048 ks
   // further.
-  const int lq = lane >> 3, lr = lane & 7;
-  auto frag_off = [&](int mt) {
-    return swizzled((lq >> 1) * 8 + lr, mt * 2 + (lq & 1));
-  };
+  auto frag_off = [&](int mt) { return frag_cols(lane, mt); };
   // d[m][0] + d[m][1] = x (the row at byte offset ``xoff`` of buffer xc) @ a
-  // (64, 64) matrix, columns 32 h + 16 m .., whose fragments are a[m]; [0]
-  // sums the first 32 products and [1] the last 32, so four chains run side
-  // by side. Lane (g, t) ends with column 16 mt + g in [..][0] (and [1]) and
-  // 16 mt + 8 + g in [..][2] (and [3]).
+  // (64, 64) matrix, columns 32 h + 16 m .., whose fragments are a[m]
+  // (mma_row: lane (g, t) ends with column 16 mt + g and 16 mt + 8 + g)
   auto product = [&](float (&d)[2][2][4], const unsigned (&a)[2][4][4],
-                     unsigned xc, int xoff) {
-    const unsigned xp = xc + xoff + t * 8;
-    const uint2 b0 = lds64(xp), b1 = lds64(xp + 32), b2 = lds64(xp + 64),
-                b3 = lds64(xp + 96);
-#pragma unroll
-    for (int m = 0; m < 2; ++m) {
-      mma_16816(d[m][0], a[m][0], b0.x, b0.y);
-      mma_16816(d[m][1], a[m][2], b2.x, b2.y);
-    }
-#pragma unroll
-    for (int m = 0; m < 2; ++m) {
-      mma_16816(d[m][0], a[m][1], b1.x, b1.y);
-      mma_16816(d[m][1], a[m][3], b3.x, b3.y);
-    }
-  };
+                     unsigned xc, int xoff) { mma_row(d, a, xc + xoff + t * 8); };
   // the same with the fragments of the two tiles at shared addresses at[m]
   auto product_staged = [&](float (&d)[2][2][4], unsigned at0, unsigned at1,
                             unsigned xc, int xoff) {
@@ -618,7 +658,7 @@ __device__ inline float* run_mma(
   }
   if (ne > cap) {
     __syncthreads();
-    stage_rows(cap, min(ne, cap + L.nreg), cap);
+    stage_rows(smem_u32(ks), Kb, s, E, L.pslot, cap, min(ne, cap + L.nreg), cap);
     cp_async_wait_all();
     __syncthreads();
   }
@@ -639,7 +679,7 @@ __device__ inline float* run_mma(
     const bool last = layer == nlayers - 1;
     if (layer == depth) {  // the only block barriers of the layers
       __syncthreads();     // every reader of root1 is through
-      stage_root(root2);
+      stage_matrix(smem_u32(root_s), root2);
       cp_async_wait_all();
       __syncthreads();
     }
@@ -723,6 +763,14 @@ __device__ inline float* run_mma(
             __fadd_rn(__fmul_rn(agg[m][1], it.invd), dr[m][0][2] + dr[m][1][2]),
             bs[m][1]);
         const float o0 = relu_nan(z0), o1 = relu_nan(z1);
+        if (stack != nullptr && t == 0) {
+          // x' before its rounding; the four lanes of a row group hold the
+          // same values
+          float* row = stack + (((size_t)s * (nlayers + 1) + layer + 1) * R +
+                                it.j) * W;
+          row[col] = o0;
+          row[col + 8] = o1;
+        }
         if (last) {
           // the four lanes of a row group hold the same two values: each
           // stores them into its share of the cluster's blocks
@@ -732,18 +780,9 @@ __device__ inline float* run_mma(
             to[8] = o1;
           }
         } else {
-          // The tile's 16 values are 32 consecutive bytes of the node's row
-          // (xpos). Three shuffles bring every lane the 16-byte half its
-          // 8-lane group g / 4 stands for; lane (g % 4, t) sends it.
-          const unsigned own = pack_bf16(o0, o1);
-          const unsigned other = __shfl_xor_sync(0xffffffffu, own, 4);
-          const unsigned even = g & 1 ? other : own, odd = g & 1 ? own : other;
-          const unsigned w0 = __byte_perm(even, odd, 0x5410);  // columns g, g + 1
-          const unsigned w1 = __byte_perm(even, odd, 0x7632);  // and 8 further
-          const unsigned v0 = __shfl_xor_sync(0xffffffffu, w0, 8);
-          const unsigned v1 = __shfl_xor_sync(0xffffffffu, w1, 8);
-          const uint4 half = g & 2 ? make_uint4(v0, v1, w0, w1)
-                                   : make_uint4(w0, w1, v0, v1);
+          // lane (g % 4, t) sends the 16-byte half of the tile its 8-lane
+          // group g / 4 stands for
+          const uint4 half = tile_half(o0, o1, g);
           if (sends)
             store_counted16(to_x[(layer + 1) & 1] +
                                 (it.j * W + mt * 16 + (g >> 2) * 8) * 2,
@@ -774,7 +813,7 @@ __device__ float* run_fma(
     const float* __restrict__ mask, const float* __restrict__ inv_deg,
     const CD* __restrict__ root1, const float* __restrict__ bias1,
     const CD* __restrict__ root2, const float* __restrict__ bias2,
-    int R, int W, int E, int depth, int cap) {
+    int R, int W, int E, int depth, int cap, float* __restrict__ stack) {
   constexpr int CPL = 16 / sizeof(CD);  // columns a lane owns in an item
   MDNO_MARK(0)
   cluster_arrive();  // every block of the cluster runs before a remote store
@@ -1020,8 +1059,13 @@ __device__ float* run_fma(
           const float z =
               __fadd_rn(__fadd_rn(__fmul_rn(agg[k], sl.invd), rx[k]), bs[k]);
           out[k] = relu_nan(z);
-          if (!last) out[k] = round_cd<CD>(out[k]);
         }
+        if (stack != nullptr && part == 0)
+          *reinterpret_cast<float4*>(
+              stack + (((size_t)s * (2 * depth + 1) + layer + 1) * R + sl.j) * W +
+              c4) = make_float4(out[0], out[1], out[2], out[3]);
+        if (!last)
+          for (int k = 0; k < 4; ++k) out[k] = round_cd<CD>(out[k]);
         const float4 v = make_float4(out[0], out[1], out[2], out[3]);
         for (int r = part; r < ncl; r += 4)
           *reinterpret_cast<float4*>(cluster.map_shared_rank(xn, r) + sl.j * W + c4) = v;
@@ -1041,7 +1085,11 @@ __device__ float* run_fma(
 // Every thread of every block of the cluster calls it. Returns the final
 // node features (R, W) f32 in this block's shared memory, complete in every
 // block of the cluster (the last cluster barrier has passed). MMA chooses
-// the body, as Plan::mma says; the block has Plan::threads threads.
+// the body, as Plan::mma says; the block has Plan::threads threads. With
+// ``stack`` set, the item that forms x' of layer l for (node, columns) also
+// stores its f32 value, before the rounding to CD, into
+// stack[s, l + 1, node, columns] (row 0, x0, is the caller's); null (the
+// rollout kernels) compiles that store away.
 template <typename CD, bool MMA>
 __device__ float* run(
     unsigned char* smem_raw,
@@ -1052,13 +1100,14 @@ __device__ float* run(
     const float* __restrict__ inv_deg,  // (S, R)
     const CD* __restrict__ root1, const float* __restrict__ bias1,
     const CD* __restrict__ root2, const float* __restrict__ bias2,
-    int R, int W, int E, int depth, int cap) {
+    int R, int W, int E, int depth, int cap,
+    float* __restrict__ stack = nullptr) {  // (S, 2*depth+1, R, W) or null
   if constexpr (MMA)
     return run_mma(smem_raw, x0, K, edges, mask, inv_deg, root1, bias1, root2,
-                   bias2, R, E, depth, cap);
+                   bias2, R, E, depth, cap, stack);
   else
     return run_fma<CD>(smem_raw, x0, K, edges, mask, inv_deg, root1, bias1,
-                       root2, bias2, R, W, E, depth, cap);
+                       root2, bias2, R, W, E, depth, cap, stack);
 }
 
 // The launch shape of a kernel that calls run(): the body (one per width

@@ -10,254 +10,120 @@
 // are how a TPU does a per-edge matvec and a scatter; here the kernel takes
 // the int32 edge list and gathers and scatters by index. The cast points
 // are those of ops/conv_stack.py: x and the messages are rounded to the
-// compute type CD, every sum is f32. K arrives pre-masked (padded rows are
-// zero), so no mask is read: a padded slot (src = dst = 0) adds zero.
+// compute type CD, every sum is f32.
 //
-// Bound: bytes. At B=128, E=256, w=64, bf16 the kernel must read K once
-// (268 MB) and write the activation stack (12 MB): ~84 us at 3.35 TB/s,
-// against 3.2 GFLOP (48 us on the f32 pipes). K of one example is 2 MB in
-// bf16 and one SM's shared memory holds 227 KB, so each example is one
-// thread-block cluster of 16 blocks (a non-portable size, which Hopper
-// allows), each owning E/16 edges: a block copies its slice of K into
-// shared memory once, when it fits (bf16 at these shapes; f32 reads K from
-// device memory every layer), and all 2*depth layers read it there. A
-// layer: each block forms the messages of its edges and sums them per
-// target node in edge order; the cluster syncs; each block then owns 1/16
-// of the next activations: it adds the cluster's partial sums through
-// distributed shared memory in rank order (no atomics, so the result is the
-// same in every run), applies root, bias and ReLU, writes them to the stack
-// in device memory and into every block's shared memory; the cluster syncs
-// again. 128 examples are 128 clusters, more than the card co-schedules, so
-// they run in waves.
+// Bound: bytes. At B=128, E=256 (about 202 real edges an example), w=64,
+// bf16 the kernel must read the real rows of K once (212 MB) and write the
+// activation stack (12 MB): 67 us at 3.35 TB/s, against 3.2 GFLOP.
+//
+// An example is one stream of the rollout's conv stack (conv_stack.cuh,
+// conv_stack::run, the frame conv_head.cu uses): one cluster of 8 blocks,
+// edges dealt to blocks by target node so that no partial sum crosses
+// blocks, a block's K rows staged once in shared memory and registers, and
+// in bf16 at width 64 the tensor-core body (run_mma) with x' exchanged by
+// counted stores; f32 and other widths take the CUDA-core body (run_fma).
+// The item that forms x' also writes it, unrounded, into the stack; this
+// file adds row 0 (x0) and the output. The mask tells a padded slot (mask 0,
+// skipped) from node 0's real self-loop; K arrives pre-masked, so a padded
+// slot would add zero anyway. The card holds a fixed number of these
+// clusters at once (mdno_train_conv_fwd_clusters), and B examples run in
+// waves of that many.
+//
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py, B = 128,
+// bf16): 384 us, 15 clusters resident, 9 waves of about 43 us (one stream
+// of conv_head's stack is 39 us); the 16-block design before it took
+// 1,345 us in the same call.
 
-#include <cooperative_groups.h>
-
-#include "common.cuh"
-
-namespace cg = cooperative_groups;
+#include "conv_stack.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kMaxSmem = 227 * 1024;
-constexpr int NCL = 16;  // blocks per example (one cluster)
-
-// Four consecutive CD values as floats (16 bytes of f32, 8 of bf16).
-__device__ __forceinline__ void load4(const float* p, float* out) {
-  const float4 f = *reinterpret_cast<const float4*>(p);
-  out[0] = f.x;
-  out[1] = f.y;
-  out[2] = f.z;
-  out[3] = f.w;
-}
-
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* out) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  out[0] = a.x;
-  out[1] = a.y;
-  out[2] = b.x;
-  out[3] = b.y;
-}
-
-template <typename CD>
-__global__ void __launch_bounds__(kThreads) train_conv_fwd_kernel(
-    const float* __restrict__ x0,       // (B, R, W)
-    const CD* __restrict__ K,           // (B, E, W*W), padded rows zero
-    const int* __restrict__ edges,      // (B, 2, E)
-    const float* __restrict__ inv_deg,  // (B, R)
-    const CD* __restrict__ root1, const float* __restrict__ bias1,
-    const CD* __restrict__ root2, const float* __restrict__ bias2,
-    float* __restrict__ out,            // (B, R, W)
-    float* __restrict__ stack,          // (B, 2*depth+1, R, W)
-    int R, int W, int E, int depth, int eb, int stage_k) {
-  constexpr int V = 4;                  // outputs per message item
-  constexpr int V16 = 16 / sizeof(CD);  // CD values per 16-byte copy
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = (int)cluster.block_rank();
-  const int b = blockIdx.x / NCL;
+template <typename CD, bool MMA>
+__global__ void __launch_bounds__(
+    MMA ? conv_stack::kMmaThreads : conv_stack::kThreads, 1)
+    train_conv_fwd_kernel(
+        const float* __restrict__ x0,       // (B, R, W)
+        const CD* __restrict__ K,           // (B, E, W*W), padded rows zero
+        const int* __restrict__ edges,      // (B, 2, E)
+        const float* __restrict__ mask,     // (B, E)
+        const float* __restrict__ inv_deg,  // (B, R)
+        const CD* __restrict__ root1, const float* __restrict__ bias1,
+        const CD* __restrict__ root2, const float* __restrict__ bias2,
+        float* __restrict__ out,            // (B, R, W)
+        float* __restrict__ stack,          // (B, 2*depth+1, R, W)
+        int R, int W, int E, int depth, int cap) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const auto cluster = cooperative_groups::this_cluster();
+  const int rank = (int)cluster.block_rank(), ncl = (int)cluster.num_blocks();
+  const int s = blockIdx.x / ncl;
   const int tid = threadIdx.x, nt = blockDim.x;
-  const int RW = R * W, G = W / V, L = 2 * depth;
-
-  // shared layout: [K slice (if staged)] [root] xa xb ra rb part msl src dst
-  // x* hold the activations, r* the same rounded to CD
-  CD* ks_smem = reinterpret_cast<CD*>(smem_raw);
-  CD* root_s = ks_smem + (stage_k ? (size_t)eb * W * W : 0);
-  float* xa = reinterpret_cast<float*>(root_s + W * W);
-  float* xb = xa + RW;
-  float* ra = xb + RW;
-  float* rb = ra + RW;
-  float* part = rb + RW;
-  float* msl = part + RW;
-  int* src = reinterpret_cast<int*>(msl + eb * W);
-  int* dst = src + eb;
-
-  const int e0 = rank * eb;
-  const int ne = max(0, min(eb, E - e0));
-  for (int i = tid; i < ne; i += nt) {
-    src[i] = edges[(size_t)b * 2 * E + e0 + i];
-    dst[i] = edges[(size_t)b * 2 * E + E + e0 + i];
-  }
-  float* stack_b = stack + (size_t)b * (L + 1) * RW;
-  for (int i = tid; i < RW; i += nt) {
-    const float v = x0[(size_t)b * RW + i];
-    xa[i] = v;
-    ra[i] = round_cd<CD>(v);
-    if (rank == 0) stack_b[i] = v;
-  }
-
-  const CD* kg = K + ((size_t)b * E + e0) * W * W;
-  const CD* kb = kg;
-  if (stage_k) {
-    const uint4* from = reinterpret_cast<const uint4*>(kg);
-    uint4* to = reinterpret_cast<uint4*>(ks_smem);
-    const int n16 = ne * W * W / V16;
-#pragma unroll 4
-    for (int i = tid; i < n16; i += nt) to[i] = from[i];
-    kb = ks_smem;
-  }
-  const int nb_out = (RW + NCL - 1) / NCL;  // outputs each block reduces
-
-  const float* invd = inv_deg + (size_t)b * R;
-  float* xc = xa;
-  float* xn = xb;
-  float* xr = ra;
-  float* xrn = rb;
-
-  for (int layer = 0; layer < L; ++layer) {
-    const float* bias = layer < depth ? bias1 : bias2;
-    if (layer == 0 || layer == depth) {
-      const uint4* from = reinterpret_cast<const uint4*>(layer < depth ? root1 : root2);
-      uint4* to = reinterpret_cast<uint4*>(root_s);
-      for (int i = tid; i < W * W / V16; i += nt) to[i] = from[i];
-    }
-    __syncthreads();
-
-    // messages m[e] = cd(x[src[e]]) @ K[e], f32 sums, rounded to CD
-    for (int item = tid; item < ne * G; item += nt) {
-      const int e = item / G, v0 = (item % G) * V;
-      const float* xs = xr + src[e] * W;
-      const CD* kp = kb + (size_t)e * W * W + v0;
-      float acc[V];
-      for (int j = 0; j < V; ++j) acc[j] = 0.f;
-#pragma unroll 8
-      for (int wi = 0; wi < W; ++wi) {
-        float kv[V];
-        load4(kp + wi * W, kv);
-        const float xv = xs[wi];
-        for (int j = 0; j < V; ++j) acc[j] = fmaf(xv, kv[j], acc[j]);
-      }
-      for (int j = 0; j < V; ++j) msl[e * W + v0 + j] = round_cd<CD>(acc[j]);
-    }
-    __syncthreads();
-
-    // per-target sums over this block's edges: one thread per column
-    // walks the edges in order
-    for (int i = tid; i < RW; i += nt) part[i] = 0.f;
-    __syncthreads();
-    for (int v = tid; v < W; v += nt)
-      for (int e = 0; e < ne; ++e) part[dst[e] * W + v] += msl[e * W + v];
-    cluster.sync();
-
-    // this block's share of the outputs: add the cluster's partial sums in
-    // rank order, x' = relu(agg * inv_deg + cd(x) @ cd(root) + bias), and
-    // write x' to the stack and into every block of the cluster
-    float* stack_l = stack_b + (size_t)(layer + 1) * RW;
-    for (int idx = rank * nb_out + tid; idx < min(RW, (rank + 1) * nb_out);
-         idx += nt) {
-      const int j = idx / W, v = idx % W;
-      float agg = 0.f;
-#pragma unroll
-      for (int r = 0; r < NCL; ++r) agg += cluster.map_shared_rank(part, r)[idx];
-      float rx = 0.f;
-      const float* xj = xr + j * W;
-#pragma unroll 8
-      for (int wi = 0; wi < W; ++wi) rx = fmaf(xj[wi], to_f32<CD>(root_s[wi * W + v]), rx);
-      const float z = __fadd_rn(__fadd_rn(__fmul_rn(agg, invd[j]), rx), bias[v]);
-      const float o = relu_nan(z);
-      const float o_r = round_cd<CD>(o);
-      stack_l[idx] = o;
-      if (layer == L - 1) out[(size_t)b * RW + idx] = o;
-#pragma unroll
-      for (int r = 0; r < NCL; ++r) {
-        cluster.map_shared_rank(xn, r)[idx] = o;
-        cluster.map_shared_rank(xrn, r)[idx] = o_r;
-      }
-    }
-    cluster.sync();  // x' complete everywhere; partial sums free again
-    float* t = xc;
-    xc = xn;
-    xn = t;
-    t = xr;
-    xr = xrn;
-    xrn = t;
-  }
+  const int RW = R * W;
+  // row 0 of the stack is x0: each block copies its share
+  float* stack_s = stack + (size_t)s * (2 * depth + 1) * RW;
+  for (int i = rank * nt + tid; i < RW; i += ncl * nt)
+    stack_s[i] = x0[(size_t)s * RW + i];
+  const float* xc = conv_stack::run<CD, MMA>(smem_raw, x0, K, edges, mask,
+                                             inv_deg, root1, bias1, root2,
+                                             bias2, R, W, E, depth, cap, stack);
+  // the last layer, complete in every block: each writes its share
+  for (int i = rank * nt + tid; i < RW; i += ncl * nt)
+    out[(size_t)s * RW + i] = xc[i];
 }
 
-size_t smem_bytes(int R, int W, int eb, int cd_size, bool stage_k) {
-  return (stage_k ? (size_t)eb * W * W * cd_size : 0) + (size_t)W * W * cd_size +
-         (size_t)5 * R * W * 4 + (size_t)eb * W * 4 + (size_t)eb * 2 * 4;
+// fn(the kernel of the body conv_stack::plan chooses), with *p that plan
+template <typename CD, typename Fn>
+int with_kernel(int R, int W, int E, conv_stack::Plan* p, Fn&& fn) {
+  const int rc = conv_stack::plan(R, W, E, sizeof(CD), p);
+  if (rc != 0) return rc;
+  if constexpr (sizeof(CD) == 2) {
+    if (p->mma) return fn(train_conv_fwd_kernel<CD, true>);
+  }
+  return fn(train_conv_fwd_kernel<CD, false>);
 }
 
-// Returns a CUDA error code; cudaErrorInvalidConfiguration when the slice
-// does not fit shared memory or the card cannot co-schedule the cluster.
+// Returns a CUDA error code; cudaErrorInvalidConfiguration when the buffers
+// do not fit shared memory or the card cannot co-schedule the cluster.
 template <typename CD>
-int launch(const float* x0, const void* K, const int* edges,
+int launch(const float* x0, const void* K, const int* edges, const float* mask,
            const float* inv_deg, const void* root1, const float* bias1,
            const void* root2, const float* bias2, float* out, float* stack,
            int B, int R, int W, int E, int depth, cudaStream_t st) {
-  auto kernel = train_conv_fwd_kernel<CD>;
-  const int eb = (E + NCL - 1) / NCL;
-  // stage each block's K slice in shared memory when it fits
-  const bool stage = smem_bytes(R, W, eb, sizeof(CD), true) <= (size_t)kMaxSmem;
-  const size_t smem = smem_bytes(R, W, eb, sizeof(CD), stage);
-  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidConfiguration;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-  if (err != cudaSuccess) return (int)err;
-
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = NCL;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t config = {};
-  config.gridDim = dim3(B * NCL);
-  config.blockDim = dim3(kThreads);
-  config.dynamicSmemBytes = smem;
-  config.stream = st;
-  config.attrs = attr;
-  config.numAttrs = 1;
-  int clusters = 0;
-  err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &config);
-  if (err != cudaSuccess) return (int)err;
-  if (clusters < 1) return (int)cudaErrorInvalidConfiguration;
-  err = cudaLaunchKernelEx(&config, kernel, x0, static_cast<const CD*>(K), edges,
-                           inv_deg, static_cast<const CD*>(root1), bias1,
-                           static_cast<const CD*>(root2), bias2, out, stack, R,
-                           W, E, depth, eb, (int)stage);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  conv_stack::Plan p;
+  return with_kernel<CD>(R, W, E, &p, [&](auto kernel) {
+    return conv_stack::launch_clusters(
+        kernel, B, p, st, x0, static_cast<const CD*>(K), edges, mask, inv_deg,
+        static_cast<const CD*>(root1), bias1, static_cast<const CD*>(root2),
+        bias2, out, stack, R, W, E, depth, p.cap);
+  });
 }
 
 }  // namespace
 
+// How many of this kernel's clusters (one an example) the card holds at
+// once at these shapes: cudaOccupancyMaxActiveClusters of its launch.
+extern "C" int mdno_train_conv_fwd_clusters(int R, int W, int E, int cd_bf16,
+                                            int* out) {
+  conv_stack::Plan p;
+  auto count = [&](auto kernel) {
+    return conv_stack::max_active_clusters(kernel, p, out);
+  };
+  return cd_bf16 ? with_kernel<__nv_bfloat16>(R, W, E, &p, count)
+                 : with_kernel<float>(R, W, E, &p, count);
+}
+
 extern "C" int mdno_train_conv_fwd(
-    const float* x0, const void* K, const int* edges, const float* inv_deg,
-    const void* root1, const float* bias1, const void* root2,
-    const float* bias2, float* out, float* stack, int B, int R, int W, int E,
-    int depth, int cd_bf16, void* stream) {
+    const float* x0, const void* K, const int* edges, const float* mask,
+    const float* inv_deg, const void* root1, const float* bias1,
+    const void* root2, const float* bias2, float* out, float* stack, int B,
+    int R, int W, int E, int depth, int cd_bf16, void* stream) {
   if (B < 1 || R < 1 || E < 1 || depth < 1 || W % 8 != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (cd_bf16)
-    return launch<__nv_bfloat16>(x0, K, edges, inv_deg, root1, bias1, root2,
-                                 bias2, out, stack, B, R, W, E, depth, st);
-  return launch<float>(x0, K, edges, inv_deg, root1, bias1, root2, bias2, out,
-                       stack, B, R, W, E, depth, st);
+  const int rc =
+      cd_bf16 ? launch<__nv_bfloat16>(x0, K, edges, mask, inv_deg, root1,
+                                      bias1, root2, bias2, out, stack, B, R, W,
+                                      E, depth, st)
+              : launch<float>(x0, K, edges, mask, inv_deg, root1, bias1,
+                              root2, bias2, out, stack, B, R, W, E, depth, st);
+  return rc != 0 ? rc : (int)cudaGetLastError();
 }

@@ -289,7 +289,8 @@ def _gkn_apply_kernel_batched(params, cfg: ModelConfig, batch: GKNBatch,
                               return_latent: bool):
     """The forward with the conv stack as one kernel over the batch
     (``ops/cuda/train_conv.py``). The kernel tensor is made once, in the
-    compute dtype, and pre-masked, so the kernel never reads the mask."""
+    compute dtype, and pre-masked; the kernels read the mask only to skip
+    padded slots."""
     check_supported(cfg)
     if cfg.width % 8 or cfg.width > TRAIN_CONV_MAX_WIDTH:
         raise ValueError(
@@ -306,7 +307,7 @@ def _gkn_apply_kernel_batched(params, cfg: ModelConfig, batch: GKNBatch,
     inv_deg = sparse_inv_degree(graph.edges, graph.mask, r)
     x = train_conv(
         x.contiguous(), kt, graph.edges.to(torch.int32).contiguous(),
-        inv_deg.contiguous(),
+        graph.mask.to(torch.float32).contiguous(), inv_deg.contiguous(),
         params["conv1"]["root"], params["conv1"]["bias"],
         params["conv2"]["root"], params["conv2"]["bias"], cfg.depth)
     return _head(params, cfg, batch.window, x, return_latent)

@@ -7,16 +7,21 @@ Port of the TPU kernel
 one kernel each). ``train_conv`` is a ``torch.autograd.Function`` whose
 forward launches ``csrc/train_conv_fwd.cu`` and saves the activation
 stack, and whose backward launches ``csrc/train_conv_bwd.cu`` and returns
-gradients for x0, kt, root1, bias1, root2 and bias2 (none for the edges
-and the inverse degrees). The kernels take the int32 edge list and gather
-and scatter by index; the TPU kernel's one-hot operands, its tile layout
-of K and its column permutation are not carried over.
+gradients for x0, kt, root1, bias1, root2 and bias2 (none for the edges,
+the mask and the inverse degrees). The kernels take the int32 edge list
+and gather and scatter by index; the TPU kernel's one-hot operands, its
+tile layout of K and its column permutation are not carried over. Both
+run one example on one cluster of the rollout conv stack's frame
+(``csrc/conv_stack.cuh``): the edge mask tells them a padded slot (mask
+0, src = dst = 0), which they skip, from node 0's real self-loop.
 
 Beside it stands the plain PyTorch version ``train_conv_plain`` with the
 same signature: ``ops/conv_stack.tied_conv_stack`` with a mask of ones
-(kt is pre-masked). The wrapper runs the plain version for CPU tensors
-only; for CUDA tensors it launches the kernels or raises. ``launches``
-counts the launches of each kernel.
+(kt is pre-masked), so that a padded slot's dK row is what the TPU kernel
+gives it, xs (x) dm of node 0; the caller's ``kt * mask`` zeroes it. The
+wrapper runs the plain version for CPU tensors only; for CUDA tensors it
+launches the kernels or raises. ``launches`` counts the launches of each
+kernel.
 """
 
 from __future__ import annotations
@@ -42,12 +47,20 @@ from molecular_dynamics_neural_operator_tpu_torch.ops.cuda._launch import (
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 register_kernel("train_conv_fwd", "mdno_train_conv_fwd",
-                [_P] * 10 + [_I] * 6 + [_P])
+                [_P] * 11 + [_I] * 6 + [_P])
 register_kernel("train_conv_bwd", "mdno_train_conv_bwd",
-                [_P] * 13 + [_I] * 6 + [_P])
+                [_P] * 14 + [_I] * 6 + [_P])
+register_kernel("train_conv_fwd_clusters", "mdno_train_conv_fwd_clusters",
+                [_I] * 4 + [ctypes.POINTER(ctypes.c_int)],
+                source="train_conv_fwd")
+register_kernel("train_conv_bwd_clusters", "mdno_train_conv_bwd_clusters",
+                [_I] * 5 + [ctypes.POINTER(ctypes.c_int)],
+                source="train_conv_bwd")
 
-# the widest conv the backward kernel takes: each of a cluster's 4096
-# threads owns one element of droot
+# The widest conv the training kernels take: the backward's CUDA-core body
+# (f32, widths other than 64) keeps 8 elements of droot in the registers of
+# each of its 512 threads, w * w <= 4096 (csrc/conv_stack_bwd.cuh,
+# kDrootPer); the bf16 tensor-core bodies are written for width 64.
 MAX_WIDTH = 64
 
 launches = {"train_conv_fwd": 0, "train_conv_bwd": 0}
@@ -75,57 +88,87 @@ def _ones_mask(kt):
     return torch.ones(kt.shape[:2], device=kt.device)
 
 
-def train_conv_plain(x0, kt, edges, inv_deg, root1, bias1, root2, bias2,
-                     depth: int):
+def _check_mask(mask, kt) -> None:
+    """The edge mask is (B, E) f32, 1 for a real slot and 0 for a padded
+    one, beside kt (B, E, w*w)."""
+    if mask.dtype != torch.float32:
+        raise ValueError(f"mask has dtype {mask.dtype}, expected "
+                         f"torch.float32")
+    if tuple(mask.shape) != tuple(kt.shape[:2]):
+        raise ValueError(f"mask has shape {tuple(mask.shape)}, expected "
+                         f"{tuple(kt.shape[:2])}")
+
+
+def _check_width(w: int) -> None:
+    if w % 8 or w > MAX_WIDTH:
+        raise ValueError(f"train_conv needs a width that is a multiple of 8 "
+                         f"and at most {MAX_WIDTH}, got {w}")
+
+
+def _check_aligned(t: torch.Tensor, name: str) -> None:
+    """The kernels read kt and the stack 16 bytes at a time: a view that
+    starts elsewhere raises; no other kernel takes its place."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"train_conv: {name} must start on a 16-byte "
+                         f"boundary (offset {t.data_ptr() % 16})")
+
+
+def train_conv_plain(x0, kt, edges, mask, inv_deg, root1, bias1, root2,
+                     bias2, depth: int):
     """Plain version of ``train_conv``: the same function through
-    ``tied_conv_stack``, differentiable in the same six operands."""
+    ``tied_conv_stack``, differentiable in the same six operands. The mask
+    is checked and, kt being pre-masked, computed with as ones."""
     if depth < 1:
         raise ValueError("train_conv requires depth >= 1")
     b, r, w, e = _shapes(x0, kt)
+    _check_mask(mask, kt)
     return tied_conv_stack(depth, kt.dtype, x0, kt.reshape(b, e, w, w), edges,
                            _ones_mask(kt), inv_deg, root1, bias1, root2,
                            bias2)
 
 
-def train_conv_forward_plain(x0, kt, edges, inv_deg, root1, bias1, root2,
-                             bias2, depth: int):
+def train_conv_forward_plain(x0, kt, edges, mask, inv_deg, root1, bias1,
+                             root2, bias2, depth: int):
     """(out, stack) of the plain forward sweep, as the forward kernel
     writes them."""
     b, r, w, e = _shapes(x0, kt)
+    _check_mask(mask, kt)
     return conv_stack_forward(depth, kt.dtype, x0, kt.reshape(b, e, w, w), edges,
                               _ones_mask(kt), inv_deg, root1, bias1, root2,
                               bias2)
 
 
-def train_conv_backward_plain(g_out, stack, kt, edges, inv_deg, root1, root2,
-                              depth: int):
+def train_conv_backward_plain(g_out, stack, kt, edges, mask, inv_deg, root1,
+                              root2, depth: int):
     """(dx0, dkt, droot1, dbias1, droot2, dbias2) of the plain reverse
     sweep, droot and dbias per example, as the backward kernel writes
-    them."""
+    them; a padded slot's dkt row is xs (x) dm of node 0."""
     b, e = kt.shape[:2]
     w = stack.shape[-1]
+    _check_mask(mask, kt)
     dx, dk, dr1, db1, dr2, db2 = conv_stack_backward(
         depth, kt.dtype, g_out, stack, kt.reshape(b, e, w, w), edges,
         _ones_mask(kt), inv_deg, root1, root2)
     return dx, dk.reshape(kt.shape), dr1, db1, dr2, db2
 
 
-def train_conv_forward(x0, kt, edges, inv_deg, root1, bias1, root2, bias2,
-                       depth: int):
+def train_conv_forward(x0, kt, edges, mask, inv_deg, root1, bias1, root2,
+                       bias2, depth: int):
     """Launch the forward kernel: (out (B, R, w), stack (B, 2*depth+1, R, w)),
     both f32. x0 (B, R, w) f32; kt (B, E, w*w) f32 or bf16, pre-masked;
-    edges (B, 2, E) int32; inv_deg (B, R) f32; roots (w, w) and biases (w,)
-    f32 (the roots are rounded to kt's dtype here, outside the kernel)."""
+    edges (B, 2, E) int32; mask (B, E) f32, 0 for a padded slot; inv_deg
+    (B, R) f32; roots (w, w) and biases (w,) f32 (the roots are rounded to
+    kt's dtype here, outside the kernel)."""
     if depth < 1:
         raise ValueError("train_conv requires depth >= 1")
     if on_cpu(x0):
-        return train_conv_forward_plain(x0, kt, edges, inv_deg, root1, bias1,
-                                        root2, bias2, depth)
+        return train_conv_forward_plain(x0, kt, edges, mask, inv_deg, root1,
+                                        bias1, root2, bias2, depth)
     b, r, w, e = _shapes(x0, kt)
     dev, f32, cd = x0.device, torch.float32, kt.dtype
-    if w % 8 or w > MAX_WIDTH:
-        raise ValueError(f"train_conv needs a width that is a multiple of 8 "
-                         f"and at most {MAX_WIDTH}, got {w}")
+    _check_width(w)
+    _check_mask(mask, kt)
+    _check_aligned(kt, "kt")
     out = torch.empty(b, r, w, device=dev)
     stack = torch.empty(b, 2 * depth + 1, r, w, device=dev)
     root1, root2 = root1.to(cd), root2.to(cd)
@@ -133,6 +176,7 @@ def train_conv_forward(x0, kt, edges, inv_deg, root1, bias1, root2, bias2,
         check_operand(x0, "x0", f32, (b, r, w), dev),
         check_operand(kt, "kt", cd, (b, e, w * w), dev),
         check_operand(edges, "edges", torch.int32, (b, 2, e), dev),
+        check_operand(mask, "mask", f32, (b, e), dev),
         check_operand(inv_deg, "inv_deg", f32, (b, r), dev),
         check_operand(root1, "root1", cd, (w, w), dev),
         check_operand(bias1, "bias1", f32, (w,), dev),
@@ -146,16 +190,21 @@ def train_conv_forward(x0, kt, edges, inv_deg, root1, bias1, root2, bias2,
     return out, stack
 
 
-def train_conv_backward(g_out, stack, kt, edges, inv_deg, root1, root2,
-                        depth: int):
+def train_conv_backward(g_out, stack, kt, edges, mask, inv_deg, root1,
+                        root2, depth: int):
     """Launch the backward kernel: (dx0 (B, R, w) f32, dkt like kt, droot1
-    (B, w, w), dbias1 (B, w), droot2, dbias2), the last four per example."""
+    (B, w, w), dbias1 (B, w), droot2, dbias2), the last four per example;
+    a padded slot's dkt row is xs (x) dm of node 0, as the plain version's."""
     if on_cpu(g_out):
-        return train_conv_backward_plain(g_out, stack, kt, edges, inv_deg,
-                                         root1, root2, depth)
+        return train_conv_backward_plain(g_out, stack, kt, edges, mask,
+                                         inv_deg, root1, root2, depth)
     b, e = kt.shape[:2]
     _, _, r, w = stack.shape
     dev, f32, cd = g_out.device, torch.float32, kt.dtype
+    _check_width(w)
+    _check_mask(mask, kt)
+    _check_aligned(kt, "kt")
+    _check_aligned(stack, "stack")
     dx0 = torch.empty(b, r, w, device=dev)
     dkt = torch.empty_like(kt)
     droot = [torch.empty(b, w, w, device=dev) for _ in range(2)]
@@ -166,6 +215,7 @@ def train_conv_backward(g_out, stack, kt, edges, inv_deg, root1, root2,
         check_operand(stack, "stack", f32, (b, 2 * depth + 1, r, w), dev),
         check_operand(kt, "kt", cd, (b, e, w * w), dev),
         check_operand(edges, "edges", torch.int32, (b, 2, e), dev),
+        check_operand(mask, "mask", f32, (b, e), dev),
         check_operand(inv_deg, "inv_deg", f32, (b, r), dev),
         check_operand(root1, "root1", cd, (w, w), dev),
         check_operand(root2, "root2", cd, (w, w), dev),
@@ -180,27 +230,27 @@ def train_conv_backward(g_out, stack, kt, edges, inv_deg, root1, root2,
 
 class _TrainConv(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x0, kt, edges, inv_deg, root1, bias1, root2, bias2,
+    def forward(ctx, x0, kt, edges, mask, inv_deg, root1, bias1, root2, bias2,
                 depth):
-        out, stack = train_conv_forward(x0, kt, edges, inv_deg, root1, bias1,
-                                        root2, bias2, depth)
-        ctx.save_for_backward(stack, kt, edges, inv_deg, root1, root2)
+        out, stack = train_conv_forward(x0, kt, edges, mask, inv_deg, root1,
+                                        bias1, root2, bias2, depth)
+        ctx.save_for_backward(stack, kt, edges, mask, inv_deg, root1, root2)
         ctx.depth = depth
         return out
 
     @staticmethod
     def backward(ctx, g_out):
-        stack, kt, edges, inv_deg, root1, root2 = ctx.saved_tensors
+        stack, kt, edges, mask, inv_deg, root1, root2 = ctx.saved_tensors
         dx0, dkt, dr1, db1, dr2, db2 = train_conv_backward(
-            g_out.contiguous(), stack, kt, edges, inv_deg, root1, root2,
+            g_out.contiguous(), stack, kt, edges, mask, inv_deg, root1, root2,
             ctx.depth)
         # per-example partial sums of the shared parameters, added over the
         # batch by one deterministic reduction each
-        return (dx0, dkt, None, None, dr1.sum(0), db1.sum(0), dr2.sum(0),
-                db2.sum(0), None)
+        return (dx0, dkt, None, None, None, dr1.sum(0), db1.sum(0),
+                dr2.sum(0), db2.sum(0), None)
 
 
-def train_conv(x0, kt, edges, inv_deg, root1, bias1, root2, bias2,
+def train_conv(x0, kt, edges, mask, inv_deg, root1, bias1, root2, bias2,
                depth: int):
     """Batched tied conv stack: relu(conv1)^depth then relu(conv2)^depth
     against one pre-masked kernel tensor per example. Shapes as
@@ -210,7 +260,24 @@ def train_conv(x0, kt, edges, inv_deg, root1, bias1, root2, bias2,
     if depth < 1:
         raise ValueError("train_conv requires depth >= 1")
     if on_cpu(x0):
-        return train_conv_plain(x0, kt, edges, inv_deg, root1, bias1, root2,
-                                bias2, depth)
-    return _TrainConv.apply(x0, kt, edges, inv_deg, root1, bias1, root2,
-                            bias2, depth)
+        return train_conv_plain(x0, kt, edges, mask, inv_deg, root1, bias1,
+                                root2, bias2, depth)
+    return _TrainConv.apply(x0, kt, edges, mask, inv_deg, root1, bias1,
+                            root2, bias2, depth)
+
+
+def train_conv_clusters(num_nodes: int, width: int, max_edges: int,
+                        depth: int, cd) -> dict:
+    """How many clusters (one an example) of each training kernel the card
+    holds at once at these shapes: a batch of B runs in ceil(B / that)
+    waves."""
+    out = {}
+    for name, args in (("train_conv_fwd", (num_nodes, width, max_edges,
+                                           cd_flag(cd))),
+                       ("train_conv_bwd", (num_nodes, width, max_edges, depth,
+                                           cd_flag(cd)))):
+        n = ctypes.c_int(0)
+        raise_on(kernel_fn(f"{name}_clusters")(*args, ctypes.byref(n)),
+                 f"{name}_clusters")
+        out[name] = n.value
+    return out

@@ -372,14 +372,20 @@ def test_kernel_rollout_matches_plain_rollout_on_the_card(cuda):
                                   "conv_head": 8}
 
 
-def _train_conv_operands(seed, cd, device, b=6, r=12, w=16, e=128, real=90):
-    """Seeded operands of the training conv stack with ``e - real`` padded
-    slots (src = dst = 0, kt rows zero) at the end."""
+def _train_conv_operands(seed, cd, device, b=6, r=12, w=16, e=128, real=90,
+                         graph=None):
+    """Seeded operands of the training conv stack, (x0, kt, edges, mask,
+    inv_deg, root1, bias1, root2, bias2, g_out): ``e - real`` padded slots
+    (src = dst = 0, kt rows zero) at the end, or the edge list ``graph``
+    ((edges, mask) numpy arrays) instead."""
     rng = np.random.default_rng(seed)
-    mask = np.zeros((b, e), np.float32)
-    mask[:, :real] = 1.0
-    edges = (rng.integers(0, r, size=(b, 2, e))
-             * mask[:, None, :]).astype(np.int32)
+    if graph is None:
+        mask = np.zeros((b, e), np.float32)
+        mask[:, :real] = 1.0
+        edges = (rng.integers(0, r, size=(b, 2, e))
+                 * mask[:, None, :]).astype(np.int32)
+    else:
+        edges, mask = graph
     kt = (rng.normal(size=(b, e, w * w)) * 0.3 * mask[..., None])
     bound = 1.0 / np.sqrt(w)
 
@@ -387,7 +393,7 @@ def _train_conv_operands(seed, cd, device, b=6, r=12, w=16, e=128, real=90):
         return torch.as_tensor(np.asarray(a, np.float32), device=device)
 
     edges_t = torch.as_tensor(edges, device=device)
-    return (t(rng.normal(size=(b, r, w))), t(kt).to(cd), edges_t,
+    return (t(rng.normal(size=(b, r, w))), t(kt).to(cd), edges_t, t(mask),
             sparse_inv_degree(edges_t, t(mask), r),
             t(rng.uniform(-bound, bound, (w, w))),
             t(rng.uniform(-bound, bound, w)),
@@ -396,11 +402,15 @@ def _train_conv_operands(seed, cd, device, b=6, r=12, w=16, e=128, real=90):
             t(rng.normal(size=(b, r, w))))
 
 
+# x0, kt, root1, bias1, root2, bias2 among train_conv's operands
+TRAIN_GRAD_SLOTS = (0, 1, 5, 6, 7, 8)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("cd", [torch.float32, torch.bfloat16])
 def test_train_conv_kernels_match_the_plain_version_on_the_card(cuda, cd):
     *ops, g_out = _train_conv_operands(7, cd, cuda)
-    grad_slots = (0, 1, 4, 5, 6, 7)  # x0, kt, root1, bias1, root2, bias2
+    grad_slots = TRAIN_GRAD_SLOTS
     leaves = [t.clone().requires_grad_(i in grad_slots)
               for i, t in enumerate(ops)]
     ref_leaves = [t.clone().requires_grad_(i in grad_slots)
@@ -488,3 +498,120 @@ def test_fused_kernel_matches_its_plain_version_on_the_card(cuda, cd, graph,
     tol = 1e-4 if cd == "float32" else 2.0 ** -6
     scale = want.abs().max().item()
     assert (got - want).abs().max().item() <= tol * scale
+
+
+def _train_graph(kind, seed, b, r=12, e=128, real=90):
+    """(edges (b, 2, e) int32, mask (b, e) f32) with numpy: a random graph
+    with its padded slots at the end; the stress graphs of the rollout
+    kernels (a hub of in-degree 60 beside a node without incoming edges,
+    every slot taken); the hub turned into a source of 60 edges, which is
+    what the backward deals by; and examples without any real edge."""
+    if kind == "random":
+        rng = np.random.default_rng(seed)
+        mask = np.zeros((b, e), np.float32)
+        mask[:, :real] = 1.0
+        edges = (rng.integers(0, r, (b, 2, e)) * mask[:, None]).astype(np.int32)
+        return edges, mask
+    if kind == "empty":
+        return np.zeros((b, 2, e), np.int32), np.zeros((b, e), np.float32)
+    graphs = {name: (ed.numpy(), mk.numpy())
+              for name, ed, mk in _stress_graphs(seed, b, r, e, real, 60, "cpu")}
+    if kind == "hub_out":
+        edges, mask = graphs["hub"]
+        return np.ascontiguousarray(edges[:, ::-1]), mask
+    return graphs[kind]
+
+
+def _train_conv_check(ops, g_out, depth, tol):
+    """Both training kernels against their plain versions: the stack layer
+    by layer (the backward runs on the plain version's stack, so that both
+    take the relu mask from the same activations), all six gradients and
+    the dK rows of padded slots, each within ``tol`` of its scale."""
+    out, stack = tc.train_conv_forward(*ops, depth)
+    out_p, stack_p = tc.train_conv_forward_plain(*ops, depth)
+    x0, kt, edges, mask, inv_deg, root1, _, root2, _ = ops
+    bwd = (g_out, stack_p, kt, edges, mask, inv_deg, root1, root2, depth)
+    got = tc.train_conv_backward(*bwd)
+    want = tc.train_conv_backward_plain(*bwd)
+    torch.cuda.synchronize()
+    assert torch.equal(out, stack[:, -1]) and torch.equal(stack[:, 0], x0)
+
+    def close(a, b, what):
+        scale = b.float().abs().max().item()
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= tol * scale, (what, err, scale)
+
+    for layer in range(1, 2 * depth + 1):
+        close(stack[:, layer], stack_p[:, layer], f"stack {layer}")
+    for name, a, b in zip(("dx0", "dkt", "droot1", "dbias1", "droot2",
+                           "dbias2"), got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        assert bool(torch.isfinite(a).all()), name
+        close(a, b, name)
+    pad = mask == 0
+    if bool(pad.any()):
+        close(got[1][pad], want[1][pad], "dkt of padded slots")
+    return out, stack, got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 17])
+@pytest.mark.parametrize("depth", [1, 2, 6])
+@pytest.mark.parametrize("graph", ["random", "hub", "hub_out", "full",
+                                   "empty"])
+@pytest.mark.parametrize("cd,w", [(torch.bfloat16, 64), (torch.float32, 64),
+                                  (torch.bfloat16, 16), (torch.float32, 16)])
+def test_training_kernels_hold_against_their_plain_versions_on_the_card(
+        cuda, cd, w, graph, depth, b):
+    """bf16 at width 64 runs the tensor-core bodies, every other case the
+    CUDA-core ones; B = 17 is not a multiple of the clusters the card
+    holds at once. f32: sums in another order; bf16: now and then a
+    flipped rounding, 2^-8 of a value, carried through the layers."""
+    ops = _train_conv_operands(11, cd, cuda, b=b, w=w,
+                               graph=_train_graph(graph, 3, b))
+    tol = 1e-4 if cd == torch.float32 else 2.0 ** -6
+    _train_conv_check(ops[:-1], ops[-1], depth, tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cd", [torch.bfloat16, torch.float32])
+def test_an_example_gives_the_same_bits_at_any_batch_position(cuda, cd):
+    """Example 0 of a batch of 17 is example 16 too: its six outputs, its
+    stack and its output are equal to the bit at both positions and over
+    two runs."""
+    ops = list(_train_conv_operands(13, cd, cuda, b=17, w=64,
+                                    graph=_train_graph("random", 5, 17)))
+    for i, t in enumerate(ops):
+        if i not in (5, 6, 7, 8):  # all but the shared weights
+            t[16] = t[0]
+    runs = []
+    for _ in range(2):
+        out, stack = tc.train_conv_forward(*ops[:-1], 6)
+        x0, kt, edges, mask, inv_deg, root1, _, root2, _ = ops[:-1]
+        grads = tc.train_conv_backward(ops[-1], stack, kt, edges, mask,
+                                       inv_deg, root1, root2, 6)
+        torch.cuda.synchronize()
+        runs.append([out, stack, *grads])
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    for t in runs[0]:
+        assert torch.equal(t[0], t[16])
+
+
+@pytest.mark.gpu
+def test_train_conv_clusters_and_width_checks_on_the_card(cuda):
+    n = tc.train_conv_clusters(28, 64, 256, 6, torch.bfloat16)
+    assert set(n) == {"train_conv_fwd", "train_conv_bwd"}
+    assert all(v >= 1 for v in n.values())
+    ops = _train_conv_operands(3, torch.float32, cuda, b=2, w=16)
+    x0, kt, edges, mask, inv_deg, root1, _, root2, _, g_out = ops
+    stack = torch.zeros(2, 5, 12, 72, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 8 and at most"):
+        tc.train_conv_backward(torch.zeros(2, 12, 72, device=cuda), stack,
+                               torch.zeros(2, 128, 72 * 72, device=cuda),
+                               edges, mask, inv_deg, root1, root2, 2)
+    # a kt that starts off a 16-byte boundary raises
+    flat = torch.zeros(2 * 128 * 256 + 2, device=cuda)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        tc.train_conv_forward(x0, flat[2:].view(2, 128, 256), edges, mask,
+                              inv_deg, *ops[5:9], 2)

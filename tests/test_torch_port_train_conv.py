@@ -28,6 +28,8 @@ from molecular_dynamics_neural_operator_tpu_torch.ops.edge_conv import (
 )
 
 R, W, E, DEPTH = 12, 16, 128, 2
+# x0, kt, root1, bias1, root2, bias2 among train_conv's operands
+GRAD_SLOTS = (0, 1, 5, 6, 7, 8)
 # f32: sums over <= 16 products, <= 12 edges per node and 4 layers taken in
 # another order by torch than by XLA, and by the TPU kernel's node-first
 # reduction; the bound the JAX package's own kernel test uses
@@ -35,14 +37,19 @@ RTOL, ATOL = 2e-4, 1e-5
 NAMES = ("x0", "k", "root1", "bias1", "root2", "bias2")
 
 
-def _inputs(seed, batch=None, real_edges=90):
+def _inputs(seed, batch=None, real_edges=90, pads="end"):
     """Seeded operands with ``E - real_edges`` padded slots (src = dst = 0,
-    mask 0) at the end, as the datasets pad."""
+    mask 0): at the end, as the datasets pad, or (``pads="scattered"``) in
+    random slots; ``pads="none"`` makes every slot real."""
     rng = np.random.default_rng(seed)
     lead = () if batch is None else (batch,)
     edges = rng.integers(0, R, size=lead + (2, E)).astype(np.int32)
     mask = np.zeros(lead + (E,), np.float32)
     mask[..., :real_edges] = 1.0
+    if pads == "scattered":
+        mask = mask[..., rng.permutation(E)]
+    elif pads == "none":
+        mask[...] = 1.0
     edges = (edges * mask[..., None, :].astype(np.int32))
     bound = 1.0 / np.sqrt(W)
     return dict(
@@ -170,23 +177,27 @@ def _pallas(d, cd_str="float32"):
 
 
 def _plain_operands(d, cd=torch.float32):
+    """(x0, kt, edges, mask, inv_deg, root1, bias1, root2, bias2), kt
+    pre-masked, as ``train_conv`` takes them."""
     b = d["x0"].shape[0]
     kt = (torch.as_tensor(d["k"]).reshape(b, E, W * W)
           * torch.as_tensor(d["mask"])[..., None]).to(cd)
     return (torch.as_tensor(d["x0"]), kt, torch.as_tensor(d["edges"]),
-            _inv_deg(d), *(torch.as_tensor(d[n]) for n in NAMES[2:]))
+            torch.as_tensor(d["mask"]), _inv_deg(d),
+            *(torch.as_tensor(d[n]) for n in NAMES[2:]))
 
 
-def test_train_conv_plain_matches_the_pallas_kernel_in_interpret_mode():
-    d = _inputs(3, batch=5)
+@pytest.mark.parametrize("pads", ["end", "scattered", "none"])
+def test_train_conv_plain_matches_the_pallas_kernel_in_interpret_mode(pads):
+    d = _inputs(3, batch=5, pads=pads)
     want_out, want_stack, want_grads = _pallas(d)
     ops = _plain_operands(d)
     out, stack = tc.train_conv_forward(*ops, DEPTH)  # CPU: the plain version
     np.testing.assert_allclose(out.numpy(), want_out, RTOL, ATOL)
     np.testing.assert_allclose(stack.numpy(), want_stack, RTOL, ATOL)
-    x0, kt, edges, inv_deg, root1, _, root2, _ = ops
+    x0, kt, edges, mask, inv_deg, root1, _, root2, _ = ops
     got = tc.train_conv_backward(torch.as_tensor(d["g_out"]), stack, kt,
-                                 edges, inv_deg, root1, root2, DEPTH)
+                                 edges, mask, inv_deg, root1, root2, DEPTH)
     dx0, dkt, dr1, db1, dr2, db2 = got
     assert dr1.shape == (5, W, W) and db1.shape == (5, W)
     for name, g, ref in zip(
@@ -195,20 +206,24 @@ def test_train_conv_plain_matches_the_pallas_kernel_in_interpret_mode():
             want_grads):
         np.testing.assert_allclose(g.numpy(), np.asarray(ref), RTOL, ATOL,
                                    err_msg=name)
-    # kt is pre-masked and the kernel reads no mask: the dK rows of padded
-    # slots are xs (x) dm of node 0, as the TPU kernel gives them
-    assert dkt[:, 100:].abs().max() > 0
+    # kt is pre-masked and the mask only marks padded slots: their dK rows
+    # are xs (x) dm of node 0, as the TPU kernel gives them
+    padded = mask == 0
+    if pads == "none":
+        assert not padded.any()
+    else:
+        assert dkt[padded].abs().max() > 0
 
 
 def test_train_conv_on_cpu_tensors_is_the_plain_version_under_autograd():
     d = _inputs(4, batch=2)
     _, _, want_grads = _pallas(d)
     tc.reset_launch_counts()
-    ops = [t.clone().requires_grad_(t.is_floating_point() and i != 3)
+    ops = [t.clone().requires_grad_(i in GRAD_SLOTS)
            for i, t in enumerate(_plain_operands(d))]
     out = tc.train_conv(*ops, DEPTH)
     (out * torch.as_tensor(d["g_out"])).sum().backward()
-    for i, ref in zip((0, 1, 4, 5, 6, 7), want_grads):
+    for i, ref in zip(GRAD_SLOTS, want_grads):
         np.testing.assert_allclose(ops[i].grad.numpy(), np.asarray(ref),
                                    RTOL, ATOL)
     assert tc.launch_counts() == {"train_conv_fwd": 0, "train_conv_bwd": 0}
@@ -223,9 +238,9 @@ def test_train_conv_plain_bf16_against_the_pallas_kernel():
     want_out, want_stack, want_grads = _pallas(d, "bfloat16")
     ops = _plain_operands(d, torch.bfloat16)
     out, stack = tc.train_conv_forward(*ops, DEPTH)
-    x0, kt, edges, inv_deg, root1, _, root2, _ = ops
+    x0, kt, edges, mask, inv_deg, root1, _, root2, _ = ops
     got = tc.train_conv_backward(torch.as_tensor(d["g_out"]), stack, kt,
-                                 edges, inv_deg, root1, root2, DEPTH)
+                                 edges, mask, inv_deg, root1, root2, DEPTH)
     assert got[1].dtype == torch.bfloat16
     pairs = [("out", out, want_out), ("stack", stack, want_stack),
              ("dx0", got[0], want_grads[0]), ("dkt", got[1], want_grads[1])]
@@ -249,3 +264,43 @@ def test_train_conv_refuses_depth_zero_and_wrong_shapes():
         tc.train_conv(*bad, DEPTH)
     with pytest.raises(ValueError, match="no kernel"):
         tc.train_conv(*(t.to("meta") for t in ops), DEPTH)
+
+
+@pytest.mark.parametrize("pads", ["end", "none"])
+def test_train_conv_with_the_mask_equals_the_plain_version_on_cpu(pads):
+    """``train_conv`` on CPU tensors, mask operand and all, gives the plain
+    version's output and all six gradients, padded dK rows included."""
+    d = _inputs(7, batch=3, pads=pads)
+    g_out = torch.as_tensor(d["g_out"])
+    got = [t.clone().requires_grad_(i in GRAD_SLOTS)
+           for i, t in enumerate(_plain_operands(d))]
+    ref = [t.clone().requires_grad_(i in GRAD_SLOTS)
+           for i, t in enumerate(_plain_operands(d))]
+    out = tc.train_conv(*got, DEPTH)
+    want = tc.train_conv_plain(*ref, DEPTH)
+    (out * g_out).sum().backward()
+    (want * g_out).sum().backward()
+    assert torch.equal(out, want)
+    for i in GRAD_SLOTS:
+        assert torch.equal(got[i].grad, ref[i].grad), i
+    padded = torch.as_tensor(d["mask"]) == 0
+    assert bool(padded.any()) == (pads == "end")
+
+
+def test_train_conv_refuses_a_mask_of_the_wrong_shape_or_dtype():
+    ops = _plain_operands(_inputs(8, batch=2))
+    x0, kt, edges, mask, inv_deg, root1, _, root2, _ = ops
+    g_out = torch.zeros_like(x0)
+    stack = torch.zeros(2, 2 * DEPTH + 1, R, W)
+    for bad, match in ((mask[:, :-1], "mask has shape"),
+                       (mask[:1], "mask has shape"),
+                       (mask.double(), "mask has dtype"),
+                       (mask.bool(), "mask has dtype")):
+        args = list(ops)
+        args[3] = bad
+        for fn in (tc.train_conv, tc.train_conv_plain, tc.train_conv_forward):
+            with pytest.raises(ValueError, match=match):
+                fn(*args, DEPTH)
+        with pytest.raises(ValueError, match=match):
+            tc.train_conv_backward(g_out, stack, kt, edges, bad, inv_deg,
+                                   root1, root2, DEPTH)
