@@ -37,6 +37,12 @@ Phases, each fatal:
 4. timing: steps/s of both rollouts, and per kernel its time, its plain
    version's time, a library call's time where one computes the same
    function, and the least time the card could take (its bound).
+   Then past 28 residues: ``graph_encode`` at 80 and 512 residues (dh off
+   and on, f32 and bf16, 1 and 8 streams) against its plain version, with
+   its bf16 times; the kernel rollout at 80 residues against the plain one
+   (128 steps in bf16, 512 in f32), with the step's device time; and the
+   largest residue count whose kernel rollout ``conv_head``'s plan takes
+   at the flagship width, run for 16 steps.
 
 5. train_conv vs plain: the forward kernel (output and activation stack)
    and the backward kernel (dx0, dkt, droot1/2, dbias1/2) of the training
@@ -81,6 +87,8 @@ kernels). Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import ctypes
+import dataclasses
 import json
 import subprocess
 import sys
@@ -294,6 +302,36 @@ def stress_graphs(windows, max_edges: int):
              full_mask)]
 
 
+def hold_graph_encode(windows, weights, max_edges: int, cd, tol: float,
+                      tag: str) -> tuple:
+    """graph_encode against its plain version on ``windows``: edges, mask,
+    count, overflow, inv_deg and ef equal, x0 within ``tol`` of its scale.
+    Returns (x0 max abs error, the plain outputs)."""
+    from molecular_dynamics_neural_operator_tpu_torch.ops.cuda import (
+        persistent_rollout as pr,
+    )
+
+    cfg = weights["cfg"]
+    s, _, r, _ = windows.shape
+    bufs = pr.alloc_buffers(dataclasses.replace(cfg, max_edges=max_edges), s,
+                            r, windows.device)
+    pr.graph_encode(windows, weights, THRESHOLD, bufs)
+    plain = pr.graph_encode_plain(windows, weights, THRESHOLD, max_edges, cd)
+    edges, mask, count, over, inv_deg, ef, x0 = plain
+    torch.cuda.synchronize()
+    for name, got, ref in (("edges", bufs.edges, edges),
+                           ("mask", bufs.mask, mask),
+                           ("count", bufs.count.long(), count),
+                           ("inv_deg", bufs.inv_deg, inv_deg),
+                           ("ef", bufs.ef, ef)):
+        require(torch.equal(got, ref), f"graph_encode {name} differs ({tag})")
+    require(bool(bufs.overflow[0] > 0) == bool(over.any()),
+            f"graph_encode overflow differs ({tag})")
+    err, rel = rel_err(bufs.x0, x0)
+    require(rel <= tol, f"graph_encode x0 error {err} ({tag})")
+    return err, plain
+
+
 def check_kernels(params, aa, windows, cd: str) -> dict:
     """Each kernel against its plain version on the same inputs. Returns
     the max abs errors by kernel name."""
@@ -315,20 +353,8 @@ def check_kernels(params, aa, windows, cd: str) -> dict:
     tag = f"{cd} S={s}"
     weights = pr.rollout_weights(params, cfg, aa, dev)
     bufs = pr.alloc_buffers(cfg, s, r, dev)
-    pr.graph_encode(windows, weights, THRESHOLD, bufs)
-    edges, mask, count, over, inv_deg, ef, x0 = pr.graph_encode_plain(
-        windows, weights, THRESHOLD, e, bufs.ef.dtype)
-    torch.cuda.synchronize()
-    for name, got, ref in (("edges", bufs.edges, edges),
-                           ("mask", bufs.mask, mask),
-                           ("count", bufs.count.long(), count),
-                           ("inv_deg", bufs.inv_deg, inv_deg),
-                           ("ef", bufs.ef, ef)):
-        require(torch.equal(got, ref), f"graph_encode {name} differs ({tag})")
-    require(bool(bufs.overflow[0] > 0) == bool(over.any()),
-            f"graph_encode overflow differs ({tag})")
-    x0_err, x0_rel = rel_err(bufs.x0, x0)
-    require(x0_rel <= TOL_F32, f"graph_encode x0 error {x0_err} ({tag})")
+    x0_err, (edges, mask, count, _, inv_deg, ef, x0) = hold_graph_encode(
+        windows, weights, e, bufs.ef.dtype, TOL_F32, tag)
     log(f"graph_encode {tag}: edges/mask/count/inv_deg/ef exact "
         f"(count {count.tolist()}), x0 max abs err {x0_err:.3e}")
 
@@ -395,8 +421,14 @@ def check_kernels(params, aa, windows, cd: str) -> dict:
 
 # ---- phase 3 ------------------------------------------------------------
 
-def check_rollout(params, aa, window0, cd: str, main_path: bool) -> dict:
-    """Kernel rollout vs plain rollout over STEPS steps."""
+def check_rollout(params, aa, window0, cd: str, main_path: bool, cfg=None,
+                  steps: int = STEPS, borderline_flips: bool = False) -> dict:
+    """Kernel rollout vs plain rollout over ``steps`` steps (the bench
+    configuration unless ``cfg`` is given): no overflow, the same edge list
+    at every step, coordinates within TOL_ROLL. With ``borderline_flips``
+    a step's edge lists may differ at pairs whose distance in the plain
+    rollout lies within 2 sqrt(3) TOL_ROLL of the threshold: a coordinate
+    difference that the tolerance allows moves such a pair across it."""
     from molecular_dynamics_neural_operator_tpu_torch.geometry.contact import (
         contact_map,
     )
@@ -407,18 +439,19 @@ def check_rollout(params, aa, window0, cd: str, main_path: bool) -> dict:
         make_rollout_fn,
     )
 
-    cfg = bench_cfg(cd)
+    cfg = cfg or bench_cfg(cd)
     batched = window0.dim() == 4
-    tag = f"{cd} {'S=%d' % window0.shape[0] if batched else 'single stream'}"
+    tag = (f"{cd} {'S=%d' % window0.shape[0] if batched else 'single stream'}"
+           f", R={window0.shape[-2]}, E={cfg.max_edges}")
     dev = window0.device
-    run = pr.make_persistent_rollout_fn(cfg, STEPS, THRESHOLD, CLIP, device=dev)
+    run = pr.make_persistent_rollout_fn(cfg, steps, THRESHOLD, CLIP, device=dev)
     if main_path:
         pr.reset_launch_counts()
     coords, final, diags = run(params, aa, window0)
     torch.cuda.synchronize()
     counts = pr.launch_counts()
     ref, ref_final, ref_diags = make_rollout_fn(
-        cfg, STEPS, THRESHOLD, clip=CLIP, batched=batched,
+        cfg, steps, THRESHOLD, clip=CLIP, batched=batched,
         device=dev)(params, aa, window0)
     torch.cuda.synchronize()
     require(bool(torch.isfinite(coords).all()), f"non-finite coords ({tag})")
@@ -429,26 +462,173 @@ def check_rollout(params, aa, window0, cd: str, main_path: bool) -> dict:
     step_axis = 1 if batched else 0
     require(torch.equal(final, torch.cat(
         [window0, coords], dim=step_axis).narrow(
-            step_axis, STEPS, cfg.window_size)), f"final window ({tag})")
+            step_axis, steps, cfg.window_size)), f"final window ({tag})")
     # the graph of step k is built from the frame predicted at step k - 1
     frames_k = torch.cat([window0.narrow(step_axis, -1, 1), coords],
                          dim=step_axis)
     frames_p = torch.cat([window0.narrow(step_axis, -1, 1), ref],
                          dim=step_axis)
-    same = (contact_map(frames_k, THRESHOLD) == contact_map(
-        frames_p, THRESHOLD)).flatten(step_axis + 1).all(-1)
-    differing = int((~same).sum())
+    maps_k = contact_map(frames_k, THRESHOLD)
+    flip = maps_k != contact_map(frames_p, THRESHOLD)
+    differing = int(flip.flatten(step_axis + 1).any(-1).sum())
+    margin = None
+    if differing and borderline_flips:
+        dist = (frames_p[..., :, None, :] - frames_p[..., None, :, :]).norm(
+            dim=-1)
+        margin = (dist[flip] - THRESHOLD).abs().max().item()
+    # steps whose graph is not the previous step's
+    changed = int((maps_k.narrow(step_axis, 1, steps) != maps_k.narrow(
+        step_axis, 0, steps)).flatten(step_axis + 1).any(-1).sum())
     err = (coords - ref).abs().max().item()
     drift = (coords.narrow(step_axis, -1, 1)
              - window0.narrow(step_axis, -1, 1)).abs().max().item()
     step_move = frames_p.diff(dim=step_axis).abs().amax(-1).amax(-1)
-    log(f"rollout {tag}: {STEPS} steps, coords max abs err {err:.3e} A "
+    log(f"rollout {tag}: {steps} steps, coords max abs err {err:.3e} A "
         f"(trajectory moved {drift:.3f} A; one step moves a coordinate by "
         f"up to {step_move.mean().item():.3e} A on average, "
-        f"{step_move.max().item():.3e} at most), steps whose edge list differs: {differing}")
-    require(differing == 0, f"edge lists differ at {differing} steps ({tag})")
+        f"{step_move.max().item():.3e} at most), steps whose edge list differs: {differing}; "
+        f"the rebuilt graph changed at {changed} of {steps} steps"
+        + ("" if batched else f", edge count {int(maps_k[0].sum())} at the "
+           f"start, {int(maps_k.sum((-1, -2)).max())} at most"))
+    if margin is not None:
+        log(f"rollout {tag}: at the {differing} steps whose edge lists "
+            f"differ, every differing pair lies within {margin:.3e} A of "
+            f"the threshold in the plain rollout")
+        require(margin <= 2 * 3 ** 0.5 * TOL_ROLL, f"edge lists differ at "
+                f"{differing} steps by pairs up to {margin} A from the "
+                f"threshold ({tag})")
+    else:
+        require(differing == 0,
+                f"edge lists differ at {differing} steps ({tag})")
     require(err <= TOL_ROLL, f"rollout error {err} > {TOL_ROLL} ({tag})")
     return counts
+
+
+# ---- phase 4b: graph_encode and the kernel rollout past 28 residues --------
+
+# graph_encode is held at these residue counts (12 edge slots a residue: no
+# synthetic frame has that many contacts; R = 512 is the one-hot scatter's
+# bound, the largest the model takes on the sparse path).
+LARGE_R = (80, 512)
+# The rollout at 80 residues: 1,024 edge slots (12.8 a residue; the
+# synthetic protein's frames have 634 to 714 contacts, so nothing
+# overflows), on the checkpoint, held to TOL_ROLL: STEPS steps in bf16
+# with the same edge list at every step, and R80_STEPS steps in f32, long
+# enough for the rebuilt graph to change again and again, where an edge
+# list may differ only at a pair on the threshold (``borderline_flips``).
+R80_EDGES = 1024
+R80_STEPS = 512
+# the largest kernel rollout is probed with this many edge slots a residue
+MAX_R_SLOTS = 16
+
+
+def large_windows(r: int, streams: int, dev):
+    """(windows (streams, 10, r, 3), aa) from synthetic_trajectory(seed=13)
+    at r residues."""
+    from molecular_dynamics_neural_operator_tpu_torch.data import (
+        synthetic_trajectory,
+    )
+
+    traj = synthetic_trajectory(num_frames=400, num_residues=r, seed=13)
+    t_len = bench_cfg("bfloat16").window_size
+    windows = torch.as_tensor(np.stack(
+        [traj.positions[50 * i:50 * i + t_len] for i in range(streams)]),
+        device=dev)
+    return windows, torch.as_tensor(traj.aminoacids, device=dev)
+
+
+def check_large_encoders(dev) -> None:
+    """graph_encode at LARGE_R residues, dh off and on, f32 and bf16, 1 and
+    8 streams, against its plain version; the bf16 times."""
+    from molecular_dynamics_neural_operator_tpu_torch.models import gkn_init
+    from molecular_dynamics_neural_operator_tpu_torch.ops.cuda import (
+        persistent_rollout as pr,
+    )
+
+    for r in LARGE_R:
+        windows8, aa = large_windows(r, 8, dev)
+        e = 12 * r
+        for dh in (False, True):
+            for cd in ("float32", "bfloat16"):
+                cfg = live_cfg(cd, electrostatics="dh" if dh else "none",
+                               max_edges=e)
+                weights = pr.rollout_weights(gkn_init(cfg, seed=0, device=dev),
+                                             cfg, aa, dev)
+                cd_t = torch.float32 if cd == "float32" else torch.bfloat16
+                for s in (1, 8):
+                    windows = windows8[:s].contiguous()
+                    tag = f"R={r} E={e} dh={dh} {cd} S={s}"
+                    err, plain = hold_graph_encode(
+                        windows, weights, e, cd_t, TOL_X0_DH if dh else TOL_F32,
+                        tag)
+                    count = plain[2]
+                    require(bool((count <= e).all()), f"overflow ({tag})")
+                    msg = (f"graph_encode {tag}: edges/mask/count/inv_deg/ef "
+                           f"exact (count {int(count.min())} to "
+                           f"{int(count.max())}), x0 max abs err {err:.3e}")
+                    if cd == "bfloat16":
+                        bufs = pr.alloc_buffers(cfg, s, r, dev)
+                        ms = device_ms(lambda: pr.graph_encode(
+                            windows, weights, THRESHOLD, bufs))
+                        plan = pr.graph_encode_plan(windows.shape[1], r,
+                                                    cfg.embedding_dim,
+                                                    cfg.width, dh)
+                        msg += (f"; {ms * 1e3:.2f} us on the device "
+                                f"({plan['threads']} threads, "
+                                f"{plan['smem']} bytes of shared memory a "
+                                f"block)")
+                    log(msg)
+
+
+def conv_head_fits(r: int, e: int) -> bool:
+    """True if conv_head's plan at the flagship width in bf16 takes r
+    residues and e edge slots and the card holds one of its clusters (a
+    probe: the C call's refusal is its answer)."""
+    from molecular_dynamics_neural_operator_tpu_torch.ops.cuda import (
+        persistent_rollout as pr,
+    )
+
+    n = ctypes.c_int(0)
+    rc = pr._kernel("conv_head_clusters")(r, bench_cfg("bfloat16").width, e,
+                                          1, ctypes.byref(n))
+    return rc == 0 and n.value >= 1
+
+
+def check_large_rollouts(ckpt, dev) -> None:
+    """The kernel rollout at 80 residues against the plain rollout, and the
+    largest residue count a whole kernel rollout takes at the flagship
+    width (MAX_R_SLOTS edge slots a residue), run for 16 steps."""
+    from molecular_dynamics_neural_operator_tpu_torch.ops.cuda import (
+        persistent_rollout as pr,
+    )
+
+    windows, aa = large_windows(80, 1, dev)
+    cfg = dataclasses.replace(bench_cfg("bfloat16"), max_edges=R80_EDGES)
+    check_rollout(ckpt, aa, windows[0], "bfloat16", False, cfg)
+    check_rollout(ckpt, aa, windows[0], "float32", False,
+                  dataclasses.replace(cfg, compute_dtype="float32"),
+                  R80_STEPS, borderline_flips=True)
+    parts = step_device_ms(pr.PreparedRollout(ckpt, cfg, aa, THRESHOLD, CLIP,
+                                              dev), 1, windows)
+    log(f"one rollout step at R=80, E={R80_EDGES}, bf16, on the device: "
+        f"{parts['step'] * 1e3:.2f} us (graph_encode "
+        f"{parts['graph_encode'] * 1e3:.2f}, edge_mlp x 3 "
+        f"{parts['edge_mlp'] * 1e3:.2f}, conv_head "
+        f"{parts['conv_head'] * 1e3:.2f})")
+
+    r_max = 28
+    while r_max < 1024 and conv_head_fits(r_max + 4,
+                                          MAX_R_SLOTS * (r_max + 4)):
+        r_max += 4
+    require(r_max >= 80, "conv_head does not take 80 residues")
+    windows, aa = large_windows(r_max, 1, dev)
+    cfg = dataclasses.replace(bench_cfg("bfloat16"),
+                              max_edges=MAX_R_SLOTS * r_max)
+    log(f"the largest residue count (in steps of 4) whose whole kernel "
+        f"rollout conv_head's plan takes at width 64 in bf16 with "
+        f"{MAX_R_SLOTS} edge slots a residue: R = {r_max} (E = "
+        f"{cfg.max_edges}); graph_encode takes up to R = 512 and beyond")
+    check_rollout(ckpt, aa, windows[0], "bfloat16", False, cfg, 16)
 
 
 # ---- phase 4 ------------------------------------------------------------
@@ -616,6 +796,9 @@ def time_kernels(params, aa, window0, counts: dict, errs: dict) -> list:
     step_ms = device_ms(lambda: pr.step(bufs, weights, cfg, THRESHOLD, CLIP,
                                         win_k, coords))
     log(f"one rollout step (5 launches) on the device: {step_ms * 1e3:.2f} us")
+    one = torch.zeros(1, device=dev)
+    log(f"the floor of a launch in this timer, one one-element PyTorch "
+        f"kernel: {device_ms(lambda: one.add_(1.0)) * 1e3:.2f} us")
     return step_ms, [
         record("graph_encode", "graph_encode.cu", 164,
                lambda: pr.graph_encode(windows, weights, THRESHOLD, bufs),
@@ -1110,25 +1293,15 @@ def check_graph_encode_dh(params, aa, windows, cd: str) -> float:
     s, _, r, _ = windows.shape
     tag = f"dh {cd} S={s}"
     weights = pr.rollout_weights(params, cfg, aa, dev)
-    bufs = pr.alloc_buffers(cfg, s, r, dev)
-    pr.graph_encode(windows, weights, THRESHOLD, bufs)
-    edges, mask, count, over, inv_deg, ef, x0 = pr.graph_encode_plain(
-        windows, weights, THRESHOLD, cfg.max_edges, bufs.ef.dtype)
-    torch.cuda.synchronize()
-    for name, got, ref in (("edges", bufs.edges, edges),
-                           ("mask", bufs.mask, mask),
-                           ("count", bufs.count.long(), count),
-                           ("inv_deg", bufs.inv_deg, inv_deg),
-                           ("ef", bufs.ef, ef)):
-        require(torch.equal(got, ref), f"graph_encode {name} differs ({tag})")
-    require(bool(bufs.overflow[0] > 0) == bool(over.any()),
-            f"graph_encode overflow differs ({tag})")
-    err, rel = rel_err(bufs.x0, x0)
-    require(rel <= TOL_X0_DH, f"graph_encode x0 error {err} ({tag})")
+    cd_t = torch.float32 if cd == "float32" else torch.bfloat16
+    err, plain = hold_graph_encode(windows, weights, cfg.max_edges, cd_t,
+                                   TOL_X0_DH, tag)
+    x0 = plain[-1]
+    rel = err / max(1.0, x0.abs().max().item())
     # the potential must matter: without charges x0 moves by far more
     no_q = dict(weights, charges=torch.zeros_like(weights["charges"]))
     moved = (pr.graph_encode_plain(windows, no_q, THRESHOLD, cfg.max_edges,
-                                   bufs.ef.dtype)[-1] - x0).abs().max().item()
+                                   cd_t)[-1] - x0).abs().max().item()
     require(moved > 1e3 * max(err, 1e-7), f"the potential moves x0 by only "
             f"{moved}: the check could not see a wrong phi ({tag})")
     log(f"graph_encode {tag}: edges/mask/count/inv_deg/ef exact, x0 max abs "
@@ -1726,6 +1899,8 @@ def rollout_phases(traj) -> list:
     step_ms, kernels = time_kernels(params, aa, window0, counts, errs)
     log(f"device busy share of the single-stream rollout: "
         f"{step_ms * k_rate / 1e3:.3f} (device time of a step x steps/s)")
+    check_large_encoders(dev)
+    check_large_rollouts(params, dev)
     return kernels
 
 

@@ -42,7 +42,7 @@ from molecular_dynamics_neural_operator_tpu_torch.ops.cuda.fused_gkn import (
     fused_conv_stack_from_graph,
 )
 from molecular_dynamics_neural_operator_tpu_torch.ops.cuda.train_conv import (
-    MAX_WIDTH as TRAIN_CONV_MAX_WIDTH,
+    takes_width as train_conv_takes_width,
     train_conv,
 )
 from molecular_dynamics_neural_operator_tpu_torch.ops.edge_conv import (
@@ -266,13 +266,23 @@ def takes_train_kernel(cfg: ModelConfig, batch: GKNBatch) -> bool:
     """The JAX package's dispatch rule for ``train_conv_impl="pallas"``:
     a sparse graph, a tied edge kernel, depth > 0, no quantization, the
     LSTM encoder and at most 512 nodes. Anything else takes the per-layer
-    path."""
+    path.
+
+    One rule more, the kernels' shape rule, decided before any launch: on
+    the card the training kernels take a width that is a multiple of 8 and
+    at most 64 (``ops/cuda/train_conv.py::takes_width``), so CUDA tensors
+    at any other width take the per-layer path, which computes the same
+    function (``train_conv.launches`` stays 0). CPU tensors take the
+    kernel's plain version at any width, as the JAX package takes its
+    Pallas kernel."""
     return (cfg.train_conv_impl == "pallas"
             and isinstance(batch.graph, SparseGraph)
             and cfg.tie_edge_kernel and cfg.depth > 0
             and cfg.kernel_quant == "none"
             and not cfg.legacy_no_lstm
-            and batch.aa.shape[0] <= SCATTER_ONEHOT_MAX_NODES)
+            and batch.aa.shape[0] <= SCATTER_ONEHOT_MAX_NODES
+            and (batch.window.device.type == "cpu"
+                 or train_conv_takes_width(cfg.width)))
 
 
 def gkn_apply(params, cfg: ModelConfig, batch: GKNBatch,
@@ -292,11 +302,6 @@ def _gkn_apply_kernel_batched(params, cfg: ModelConfig, batch: GKNBatch,
     compute dtype, and pre-masked; the kernels read the mask only to skip
     padded slots."""
     check_supported(cfg)
-    if cfg.width % 8 or cfg.width > TRAIN_CONV_MAX_WIDTH:
-        raise ValueError(
-            "train_conv_impl='pallas' needs a width that is a multiple of 8 "
-            f"and at most {TRAIN_CONV_MAX_WIDTH}, got {cfg.width}; use "
-            "train_conv_impl='xla'")
     cd = compute_dtype(cfg)
     graph = batch.graph
     r = batch.aa.shape[0]

@@ -84,6 +84,9 @@ from molecular_dynamics_neural_operator_tpu_torch.preprocess.grid import (
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 register_kernel("graph_encode", "mdno_graph_encode",
                 [_P] * 11 + [_I] * 6 + [_F, _I, _I, _F, _F, _F] + [_P] * 8)
+register_kernel("graph_encode_plan", "mdno_graph_encode_plan",
+                [_I] * 5 + [ctypes.POINTER(ctypes.c_int)] * 3,
+                source="graph_encode")
 register_kernel("edge_mlp", "mdno_edge_mlp", [_P] * 5 + [_I] * 5 + [_P])
 register_kernel("edge_mlp_stack", "mdno_edge_mlp_stack",
                 [_P] * 11 + [_I] * 5 + [_P], source="edge_mlp")
@@ -186,10 +189,42 @@ def graph_encode_plain(window, weights, threshold: float, max_edges: int,
     return edges, mask, count, count > max_edges, inv_deg, ef, x0
 
 
+# graph_encode's limits besides shared memory: a row's contact words sit
+# one a lane (32 words of 32 residues), fc1's inputs in registers
+GRAPH_ENCODE_MAX_NODES = 1024
+GRAPH_ENCODE_MAX_FEATURES = 16
+_plans: dict = {}
+
+
+def graph_encode_plan(frames: int, num_nodes: int, emb_dim: int, width: int,
+                      dh: bool) -> dict:
+    """The launch shape of ``graph_encode`` at these shapes: ``smem``, the
+    dynamic shared memory a block needs (12 T R + R^2 / 8 bytes and a few
+    KB of weights), ``threads`` a block, and ``max_smem``, the card's
+    per-block opt-in maximum. Read once per shape."""
+    key = (frames, num_nodes, emb_dim, width, bool(dh))
+    if key not in _plans:
+        out = [ctypes.c_int(0) for _ in range(3)]
+        _raise_on(_kernel("graph_encode_plan")(
+            *key[:4], int(dh), *(ctypes.byref(v) for v in out)),
+            "graph_encode_plan")
+        _plans[key] = dict(zip(("smem", "threads", "max_smem"),
+                               (v.value for v in out)))
+    return _plans[key]
+
+
 def graph_encode(window: torch.Tensor, weights, threshold: float,
                  out: StepBuffers) -> None:
     """Rebuild the graph and encode the nodes of window (S, T, R, 3) into
-    ``out``; OR this step's overflow into ``out.overflow``."""
+    ``out``; OR this step's overflow into ``out.overflow``.
+
+    On the card one block a stream holds the window, the weights and a
+    bit-packed contact matrix in shared memory. Its shape limits: that
+    memory, the card's per-block opt-in maximum (227 KB on an H100, at
+    width 64 and 4 embedding dimensions: windows of up to 28 frames at
+    R = 512, up to R = 844 at T = 10, 832 with dh); at most 1,024 residues
+    (32 contact words a row); at most 16 fc1 inputs. A shape past any of
+    them raises ``ValueError`` before any launch."""
     s, t, r, _ = window.shape
     e = out.mask.shape[1]
     if _on_cpu(window):
@@ -210,10 +245,17 @@ def graph_encode(window: torch.Tensor, weights, threshold: float,
     charges, cfg = weights["charges"], weights["cfg"]
     dh = charges is not None
     nf = d + 3 + int(dh)            # fc1 inputs: [emb ; lstm ; phi]
-    if r > 128 or t * r * 3 > 4096 or nf > 16:
-        raise ValueError("graph_encode takes at most 128 residues, a window "
-                         "of at most 4096 coordinates and at most 16 node "
-                         "features")
+    if r > GRAPH_ENCODE_MAX_NODES or nf > GRAPH_ENCODE_MAX_FEATURES:
+        raise ValueError(
+            f"graph_encode takes at most {GRAPH_ENCODE_MAX_NODES} residues "
+            f"and {GRAPH_ENCODE_MAX_FEATURES} fc1 inputs, got {r} and {nf}")
+    plan = graph_encode_plan(t, r, d, w, dh)
+    if plan["smem"] > plan["max_smem"]:
+        raise ValueError(
+            f"graph_encode needs {plan['smem']} bytes of shared memory for a "
+            f"window of {t} frames of {r} residues, more than the "
+            f"{plan['max_smem']} a block of this card can hold: shorten the "
+            f"window or use the plain rollout (rollout/scan.py)")
     args = [
         _check(window, "window", f32, (s, t, r, 3), dev),
         _check(emb, "emb_aa", f32, (r, d), dev),

@@ -99,8 +99,14 @@ def _check_mask(mask, kt) -> None:
                          f"{tuple(kt.shape[:2])}")
 
 
+def takes_width(w: int) -> bool:
+    """The kernels' shape rule: a width that is a multiple of 8 and at most
+    ``MAX_WIDTH``. The model's dispatch applies it before any launch."""
+    return w % 8 == 0 and w <= MAX_WIDTH
+
+
 def _check_width(w: int) -> None:
-    if w % 8 or w > MAX_WIDTH:
+    if not takes_width(w):
         raise ValueError(f"train_conv needs a width that is a multiple of 8 "
                          f"and at most {MAX_WIDTH}, got {w}")
 

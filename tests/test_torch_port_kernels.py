@@ -14,6 +14,7 @@ import torch
 
 from molecular_dynamics_neural_operator_tpu_torch.configs import ModelConfig
 from molecular_dynamics_neural_operator_tpu_torch.data import (
+    WindowDataset,
     synthetic_trajectory,
 )
 from molecular_dynamics_neural_operator_tpu_torch.models import gkn_init
@@ -34,6 +35,11 @@ from molecular_dynamics_neural_operator_tpu_torch.ops.edge_conv import (
 )
 from molecular_dynamics_neural_operator_tpu_torch.rollout import (
     make_rollout_fn,
+)
+from molecular_dynamics_neural_operator_tpu_torch.train import loop
+from molecular_dynamics_neural_operator_tpu_torch.train.optim import (
+    tree_leaves,
+    tree_map,
 )
 
 # ker_width 64 and width 16 keep every edge-MLP output a multiple of 64
@@ -460,6 +466,93 @@ def test_graph_encode_with_dh_matches_plain_on_the_card(cuda, cd, streams):
     assert (x0_no_q - x0).abs().max().item() > 1e-3
 
 
+def _encoder_case(r, cd, dh, streams, max_edges, device, frames=10):
+    """The flagship encoder (width 64, window 10, seeded weights) at r
+    residues: (weights, windows (streams, frames, r, 3), buffers)."""
+    cfg = ModelConfig(width=64, ker_width=64, depth=1, window_size=frames,
+                      num_residues=r, max_edges=max_edges,
+                      graph_mode="sparse", predict_delta=True,
+                      compute_dtype=cd,
+                      electrostatics="dh" if dh else "none")
+    traj = synthetic_trajectory(num_frames=frames + 8 * streams,
+                                num_residues=r, seed=6)
+    windows = torch.as_tensor(np.stack(
+        [traj.positions[8 * i:8 * i + frames] for i in range(streams)]),
+        device=device)
+    params = gkn_init(cfg, seed=0, device=device)
+    aa = torch.as_tensor(traj.aminoacids, device=device)
+    return (pr.rollout_weights(params, cfg, aa, device), windows,
+            pr.alloc_buffers(cfg, streams, r, device))
+
+
+def _hold_encoder(weights, windows, bufs, max_edges):
+    """The kernel's outputs against the plain version's: the graph exact,
+    x0 within 1e-5 of its scale (the transcendentals and, with dh, the
+    potential's sum over the sources round unlike PyTorch's). Returns the
+    plain count."""
+    pr.reset_launch_counts()
+    bufs.overflow.zero_()
+    pr.graph_encode(windows, weights, 8.0, bufs)
+    edges, mask, count, over, inv_deg, ef, x0 = pr.graph_encode_plain(
+        windows, weights, 8.0, max_edges, bufs.ef.dtype)
+    torch.cuda.synchronize()
+    assert pr.launch_counts()["graph_encode"] == 1
+    for got, want in ((bufs.edges, edges), (bufs.mask, mask),
+                      (bufs.count.long(), count), (bufs.inv_deg, inv_deg),
+                      (bufs.ef, ef)):
+        assert torch.equal(got, want)
+    assert bool(bufs.overflow[0]) == bool(over.any())
+    scale = max(1.0, x0.abs().max().item())
+    assert (bufs.x0 - x0).abs().max().item() <= 1e-5 * scale
+    return count
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r", [12, 28, 80, 129, 512])
+@pytest.mark.parametrize("cd", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dh", [False, True], ids=["plain", "dh"])
+@pytest.mark.parametrize("streams", [1, 8])
+def test_graph_encode_matches_plain_at_any_size_on_the_card(cuda, r, cd, dh,
+                                                            streams):
+    """12 slots a residue: no synthetic frame has that many contacts."""
+    weights, windows, bufs = _encoder_case(r, cd, dh, streams, 12 * r, cuda)
+    count = _hold_encoder(weights, windows, bufs, 12 * r)
+    assert bool((count <= 12 * r).all()) and bool((count > r).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r", [28, 129, 512])
+@pytest.mark.parametrize("dh", [False, True], ids=["plain", "dh"])
+def test_graph_encode_overflow_matches_plain_on_the_card(cuda, r, dh):
+    """As many slots as residues: every frame overflows; the slots past E
+    are dropped and the count still counts them."""
+    weights, windows, bufs = _encoder_case(r, "bfloat16", dh, 3, r, cuda)
+    count = _hold_encoder(weights, windows, bufs, r)
+    assert bool((count > r).all()) and bool(bufs.overflow[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r,message", [
+    (1024, "bytes of shared memory for a window of 10 frames of 1024 "
+           "residues"),
+    (1056, "at most 1024 residues")])
+def test_graph_encode_refuses_a_shape_past_its_limits_before_launch(
+        cuda, r, message):
+    """Past shared memory (at T = 10 a window of 1,024 residues with its
+    bit matrix needs more than an H100 block holds) or past 32 contact
+    words a row, the wrapper raises before any launch."""
+    weights, windows, bufs = _encoder_case(r, "float32", False, 1, 64, cuda)
+    pr.reset_launch_counts()
+    with pytest.raises(ValueError, match=message):
+        pr.graph_encode(windows, weights, 8.0, bufs)
+    assert pr.launch_counts()["graph_encode"] == 0
+    plan = pr.graph_encode_plan(10, 1024, 4, 64, False)
+    assert plan["smem"] > plan["max_smem"]
+    # the flagship's longest window at 512 residues still fits
+    assert pr.graph_encode_plan(28, 512, 4, 64, True)["smem"] <= plan[
+        "max_smem"]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("cd", ["float32", "bfloat16"])
 @pytest.mark.parametrize("graph", ["random", "hub", "full"])
@@ -615,3 +708,38 @@ def test_train_conv_clusters_and_width_checks_on_the_card(cuda):
     with pytest.raises(ValueError, match="16-byte boundary"):
         tc.train_conv_forward(x0, flat[2:].view(2, 128, 256), edges, mask,
                               inv_deg, *ops[5:9], 2)
+
+
+@pytest.mark.gpu
+def test_a_width_the_training_kernels_do_not_take_runs_the_per_layer_path(
+        cuda):
+    """Width 72 with ``train_conv_impl="pallas"`` on the card: the dispatch
+    picks the per-layer path before any launch (no ``train_conv`` launch),
+    and the output, loss and every gradient agree with the CPU run of the
+    same inputs (the kernel's plain version) to the training tolerance of
+    the CPU tests, rtol 2e-4 / atol 1e-5 in f32."""
+    cfg = ModelConfig(**{**SMALL, "width": 72, "train_conv_impl": "pallas",
+                         "compute_dtype": "float32"})
+    traj = synthetic_trajectory(num_frames=32, num_residues=12, seed=4)
+    ds = WindowDataset(traj, window_size=4, graph_mode="sparse",
+                       max_edges=128)
+    batch = ds.get_batch(np.arange(5))
+    params = gkn_init(cfg, seed=0, device="cpu")
+    res = {}
+    for dev in ("cpu", cuda):
+        tb = loop.featurize_batch(cfg, {k: torch.as_tensor(v, device=dev)
+                                        for k, v in batch.items()})
+        tc.reset_launch_counts()
+        (l2, (_, out)), grads = loop.loss_and_grads(
+            tree_map(lambda t: t.to(dev), params), cfg, tb)
+        torch.cuda.synchronize()
+        assert tc.launch_counts() == {"train_conv_fwd": 0,
+                                      "train_conv_bwd": 0}
+        res[str(dev)] = (float(l2), out.cpu(),
+                         [g.cpu() for g in tree_leaves(grads)])
+    (l_c, out_c, g_c), (l_g, out_g, g_g) = res["cpu"], res["cuda"]
+    assert abs(l_g - l_c) <= 1e-5 * abs(l_c)
+    torch.testing.assert_close(out_g, out_c, rtol=2e-4, atol=1e-5)
+    assert len(g_c) == len(g_g) == 21
+    for got, want in zip(g_g, g_c):
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=1e-5)

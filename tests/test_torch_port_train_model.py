@@ -205,3 +205,51 @@ def test_pallas_impl_reaches_the_kernel_wrapper_and_checks_the_config(
         gkn.gkn_apply(params_from_jax(jparams, "cpu"),
                       dataclasses.replace(cfg, legacy_no_lstm=True),
                       loop.featurize_batch(cfg, _tensors(batch)))
+
+
+@pytest.mark.parametrize("width", [72, 96])
+def test_pallas_impl_trains_at_any_width_on_the_cpu_and_matches_jax(
+        width, monkeypatch):
+    """A width the training kernels do not take on the card (not a multiple
+    of 8, or over 64): on CPU tensors the kernel's plain version runs, as
+    the JAX package runs its Pallas kernel, and the output and every
+    parameter's gradient match ``jax.value_and_grad``."""
+    jcfg, cfg, batch, jparams = _setup("pallas", width=width)
+    jb = jloop.featurize_batch(
+        jcfg, {k: jnp.asarray(v) for k, v in batch.items()})
+    want = jgkn.gkn_apply(jparams, jcfg, jb)
+    (want_l2, _), want_grads = jax.value_and_grad(
+        jloop._loss_fn, has_aux=True)(jparams, jcfg, jb)
+    params = params_from_jax(jparams, "cpu")
+    tb = loop.featurize_batch(cfg, _tensors(batch))
+    called = _count_train_conv_calls(monkeypatch)
+    with torch.no_grad():
+        got = gkn.gkn_apply(params, cfg, tb)
+    assert called == [1] and got.shape == (5, 12, 3)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), RTOL, ATOL)
+    (l2, _), grads = loop.loss_and_grads(params, cfg, tb)
+    np.testing.assert_allclose(float(l2), float(want_l2), rtol=1e-5)
+    want_flat = dict(_flat(jax.tree.map(np.asarray, want_grads)))
+    got_flat = dict(_flat(grads))
+    assert set(got_flat) == set(want_flat)
+    for name, g in got_flat.items():
+        np.testing.assert_allclose(g.numpy(), want_flat[name], RTOL, ATOL,
+                                   err_msg=name)
+    assert tc.launch_counts() == {"train_conv_fwd": 0, "train_conv_bwd": 0}
+
+
+@pytest.mark.parametrize("width,kernel", [(16, True), (64, True),
+                                          (60, False), (72, False),
+                                          (96, False)])
+def test_train_kernel_width_rule_holds_off_the_cpu(width, kernel):
+    """Off the CPU the dispatch applies the kernels' shape rule before any
+    launch: a width that is not a multiple of 8 or is over 64 takes the
+    per-layer path. On the CPU every width takes the kernel's plain
+    version. (A meta tensor stands for a tensor on the card here.)"""
+    cfg = ModelConfig(**{**BASE, "train_conv_impl": "pallas",
+                         "width": width})
+    assert gkn.takes_train_kernel(cfg, _batch_for(cfg)) is True
+    batch = _batch_for(cfg)._replace(
+        window=torch.zeros(1, 4, 12, 3, device="meta"))
+    assert gkn.takes_train_kernel(cfg, batch) is kernel
+    assert tc.takes_width(width) is kernel

@@ -1,14 +1,14 @@
 #!/usr/bin/env python3
-"""Mutation check of the port's cluster kernels on an NVIDIA GPU: the two
-of the rollout step and the two of the training conv stack.
+"""Mutation check of the port's kernels on an NVIDIA GPU: the three of the
+rollout step and the two of the training conv stack.
 
     python3 tools/port_kernel_mutants.py
 
-Makes nine deliberately broken copies of the repository in a temporary
+Makes eleven deliberately broken copies of the repository in a temporary
 directory (one source line changed in each: see MUTANTS), builds each on
 the card and runs ``chip_smoke.py --only <the mutant's path>`` in it. Every
 copy must exit non-zero; the script prints each copy's exit code and
-failure line and exits 0 only if all nine failed. A pattern that no longer
+failure line and exits 0 only if all eleven failed. A pattern that no longer
 matches the source raises: bring the pattern up to date with the kernel.
 """
 
@@ -26,6 +26,12 @@ CSRC = "molecular_dynamics_neural_operator_tpu_torch/csrc/"
 # (what is broken, file, the line as it is, the line as broken, the
 # chip_smoke.py path that must fail)
 MUTANTS = [
+    ("graph_encode: the last row's offset one slot too far", "graph_encode.cu",
+     "      rowoff[i] = acc;", "      rowoff[i] = acc + (i == R - 1);",
+     "rollout"),
+    ("graph_encode: the LSTM's last step skipped", "graph_encode.cu",
+     "    for (int t = 0; t < T; ++t) {", "    for (int t = 0; t < T - 1; ++t) {",
+     "rollout"),
     ("edge_mlp: k-tile 1 of every product skipped", "edge_mlp.cuh",
      "        wgmma_ss(acc[j], da,",
      "        if (kt != 1) wgmma_ss(acc[j], da,", "rollout"),
