@@ -7,9 +7,10 @@
 // forward's are: run_mma, bf16 at width 64 (the training main path,
 // kMmaThreads threads), on the tensor cores with counted stores between
 // the layers; run_fma, f32 and other widths (kThreads threads), on CUDA
-// cores with one split cluster barrier a layer (see run_fma). Both deal
-// by source and end with the same droot reduction and padded-slot rule.
-// The rest of this note is run_mma's.
+// cores with one split cluster barrier a layer and every layer's dagg and
+// dz kept in device memory, so that it takes widths up to 128 in f32 and
+// 256 in bf16 (see run_fma). Both deal by source and keep the same
+// padded-slot rule. The rest of this note is run_mma's.
 //
 // Deal by source. deal() gets the edge rows swapped (dst as the "source",
 // src as the "target"), so a block owns node n together with every real
@@ -605,38 +606,37 @@ __device__ inline void run_mma(
 
 // ---- run_fma ----------------------------------------------------------------------
 
-// droot elements a thread of the CUDA-core body keeps in registers: the
-// body takes W * W <= kDrootPer * kThreads, width 64 at most.
-constexpr int kDrootPer = 8;
-
-// Byte offsets of the CUDA-core body's shared memory: the K^T rows staged
-// (and after the sweep the droot and dbias partials), root^T, every
-// layer's dagg (f32, rounded to CD), dz of two layers rounded and as it is,
-// the owned nodes' x_in rows, and run_fma's message and sum buffers.
+// Byte offsets of the CUDA-core body's shared memory: the K^T rows staged,
+// root^T, the dagg of the layer being swept (f32, rounded to CD), dz of two
+// layers rounded to CD (the root product's operand), and the message and
+// sum buffers. No buffer grows with the depth or W * W beyond root: every
+// layer's dagg and dz go to the example's history in device memory
+// (``hist``), which the sweep reads a layer at a time and the gradient pass
+// reads whole.
 struct FmaLayout {
-  size_t kt, root, dagg, dz, xin, msl, aggs, rxs, ints, total;
+  size_t kt, root, dagg, dz, msl, aggs, rxs, ints, total;
 };
 
-__host__ __device__ inline size_t fma_end_bytes(int W) {
-  return (size_t)2 * W * W * 4 + 2 * W * 4;
-}
-
 __host__ __device__ inline FmaLayout fma_layout(int R, int W, int E,
-                                                int nlayers, int cd_size,
-                                                int cap) {
+                                                int cd_size, int cap) {
   FmaLayout l;
-  const size_t rw = (size_t)R * W * 4, krows = (size_t)cap * W * W * cd_size;
+  const size_t rw = (size_t)R * W * 4;
   l.kt = 0;
-  l.root = up16(krows > fma_end_bytes(W) ? krows : fma_end_bytes(W));
+  l.root = up16((size_t)cap * W * W * cd_size);
   l.dagg = l.root + up16((size_t)W * W * cd_size);
-  l.dz = l.dagg + (size_t)nlayers * rw;
-  l.xin = l.dz + 4 * rw;
-  l.msl = l.xin + rw;
+  l.dz = l.dagg + rw;
+  l.msl = l.dz + 2 * rw;
   l.aggs = l.msl + up16((size_t)kMsgRows * W * cd_size);
   l.rxs = l.aggs + rw;
   l.ints = l.rxs + rw;
   l.total = l.ints + lists_bytes(R, E);
   return l;
+}
+
+// Floats of the CUDA-core body's history an example: dagg and dz of every
+// layer, (2, 2 * depth, R, W).
+__host__ __device__ inline size_t hist_floats(int R, int W, int depth) {
+  return (size_t)2 * 2 * depth * R * W;
 }
 
 // Four floats rounded to CD and stored at p (16-byte aligned for f32,
@@ -651,12 +651,13 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, const float* v) {
 }
 
 // The body on CUDA cores, f32 and bf16 at widths other than 64 (kThreads
-// threads a block). Same contract as run_mma. Dealt by source as run_mma
-// is; a layer is run_fma's (conv_stack.cuh) on the transposed graph, with
-// ONE cluster barrier, split:
-//   grads    every thread: droot += x_in^T cd(dz), dbias += dz over the
-//            owned nodes of the layer (registers, kDrootPer elements of
-//            droot a thread), x_in rows staged first.
+// threads a block), any width that is a multiple of 8 with W * sizeof(CD)
+// <= 512. Same contract as run_mma, plus ``hist`` (S, 2, 2*depth, R, W)
+// f32, device memory it may overwrite. Dealt by source as run_mma is; a
+// layer is run_fma's (conv_stack.cuh) on the transposed graph, with ONE
+// cluster barrier, split:
+//   load     the layer's dagg from the history into shared memory (L2
+//            reads: other blocks wrote it in this launch).
 //   items    one warp an item: a message cd(K_e dagg[dst e]) of a local
 //            edge, from K^T staged at the prologue (the edges beyond read
 //            K from L2 a column at a time), or an owned node's root
@@ -665,11 +666,13 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, const float* v) {
 //            adds the parts.
 //   combine  four lanes per owned node and 4 columns add the node's
 //            messages in slot order, dx' = root product + their sum; then
-//            dz, dagg of the layer below (dagg into every block's buffer
-//            of that layer, dz into this block's), or dx0 after layer 0.
-// After the sweep droot and dbias are summed over the cluster and dK of
-// each edge and padded slot is formed in 4 x 4 tiles of f32 sums over the
-// layers, in layer order.
+//            dz and dagg of the layer below into the history (dz also into
+//            this block's shared memory), or dx0 after layer 0.
+// After the sweep, from the history: droot and dbias, each element summed
+// by one thread over its layers in order and the nodes in index order (no
+// partial sums, so nothing of W * W is held across the sweep), and dK of
+// each edge and padded slot in 4 x 4 tiles of f32 sums over the layers, in
+// layer order.
 template <typename CD>
 __device__ void run_fma(
     unsigned char* smem_raw, const float* __restrict__ g_out,
@@ -679,9 +682,10 @@ __device__ void run_fma(
     const CD* __restrict__ root2, float* __restrict__ dx0,
     CD* __restrict__ dK, float* __restrict__ droot1,
     float* __restrict__ dbias1, float* __restrict__ droot2,
-    float* __restrict__ dbias2, int R, int W, int E, int depth, int cap) {
+    float* __restrict__ dbias2, float* hist, int R, int W, int E, int depth,
+    int cap) {
   constexpr int CPL = 16 / sizeof(CD);  // columns a lane owns in an item
-  cluster_arrive();  // every block of the cluster runs before a remote store
+  cluster_arrive();
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   const int ncl = (int)cluster.num_blocks();
@@ -690,20 +694,21 @@ __device__ void run_fma(
   const int lane = tid % 32, wid = tid / 32, nw = nt / 32;
   const int nlayers = 2 * depth, RW = R * W, WW = W * W;
 
-  const FmaLayout l = fma_layout(R, W, E, nlayers, sizeof(CD), cap);
+  const FmaLayout l = fma_layout(R, W, E, sizeof(CD), cap);
   CD* kt = reinterpret_cast<CD*>(smem_raw + l.kt);
   CD* rootT = reinterpret_cast<CD*>(smem_raw + l.root);
-  float* dagg = reinterpret_cast<float*>(smem_raw + l.dagg);  // (L, R, W)
-  float* dzb = reinterpret_cast<float*>(smem_raw + l.dz);     // (2, 2, R, W)
-  float* xin = reinterpret_cast<float*>(smem_raw + l.xin);
+  float* dagg = reinterpret_cast<float*>(smem_raw + l.dagg);  // (R, W)
+  float* dzb = reinterpret_cast<float*>(smem_raw + l.dz);     // (2, R, W)
   CD* msl = reinterpret_cast<CD*>(smem_raw + l.msl);
   float* aggs = reinterpret_cast<float*>(smem_raw + l.aggs);
   float* rxs = reinterpret_cast<float*>(smem_raw + l.rxs);
   const float* stack_s = stack + (size_t)s * (nlayers + 1) * RW;
-  // dz of layer ``lay``, rounded to CD (the root product's operand) and as
-  // it is (dbias's)
-  auto dzr = [&](int lay) { return dzb + (size_t)((lay & 1) * 2) * RW; };
-  auto dzf = [&](int lay) { return dzb + (size_t)((lay & 1) * 2 + 1) * RW; };
+  // the example's history, written and read in this launch: through L2
+  // only (st.cg / ld.cg), never the non-coherent path
+  float* hdagg = hist + (size_t)s * hist_floats(R, W, depth);  // (L, R, W)
+  float* hdz = hdagg + (size_t)nlayers * RW;                    // (L, R, W)
+  // dz of layer ``lay`` rounded to CD, for this block's owned nodes
+  auto dzr = [&](int lay) { return dzb + (size_t)(lay & 1) * RW; };
 
   // ---- prologue: the deal by source, K^T of the staged edges --------------------
   const int* e_g = edges + (size_t)s * 2 * E;
@@ -720,9 +725,8 @@ __device__ void run_fma(
   for (int n = tid; n < nown; n += nt)
     for (int i = L.nstart[n]; i < L.nstart[n + 1]; ++i) eown[i] = L.mynode[n];
 
-  // dz of layer lt at (node j, columns c4 ..) from dx there: the 4 lanes of
-  // a (node, columns) each send dagg to their share of the blocks, part 0
-  // keeps dz
+  // dz of layer lt at (node j, columns c4 ..) from dx there: part 0 of the
+  // 4 lanes of a (node, columns) stores dz, part 1 dagg
   auto emit4 = [&](int lt, int j, int c4, const float (&dx)[4], float invd,
                    int part) {
     const float4 xo = *reinterpret_cast<const float4*>(
@@ -735,16 +739,16 @@ __device__ void run_fma(
       zr[k] = round_cd<CD>(z[k]);
       a[k] = round_cd<CD>(__fmul_rn(z[k], invd));
     }
+    const size_t at = ((size_t)lt * R + j) * W + c4;
     if (part == 0) {
-      *reinterpret_cast<float4*>(dzf(lt) + j * W + c4) =
-          make_float4(z[0], z[1], z[2], z[3]);
       *reinterpret_cast<float4*>(dzr(lt) + j * W + c4) =
           make_float4(zr[0], zr[1], zr[2], zr[3]);
+      __stcg(reinterpret_cast<float4*>(hdz + at),
+             make_float4(z[0], z[1], z[2], z[3]));
+    } else if (part == 1) {
+      __stcg(reinterpret_cast<float4*>(hdagg + at),
+             make_float4(a[0], a[1], a[2], a[3]));
     }
-    const float4 v = make_float4(a[0], a[1], a[2], a[3]);
-    for (int r = part; r < ncl; r += 4)
-      *reinterpret_cast<float4*>(cluster.map_shared_rank(dagg, r) +
-                                 ((size_t)lt * R + j) * W + c4) = v;
   };
 
   // An output of the per-node sums: owned node n (node j of the stream),
@@ -780,7 +784,7 @@ __device__ void run_fma(
     emit4(nlayers - 1, sl.j, sl.c4, dx, sl.invd, sl.part);
   }
   cluster_arrive();
-  cluster_wait();  // the last layer's dagg is complete everywhere
+  cluster_wait();  // the last layer's dagg is complete in the history
 
   // ---- lanes of an item -------------------------------------------------------
   const int groups = W / CPL;  // 16-byte column groups, at most 32
@@ -791,48 +795,17 @@ __device__ void run_fma(
   const int v1 = sp < splits ? min(W, v0 + nvi) : v0;
   const bool writer = sp == 0 && lane < groups;
 
-  float drA[kDrootPer], drB[kDrootPer];  // droot1, droot2 partials
-#pragma unroll
-  for (int k = 0; k < kDrootPer; ++k) drA[k] = drB[k] = 0.f;
-  float dbA = 0.f, dbB = 0.f;
-
   for (int layer = nlayers - 1; layer >= 0; --layer) {
     if (layer == nlayers - 1 || layer == depth - 1) {
       const CD* root = layer < depth ? root1 : root2;
       for (int i = tid; i < WW; i += nt) rootT[(i % W) * W + i / W] = root[i];
     }
-    for (int i = tid; i < nown * W; i += nt) {
-      const int j = L.mynode[i / W], c = i % W;
-      xin[j * W + c] = round_cd<CD>(stack_s[(size_t)layer * RW + j * W + c]);
+    {
+      const float4* from = reinterpret_cast<const float4*>(hdagg + (size_t)layer * RW);
+      float4* to = reinterpret_cast<float4*>(dagg);
+      for (int i = tid; i < RW / 4; i += nt) to[i] = __ldcg(from + i);
     }
     __syncthreads();
-    // droot += cd(x_in)^T cd(dz), dbias += dz, over the owned nodes
-    {
-      const float* zr = dzr(layer);
-      const float* zf = dzf(layer);
-      const bool conv1 = layer < depth;
-#pragma unroll
-      for (int k = 0; k < kDrootPer; ++k) {
-        const int e = tid + k * nt;
-        if (e < WW) {
-          const int wi = e / W, v = e % W;
-          float sum = conv1 ? drA[k] : drB[k];
-          for (int n = 0; n < nown; ++n) {
-            const int j = L.mynode[n];
-            sum = fmaf(xin[j * W + wi], zr[j * W + v], sum);
-          }
-          if (conv1) drA[k] = sum;
-          else drB[k] = sum;
-        }
-      }
-      if (tid < W) {
-        float sum = conv1 ? dbA : dbB;
-        for (int n = 0; n < nown; ++n) sum += zf[L.mynode[n] * W + tid];
-        if (conv1) dbA = sum;
-        else dbB = sum;
-      }
-    }
-    const float* xl = dagg + (size_t)layer * RW;  // this layer's dagg
     const float* zl = dzr(layer);
 
     // the block's edges in chunks of kMsgRows
@@ -844,7 +817,7 @@ __device__ void run_fma(
         const int it = nitems - 1 - rev;
         const bool is_edge = it < nchunk;
         const int i = base + it, n = it - nchunk;
-        const float* xs = is_edge ? xl + L.lsrc[i] * W : zl + L.mynode[n] * W;
+        const float* xs = is_edge ? dagg + L.lsrc[i] * W : zl + L.mynode[n] * W;
         float acc[CPL];
 #pragma unroll
         for (int c = 0; c < CPL; ++c) acc[c] = 0.f;
@@ -927,31 +900,38 @@ __device__ void run_fma(
       if (more) __syncthreads();  // the next chunk overwrites the messages
     }
     cluster_arrive();
-    cluster_wait();  // the layer below's dagg complete everywhere
+    cluster_wait();  // the layer below's dagg and dz complete in the history
   }
 
-  // ---- droot and dbias: the cluster's sum --------------------------------------
-  float* scr = reinterpret_cast<float*>(kt);  // (2, W, W), then (2, W)
-#pragma unroll
-  for (int k = 0; k < kDrootPer; ++k) {
-    const int e = tid + k * nt;
-    if (e < WW) {
-      scr[e] = drA[k];
-      scr[WW + e] = drB[k];
+  // ---- droot and dbias of the example, from the history ------------------------
+  // element e of (droot1, droot2, dbias1, dbias2), dealt over the cluster's
+  // threads: sum over the conv's layers in order, the nodes in index order
+  const size_t n_all = (size_t)2 * WW + 2 * W;
+  for (size_t e = (size_t)rank * nt + tid; e < n_all; e += (size_t)ncl * nt) {
+    const bool is_bias = e >= (size_t)2 * WW;
+    const int idx = (int)(is_bias ? e - (size_t)2 * WW : e);
+    const int conv = is_bias ? idx / W : idx / WW;  // 0 conv1, 1 conv2
+    const int wi = is_bias ? 0 : (idx % WW) / W, v = idx % W;
+    float sum = 0.f;
+    for (int lay = conv * depth; lay < (conv + 1) * depth; ++lay) {
+      const float* zc = hdz + (size_t)lay * RW + v;
+      const float* xc = stack_s + (size_t)lay * RW + wi;
+      if (is_bias) {
+        for (int j = 0; j < R; ++j) sum += __ldcg(zc + (size_t)j * W);
+      } else {
+        for (int j = 0; j < R; ++j)
+          sum = fmaf(round_cd<CD>(xc[(size_t)j * W]),
+                     round_cd<CD>(__ldcg(zc + (size_t)j * W)), sum);
+      }
     }
+    if (!is_bias) (conv == 0 ? droot1 : droot2)[(size_t)s * WW + idx % WW] = sum;
+    else (conv == 0 ? dbias1 : dbias2)[(size_t)s * W + v] = sum;
   }
-  if (tid < W) {
-    scr[2 * WW + tid] = dbA;
-    scr[2 * WW + W + tid] = dbB;
-  }
-  int* pads = L.pslot;
-  const int npad = own_pads(L, E, rank, ncl, pads);
-  cluster_arrive();
-  cluster_wait();  // every block's partials are there
-  sum_over_cluster(scr, W, s, droot1, dbias1, droot2, dbias2);
-  cluster_arrive();  // through with the other blocks' partials
 
   // ---- dK: 4 x 4 tiles, f32 sums over the layers in layer order ---------------------
+  int* pads = L.pslot;
+  const int npad = own_pads(L, E, rank, ncl, pads);
+  __syncthreads();
   const int G = W / 4;
   const int njobs = ne + npad;
   for (size_t item = tid; item < (size_t)njobs * G * G; item += nt) {
@@ -966,8 +946,9 @@ __device__ void run_fma(
           stack_s + (size_t)lay * RW + src * W + wi0);
       const float xv[4] = {round_cd<CD>(x.x), round_cd<CD>(x.y),
                            round_cd<CD>(x.z), round_cd<CD>(x.w)};
-      float dm[4];
-      load4(dagg + ((size_t)lay * R + dst) * W + c0, dm);
+      const float4 d = __ldcg(reinterpret_cast<const float4*>(
+          hdagg + ((size_t)lay * R + dst) * W + c0));
+      const float dm[4] = {d.x, d.y, d.z, d.w};
 #pragma unroll
       for (int a = 0; a < 4; ++a)
 #pragma unroll
@@ -977,7 +958,6 @@ __device__ void run_fma(
 #pragma unroll
     for (int a = 0; a < 4; ++a) store4(out + (size_t)(wi0 + a) * W + c0, acc[a]);
   }
-  cluster_wait();  // no block leaves while another reads its partials
 }
 
 // The launch shape of either body: cudaErrorInvalidValue for a width the
@@ -985,18 +965,15 @@ __device__ void run_fma(
 // exceed shared memory. Plan::mma (bf16 at width 64) chooses the body.
 inline int plan(int R, int W, int E, int depth, int cd_size, Plan* out) {
   if (takes_mma(W, cd_size)) return plan_mma(R, W, E, depth, cd_size, out);
-  if (W % 8 != 0 || W * cd_size > 32 * 16 || W * W > kDrootPer * kThreads)
-    return (int)cudaErrorInvalidValue;
-  const int nlayers = 2 * depth;
-  const size_t fixed = fma_layout(R, W, E, nlayers, cd_size, 0).total;
+  if (W % 8 != 0 || W * cd_size > 32 * 16) return (int)cudaErrorInvalidValue;
+  const size_t fixed = fma_layout(R, W, E, cd_size, 0).total;
   if (fixed > (size_t)kMaxSmem) return (int)cudaErrorInvalidConfiguration;
-  const size_t rest = fixed - up16(fma_end_bytes(W));
   const size_t row = (size_t)W * W * cd_size;
-  const size_t fit = ((size_t)kMaxSmem - rest) / row;
+  const size_t fit = ((size_t)kMaxSmem - fixed) / row;
   out->mma = false;
   out->threads = kThreads;
   out->cap = (int)(fit < (size_t)E ? fit : (size_t)E);
-  out->smem = fma_layout(R, W, E, nlayers, cd_size, out->cap).total;
+  out->smem = fma_layout(R, W, E, cd_size, out->cap).total;
   return 0;
 }
 

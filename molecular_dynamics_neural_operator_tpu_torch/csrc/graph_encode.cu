@@ -444,19 +444,22 @@ __global__ void __launch_bounds__(kMaxWarps * 32) graph_encode_kernel(
   }
 }
 
-// The card's per-block opt-in maximum of shared memory, read once.
+// The current card's per-block opt-in maximum of shared memory (read on
+// every call: nothing is kept across devices or threads).
 int max_smem_optin(int* out) {
-  static int cached = 0;
-  if (cached == 0) {
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&cached,
-                                   cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (err != cudaSuccess) return (int)err;
-  }
-  *out = cached;
-  return 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(out, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                                 dev);
+  return (int)err;
+}
+
+// The shapes the kernel takes, besides shared memory: fc1's inputs sit in
+// registers, a row's contact words one a lane.
+bool takes(int T, int R, int D, int W, int dh) {
+  return T >= 1 && R >= 1 && D >= 0 && W >= 1 &&
+         D + 3 + (dh ? 1 : 0) <= kMaxFeat && R <= 32 * kMaxWords;
 }
 
 template <typename CD, int NFP>
@@ -468,14 +471,13 @@ int launch(int S, int threads, size_t smem, cudaStream_t st,
            int W, int E, float thr2, int dh, float dh_kappa, float dh_lb,
            float dh_min_dist, int ne, int nn, int* edges, float* mask,
            int* count, int* overflow, float* inv_deg, void* ef, float* x0) {
-  // the opt-in above 48 KB, raised once per instantiation as far as needed
-  static size_t granted = 48 * 1024;
-  if (smem > granted) {
+  // the opt-in above 48 KB, set on the current device at every launch
+  // that needs it (a cheap call; no state kept per device or thread)
+  if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         graph_encode_kernel<CD, NFP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
-    granted = smem;
   }
   graph_encode_kernel<CD, NFP><<<S, threads, smem, st>>>(
       window, emb_aa, w_ih, w_hh, b_ih, b_hh, lfc_w, lfc_b, fc1_w, fc1_b,
@@ -487,15 +489,17 @@ int launch(int S, int threads, size_t smem, cudaStream_t st,
 }  // namespace
 
 // The launch shape of a (T, R, D, W, dh) encoder: the dynamic shared memory
-// it needs, its threads a block, and the card's per-block opt-in maximum.
-// cudaErrorInvalidValue for more than kMaxFeat fc1 inputs or more than
-// 32 * kMaxWords residues. The wrapper refuses a shape whose smem exceeds
-// max_smem before launching.
+// it needs, its threads a block, the current card's per-block opt-in
+// maximum, and the most residues and fc1 inputs the kernel takes (set
+// first, whatever the shape). cudaErrorInvalidValue for a shape past those
+// two. The wrapper refuses a shape whose smem exceeds max_smem before
+// launching.
 extern "C" int mdno_graph_encode_plan(int T, int R, int D, int W, int dh,
-                                      int* smem, int* threads, int* max_smem) {
-  if (T < 1 || R < 1 || D < 0 || W < 1 || D + 3 + (dh ? 1 : 0) > kMaxFeat ||
-      R > 32 * kMaxWords)
-    return (int)cudaErrorInvalidValue;
+                                      int* smem, int* threads, int* max_smem,
+                                      int* max_nodes, int* max_features) {
+  *max_nodes = 32 * kMaxWords;
+  *max_features = kMaxFeat;
+  if (!takes(T, R, D, W, dh)) return (int)cudaErrorInvalidValue;
   int ne, nn;
   warps(R, &ne, &nn);
   *smem = layout(T, R, D, W, dh).total * 4;
@@ -511,9 +515,7 @@ extern "C" int mdno_graph_encode(
     int W, int E, float thr2, int cd_bf16, int dh, float dh_kappa,
     float dh_lb, float dh_min_dist, int* edges, float* mask, int* count,
     int* overflow, float* inv_deg, void* ef, float* x0, void* stream) {
-  if (S < 1 || T < 1 || R < 1 || D < 0 || W < 1 || E < 1 ||
-      D + 3 + (dh ? 1 : 0) > kMaxFeat || R > 32 * kMaxWords ||
-      (dh && charges == nullptr))
+  if (S < 1 || E < 1 || !takes(T, R, D, W, dh) || (dh && charges == nullptr))
     return (int)cudaErrorInvalidValue;
   int ne, nn, max_smem = 0;
   warps(R, &ne, &nn);

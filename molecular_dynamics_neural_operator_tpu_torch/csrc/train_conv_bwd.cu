@@ -29,7 +29,10 @@
 // failure: bf16 at width 64, the training main path, runs on the tensor
 // cores with counted stores between the layers (conv_stack_bwd.cuh,
 // run_mma); f32 and other widths on CUDA cores with one split cluster
-// barrier a layer (run_fma). The card holds a fixed number of these
+// barrier a layer (run_fma), which keeps every layer's dagg and dz in a
+// history in device memory (``hist``, the caller's) and so takes any width
+// that is a multiple of 8 up to 128 in f32 and 256 in bf16, shared memory
+// permitting. The card holds a fixed number of these
 // clusters at once (mdno_train_conv_bwd_clusters), and B examples run in
 // waves of that many.
 //
@@ -56,8 +59,9 @@ __global__ void __launch_bounds__(
         CD* __restrict__ dK,                // (B, E, W*W)
         float* __restrict__ droot1,         // (B, W, W)
         float* __restrict__ dbias1,         // (B, W)
-        float* __restrict__ droot2, float* __restrict__ dbias2, int R, int W,
-        int E, int depth, int cap) {
+        float* __restrict__ droot2, float* __restrict__ dbias2,
+        float* hist,                        // (B, 2, 2*depth, R, W), run_fma's
+        int R, int W, int E, int depth, int cap) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   if constexpr (MMA)
     conv_stack_bwd::run_mma(smem_raw, g_out, stack, K, edges, mask, inv_deg,
@@ -66,7 +70,7 @@ __global__ void __launch_bounds__(
   else
     conv_stack_bwd::run_fma<CD>(smem_raw, g_out, stack, K, edges, mask,
                                 inv_deg, root1, root2, dx0, dK, droot1, dbias1,
-                                droot2, dbias2, R, W, E, depth, cap);
+                                droot2, dbias2, hist, R, W, E, depth, cap);
 }
 
 // fn(the kernel of the body conv_stack_bwd::plan chooses), with *p that plan
@@ -86,47 +90,57 @@ template <typename CD>
 int launch(const float* g_out, const float* stack, const void* K,
            const int* edges, const float* mask, const float* inv_deg,
            const void* root1, const void* root2, float* dx0, void* dK,
-           float* droot1, float* dbias1, float* droot2, float* dbias2, int B,
-           int R, int W, int E, int depth, cudaStream_t st) {
+           float* droot1, float* dbias1, float* droot2, float* dbias2,
+           float* hist, int B, int R, int W, int E, int depth,
+           cudaStream_t st) {
   conv_stack::Plan p;
   return with_kernel<CD>(R, W, E, depth, &p, [&](auto kernel) {
+    if (!p.mma && hist == nullptr) return (int)cudaErrorInvalidValue;
     return conv_stack::launch_clusters(
         kernel, B, p, st, g_out, stack, static_cast<const CD*>(K), edges, mask,
         inv_deg, static_cast<const CD*>(root1), static_cast<const CD*>(root2),
-        dx0, static_cast<CD*>(dK), droot1, dbias1, droot2, dbias2, R, W, E,
-        depth, p.cap);
+        dx0, static_cast<CD*>(dK), droot1, dbias1, droot2, dbias2, hist, R, W,
+        E, depth, p.cap);
   });
 }
 
 }  // namespace
 
 // How many of this kernel's clusters (one an example) the card holds at
-// once at these shapes: cudaOccupancyMaxActiveClusters of its launch.
+// once at these shapes: cudaOccupancyMaxActiveClusters of its launch; and
+// the floats of device memory an example's history takes (``hist`` of
+// mdno_train_conv_bwd; 0 for the tensor-core body, which keeps none).
+// Returns plan()'s refusal of a shape.
 extern "C" int mdno_train_conv_bwd_clusters(int R, int W, int E, int depth,
-                                            int cd_bf16, int* out) {
+                                            int cd_bf16, int* out,
+                                            long long* hist) {
   conv_stack::Plan p;
   auto count = [&](auto kernel) {
     return conv_stack::max_active_clusters(kernel, p, out);
   };
-  return cd_bf16 ? with_kernel<__nv_bfloat16>(R, W, E, depth, &p, count)
-                 : with_kernel<float>(R, W, E, depth, &p, count);
+  const int rc = cd_bf16 ? with_kernel<__nv_bfloat16>(R, W, E, depth, &p, count)
+                         : with_kernel<float>(R, W, E, depth, &p, count);
+  *hist = rc == 0 && !p.mma
+              ? (long long)conv_stack_bwd::hist_floats(R, W, depth) : 0;
+  return rc;
 }
 
 extern "C" int mdno_train_conv_bwd(
     const float* g_out, const float* stack, const void* K, const int* edges,
     const float* mask, const float* inv_deg, const void* root1,
     const void* root2, float* dx0, void* dK, float* droot1, float* dbias1,
-    float* droot2, float* dbias2, int B, int R, int W, int E, int depth,
-    int cd_bf16, void* stream) {
+    float* droot2, float* dbias2, float* hist, int B, int R, int W, int E,
+    int depth, int cd_bf16, void* stream) {
   if (B < 1 || R < 1 || E < 1 || depth < 1 || W % 8 != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int rc =
       cd_bf16 ? launch<__nv_bfloat16>(g_out, stack, K, edges, mask, inv_deg,
                                       root1, root2, dx0, dK, droot1, dbias1,
-                                      droot2, dbias2, B, R, W, E, depth, st)
+                                      droot2, dbias2, hist, B, R, W, E, depth,
+                                      st)
               : launch<float>(g_out, stack, K, edges, mask, inv_deg, root1,
-                              root2, dx0, dK, droot1, dbias1, droot2, dbias2, B,
-                              R, W, E, depth, st);
+                              root2, dx0, dK, droot1, dbias1, droot2, dbias2,
+                              hist, B, R, W, E, depth, st);
   return rc != 0 ? rc : (int)cudaGetLastError();
 }

@@ -42,7 +42,6 @@ from molecular_dynamics_neural_operator_tpu_torch.ops.cuda.fused_gkn import (
     fused_conv_stack_from_graph,
 )
 from molecular_dynamics_neural_operator_tpu_torch.ops.cuda.train_conv import (
-    takes_width as train_conv_takes_width,
     train_conv,
 )
 from molecular_dynamics_neural_operator_tpu_torch.ops.edge_conv import (
@@ -268,21 +267,18 @@ def takes_train_kernel(cfg: ModelConfig, batch: GKNBatch) -> bool:
     LSTM encoder and at most 512 nodes. Anything else takes the per-layer
     path.
 
-    One rule more, the kernels' shape rule, decided before any launch: on
-    the card the training kernels take a width that is a multiple of 8 and
-    at most 64 (``ops/cuda/train_conv.py::takes_width``), so CUDA tensors
-    at any other width take the per-layer path, which computes the same
-    function (``train_conv.launches`` stays 0). CPU tensors take the
-    kernel's plain version at any width, as the JAX package takes its
-    Pallas kernel."""
+    Every width takes the kernel, as the JAX package's every width takes
+    its Pallas kernel: CPU tensors its plain version, CUDA tensors the
+    training kernels, which pad a width that is not a multiple of 8 to one
+    (``ops/cuda/train_conv.py``). A shape past the kernels' plan (a width
+    over 128 in f32 or 256 in bf16, or buffers past a block's shared
+    memory) raises ``ValueError`` before any launch."""
     return (cfg.train_conv_impl == "pallas"
             and isinstance(batch.graph, SparseGraph)
             and cfg.tie_edge_kernel and cfg.depth > 0
             and cfg.kernel_quant == "none"
             and not cfg.legacy_no_lstm
-            and batch.aa.shape[0] <= SCATTER_ONEHOT_MAX_NODES
-            and (batch.window.device.type == "cpu"
-                 or train_conv_takes_width(cfg.width)))
+            and batch.aa.shape[0] <= SCATTER_ONEHOT_MAX_NODES)
 
 
 def gkn_apply(params, cfg: ModelConfig, batch: GKNBatch,

@@ -85,7 +85,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 register_kernel("graph_encode", "mdno_graph_encode",
                 [_P] * 11 + [_I] * 6 + [_F, _I, _I, _F, _F, _F] + [_P] * 8)
 register_kernel("graph_encode_plan", "mdno_graph_encode_plan",
-                [_I] * 5 + [ctypes.POINTER(ctypes.c_int)] * 3,
+                [_I] * 5 + [ctypes.POINTER(ctypes.c_int)] * 5,
                 source="graph_encode")
 register_kernel("edge_mlp", "mdno_edge_mlp", [_P] * 5 + [_I] * 5 + [_P])
 register_kernel("edge_mlp_stack", "mdno_edge_mlp_stack",
@@ -189,27 +189,33 @@ def graph_encode_plain(window, weights, threshold: float, max_edges: int,
     return edges, mask, count, count > max_edges, inv_deg, ef, x0
 
 
-# graph_encode's limits besides shared memory: a row's contact words sit
-# one a lane (32 words of 32 residues), fc1's inputs in registers
-GRAPH_ENCODE_MAX_NODES = 1024
-GRAPH_ENCODE_MAX_FEATURES = 16
 _plans: dict = {}
 
 
 def graph_encode_plan(frames: int, num_nodes: int, emb_dim: int, width: int,
                       dh: bool) -> dict:
-    """The launch shape of ``graph_encode`` at these shapes: ``smem``, the
-    dynamic shared memory a block needs (12 T R + R^2 / 8 bytes and a few
-    KB of weights), ``threads`` a block, and ``max_smem``, the card's
-    per-block opt-in maximum. Read once per shape."""
-    key = (frames, num_nodes, emb_dim, width, bool(dh))
+    """The launch shape of ``graph_encode`` at these shapes on the current
+    card: ``smem``, the dynamic shared memory a block needs (12 T R + R^2 /
+    8 bytes and a few KB of weights), ``threads`` a block, ``max_smem``,
+    the card's per-block opt-in maximum, and ``max_nodes`` and
+    ``max_features``, the most residues and fc1 inputs the kernel takes.
+    Read once per shape and card; a shape past the last two raises
+    ``ValueError``."""
+    key = (frames, num_nodes, emb_dim, width, bool(dh),
+           torch.cuda.current_device())
     if key not in _plans:
-        out = [ctypes.c_int(0) for _ in range(3)]
-        _raise_on(_kernel("graph_encode_plan")(
-            *key[:4], int(dh), *(ctypes.byref(v) for v in out)),
-            "graph_encode_plan")
-        _plans[key] = dict(zip(("smem", "threads", "max_smem"),
-                               (v.value for v in out)))
+        out = [ctypes.c_int(0) for _ in range(5)]
+        rc = _kernel("graph_encode_plan")(
+            *key[:4], int(dh), *(ctypes.byref(v) for v in out))
+        plan = dict(zip(("smem", "threads", "max_smem", "max_nodes",
+                         "max_features"), (v.value for v in out)))
+        if rc == 1:  # cudaErrorInvalidValue: the kernel's shape limits
+            raise ValueError(
+                f"graph_encode takes at most {plan['max_nodes']} residues "
+                f"and {plan['max_features']} fc1 inputs, got {num_nodes} "
+                f"and {emb_dim + 3 + int(dh)}")
+        _raise_on(rc, "graph_encode_plan")
+        _plans[key] = plan
     return _plans[key]
 
 
@@ -245,10 +251,6 @@ def graph_encode(window: torch.Tensor, weights, threshold: float,
     charges, cfg = weights["charges"], weights["cfg"]
     dh = charges is not None
     nf = d + 3 + int(dh)            # fc1 inputs: [emb ; lstm ; phi]
-    if r > GRAPH_ENCODE_MAX_NODES or nf > GRAPH_ENCODE_MAX_FEATURES:
-        raise ValueError(
-            f"graph_encode takes at most {GRAPH_ENCODE_MAX_NODES} residues "
-            f"and {GRAPH_ENCODE_MAX_FEATURES} fc1 inputs, got {r} and {nf}")
     plan = graph_encode_plan(t, r, d, w, dh)
     if plan["smem"] > plan["max_smem"]:
         raise ValueError(

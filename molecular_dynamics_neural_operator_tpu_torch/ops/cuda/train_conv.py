@@ -22,6 +22,14 @@ gives it, xs (x) dm of node 0; the caller's ``kt * mask`` zeroes it. The
 wrapper runs the plain version for CPU tensors only; for CUDA tensors it
 launches the kernels or raises. ``launches`` counts the launches of each
 kernel.
+
+The kernels take widths that are a multiple of 8, up to 128 in f32 and 256
+in bf16, and shapes whose buffers fit a block's shared memory (their C
+``plan``). ``train_conv`` pads any other width with zero columns up to a
+multiple of 8: a zero column of x0, the roots, the biases and K stays zero
+through every layer and adds exactly zero to every real sum, and the
+gradients are cut back to the width. A shape the plan refuses raises
+``ValueError`` before any launch, forward or backward.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from molecular_dynamics_neural_operator_tpu_torch.ops.conv_stack import (
     conv_stack_backward,
@@ -49,19 +58,17 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 register_kernel("train_conv_fwd", "mdno_train_conv_fwd",
                 [_P] * 11 + [_I] * 6 + [_P])
 register_kernel("train_conv_bwd", "mdno_train_conv_bwd",
-                [_P] * 14 + [_I] * 6 + [_P])
+                [_P] * 15 + [_I] * 6 + [_P])
 register_kernel("train_conv_fwd_clusters", "mdno_train_conv_fwd_clusters",
                 [_I] * 4 + [ctypes.POINTER(ctypes.c_int)],
                 source="train_conv_fwd")
 register_kernel("train_conv_bwd_clusters", "mdno_train_conv_bwd_clusters",
-                [_I] * 5 + [ctypes.POINTER(ctypes.c_int)],
+                [_I] * 5 + [ctypes.POINTER(ctypes.c_int),
+                            ctypes.POINTER(ctypes.c_longlong)],
                 source="train_conv_bwd")
 
-# The widest conv the training kernels take: the backward's CUDA-core body
-# (f32, widths other than 64) keeps 8 elements of droot in the registers of
-# each of its 512 threads, w * w <= 4096 (csrc/conv_stack_bwd.cuh,
-# kDrootPer); the bf16 tensor-core bodies are written for width 64.
-MAX_WIDTH = 64
+# the C plans' refusals (cudaError_t)
+_BAD_WIDTH, _NO_FIT = 1, 9
 
 launches = {"train_conv_fwd": 0, "train_conv_bwd": 0}
 
@@ -99,16 +106,45 @@ def _check_mask(mask, kt) -> None:
                          f"{tuple(kt.shape[:2])}")
 
 
-def takes_width(w: int) -> bool:
-    """The kernels' shape rule: a width that is a multiple of 8 and at most
-    ``MAX_WIDTH``. The model's dispatch applies it before any launch."""
-    return w % 8 == 0 and w <= MAX_WIDTH
+_plans: dict = {}
 
 
-def _check_width(w: int) -> None:
-    if not takes_width(w):
-        raise ValueError(f"train_conv needs a width that is a multiple of 8 "
-                         f"and at most {MAX_WIDTH}, got {w}")
+def train_conv_plan(num_nodes: int, width: int, max_edges: int, depth: int,
+                    cd) -> dict:
+    """Both kernels' launch plans at these shapes on the current card, read
+    once per shape: ``train_conv_fwd`` and ``train_conv_bwd``, the clusters
+    (one an example) the card holds at once, and ``hist``, the floats of
+    device memory the backward's CUDA-core body needs an example (0 for the
+    tensor-core body). A shape either plan refuses raises ``ValueError``,
+    so a caller that asks first launches nothing it cannot finish."""
+    key = (num_nodes, width, max_edges, depth, cd,
+           torch.cuda.current_device())
+    if key in _plans:
+        return _plans[key]
+    fwd, bwd = ctypes.c_int(0), ctypes.c_int(0)
+    hist = ctypes.c_longlong(0)
+    for name, rc, n in (
+            ("train_conv_fwd", kernel_fn("train_conv_fwd_clusters")(
+                num_nodes, width, max_edges, cd_flag(cd), ctypes.byref(fwd)),
+             fwd),
+            ("train_conv_bwd", kernel_fn("train_conv_bwd_clusters")(
+                num_nodes, width, max_edges, depth, cd_flag(cd),
+                ctypes.byref(bwd), ctypes.byref(hist)), bwd)):
+        if rc == _BAD_WIDTH:
+            raise ValueError(
+                f"{name} takes a width that is a multiple of 8 and at most "
+                f"{512 // torch.empty((), dtype=cd).element_size()} in {cd} "
+                f"(train_conv pads other widths to a multiple of 8), got "
+                f"{width}")
+        if rc == _NO_FIT or (rc == 0 and n.value < 1):
+            raise ValueError(
+                f"{name}: {num_nodes} nodes, width {width}, {max_edges} edge "
+                f"slots, depth {depth} in {cd} need more shared memory than "
+                f"a block of this card holds")
+        raise_on(rc, f"{name}_clusters")
+    _plans[key] = {"train_conv_fwd": fwd.value, "train_conv_bwd": bwd.value,
+                   "hist": hist.value}
+    return _plans[key]
 
 
 def _check_aligned(t: torch.Tensor, name: str) -> None:
@@ -172,9 +208,9 @@ def train_conv_forward(x0, kt, edges, mask, inv_deg, root1, bias1, root2,
                                         bias1, root2, bias2, depth)
     b, r, w, e = _shapes(x0, kt)
     dev, f32, cd = x0.device, torch.float32, kt.dtype
-    _check_width(w)
     _check_mask(mask, kt)
     _check_aligned(kt, "kt")
+    train_conv_plan(r, w, e, depth, cd)
     out = torch.empty(b, r, w, device=dev)
     stack = torch.empty(b, 2 * depth + 1, r, w, device=dev)
     root1, root2 = root1.to(cd), root2.to(cd)
@@ -207,10 +243,11 @@ def train_conv_backward(g_out, stack, kt, edges, mask, inv_deg, root1,
     b, e = kt.shape[:2]
     _, _, r, w = stack.shape
     dev, f32, cd = g_out.device, torch.float32, kt.dtype
-    _check_width(w)
     _check_mask(mask, kt)
     _check_aligned(kt, "kt")
     _check_aligned(stack, "stack")
+    hist = torch.empty(b * train_conv_plan(r, w, e, depth, cd)["hist"],
+                       device=dev)
     dx0 = torch.empty(b, r, w, device=dev)
     dkt = torch.empty_like(kt)
     droot = [torch.empty(b, w, w, device=dev) for _ in range(2)]
@@ -227,6 +264,7 @@ def train_conv_backward(g_out, stack, kt, edges, mask, inv_deg, root1,
         check_operand(root2, "root2", cd, (w, w), dev),
         dx0.data_ptr(), dkt.data_ptr(), droot[0].data_ptr(),
         dbias[0].data_ptr(), droot[1].data_ptr(), dbias[1].data_ptr(),
+        hist.data_ptr() if hist.numel() else None,
         b, r, w, e, depth, cd_flag(cd), current_stream(),
     ]
     raise_on(kernel_fn("train_conv_bwd")(*args), "train_conv_bwd")
@@ -234,22 +272,48 @@ def train_conv_backward(g_out, stack, kt, edges, mask, inv_deg, root1,
     return dx0, dkt, droot[0], dbias[0], droot[1], dbias[1]
 
 
+def _pad_width(x0, kt, root1, bias1, root2, bias2):
+    """The operands with zero columns up to a width that is a multiple of
+    8 (as they are when it is one already)."""
+    b, r, w, e = _shapes(x0, kt)
+    p = -w % 8
+    if p == 0:
+        return x0, kt, root1, bias1, root2, bias2
+    square = (0, p, 0, p)
+    kt = F.pad(kt.reshape(b, e, w, w), square).reshape(b, e, (w + p) ** 2)
+    return (F.pad(x0, (0, p)), kt, F.pad(root1, square), F.pad(bias1, (0, p)),
+            F.pad(root2, square), F.pad(bias2, (0, p)))
+
+
 class _TrainConv(torch.autograd.Function):
+    """The kernels at any width: padded to a multiple of 8 on the way in,
+    cut back on the way out (see the module's note)."""
+
     @staticmethod
     def forward(ctx, x0, kt, edges, mask, inv_deg, root1, bias1, root2, bias2,
                 depth):
+        w = x0.shape[-1]
+        x0, kt, root1, bias1, root2, bias2 = _pad_width(x0, kt, root1, bias1,
+                                                        root2, bias2)
         out, stack = train_conv_forward(x0, kt, edges, mask, inv_deg, root1,
                                         bias1, root2, bias2, depth)
         ctx.save_for_backward(stack, kt, edges, mask, inv_deg, root1, root2)
-        ctx.depth = depth
-        return out
+        ctx.depth, ctx.width = depth, w
+        return out if out.shape[-1] == w else out[..., :w].contiguous()
 
     @staticmethod
     def backward(ctx, g_out):
         stack, kt, edges, mask, inv_deg, root1, root2 = ctx.saved_tensors
+        w, wp = ctx.width, stack.shape[-1]
+        g_out = F.pad(g_out, (0, wp - w)).contiguous()
         dx0, dkt, dr1, db1, dr2, db2 = train_conv_backward(
-            g_out.contiguous(), stack, kt, edges, mask, inv_deg, root1, root2,
-            ctx.depth)
+            g_out, stack, kt, edges, mask, inv_deg, root1, root2, ctx.depth)
+        if wp != w:
+            b, e = kt.shape[:2]
+            dx0 = dx0[..., :w]
+            dkt = dkt.reshape(b, e, wp, wp)[:, :, :w, :w].reshape(b, e, w * w)
+            dr1, dr2 = dr1[:, :w, :w], dr2[:, :w, :w]
+            db1, db2 = db1[:, :w], db2[:, :w]
         # per-example partial sums of the shared parameters, added over the
         # batch by one deterministic reduction each
         return (dx0, dkt, None, None, None, dr1.sum(0), db1.sum(0),
@@ -260,8 +324,9 @@ def train_conv(x0, kt, edges, mask, inv_deg, root1, bias1, root2, bias2,
                depth: int):
     """Batched tied conv stack: relu(conv1)^depth then relu(conv2)^depth
     against one pre-masked kernel tensor per example. Shapes as
-    ``train_conv_forward``; returns (B, R, w) f32. CUDA tensors go through
-    the kernels, forward and backward; CPU tensors through the plain
+    ``train_conv_forward`` at any width; returns (B, R, w) f32. CUDA
+    tensors go through the kernels, forward and backward (a width that is
+    not a multiple of 8 padded to one); CPU tensors through the plain
     version."""
     if depth < 1:
         raise ValueError("train_conv requires depth >= 1")
@@ -277,13 +342,5 @@ def train_conv_clusters(num_nodes: int, width: int, max_edges: int,
     """How many clusters (one an example) of each training kernel the card
     holds at once at these shapes: a batch of B runs in ceil(B / that)
     waves."""
-    out = {}
-    for name, args in (("train_conv_fwd", (num_nodes, width, max_edges,
-                                           cd_flag(cd))),
-                       ("train_conv_bwd", (num_nodes, width, max_edges, depth,
-                                           cd_flag(cd)))):
-        n = ctypes.c_int(0)
-        raise_on(kernel_fn(f"{name}_clusters")(*args, ctypes.byref(n)),
-                 f"{name}_clusters")
-        out[name] = n.value
-    return out
+    plan = train_conv_plan(num_nodes, width, max_edges, depth, cd)
+    return {name: plan[name] for name in launches}

@@ -698,11 +698,15 @@ def test_train_conv_clusters_and_width_checks_on_the_card(cuda):
     assert all(v >= 1 for v in n.values())
     ops = _train_conv_operands(3, torch.float32, cuda, b=2, w=16)
     x0, kt, edges, mask, inv_deg, root1, _, root2, _, g_out = ops
-    stack = torch.zeros(2, 5, 12, 72, device=cuda)
-    with pytest.raises(ValueError, match="multiple of 8 and at most"):
-        tc.train_conv_backward(torch.zeros(2, 12, 72, device=cuda), stack,
-                               torch.zeros(2, 128, 72 * 72, device=cuda),
+    # past the CUDA-core bodies' 128 columns in f32: refused by the plan,
+    # before any launch
+    tc.reset_launch_counts()
+    stack = torch.zeros(2, 5, 12, 136, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 8 and at most 128"):
+        tc.train_conv_backward(torch.zeros(2, 12, 136, device=cuda), stack,
+                               torch.zeros(2, 128, 136 * 136, device=cuda),
                                edges, mask, inv_deg, root1, root2, 2)
+    assert tc.launch_counts() == {"train_conv_fwd": 0, "train_conv_bwd": 0}
     # a kt that starts off a 16-byte boundary raises
     flat = torch.zeros(2 * 128 * 256 + 2, device=cuda)
     with pytest.raises(ValueError, match="16-byte boundary"):
@@ -711,14 +715,16 @@ def test_train_conv_clusters_and_width_checks_on_the_card(cuda):
 
 
 @pytest.mark.gpu
-def test_a_width_the_training_kernels_do_not_take_runs_the_per_layer_path(
-        cuda):
-    """Width 72 with ``train_conv_impl="pallas"`` on the card: the dispatch
-    picks the per-layer path before any launch (no ``train_conv`` launch),
-    and the output, loss and every gradient agree with the CPU run of the
-    same inputs (the kernel's plain version) to the training tolerance of
-    the CPU tests, rtol 2e-4 / atol 1e-5 in f32."""
-    cfg = ModelConfig(**{**SMALL, "width": 72, "train_conv_impl": "pallas",
+@pytest.mark.parametrize("width", [60, 72, 96])
+def test_any_width_trains_on_the_training_kernels_on_the_card(cuda, width):
+    """Widths past the tensor-core body's 64, and one that is not a
+    multiple of 8 (padded to 64), with ``train_conv_impl="pallas"`` on the
+    card: one launch of each training kernel, and the output, loss and
+    every gradient agree with the CPU run of the same inputs (the kernel's
+    plain version) to the training tolerance of the CPU tests, rtol 2e-4 /
+    atol 1e-5 in f32."""
+    cfg = ModelConfig(**{**SMALL, "width": width,
+                         "train_conv_impl": "pallas",
                          "compute_dtype": "float32"})
     traj = synthetic_trajectory(num_frames=32, num_residues=12, seed=4)
     ds = WindowDataset(traj, window_size=4, graph_mode="sparse",
@@ -733,8 +739,9 @@ def test_a_width_the_training_kernels_do_not_take_runs_the_per_layer_path(
         (l2, (_, out)), grads = loop.loss_and_grads(
             tree_map(lambda t: t.to(dev), params), cfg, tb)
         torch.cuda.synchronize()
-        assert tc.launch_counts() == {"train_conv_fwd": 0,
-                                      "train_conv_bwd": 0}
+        n = int(dev != "cpu")
+        assert tc.launch_counts() == {"train_conv_fwd": n,
+                                      "train_conv_bwd": n}
         res[str(dev)] = (float(l2), out.cpu(),
                          [g.cpu() for g in tree_leaves(grads)])
     (l_c, out_c, g_c), (l_g, out_g, g_g) = res["cpu"], res["cuda"]
@@ -743,3 +750,23 @@ def test_a_width_the_training_kernels_do_not_take_runs_the_per_layer_path(
     assert len(g_c) == len(g_g) == 21
     for got, want in zip(g_g, g_c):
         torch.testing.assert_close(got, want, rtol=2e-4, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_a_width_past_the_training_kernels_raises_before_any_launch(cuda):
+    """Width 136 in f32 is past the CUDA-core bodies' 128 columns: the
+    forward asks both kernels' plans first, so the model raises
+    ``ValueError`` with the limit and launches nothing."""
+    cfg = ModelConfig(**{**SMALL, "width": 136, "train_conv_impl": "pallas",
+                         "compute_dtype": "float32"})
+    traj = synthetic_trajectory(num_frames=32, num_residues=12, seed=4)
+    ds = WindowDataset(traj, window_size=4, graph_mode="sparse",
+                       max_edges=128)
+    tb = loop.featurize_batch(cfg, {
+        k: torch.as_tensor(v, device=cuda)
+        for k, v in ds.get_batch(np.arange(2)).items()})
+    params = gkn_init(cfg, seed=0, device=cuda)
+    tc.reset_launch_counts()
+    with pytest.raises(ValueError, match="multiple of 8 and at most 128"):
+        loop.loss_and_grads(params, cfg, tb)
+    assert tc.launch_counts() == {"train_conv_fwd": 0, "train_conv_bwd": 0}

@@ -304,3 +304,54 @@ def test_train_conv_refuses_a_mask_of_the_wrong_shape_or_dtype():
         with pytest.raises(ValueError, match=match):
             tc.train_conv_backward(g_out, stack, kt, edges, bad, inv_deg,
                                    root1, root2, DEPTH)
+
+
+def _operands_at_width(seed, width, batch=3, real_edges=90):
+    """Seeded ``train_conv`` operands (kt pre-masked) at any width."""
+    rng = np.random.default_rng(seed)
+    edges = rng.integers(0, R, size=(batch, 2, E)).astype(np.int32)
+    mask = np.zeros((batch, E), np.float32)
+    mask[:, :real_edges] = 1.0
+    edges = edges * mask[:, None, :].astype(np.int32)
+    bound = 1.0 / np.sqrt(width)
+    kt = (rng.normal(size=(batch, E, width * width)) * 0.3).astype(np.float32)
+    kt = kt * mask[..., None]
+    d = dict(edges=edges, mask=mask)
+    return [torch.as_tensor(rng.normal(size=(batch, R, width))
+                            .astype(np.float32)),
+            torch.as_tensor(kt), torch.as_tensor(edges),
+            torch.as_tensor(mask), _inv_deg(d),
+            *(torch.as_tensor(rng.uniform(-bound, bound, shape)
+                              .astype(np.float32))
+              for shape in ((width, width), (width,)) * 2)]
+
+
+@pytest.mark.parametrize("width", [12, 20, 60])
+def test_width_padded_to_a_multiple_of_8_gives_the_unpadded_result(width):
+    """On the card ``train_conv`` pads a width that is not a multiple of 8
+    with zero columns of x0, K, the roots and the biases, and cuts the
+    output and gradients back (``_TrainConv``). Through the plain versions
+    on CPU tensors that path gives the unpadded output and all six
+    gradients: a zero column stays zero and adds exactly zero to every
+    real sum, so only the order of f32 sums may differ."""
+    g_out = torch.as_tensor(np.random.default_rng(1).normal(
+        size=(3, R, width)).astype(np.float32))
+    got = [t.requires_grad_(i in GRAD_SLOTS)
+           for i, t in enumerate(_operands_at_width(9, width))]
+    ref = [t.detach().clone().requires_grad_(i in GRAD_SLOTS)
+           for i, t in enumerate(got)]
+    tc.reset_launch_counts()
+    out = tc._TrainConv.apply(*got, DEPTH)
+    want = tc.train_conv_plain(*ref, DEPTH)
+    assert out.shape == want.shape == (3, R, width)
+    (out * g_out).sum().backward()
+    (want * g_out).sum().backward()
+
+    def err(a, b):  # of b's scale: a few f32 units of the largest value
+        return ((a - b).abs().max() / b.abs().max().clamp(min=1.0)).item()
+
+    assert err(out.detach(), want.detach()) <= 1e-6
+    for i in GRAD_SLOTS:
+        assert got[i].grad.shape == ref[i].grad.shape, i
+        assert err(got[i].grad, ref[i].grad) <= 1e-6, i
+    assert tc.launch_counts() == {"train_conv_fwd": 0, "train_conv_bwd": 0}

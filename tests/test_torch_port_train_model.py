@@ -210,10 +210,10 @@ def test_pallas_impl_reaches_the_kernel_wrapper_and_checks_the_config(
 @pytest.mark.parametrize("width", [72, 96])
 def test_pallas_impl_trains_at_any_width_on_the_cpu_and_matches_jax(
         width, monkeypatch):
-    """A width the training kernels do not take on the card (not a multiple
-    of 8, or over 64): on CPU tensors the kernel's plain version runs, as
-    the JAX package runs its Pallas kernel, and the output and every
-    parameter's gradient match ``jax.value_and_grad``."""
+    """Widths past the training kernels' tensor-core body (64): on CPU
+    tensors the kernel's plain version runs, as the JAX package runs its
+    Pallas kernel, and the output and every parameter's gradient match
+    ``jax.value_and_grad``."""
     jcfg, cfg, batch, jparams = _setup("pallas", width=width)
     jb = jloop.featurize_batch(
         jcfg, {k: jnp.asarray(v) for k, v in batch.items()})
@@ -238,18 +238,24 @@ def test_pallas_impl_trains_at_any_width_on_the_cpu_and_matches_jax(
     assert tc.launch_counts() == {"train_conv_fwd": 0, "train_conv_bwd": 0}
 
 
-@pytest.mark.parametrize("width,kernel", [(16, True), (64, True),
-                                          (60, False), (72, False),
-                                          (96, False)])
-def test_train_kernel_width_rule_holds_off_the_cpu(width, kernel):
-    """Off the CPU the dispatch applies the kernels' shape rule before any
-    launch: a width that is not a multiple of 8 or is over 64 takes the
-    per-layer path. On the CPU every width takes the kernel's plain
-    version. (A meta tensor stands for a tensor on the card here.)"""
+@pytest.mark.parametrize("width", [16, 64, 60, 72, 96])
+def test_train_kernel_width_rule_holds_off_the_cpu(width):
+    """On and off the CPU every width takes the kernel path, as in the
+    JAX package: the dispatch has no width rule (a meta tensor stands for
+    a tensor on the card here). On the card the kernels see the width
+    padded with zero columns to a multiple of 8."""
     cfg = ModelConfig(**{**BASE, "train_conv_impl": "pallas",
                          "width": width})
     assert gkn.takes_train_kernel(cfg, _batch_for(cfg)) is True
     batch = _batch_for(cfg)._replace(
         window=torch.zeros(1, 4, 12, 3, device="meta"))
-    assert gkn.takes_train_kernel(cfg, batch) is kernel
-    assert tc.takes_width(width) is kernel
+    assert gkn.takes_train_kernel(cfg, batch) is True
+    x0 = torch.zeros(2, 12, width)
+    kt = torch.ones(2, 5, width * width)
+    roots = [torch.ones(width, width), torch.ones(width)] * 2
+    padded = tc._pad_width(x0, kt, *roots)
+    wp = -(-width // 8) * 8
+    assert padded[0].shape == (2, 12, wp) and padded[1].shape == (2, 5, wp * wp)
+    assert [tuple(t.shape) for t in padded[2:]] == [(wp, wp), (wp,)] * 2
+    assert padded[1].sum().item() == 5 * 2 * width * width
+    assert padded[2][:width, :width].sum().item() == width * width
