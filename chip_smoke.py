@@ -12,7 +12,8 @@ from ``synthetic_trajectory(num_frames=4000, seed=13)``):
   with 224 edge slots, clip 100, the trained ``tools/bench_ckpt.npz``);
 - training: teacher-forced train steps at batch 128 with 256 edge slots,
   from seeded ``gkn_init`` weights, through ``create_train_state``,
-  ``make_train_step`` and ``train_epoch``;
+  ``make_train_step`` and ``train_epoch``, then K = 4 curriculum steps
+  through ``make_curriculum_train_step`` and ``train_curriculum_recipe``;
 - serving: concurrent requests through ``RolloutServer`` in process, on
   the rollout kernels (``impl="persistent"``, also with
   ``electrostatics="dh"``) and on the plain scan with the fused kernel
@@ -59,7 +60,6 @@ Phases, each fatal:
    wall time of a train step on each path, samples/s, peak memory, and a
    ``torch.profiler`` breakdown of one train step (device time by kernel,
    the device's busy share).
-
 8. serve, kernel vs plain: ``graph_encode`` with the Debye-Hückel branch
    (f32 and bf16, 1 and 4 streams) and ``fused_edge_conv_stack`` (f32 and
    bf16, 1 and 8 streams, on seeded weights whose conv layers are all
@@ -76,6 +76,19 @@ Phases, each fatal:
    run and read after it; ``stats`` must read as the trace implies.
 10. serve timing: served steps/s, occupancy, the device's busy share, and
    the two new kernels' times with their plain versions and bounds.
+11. curriculum: (a) one f32 K = 4 step with full backpropagation at
+   B = 32 on the kernel path against the per-layer path: the same rebuilt
+   edge lists at every step, then the loss and every gradient leaf;
+   (b) ``TRAIN_STEPS`` K = 4 curriculum steps in bf16 (delta loss, clip
+   1000) with full backpropagation and with ``grad_steps=1`` on both paths,
+   held as the teacher-forced run is held, with K forward and K or 1
+   backward launches a step; (c) ``train_curriculum_recipe`` for 8 steps
+   on a Langevin trajectory with ``graph_frame="rebuild"``: finite losses,
+   the switch to K after the warm-up and the launches changing with it.
+12. curriculum timing: samples/s, device time and busy share of both K = 4
+   steps beside the teacher-forced step, and the cost of the optimizer's
+   per-step host read (``skip_nonfinite_updates``). Phases 11 and 12 run
+   with the training path, after phase 7.
 
 The last lines are the ``kernels`` JSON (seven kernels), the card, and
 ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA card.
@@ -1031,18 +1044,47 @@ def tree_items(tree, prefix=""):
             yield name, v
 
 
-def run_train_steps(state0, tx, cfg, tcfg, ds, indices):
-    """TRAIN_STEPS steps through train_epoch from ``state0``: (state,
-    metrics)."""
+def run_train_steps(state0, step, tcfg, ds, indices, rollout_horizon=0):
+    """One step per batch of ``indices`` through train_epoch from
+    ``state0``: (state, metrics)."""
     from molecular_dynamics_neural_operator_tpu_torch.train import (
-        make_train_step,
         train_epoch,
     )
 
-    state, metrics = train_epoch(state0, make_train_step(cfg, tx), ds,
-                                 indices, tcfg.batch_size, seed=tcfg.seed)
+    state, metrics = train_epoch(state0, step, ds, indices, tcfg.batch_size,
+                                 seed=tcfg.seed,
+                                 rollout_horizon=rollout_horizon)
     torch.cuda.synchronize()
     return state, metrics
+
+
+def compare_training_runs(state0, kernel, plain, tag: str):
+    """The kernel path's (state, mean metrics) against the per-layer
+    path's from the same ``state0``: mean losses within TOL_TRAIN_LOSS,
+    and each leaf's movement within TOL_TRAIN_MOVE of its norm (the L2
+    norm of the difference over the L2 norm of the per-layer path's
+    movement). Returns (worst ratio, its leaf, the largest movement, the
+    largest single difference)."""
+    (state_k, m_k), (state_x, m_x) = kernel, plain
+    for k in ("rel_l2", "mse"):
+        rel = abs(m_k[k] - m_x[k]) / abs(m_x[k])
+        require(rel <= TOL_TRAIN_LOSS, f"{tag}: mean {k} differs by "
+                f"{rel:.2e} between the kernel and the per-layer path")
+    worst, worst_name, moved, max_abs = 0.0, "", 0.0, 0.0
+    for (name, a), (_, b), (_, c) in zip(tree_items(state_k.params),
+                                         tree_items(state_x.params),
+                                         tree_items(state0.params)):
+        require(bool(torch.isfinite(a).all()), f"{tag}: {name} not finite")
+        move = (b - c).norm().item()
+        require(move > 0, f"{tag}: {name} did not move")
+        rel = (a - b).norm().item() / move
+        moved = max(moved, (a - c).abs().max().item())
+        max_abs = max(max_abs, (a - b).abs().max().item())
+        if rel > worst:
+            worst, worst_name = rel, name
+    require(worst <= TOL_TRAIN_MOVE, f"{tag}: the movement of {worst_name} "
+            f"differs by {worst:.3e} of its norm")
+    return worst, worst_name, moved, max_abs
 
 
 def check_training(ds, train_idx, valid_idx) -> dict:
@@ -1058,6 +1100,7 @@ def check_training(ds, train_idx, valid_idx) -> dict:
     from molecular_dynamics_neural_operator_tpu_torch.train import (
         create_train_state,
         make_eval_step,
+        make_train_step,
     )
 
     (cfg_k, tcfg), (cfg_x, _) = training_cfgs(), training_cfgs("xla")
@@ -1066,11 +1109,14 @@ def check_training(ds, train_idx, valid_idx) -> dict:
         tcfg.seed, cfg_k, tcfg, steps_per_epoch=TRAIN_STEPS)
 
     tc.reset_launch_counts()
-    state_k, m_k = run_train_steps(state0, tx, cfg_k, tcfg, ds, indices)
+    state_k, m_k = run_train_steps(state0, make_train_step(cfg_k, tx), tcfg,
+                                   ds, indices)
     counts = tc.launch_counts()
-    state_x, m_x = run_train_steps(state0, tx, cfg_x, tcfg, ds, indices)
+    state_x, m_x = run_train_steps(state0, make_train_step(cfg_x, tx), tcfg,
+                                   ds, indices)
     with mlp.exact_products():
-        state_e, m_e = run_train_steps(state0, tx, cfg_k, tcfg, ds, indices)
+        state_e, m_e = run_train_steps(state0, make_train_step(cfg_k, tx),
+                                       tcfg, ds, indices)
     log(f"training run, {TRAIN_STEPS} steps at B={TRAIN_BATCH} bf16: "
         f"kernel path {m_k}; per-layer path {m_x}; kernel path with the "
         f"exact f32 edge MLP {m_e}; launches {counts}")
@@ -1078,24 +1124,8 @@ def check_training(ds, train_idx, valid_idx) -> dict:
         require(all(np.isfinite(m[k]) for k in ("rel_l2", "mse")),
                 f"non-finite training loss on the {name} path: {m}")
     require(state_k.step == TRAIN_STEPS, "the step count did not advance")
-    for k in ("rel_l2", "mse"):
-        rel = abs(m_k[k] - m_x[k]) / abs(m_x[k])
-        require(rel <= TOL_TRAIN_LOSS, f"mean {k} differs by {rel:.2e} "
-                f"between the kernel and the per-layer path")
-    # each leaf's movement over the steps, kernel path against per-layer
-    # path, as the L2 norm of the difference over the L2 norm of the movement
-    worst, worst_name, moved, max_abs = 0.0, "", 0.0, 0.0
-    for (name, a), (_, b), (_, c) in zip(tree_items(state_k.params),
-                                         tree_items(state_x.params),
-                                         tree_items(state0.params)):
-        require(bool(torch.isfinite(a).all()), f"{name} not finite")
-        move = (b - c).norm().item()
-        require(move > 0, f"{name} did not move")
-        rel = (a - b).norm().item() / move
-        moved = max(moved, (a - c).abs().max().item())
-        max_abs = max(max_abs, (a - b).abs().max().item())
-        if rel > worst:
-            worst, worst_name = rel, name
+    worst, worst_name, moved, max_abs = compare_training_runs(
+        state0, (state_k, m_k), (state_x, m_x), "training run")
     exact_gap = max(
         (a - b).norm().item() / (b - c).norm().item()
         for (_, a), (_, b), (_, c) in zip(tree_items(state_k.params),
@@ -1109,8 +1139,6 @@ def check_training(ds, train_idx, valid_idx) -> dict:
         f"of a leaf's movement, mean rel_l2 "
         f"{abs(m_k['rel_l2'] - m_e['rel_l2']) / abs(m_e['rel_l2']):.2e} "
         f"relative")
-    require(worst <= TOL_TRAIN_MOVE, f"the movement of {worst_name} differs "
-            f"by {worst:.3e} of its norm")
 
     held_out = to_device(ds.get_batch(valid_idx[:TRAIN_BATCH]), "cuda")
     ev = make_eval_step(cfg_k)(state_k.params, held_out)
@@ -1143,22 +1171,26 @@ def probe_default_recipe(batch) -> None:
         f"torch-default init, rel_l2 of three steps on one batch: {losses}")
 
 
-def profile_train_step(batch, wall_ms: float, steps: int = 3) -> None:
-    """Phase 7: where one train step's time goes, from
-    ``torch.profiler`` over ``steps`` steps on the kernel path: device time
-    by kernel name, the device's busy share of ``wall_ms`` (a step's wall
-    time with the profiler off), and the number of device kernels a step
-    launches."""
+def wall_ms(step, state, batch, n: int = 6) -> float:
+    """Wall time in ms of one ``step(state, batch)``, the state carried
+    from step to step, after a warm-up step; the device idle at the end."""
+    state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def profile_step(step, state, batch, wall: float, tag: str,
+                 steps: int = 3) -> float:
+    """Where one step's time goes, from ``torch.profiler`` over ``steps``
+    steps after a warm-up: device time by kernel name, the device's busy
+    share of ``wall`` (a step's wall time with the profiler off), and the
+    device kernels a step launches. Returns the device busy ms a step."""
     from torch.profiler import ProfilerActivity, profile
 
-    from molecular_dynamics_neural_operator_tpu_torch.train import (
-        create_train_state,
-        make_train_step,
-    )
-
-    cfg, tcfg = training_cfgs()
-    state, tx, _ = create_train_state(0, cfg, tcfg)
-    step = make_train_step(cfg, tx)
     state, _ = step(state, batch)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1171,12 +1203,27 @@ def profile_train_step(batch, wall_ms: float, steps: int = 3) -> None:
     require(bool(rows), "torch.profiler recorded no device time")
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
-    log(f"profile of one train step (kernel path): device busy {busy:.2f} "
-        f"ms of the {wall_ms:.2f} ms a step takes with the profiler off "
-        f"({busy / wall_ms:.2f}), in {sum(r[2] for r in rows):.0f} device "
+    log(f"profile of one {tag}: device busy {busy:.2f} ms of the "
+        f"{wall:.2f} ms a step takes with the profiler off "
+        f"({busy / wall:.2f}), in {sum(r[2] for r in rows):.0f} device "
         f"kernels and copies")
     for name, ms, n in rows[:12]:
         log(f"  {ms:7.3f} ms  x{n:5.1f}  {name[:90]}")
+    return busy
+
+
+def profile_train_step(batch, wall: float) -> float:
+    """Phase 7: the profile of one teacher-forced train step on the kernel
+    path; returns its device busy ms."""
+    from molecular_dynamics_neural_operator_tpu_torch.train import (
+        create_train_state,
+        make_train_step,
+    )
+
+    cfg, tcfg = training_cfgs()
+    state, tx, _ = create_train_state(0, cfg, tcfg)
+    return profile_step(make_train_step(cfg, tx), state, batch, wall,
+                        "train step (kernel path)")
 
 
 def time_training(params, ds, train_idx, counts: dict, errs: dict):
@@ -1259,14 +1306,7 @@ def time_training(params, ds, train_idx, counts: dict, errs: dict):
     def step_ms(impl: str, n: int = 6) -> float:
         cfg_i, tcfg = training_cfgs(impl)
         state, tx, _ = create_train_state(0, cfg_i, tcfg)
-        step = make_train_step(cfg_i, tx)
-        state, _ = step(state, batch)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(n):
-            state, _ = step(state, batch)
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) / n * 1e3
+        return wall_ms(make_train_step(cfg_i, tx), state, batch, n)
 
     torch.cuda.reset_peak_memory_stats()
     k_ms = step_ms("pallas")
@@ -1282,6 +1322,313 @@ def time_training(params, ds, train_idx, counts: dict, errs: dict):
         f"with the exact f32 edge MLP {e_ms:.2f} ms; peak memory of the "
         f"kernel path {peak_gb:.2f} GB; one launch of each kernel per step")
     return kernels, k_ms
+
+
+# ---- phases 11-12: the K-step curriculum ---------------------------------
+
+CURRICULUM_K = 4
+CURRICULUM_CLIP = 1000.0
+# The f32 gradient check: one K = 4 step, full backpropagation, on the
+# kernel path against the per-layer path at B = 32 with TF32 off. Both
+# compute the same f32 function with sums in another order: about 1e-7
+# relative per sum, which the four chained steps and their rebuilt edge
+# features carry into every gradient leaf; 1e-4 of a leaf's norm holds
+# that, and a wrong gradient of any one step (a kernel output missing, a
+# saved tensor overwritten) moves a leaf by a good part of its norm.
+GRAD_BATCH = 32
+TOL_CURRICULUM_GRAD = 1e-4
+RECIPE_STEPS = 8
+RECIPE_WARMUP = 4
+
+
+def curriculum_step(cfg, tx, grad_steps, **kw):
+    from molecular_dynamics_neural_operator_tpu_torch.train import (
+        make_curriculum_train_step,
+    )
+
+    return make_curriculum_train_step(
+        cfg, tx, rollout_steps=CURRICULUM_K, coord_clip=CURRICULUM_CLIP,
+        loss_space="delta", grad_steps=grad_steps, **kw)
+
+
+class RecordGraphs:
+    """Within the block, every graph the curriculum rebuilds is kept:
+    ``graphs`` holds (edges, mask) in the order built."""
+
+    def __enter__(self):
+        from molecular_dynamics_neural_operator_tpu_torch.train import (
+            curriculum,
+        )
+
+        self.module, self.build = curriculum, curriculum._build_graph
+        self.graphs = []
+
+        def recording(cfg, frame, threshold):
+            graph, overflow = self.build(cfg, frame, threshold)
+            self.graphs.append((graph.edges.clone(), graph.mask.clone()))
+            return graph, overflow
+
+        curriculum._build_graph = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.module._build_graph = self.build
+
+
+def check_curriculum_grads(ds, train_idx) -> None:
+    """Phase 11a: one f32 K = 4 step with full backpropagation at
+    B = GRAD_BATCH on the kernel path against the per-layer path: the
+    same rebuilt edge lists at every step first, then the loss, the MSE
+    and every gradient leaf within TOL_CURRICULUM_GRAD of its norm."""
+    from molecular_dynamics_neural_operator_tpu_torch.data.prefetch import (
+        to_device,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.models import gkn_init
+    from molecular_dynamics_neural_operator_tpu_torch.ops.cuda import (
+        train_conv as tc,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.train import (
+        curriculum_loss_batched,
+        featurize_batch,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.train.loop import (
+        value_and_grad,
+    )
+
+    batch = to_device(ds.get_batch(train_idx[:GRAD_BATCH],
+                                   rollout_horizon=CURRICULUM_K), "cuda")
+    res = {}
+    for impl in ("pallas", "xla"):
+        cfg = train_cfg("float32", impl, kernel_init_scale=0.1)
+        params = gkn_init(cfg, seed=0, device="cuda")
+        tc.reset_launch_counts()
+        with RecordGraphs() as rec:
+            (loss, (m, ov)), grads = value_and_grad(
+                lambda p: curriculum_loss_batched(
+                    p, cfg, featurize_batch(cfg, batch), batch["y_seq"],
+                    coord_clip=CURRICULUM_CLIP, loss_space="delta",
+                    return_overflow=True), params)
+        torch.cuda.synchronize()
+        res[impl] = (float(loss), float(m), bool(ov), rec.graphs,
+                     dict(tree_items(grads)), tc.launch_counts())
+    (l_k, m_k, ov_k, gr_k, g_k, n_k), (l_x, m_x, ov_x, gr_x, g_x, n_x) = (
+        res["pallas"], res["xla"])
+    require(n_k == {"train_conv_fwd": CURRICULUM_K,
+                    "train_conv_bwd": CURRICULUM_K}
+            and sum(n_x.values()) == 0,
+            f"f32 K={CURRICULUM_K} step: launches {n_k} on the kernel path, "
+            f"{n_x} on the per-layer path")
+    require(len(gr_k) == len(gr_x) == CURRICULUM_K - 1,
+            f"rebuilt {len(gr_k)} and {len(gr_x)} graphs")
+    for t, ((e_k, mk_k), (e_x, mk_x)) in enumerate(zip(gr_k, gr_x)):
+        require(torch.equal(e_k, e_x) and torch.equal(mk_k, mk_x),
+                f"f32 K={CURRICULUM_K} step: the edge lists rebuilt at step "
+                f"{t + 2} differ between the kernel and the per-layer path "
+                f"({int((e_k != e_x).any(dim=1).sum())} slots)")
+    require(not ov_k and not ov_x, "edge overflow in the f32 curriculum step")
+    report, worst = [], (0.0, "")
+    for name, gx in g_x.items():
+        gk = g_k[name]
+        norm = gx.norm().item()
+        require(norm > 0 and bool(torch.isfinite(gk).all()),
+                f"f32 K={CURRICULUM_K} gradient of {name}: norm {norm}, or "
+                f"not finite on the kernel path")
+        rel = (gk - gx).norm().item() / norm
+        worst = max(worst, (rel, name))
+        report.append(f"{name} {rel:.1e}")
+    rel_l = abs(l_k - l_x) / abs(l_x)
+    rel_m = abs(m_k - m_x) / abs(m_x)
+    log(f"f32 K={CURRICULUM_K} curriculum step at B={GRAD_BATCH}, kernel "
+        f"against per-layer path: the same edge lists at all "
+        f"{len(gr_k)} rebuilds; loss {l_k:.6f} against {l_x:.6f} "
+        f"({rel_l:.2e}), mse {rel_m:.2e}; gradient difference over norm: "
+        + ", ".join(report) + f" (tolerance {TOL_CURRICULUM_GRAD}); "
+        f"launches {n_k}")
+    require(rel_l <= TOL_CURRICULUM_GRAD and rel_m <= TOL_CURRICULUM_GRAD,
+            f"f32 K={CURRICULUM_K} loss differs by {rel_l:.2e}, mse by "
+            f"{rel_m:.2e}")
+    require(worst[0] <= TOL_CURRICULUM_GRAD,
+            f"f32 K={CURRICULUM_K} gradient of {worst[1]} differs by "
+            f"{worst[0]:.2e} of its norm")
+
+
+def check_curriculum(ds, train_idx) -> dict:
+    """Phase 11b: TRAIN_STEPS K = 4 curriculum steps in bf16 (delta loss,
+    the clip) through train_epoch, with full backpropagation and with
+    grad_steps=1, on the kernel path (the main path) and the per-layer
+    path from the same state and batches, held as the teacher-forced run
+    is held. Returns the kernel path's launch counts."""
+    from molecular_dynamics_neural_operator_tpu_torch.ops.cuda import (
+        train_conv as tc,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.train import (
+        create_train_state,
+    )
+
+    (cfg_k, tcfg), (cfg_x, _) = training_cfgs(), training_cfgs("xla")
+    indices = train_idx[:TRAIN_STEPS * TRAIN_BATCH]
+    state0, tx, _ = create_train_state(
+        tcfg.seed, cfg_k, tcfg, steps_per_epoch=TRAIN_STEPS)
+    total = {"train_conv_fwd": 0, "train_conv_bwd": 0}
+    for grad_steps, backward in ((None, CURRICULUM_K), (1, 1)):
+        tag = (f"K={CURRICULUM_K} "
+               + ("full BPTT" if grad_steps is None else "grad_steps=1"))
+        tc.reset_launch_counts()
+        kernel = run_train_steps(state0, curriculum_step(cfg_k, tx,
+                                                         grad_steps),
+                                 tcfg, ds, indices, CURRICULUM_K)
+        counts = tc.launch_counts()
+        plain = run_train_steps(state0, curriculum_step(cfg_x, tx,
+                                                        grad_steps),
+                                tcfg, ds, indices, CURRICULUM_K)
+        for name, (state, m) in (("kernel", kernel), ("per-layer", plain)):
+            require(all(np.isfinite(m[k]) for k in ("rel_l2", "mse"))
+                    and state.step == TRAIN_STEPS,
+                    f"{tag} on the {name} path: {m}, step {state.step}")
+        want = {"train_conv_fwd": CURRICULUM_K * TRAIN_STEPS,
+                "train_conv_bwd": backward * TRAIN_STEPS}
+        require(counts == want, f"{tag}: launches {counts}, expected {want} "
+                f"({CURRICULUM_K} forward and {backward} backward a step)")
+        worst, worst_name, moved, max_abs = compare_training_runs(
+            state0, kernel, plain, tag)
+        log(f"curriculum run, {tag}, {TRAIN_STEPS} steps at B={TRAIN_BATCH} "
+            f"bf16: kernel path {kernel[1]}; per-layer path {plain[1]}; "
+            f"launches {counts}; a leaf's movement differs by at most "
+            f"{worst:.3e} of its norm (at {worst_name}; tolerance "
+            f"{TOL_TRAIN_MOVE}); largest single difference {max_abs:.3e} "
+            f"where parameters moved by up to {moved:.3e}")
+        for name in total:
+            total[name] += counts[name]
+    return total
+
+
+def check_curriculum_recipe() -> dict:
+    """Phase 11c: ``train_curriculum_recipe`` for RECIPE_STEPS steps, a
+    teacher-forced warm-up of RECIPE_WARMUP then K = 4 with grad_steps=1,
+    ``graph_frame="rebuild"``, gradient clip and non-finite skip, on a
+    Langevin trajectory: finite logged losses, the switch to K after
+    RECIPE_WARMUP steps, and the launches of each step changing with it.
+    Returns the launch counts."""
+    import contextlib
+    import io
+
+    from molecular_dynamics_neural_operator_tpu_torch.data import (
+        WindowDataset,
+        langevin_trajectory,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.ops.cuda import (
+        train_conv as tc,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.train import (
+        recipe,
+        train_curriculum_recipe,
+        train_valid_split,
+    )
+
+    cfg, tcfg = training_cfgs()
+    tcfg = dataclasses.replace(tcfg, grad_clip_norm=1.0,
+                               skip_nonfinite_updates=True)
+    traj = langevin_trajectory(num_frames=400, num_residues=28, seed=13)
+    ds = WindowDataset(traj, window_size=cfg.window_size,
+                       graph_mode="sparse", max_edges=cfg.max_edges)
+    train_idx, _ = train_valid_split(len(ds))
+
+    per_step, make = [], recipe.make_curriculum_train_step
+
+    def counted(cfg_x, tx, rollout_steps, **kw):
+        step = make(cfg_x, tx, rollout_steps=rollout_steps, **kw)
+
+        def run(state, batch):
+            before = tc.launch_counts()
+            out = step(state, batch)
+            after = tc.launch_counts()
+            per_step.append((rollout_steps, tuple(after[n] - before[n]
+                                                  for n in after)))
+            return out
+        return run
+
+    recipe.make_curriculum_train_step = counted
+    out = io.StringIO()
+    tc.reset_launch_counts()
+    try:
+        with contextlib.redirect_stdout(out):
+            state, seconds, loss = train_curriculum_recipe(
+                cfg, tcfg, ds, train_idx, steps=RECIPE_STEPS,
+                k=CURRICULUM_K, min_warmup=RECIPE_WARMUP, log_every=2,
+                graph_frame="rebuild", seed=tcfg.seed)
+    finally:
+        recipe.make_curriculum_train_step = make
+    counts = tc.launch_counts()
+    logged = [line for line in out.getvalue().splitlines() if "step " in line]
+    for line in logged:
+        log(f"recipe: {line}")
+    losses = [float(line.split("loss ")[1].split()[0]) for line in logged]
+    ks = [k for k, _ in per_step]
+    log(f"recipe on langevin_trajectory(400, 28, seed=13): {RECIPE_STEPS} "
+        f"steps in {seconds:.1f} s, final loss {loss}; K and (forward, "
+        f"backward) launches of each step: {per_step}")
+    require(len(losses) == RECIPE_STEPS // 2
+            and all(np.isfinite(x) for x in losses) and np.isfinite(loss),
+            f"recipe losses {losses}, final {loss}")
+    want_k = [1] * RECIPE_WARMUP + [CURRICULUM_K] * (RECIPE_STEPS
+                                                     - RECIPE_WARMUP)
+    require(ks == want_k and state.step == RECIPE_STEPS,
+            f"recipe ran K {ks}, expected {want_k}")
+    want = ([(1, (1, 1))] * RECIPE_WARMUP
+            + [(CURRICULUM_K, (CURRICULUM_K, 1))] * (RECIPE_STEPS
+                                                      - RECIPE_WARMUP))
+    require(per_step == want, f"recipe launches {per_step}, expected {want}")
+    return counts
+
+
+def time_curriculum(ds, train_idx, teacher_ms: float,
+                    teacher_busy: float) -> None:
+    """Phase 12: wall time, samples/s, device time and busy share of one
+    K = 4 curriculum step on the kernel path, full BPTT and grad_steps=1,
+    beside the teacher-forced step of this run; then the cost of the
+    optimizer's per-step host read (``skip_nonfinite_updates``) on the
+    grad_steps=1 step, off and on in turns."""
+    from molecular_dynamics_neural_operator_tpu_torch.data.prefetch import (
+        to_device,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.train import (
+        create_train_state,
+    )
+
+    cfg, tcfg = training_cfgs()
+    batch = to_device(ds.get_batch(train_idx[:TRAIN_BATCH],
+                                   rollout_horizon=CURRICULUM_K), "cuda")
+
+    def fresh(grad_steps, skip=False):
+        tcfg_i = dataclasses.replace(tcfg, skip_nonfinite_updates=skip)
+        state, tx, _ = create_train_state(0, cfg, tcfg_i)
+        return curriculum_step(cfg, tx, grad_steps), state
+
+    log(f"teacher-forced step of this run: {teacher_ms:.2f} ms wall, "
+        f"{teacher_busy:.2f} ms device, "
+        f"{TRAIN_BATCH / teacher_ms * 1e3:,.0f} samples/s")
+    for grad_steps in (None, 1):
+        tag = (f"K={CURRICULUM_K} curriculum step ("
+               + ("full BPTT" if grad_steps is None else "grad_steps=1")
+               + ", kernel path)")
+        torch.cuda.reset_peak_memory_stats()
+        step, state = fresh(grad_steps)
+        wall = wall_ms(step, state, batch)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        busy = profile_step(*fresh(grad_steps), batch, wall, tag)
+        log(f"{tag} at B={TRAIN_BATCH} bf16: {wall:.2f} ms wall = "
+            f"{TRAIN_BATCH / wall * 1e3:,.0f} samples/s, {busy:.2f} ms device "
+            f"= {busy / teacher_busy:.2f} x the teacher-forced step's, busy "
+            f"share {busy / wall:.2f}, peak memory {peak_gb:.2f} GB")
+    times = {False: [], True: []}
+    for skip in (False, True, True, False, False, True):
+        times[skip].append(wall_ms(*fresh(1, skip), batch, n=20))
+    off, on = np.median(times[False]), np.median(times[True])
+    log(f"skip_nonfinite_updates on the grad_steps=1 step (one host read "
+        f"of the gradients' finiteness a step), 20 steps each, in turns "
+        f"off, on, on, off, off, on: off {times[False]} ms, on "
+        f"{times[True]} ms; medians {off:.2f} and {on:.2f} ms, "
+        f"{on - off:+.2f} ms a step")
 
 
 # ---- phases 8-10: the serving path --------------------------------------
@@ -2031,10 +2378,18 @@ def main() -> int:
         for name, n in counts.items():
             require(n > 0, f"kernel {name} was not launched on the "
                     "training path")
+        check_curriculum_grads(ds, train_idx)
+        for path in (check_curriculum(ds, train_idx),
+                     check_curriculum_recipe()):
+            for name, n in path.items():
+                require(n > 0, f"kernel {name} was not launched on the "
+                        "curriculum path")
+                counts[name] += n
         train_kernels, step_ms = time_training(params, ds, train_idx, counts,
                                                errs)
         kernels += train_kernels
-        profile_train_step(batch, step_ms)
+        busy = profile_train_step(batch, step_ms)
+        time_curriculum(ds, train_idx, step_ms, busy)
     kernels += serve_kernels
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -67,9 +67,14 @@ class ModelConfig:
 
 @dataclass(frozen=True)
 class TrainConfig:
-    """Training-loop parameters. The fields the port does not act on yet
-    (the curriculum, checkpoint cadence, movies, plots, wandb) are kept so
-    that a configuration file reads into both packages."""
+    """Training-loop parameters. The curriculum's own settings (K, its
+    grad_steps, graph frame and clip) are arguments of
+    ``train/curriculum.py::make_curriculum_train_step`` and
+    ``train/recipe.py::train_curriculum_recipe``, as in the JAX package;
+    the fields the port does not act on yet (``rollout_steps``,
+    ``rollout_loss_weight`` and ``loss_space``, which the JAX package's
+    training CLI reads, checkpoint cadence, movies, plots, wandb) are kept
+    so that a configuration file reads into both packages."""
 
     seed: int = 0
     epochs: int = 200

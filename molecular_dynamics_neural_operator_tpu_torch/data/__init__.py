@@ -2,6 +2,7 @@ from molecular_dynamics_neural_operator_tpu_torch.data.h5 import (
     TrajectoryData,
 )
 from molecular_dynamics_neural_operator_tpu_torch.data.synthetic import (
+    langevin_trajectory,
     synthetic_trajectory,
 )
 from molecular_dynamics_neural_operator_tpu_torch.data.windows import (
@@ -10,4 +11,4 @@ from molecular_dynamics_neural_operator_tpu_torch.data.windows import (
 )
 
 __all__ = ["TrajectoryData", "WindowDataset", "batch_iterator",
-           "synthetic_trajectory"]
+           "langevin_trajectory", "synthetic_trajectory"]

@@ -6,6 +6,10 @@ random-number consumption and arithmetic, so a seed gives bit-identical
 positions, amino acids, stored contact edges and rmsd in both packages.
 The rollout's start window and the training data come from
 ``synthetic_trajectory(num_frames=4000, seed=13)``.
+
+``langevin_trajectory`` is the second family: Langevin dynamics on a
+double-well elastic network, with real per-frame motion that neither
+copy-last nor constant-velocity extrapolation forecasts.
 """
 
 from __future__ import annotations
@@ -78,6 +82,86 @@ def synthetic_trajectory(
     base, modes, freqs, phases, aa = _chain_params(num_residues, seed)
     positions = _positions_at(base, modes, freqs, phases,
                               _time_grid(num_frames, dt))
+    flat, _ = _contact_edges(positions, threshold)
+    rmsd = (np.linalg.norm(positions - positions[0], axis=(1, 2))
+            / np.sqrt(num_residues)).astype(np.float32)
+    return TrajectoryData(
+        positions=positions,
+        edge_indices=[e.reshape(2, -1) for e in flat],
+        aminoacids=aa,
+        rmsd=rmsd,
+    )
+
+
+def langevin_trajectory(
+    num_frames: int = 256,
+    num_residues: int = 28,
+    threshold: float = 8.0,
+    seed: int = 0,
+    dt: float = 0.05,
+    friction: float = 0.5,
+    kT: float = 0.15,
+    eps_well: float = 2.0,
+    well_width: float = 1.0,
+    k_backbone: float = 5.0,
+    k_center: float = 0.02,
+    network_cutoff: float = 10.0,
+    burn_in: int = 1000,
+) -> TrajectoryData:
+    """Langevin dynamics (BAOAB, mass 1) on an elastic network of the
+    ``synthetic_trajectory`` fold: pairs closer than ``network_cutoff`` in
+    the base fold interact through the double well
+    ``V(r) = eps ((r - r0)^2 - w^2)^2 / w^4``, backbone bonds through stiff
+    springs, and a weak tether ``k_center`` holds the chain near its fold.
+    ``burn_in`` integrator steps equilibrate before the ``num_frames``
+    recorded ones (one step a frame). The same draws and arithmetic as the
+    JAX package's generator, so a seed gives the same bits in both."""
+    rng = np.random.default_rng(seed)
+    base, _, _, _, aa = _chain_params(num_residues, seed)
+    base = base.astype(np.float64)
+
+    d2 = np.sum((base[:, None] - base[None, :]) ** 2, axis=-1)
+    iu, ju = np.triu_indices(num_residues, k=1)
+    in_net = d2[iu, ju] < network_cutoff ** 2
+    is_bb = (ju - iu) == 1
+    keep = in_net | is_bb
+    ei, ej = iu[keep], ju[keep]
+    bb = is_bb[keep]
+    r0 = np.sqrt(d2[ei, ej])
+    inv_w4 = 1.0 / well_width ** 4
+
+    def forces(x):
+        dvec = x[ei] - x[ej]
+        r = np.linalg.norm(dvec, axis=1)
+        u = r - r0
+        dv = np.where(
+            bb, k_backbone * u,
+            4.0 * eps_well * u * (u * u - well_width ** 2) * inv_w4,
+        )
+        fpair = (dv / np.maximum(r, 1e-9))[:, None] * dvec
+        f = np.zeros_like(x)
+        np.add.at(f, ei, -fpair)
+        np.add.at(f, ej, fpair)
+        return f - k_center * (x - base)
+
+    x = base + rng.normal(scale=0.5 * well_width, size=base.shape)
+    v = rng.normal(scale=np.sqrt(kT), size=base.shape)
+    c1 = np.exp(-friction * dt)
+    c2 = np.sqrt(kT * (1.0 - c1 * c1))
+    half = 0.5 * dt
+
+    positions = np.empty((num_frames, num_residues, 3), np.float32)
+    f = forces(x)
+    for step in range(burn_in + num_frames):
+        v = v + half * f
+        x = x + half * v
+        v = c1 * v + c2 * rng.normal(size=v.shape)
+        x = x + half * v
+        f = forces(x)
+        v = v + half * f
+        if step >= burn_in:
+            positions[step - burn_in] = x.astype(np.float32)
+
     flat, _ = _contact_edges(positions, threshold)
     rmsd = (np.linalg.norm(positions - positions[0], axis=(1, 2))
             / np.sqrt(num_residues)).astype(np.float32)

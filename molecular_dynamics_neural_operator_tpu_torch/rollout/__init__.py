@@ -1,7 +1,17 @@
+from molecular_dynamics_neural_operator_tpu_torch.rollout.baseline import (
+    copy_last_baseline,
+    damped_extrapolation_baseline,
+    linear_extrapolation_baseline,
+)
 from molecular_dynamics_neural_operator_tpu_torch.rollout.scan import (
     make_rollout_fn,
+    rollout_python_loop,
     rollout_scan,
     rollout_scan_chunked,
+    rollout_with_mse,
 )
 
-__all__ = ["make_rollout_fn", "rollout_scan", "rollout_scan_chunked"]
+__all__ = ["copy_last_baseline", "damped_extrapolation_baseline",
+           "linear_extrapolation_baseline", "make_rollout_fn",
+           "rollout_python_loop", "rollout_scan", "rollout_scan_chunked",
+           "rollout_with_mse"]

@@ -6,10 +6,15 @@ the window. The JAX ``lax.scan`` becomes a Python loop over plain tensor
 ops; the edge-overflow flag stays a device tensor, so the loop never waits
 on the card. This is the plain counterpart of the CUDA rollout
 (``ops/cuda/persistent_rollout.py``) and its oracle on the card.
+
+``rollout_with_mse`` tracks each step's coordinate MSE against a true
+continuation; ``rollout_python_loop`` reads every step back to the host,
+the reference's loop shape, as an oracle and a baseline, not a fast path.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from molecular_dynamics_neural_operator_tpu_torch.configs import ModelConfig
@@ -150,3 +155,35 @@ def make_rollout_fn(cfg: ModelConfig, num_steps: int, threshold: float = 8.0,
                             graph_frame, collect, clip)
 
     return fn
+
+
+def rollout_with_mse(params, cfg: ModelConfig, aa, window0, truth,
+                     threshold: float = 8.0, graph_frame: str = "last",
+                     clip: float | None = None):
+    """Roll ``truth.shape[0]`` steps from window0 (T, R, 3) and score each
+    against truth (num_steps, R, 3): (coords (num_steps, R, 3), per-step
+    MSE (num_steps,), final window), all on the window's device."""
+    window, coords, mses = window0, [], []
+    for y_true in truth:
+        window, out, _ = _step(params, cfg, aa, window, threshold,
+                               graph_frame, clip)
+        coords.append(out)
+        mses.append(torch.mean((out - y_true) ** 2))
+    if not coords:
+        return truth[:0].clone(), truth.new_zeros((0,)), window
+    return torch.stack(coords), torch.stack(mses), window
+
+
+def rollout_python_loop(params, cfg: ModelConfig, aa, window0,
+                        num_steps: int, threshold: float = 8.0,
+                        graph_frame: str = "last"):
+    """The reference's host loop: one step, then its prediction read back
+    to the host, ``num_steps`` times. Returns (numpy (num_steps, R, 3),
+    final window tensor). The test oracle for ``rollout_scan``; it waits
+    on the device every step."""
+    window, outs = window0, []
+    for _ in range(num_steps):
+        window, out, _ = _step(params, cfg, aa, window, threshold,
+                               graph_frame)
+        outs.append(out.cpu().numpy())
+    return np.stack(outs), window

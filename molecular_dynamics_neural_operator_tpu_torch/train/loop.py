@@ -71,15 +71,30 @@ def _loss_fn(params, cfg: ModelConfig, gbatch: GKNBatch):
     return l2, (mse(out, gbatch.y), out)
 
 
+def _detach(aux):
+    if isinstance(aux, torch.Tensor):
+        return aux.detach()
+    return tuple(_detach(a) for a in aux)
+
+
+def value_and_grad(loss_fn, params, *args):
+    """``jax.value_and_grad(loss_fn, has_aux=True)`` for a tree of tensors:
+    ((loss, aux), grads) with loss_fn(params, *args) -> (scalar loss, aux),
+    aux a tensor or nested tuples of them. Loss and aux come back detached;
+    grads is a tree like params, zeros where the loss does not reach a
+    leaf."""
+    leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    loss, aux = loss_fn(leaves, *args)
+    loss.backward()
+    grads = tree_map(lambda p: p.grad if p.grad is not None
+                     else torch.zeros_like(p), leaves)
+    return (loss.detach(), _detach(aux)), grads
+
+
 def loss_and_grads(params, cfg: ModelConfig, gbatch: GKNBatch):
     """((l2, (mse, out)), grads) of ``_loss_fn`` at ``params``; grads is a
     tree like params."""
-    leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
-    l2, (m, out) = _loss_fn(leaves, cfg, gbatch)
-    l2.backward()
-    grads = tree_map(lambda p: p.grad if p.grad is not None
-                     else torch.zeros_like(p), leaves)
-    return (l2.detach(), (m.detach(), out.detach())), grads
+    return value_and_grad(_loss_fn, params, cfg, gbatch)
 
 
 def make_train_step(cfg: ModelConfig, tx, graph_frame: str = "first",

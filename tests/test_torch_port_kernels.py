@@ -36,7 +36,10 @@ from molecular_dynamics_neural_operator_tpu_torch.ops.edge_conv import (
 from molecular_dynamics_neural_operator_tpu_torch.rollout import (
     make_rollout_fn,
 )
-from molecular_dynamics_neural_operator_tpu_torch.train import loop
+from molecular_dynamics_neural_operator_tpu_torch.train import (
+    curriculum,
+    loop,
+)
 from molecular_dynamics_neural_operator_tpu_torch.train.optim import (
     tree_leaves,
     tree_map,
@@ -770,3 +773,57 @@ def test_a_width_past_the_training_kernels_raises_before_any_launch(cuda):
     with pytest.raises(ValueError, match="multiple of 8 and at most 128"):
         loop.loss_and_grads(params, cfg, tb)
     assert tc.launch_counts() == {"train_conv_fwd": 0, "train_conv_bwd": 0}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("grad_steps,backward", [(None, 2), (1, 1)],
+                         ids=["full-bptt", "grad_steps-1"])
+def test_a_curriculum_step_runs_the_training_kernels_on_the_card(
+        cuda, grad_steps, backward, monkeypatch):
+    """A K = 2 curriculum loss on the kernel path in f32: two forward
+    launches and one backward launch per supervised step, the same rebuilt
+    edge lists as the CPU run of the same inputs (the kernel's plain
+    version), and the loss, MSE and every gradient within the training
+    tolerance of the CPU tests, rtol 2e-4 / atol 1e-5."""
+    cfg = ModelConfig(**{**SMALL, "train_conv_impl": "pallas",
+                         "compute_dtype": "float32"})
+    traj = synthetic_trajectory(num_frames=32, num_residues=12, seed=4)
+    ds = WindowDataset(traj, window_size=4, graph_mode="sparse",
+                       max_edges=128)
+    batch = ds.get_batch(np.arange(5), rollout_horizon=2)
+    params = gkn_init(cfg, seed=0, device="cpu")
+    graphs, build = [], curriculum._build_graph
+
+    def recording(cfg_x, frame, threshold):
+        graph, ov = build(cfg_x, frame, threshold)
+        graphs.append(graph.edges.cpu())
+        return graph, ov
+
+    monkeypatch.setattr(curriculum, "_build_graph", recording)
+    res = {}
+    for dev in ("cpu", cuda):
+        tb = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        graphs.clear()
+        tc.reset_launch_counts()
+        (loss, (m, ov)), grads = loop.value_and_grad(
+            lambda p: curriculum.curriculum_loss_batched(
+                p, cfg, loop.featurize_batch(cfg, tb), tb["y_seq"],
+                coord_clip=1000.0, loss_space="delta", return_overflow=True,
+                grad_steps=grad_steps),
+            tree_map(lambda t: t.to(dev), params))
+        torch.cuda.synchronize()
+        on_card = dev != "cpu"
+        assert tc.launch_counts() == {
+            "train_conv_fwd": 2 * on_card,
+            "train_conv_bwd": backward * on_card}
+        res[str(dev)] = (float(loss), float(m), bool(ov), list(graphs),
+                         [g.cpu() for g in tree_leaves(grads)])
+    (l_c, m_c, ov_c, gr_c, g_c), (l_g, m_g, ov_g, gr_g, g_g) = (
+        res["cpu"], res["cuda"])
+    assert len(gr_c) == len(gr_g) == 1 and torch.equal(gr_c[0], gr_g[0])
+    assert ov_c == ov_g
+    assert abs(l_g - l_c) <= 2e-4 * abs(l_c)
+    assert abs(m_g - m_c) <= 2e-4 * abs(m_c)
+    assert len(g_c) == len(g_g) == 21
+    for got, want in zip(g_g, g_c):
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=1e-5)
