@@ -17,7 +17,10 @@ from ``synthetic_trajectory(num_frames=4000, seed=13)``):
 - serving: concurrent requests through ``RolloutServer`` in process, on
   the rollout kernels (``impl="persistent"``, also with
   ``electrostatics="dh"``) and on the plain scan with the fused kernel
-  (``impl="scan"``, ``conv_impl="pallas"``).
+  (``impl="scan"``, ``conv_impl="pallas"``);
+- the CLIs: ``cli/train.py``'s ``train_from_trajectory`` and
+  ``cli/rollout.py``'s ``rollout_from_trajectory`` with the trajectory
+  held in memory (the card's machine has no h5py to read ``--data_path``).
 
 Phases, each fatal:
 
@@ -89,12 +92,30 @@ Phases, each fatal:
    steps beside the teacher-forced step, and the cost of the optimizer's
    per-step host read (``skip_nonfinite_updates``). Phases 11 and 12 run
    with the training path, after phase 7.
+13. cli.train: ``train_from_trajectory`` at the flagship's width (bf16,
+   B = 128, 256 edge slots, ``--predict_delta --kernel_init_scale 0.1
+   --lr 3e-5``) into a temporary run directory: a teacher-forced epoch, a
+   ``--rollout_steps 4 --loss_space delta`` epoch, an epoch resumed from
+   the first run's ``last.npz``, and the first epoch again with
+   ``--train_conv_impl xla``. Finite losses; each run's launches exactly
+   as its steps, eval and latent batches imply; the kernel run's mean
+   epoch loss within TOL_TRAIN_LOSS of the per-layer run's; the resumed
+   step and Adam count carry on; ``config.json`` reads back to the run's
+   configs; ``best.npz``/``last.npz`` restore; the movie maps and latents
+   are written. Prints samples/s and steps/s of each epoch.
+14. cli.rollout: ``rollout_from_trajectory`` of ``tools/bench_ckpt.npz``
+   for 128 steps with ``--impl persistent`` against ``--impl scan``, f32
+   and bf16 at one stream and bf16 at four: exact launch counts, the same
+   edge lists, coordinates within TOL_ROLL; then 16 steps of phase 13's
+   ``best.npz``. Prints the summaries' steps/s. Phases 13 and 14 run
+   last; their launches are added to the ``kernels`` line.
 
 The last lines are the ``kernels`` JSON (seven kernels), the card, and
 ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA card.
-``--only rollout``, ``--only train`` or ``--only serve`` runs one path's
-phases (for development; the ``kernels`` line then lists that path's
-kernels). Imports nothing of JAX.
+``--only rollout``, ``--only train``, ``--only serve`` or ``--only cli``
+runs one path's phases (for development; the ``kernels`` line then lists
+that path's kernels, none for ``cli``, which times no kernel). Imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -2242,6 +2263,310 @@ def serve_phases(traj) -> list:
 
 
 
+# ---- phases 13-14: the training and rollout CLIs -------------------------
+
+CLI_DATA = "memory:synthetic_trajectory(num_frames=4000,seed=13)"
+# the flagship's training flags at full width; the in-memory trajectory
+# stands in for --data_path (the card's machine has no h5py)
+CLI_TRAIN = ["--data_path", CLI_DATA, "--graph_mode", "sparse",
+             "--max_edges", "256", "--predict_delta",
+             "--kernel_init_scale", "0.1", "--lr", str(TRAIN_LR),
+             "--batch_size", str(TRAIN_BATCH), "--epochs", "1"]
+CLI_K = 4
+CLI_ROLL_STEPS = 128
+CLI_TRAINED_STEPS = 16
+
+
+def cli_train_run(traj, run_dir, extra, k: int = 0):
+    """One ``train_from_trajectory`` call with the launch counts set to 0
+    just before it and read just after; the new epoch's metrics row
+    printed and checked: finite losses, and the launches the epoch implies
+    (on the kernel path K forwards and K backwards a train step, K = 1
+    teacher-forced, and one forward per eval batch and per latent batch of
+    256 frames; none on the per-layer path). Returns (args, state, metrics
+    row, launches)."""
+    from molecular_dynamics_neural_operator_tpu_torch.cli import (
+        train as cli_train,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.ops.cuda import (
+        train_conv as tc,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.train import (
+        train_valid_split,
+    )
+
+    args = cli_train.parse_args(CLI_TRAIN + ["--run_path", str(run_dir)]
+                                + extra)
+    tr_idx, va_idx = train_valid_split(len(traj.positions) - 10)
+    if k:
+        tr_idx = tr_idx[tr_idx <= len(traj.positions) - 10 - k]
+    steps = len(tr_idx) // TRAIN_BATCH
+    kernel = "xla" not in extra
+    evals = -(-len(va_idx) // TRAIN_BATCH) + -(-len(va_idx) // 256)
+    want = {"train_conv_fwd": (steps * max(k, 1) + evals) * kernel,
+            "train_conv_bwd": steps * max(k, 1) * kernel}
+    tc.reset_launch_counts()
+    state = cli_train.train_from_trajectory(args, traj)
+    torch.cuda.synchronize()
+    counts = tc.launch_counts()
+    row = json.loads((run_dir / "metrics.jsonl").read_text()
+                     .splitlines()[-1])
+    tag = f"cli.train {' '.join(extra) or '(teacher-forced)'}"
+    log(f"{tag}: epoch {row['epoch']}, train rel_l2 "
+        f"{row['avg_train_loss']:.6g}, valid {row['avg_valid_loss']:.6g}; "
+        f"{steps} steps at B={TRAIN_BATCH}: train_epoch "
+        f"{row['examples_per_sec']:,.0f} samples/s, "
+        f"{row['steps_per_sec']:.2f} steps/s; the whole epoch "
+        f"{row['seconds']:.2f} s = "
+        f"{steps * TRAIN_BATCH / row['seconds']:,.0f} samples/s with eval, "
+        f"movie, latents and checkpoints; launches {counts}")
+    require(all(np.isfinite(row[key]) for key in ("avg_train_loss",
+                                                  "avg_valid_loss")),
+            f"{tag}: non-finite loss {row}")
+    require(counts == want, f"{tag}: launches {counts}, expected {want} "
+            f"({steps} train steps of K={max(k, 1)}, {evals} eval and "
+            "latent batches)")
+    return args, state, row, counts
+
+
+def cli_epoch_breakdown(args, traj, state, out) -> None:
+    """Wall time of each part of a CLI epoch after its train steps, run
+    again on the final state as ``train_from_trajectory`` runs them: the
+    eval pass, the movie, the latent sweep with its plots, and the two
+    checkpoint writes."""
+    from molecular_dynamics_neural_operator_tpu_torch.cli import (
+        train as cli_train,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.data import (
+        WindowDataset,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.train import (
+        eval_epoch,
+        make_eval_step,
+        train_valid_split,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.utils import (
+        BestCheckpointer,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.utils.latent import (
+        collect_latents,
+        log_latent_visualization,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.utils.movie import (
+        make_propagation_movie,
+        select_starting_points,
+    )
+
+    model, _, train = cli_train.build_configs(args)
+    ds = WindowDataset(traj, window_size=model.window_size,
+                       graph_mode="sparse", max_edges=model.max_edges)
+    _, va_idx = train_valid_split(len(ds))
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def latents():
+        lat = collect_latents(state.params, model, ds, int(va_idx[0]),
+                              len(va_idx))
+        for method in ("PCA", "TSNE"):
+            log_latent_visualization(lat, {"RMSD": traj.rmsd}, out, 0,
+                                     method)
+
+    starts = [int(va_idx[0] + s)
+              for s in select_starting_points(len(va_idx), model.window_size)]
+    parts = {
+        "eval": timed(lambda: eval_epoch(state.params, make_eval_step(model),
+                                         ds, va_idx, train.batch_size)),
+        "movie": timed(lambda: make_propagation_movie(
+            state.params, model, ds, out, 0, starts,
+            num_steps=train.num_movie_frames)),
+        "latents": timed(latents),
+        "checkpoints": timed(lambda: BestCheckpointer(out).update(
+            0, 1.0, state)),
+    }
+    log("cli.train epoch loop after the train steps, wall s: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
+        + f"; {sum(parts.values()):.3f} in all")
+
+
+def cli_train_phase(traj, root) -> dict:
+    """Phase 13: ``cli.train``'s ``train_from_trajectory`` on the card at
+    the flagship's width: a teacher-forced epoch, a K = 4 curriculum epoch
+    (delta loss), an epoch resumed from the first run's last.npz, and the
+    first epoch again on the per-layer path. Returns the launches."""
+    from molecular_dynamics_neural_operator_tpu_torch import configs
+    from molecular_dynamics_neural_operator_tpu_torch.cli import (
+        train as cli_train,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.models import gkn_init
+    from molecular_dynamics_neural_operator_tpu_torch.utils.checkpoint import (
+        restore_subtree,
+    )
+
+    total = {}
+
+    def add(c):
+        for name, v in c.items():
+            total[name] = total.get(name, 0) + v
+
+    teacher = root / "teacher"
+    args, state, row, c = cli_train_run(traj, teacher, [])
+    add(c)
+    model, data, train = cli_train.build_configs(args)
+    require(model.train_conv_impl == "pallas",
+            f"--train_conv_impl auto chose {model.train_conv_impl} on the card")
+    got = configs.experiment_from_json((teacher / "config.json").read_text())
+    require(got == configs.ExperimentConfig(model=model, data=data,
+                                            train=train),
+            "config.json does not read back to the run's configs")
+    for name in ("best.npz", "last.npz"):
+        params, meta = restore_subtree(teacher / name,
+                                       gkn_init(model, device="cuda"),
+                                       ".params", device="cuda")
+        for (leaf, a), (_, b) in zip(tree_items(params),
+                                     tree_items(state.params)):
+            require(torch.equal(a, b), f"{name}: {leaf} differs from the "
+                    "run's final parameters")
+        require(meta["epoch"] == 0, f"{name}: metadata {meta}")
+    maps = list(teacher.glob("epoch0_*"))
+    latents = np.load(teacher / "latent_space_epoch0.npy")
+    require(bool(maps) and np.isfinite(latents).all(),
+            f"movie {maps} or latents not written")
+    log(f"cli.train wrote {sorted(p.name for p in teacher.iterdir())}; "
+        f"latents {latents.shape}")
+    first_step = state.step
+
+    curriculum = root / "curriculum"
+    _, cstate, crow, c = cli_train_run(
+        traj, curriculum, ["--rollout_steps", str(CLI_K), "--loss_space",
+                           "delta"], k=CLI_K)
+    add(c)
+    require(cstate.opt_state.chain.clip and
+            cstate.opt_state.chain.skip_nonfinite,
+            f"curriculum chain {cstate.opt_state.chain}")
+
+    _, rstate, rrow, c = cli_train_run(
+        traj, teacher, ["--resume", str(teacher / "last.npz"), "--epochs",
+                        "2"])
+    add(c)
+    require(rrow["epoch"] == 1, f"resumed at epoch {rrow['epoch']}")
+    cli_epoch_breakdown(args, traj, rstate, root / "breakdown")
+    require(rstate.step == 2 * first_step
+            and rstate.opt_state.count == 2 * first_step,
+            f"resume: step {rstate.step}, Adam count "
+            f"{rstate.opt_state.count}, from {first_step} in last.npz")
+
+    _, _, xrow, _ = cli_train_run(traj, root / "xla",
+                                  ["--train_conv_impl", "xla"])
+    rel = abs(row["avg_train_loss"] - xrow["avg_train_loss"]) / abs(
+        xrow["avg_train_loss"])
+    log(f"cli.train epoch 0, kernel path against per-layer path: mean "
+        f"rel_l2 {row['avg_train_loss']:.6g} and {xrow['avg_train_loss']:.6g}"
+        f", {rel:.2e} relative (limit {TOL_TRAIN_LOSS}); samples/s "
+        f"{row['examples_per_sec']:,.0f} and {xrow['examples_per_sec']:,.0f}")
+    require(rel <= TOL_TRAIN_LOSS, f"cli.train: kernel and per-layer epoch "
+            f"losses differ by {rel:.2e}")
+    return total
+
+
+def cli_roll_run(traj, out_dir, extra):
+    """One ``rollout_from_trajectory`` call with the rollout kernels'
+    counts set to 0 just before it and read just after: (summary,
+    coords, launches)."""
+    from molecular_dynamics_neural_operator_tpu_torch.cli import (
+        rollout as cli_rollout,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.ops.cuda import (
+        persistent_rollout as pr,
+    )
+
+    args = cli_rollout.parse_args(
+        ["--data_path", CLI_DATA, "--out_path", str(out_dir), "--graph_mode",
+         "sparse", "--predict_delta"] + extra)
+    pr.reset_launch_counts()
+    summary = cli_rollout.rollout_from_trajectory(args, traj)
+    torch.cuda.synchronize()
+    counts = pr.launch_counts()
+    coords = torch.as_tensor(np.load(out_dir / "forecast_coords.npy"),
+                             device="cuda")
+    require(summary["finite"], f"cli.rollout {extra}: not finite")
+    return summary, coords, counts
+
+
+def cli_rollout_phase(traj, root, trained) -> dict:
+    """Phase 14: ``cli.rollout``'s ``rollout_from_trajectory`` on the card:
+    the bench checkpoint for 128 steps on the kernels against the plain
+    rollout, f32 and bf16, one stream and four; then 16 steps of phase
+    13's best.npz. Returns the kernels' launches."""
+    bench = ["--checkpoint", str(CKPT), "--max_edges", "224", "--clip",
+             str(CLIP), "--num_steps", str(CLI_ROLL_STEPS)]
+    total = {}
+    t_len = bench_cfg("float32").window_size
+    for cd, streams in (("float32", 1), ("bfloat16", 1), ("bfloat16", 4)):
+        flags = bench + ["--compute_dtype", cd]
+        if streams > 1:
+            flags += ["--streams", str(streams), "--stream_stride", "1000"]
+        tag = f"cli.rollout {cd}, {streams} stream(s)"
+        ks, kc, counts = cli_roll_run(
+            traj, root / f"k_{cd}_{streams}", flags + ["--impl", "persistent"])
+        ps, pc, _ = cli_roll_run(traj, root / f"p_{cd}_{streams}",
+                                 flags + ["--impl", "scan"])
+        n = CLI_ROLL_STEPS
+        want = {"graph_encode": n, "edge_mlp": 3 * n, "conv_head": n}
+        require(counts == want, f"{tag}: launches {counts}, expected {want}")
+        for name, v in counts.items():
+            total[name] = total.get(name, 0) + v
+        kcs = kc.reshape(streams, n, *kc.shape[-2:])
+        pcs = pc.reshape(streams, n, *pc.shape[-2:])
+        for i in range(streams):
+            w0 = torch.as_tensor(traj.positions[i * 1000:i * 1000 + t_len],
+                                 device="cuda")
+            differing = same_edge_lists(w0, kcs[i], pcs[i])
+            require(differing == 0, f"{tag}: edge lists differ at "
+                    f"{differing} steps in stream {i}")
+        err = (kc - pc).abs().max().item()
+        rate = "agg_steps_per_s" if streams > 1 else "steps_per_s"
+        log(f"{tag}: kernels against the plain rollout over {n} steps, "
+            f"coords max abs err {err:.3e} A (limit {TOL_ROLL}); {rate} "
+            f"{ks[rate]:,.1f} on the kernels, {ps[rate]:,.1f} plain (one "
+            f"call each, the first call's set-up included); launches "
+            f"{counts}")
+        require(err <= TOL_ROLL, f"{tag}: error {err} A > {TOL_ROLL}")
+    out = root / "trained"
+    ts, tcoords, counts = cli_roll_run(
+        traj, out, ["--checkpoint", str(trained / "best.npz"),
+                    "--max_edges", "256", "--num_steps",
+                    str(CLI_TRAINED_STEPS), "--impl", "persistent"])
+    files = sorted(p.name for p in out.iterdir())
+    log(f"cli.rollout of phase 13's best.npz, {CLI_TRAINED_STEPS} steps on "
+        f"the kernels: {ts}; wrote {files}; launches {counts}")
+    require({"forecast_coords.npy", "per_step_mse.npy",
+             "rollout_summary.json"} <= set(files)
+            and tcoords.shape == (CLI_TRAINED_STEPS, 28, 3),
+            f"trained rollout wrote {files}, coords {tuple(tcoords.shape)}")
+    for name, v in counts.items():
+        total[name] = total.get(name, 0) + v
+    return total
+
+
+def cli_phases(traj) -> dict:
+    """Phases 13 and 14 in a temporary directory; returns every kernel's
+    launches on the CLI path."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+        root = Path(tmp)
+        counts = cli_train_phase(traj, root / "train")
+        counts.update(cli_rollout_phase(traj, root / "rollout",
+                                        root / "train" / "teacher"))
+    log(f"CLI path launches: {counts}")
+    return counts
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2317,7 +2642,8 @@ def rollout_phases(traj) -> list:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--only", choices=("rollout", "train", "serve"),
+    parser.add_argument("--only", choices=("rollout", "train", "serve",
+                                           "cli"),
                         help="run one path's phases (development)")
     args = parser.parse_args()
     only = args.only
@@ -2391,6 +2717,10 @@ def main() -> int:
         busy = profile_train_step(batch, step_ms)
         time_curriculum(ds, train_idx, step_ms, busy)
     kernels += serve_kernels
+    if only in (None, "cli"):
+        cli_counts = cli_phases(traj)
+        for rec in kernels:
+            rec["launches"] += cli_counts.get(rec["name"], 0)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,8 @@ A second package beside the JAX reference
 (``molecular_dynamics_neural_operator_tpu``), laid out like it so each
 counterpart is easy to find:
 
-- ``data``      synthetic trajectories, the sliding-window dataset, the
+- ``data``      HDF5 ingestion and writers (h5py imported inside),
+                synthetic trajectories, the sliding-window dataset, the
                 batch stream and host -> device staging.
 - ``geometry``  contact maps, padded edge lists and edge features.
 - ``ops``       linear/MLP, LSTM, edge-conditioned conv and the tied conv
@@ -22,11 +23,17 @@ counterpart is easy to find:
 - ``serving``   the continuous-batching rollout server: concurrent
                 requests share the stream axis of one segment after
                 another.
-- ``cli``       ``cli/serve.py``, the server behind a TCP socket.
-- ``utils``     checkpoints in the JAX package's flat npz format.
+- ``cli``       ``cli/train.py`` and ``cli/rollout.py``, flag for flag
+                the JAX package's, and ``cli/serve.py``, the server
+                behind a TCP socket.
+- ``utils``     checkpoints in the JAX package's flat npz format (whole
+                TrainStates included), metric logging, profiling, the
+                propagation movie, latent plots and backbone renders.
+- ``configs``, ``presets`` the JAX package's configurations and presets.
 
-The package imports torch and numpy only. Entry points run on ``cuda``
-unless the caller passes ``device="cpu"``.
+The package imports torch and numpy; h5py, matplotlib, imageio,
+scikit-learn and wandb only inside the functions that use them. Entry
+points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
 __version__ = "0.1.0"

@@ -1,16 +1,21 @@
 """Configuration dataclasses of the PyTorch port.
 
-The port's own copy of ``ModelConfig``, ``TrainConfig`` and ``RolloutConfig`` from the JAX
-package (``molecular_dynamics_neural_operator_tpu/configs.py``): the same
-fields, the same defaults, so one configuration describes one model in
-both packages. See the JAX package's file for the reasoning behind each
-field; the short notes here say what each one selects.
+The port's own copy of every configuration of the JAX package
+(``molecular_dynamics_neural_operator_tpu/configs.py``): the same
+dataclasses, fields and defaults, and the same ``to_json`` text, so a run
+directory's ``config.json`` reads into both packages
+(``experiment_from_json``). See the JAX package's file for the reasoning
+behind each field; the short notes here say what each one selects.
+``FNOConfig`` and ``MeshConfig`` are data only here: the FNO and the
+device mesh are not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
+import json
+from dataclasses import dataclass, field
+from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -66,15 +71,51 @@ class ModelConfig:
 
 
 @dataclass(frozen=True)
+class FNOConfig:
+    """FNO spectral-conv variant on distance-matrix trajectories (data
+    only in the port)."""
+
+    width: int = 32
+    modes1: int = 12
+    modes2: int = 12
+    depth: int = 4
+    in_channels: int = 10  # window of distance matrices as channels
+    out_channels: int = 1
+    num_residues: int = 28
+    compute_dtype: str = "float32"
+    spectral_impl: str = "auto"  # "dft" | "fft" | "auto"
+    predict_delta: bool = False
+    predict_prior: str = "last"  # "last" | "extrapolate"
+    prior_damping: float = 1.0
+    head_init: str = "default"  # "default" | "zero"
+    head_scale: float = 1.0
+
+
+@dataclass(frozen=True)
+class DataConfig:
+    """Trajectory dataset parameters."""
+
+    data_path: str = ""
+    node_features_path: Optional[str] = None
+    edge_index_dset_name: str = "contact_map"
+    edge_attr_dset_name: str = "point_cloud"
+    node_feature_dset_name: str = "amino_acids"
+    window_size: int = 10
+    horizon: int = 1
+    threshold: float = 8.0  # contact threshold in Angstrom
+    split_pct: float = 0.8
+    split_method: str = "partition"  # or "random"
+    # graphs from the stored contact maps (training) or recomputed from
+    # the coordinates (the rollout's semantics)
+    use_stored_contact_maps: bool = True
+
+
+@dataclass(frozen=True)
 class TrainConfig:
-    """Training-loop parameters. The curriculum's own settings (K, its
-    grad_steps, graph frame and clip) are arguments of
-    ``train/curriculum.py::make_curriculum_train_step`` and
-    ``train/recipe.py::train_curriculum_recipe``, as in the JAX package;
-    the fields the port does not act on yet (``rollout_steps``,
-    ``rollout_loss_weight`` and ``loss_space``, which the JAX package's
-    training CLI reads, checkpoint cadence, movies, plots, wandb) are kept
-    so that a configuration file reads into both packages."""
+    """Training-loop parameters. ``cli/train.py`` reads them all as the
+    JAX package's CLI does; ``rollout_loss_weight`` and
+    ``checkpoint_every`` are carried for the configuration file only, in
+    both packages."""
 
     seed: int = 0
     epochs: int = 200
@@ -117,9 +158,56 @@ class RolloutConfig:
     collect: str = "coords"  # "coords" | "contact_maps" | "both"
 
 
+@dataclass(frozen=True)
+class MeshConfig:
+    """Device mesh layout (data only in the port)."""
+
+    data: int = 1   # batch-axis data parallelism
+    model: int = 1  # edge/feature-axis model parallelism
+    axis_names: Tuple[str, str] = ("data", "model")
+
+
+@dataclass(frozen=True)
+class ExperimentConfig:
+    model: ModelConfig = field(default_factory=ModelConfig)
+    fno: FNOConfig = field(default_factory=FNOConfig)
+    data: DataConfig = field(default_factory=DataConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+    rollout: RolloutConfig = field(default_factory=RolloutConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+
+
+def to_json(cfg) -> str:
+    """The JAX package's text: sorted keys, indent 2."""
+    return json.dumps(dataclasses.asdict(cfg), indent=2, sort_keys=True)
+
+
 def _from_dict(cls, d: dict):
     """``cls`` from a dict as a run's ``config.json`` stores it: unknown
-    keys are dropped, lists become tuples."""
+    keys are dropped, lists become tuples, and a sub-configuration's dict
+    becomes its dataclass."""
     names = {f.name for f in dataclasses.fields(cls)}
-    return cls(**{k: tuple(v) if isinstance(v, list) else v
-                  for k, v in d.items() if k in names})
+    kwargs = {}
+    for k, v in d.items():
+        if k not in names:
+            continue
+        sub = _CONFIG_TYPES.get(k)
+        if sub is not None and isinstance(v, dict):
+            kwargs[k] = _from_dict(sub, v)
+        else:
+            kwargs[k] = tuple(v) if isinstance(v, list) else v
+    return cls(**kwargs)
+
+
+_CONFIG_TYPES = {
+    "model": ModelConfig,
+    "fno": FNOConfig,
+    "data": DataConfig,
+    "train": TrainConfig,
+    "rollout": RolloutConfig,
+    "mesh": MeshConfig,
+}
+
+
+def experiment_from_json(s: str) -> ExperimentConfig:
+    return _from_dict(ExperimentConfig, json.loads(s))

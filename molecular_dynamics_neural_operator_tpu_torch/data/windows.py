@@ -13,7 +13,8 @@ A batch is a dict of numpy arrays: ``aa`` (R,), ``window`` (B, T, R, 3),
 features are built on the device from the window.
 
 Ported: ``graph_mode`` "sparse" and "none" with ``edge_layout="csr"``,
-stored or recomputed contact maps. The dense mode, the blocked layout and
+stored or recomputed contact maps, and ``dense_adj``, one frame's
+(R, R) map. The dense mode, the blocked layout and
 the native C++ packer are not ported yet.
 """
 
@@ -85,6 +86,29 @@ class WindowDataset:
         pos = self.traj.positions[idx]  # (B, R, 3)
         d2 = np.sum((pos[:, :, None, :] - pos[:, None, :, :]) ** 2, axis=-1)
         return (d2 < self.threshold**2).astype(np.float32)
+
+    def _stored_adj(self, idx: np.ndarray) -> np.ndarray:
+        """The stored contact maps of frames ``idx`` densified with one
+        scatter: (B, R, R) f32."""
+        b, r = len(idx), self.num_residues
+        starts = self._offsets[idx]
+        ends = self._offsets[idx + 1]
+        edge_slots = np.concatenate(
+            [np.arange(s, e) for s, e in zip(starts, ends)]
+        ) if b else np.zeros(0, np.int64)
+        owner = np.repeat(np.arange(b), ends - starts)
+        adj = np.zeros((b, r, r), np.float32)
+        adj[owner, self._edges_flat[0, edge_slots].astype(np.int64),
+            self._edges_flat[1, edge_slots].astype(np.int64)] = 1.0
+        return adj
+
+    def dense_adj(self, frame_idx: int) -> np.ndarray:
+        """The (R, R) contact map of one frame, stored or recomputed from
+        the coordinates: the movie's "real" map."""
+        idx = np.asarray([frame_idx], np.int64)
+        if self.use_stored_contact_maps:
+            return self._stored_adj(idx)[0]
+        return self._recomputed_adj(idx)[0]
 
     def _sparse_edges(self, idx: np.ndarray):
         """Padded edge lists (B, 2, E) + mask (B, E)."""

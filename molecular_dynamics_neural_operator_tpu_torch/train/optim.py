@@ -31,17 +31,35 @@ def step_lr_schedule(lr: float, step_size_epochs: int, gamma: float,
     return schedule
 
 
+class Chain(NamedTuple):
+    """Which wrappers the optimizer has: the layout of the JAX package's
+    optax state for the same chain (``utils/checkpoint.py``)."""
+
+    clip: bool = False
+    skip_nonfinite: bool = False
+    accum: int = 1
+
+
 class OptState(NamedTuple):
     """count: optimizer applies so far (the schedule's and the bias
     correction's step); mu, nu: Adam moments, trees like the parameters;
     mini_step and acc: micro-batches gathered so far and their running
-    mean (``grad_accum`` > 1 only, else 0 and None)."""
+    mean (``grad_accum`` > 1 only, else 0 and None); gradient_step: applies
+    made by the accumulator; notfinite_count, last_finite and
+    total_notfinite: the finiteness guard's consecutive and total skips
+    and whether the last gradient was finite; chain: the optimizer's
+    wrappers."""
 
     count: int
     mu: Any
     nu: Any
     mini_step: int
     acc: Any
+    gradient_step: int = 0
+    notfinite_count: int = 0
+    last_finite: bool = True
+    total_notfinite: int = 0
+    chain: Chain = Chain()
 
 
 def tree_map(fn, *trees):
@@ -81,7 +99,11 @@ class Optimizer:
         zeros = tree_map(torch.zeros_like, params)
         acc = tree_map(torch.zeros_like, params) if self.grad_accum > 1 \
             else None
-        return OptState(0, zeros, tree_map(torch.zeros_like, params), 0, acc)
+        return OptState(0, zeros, tree_map(torch.zeros_like, params), 0, acc,
+                        chain=Chain(bool(self.grad_clip_norm
+                                         and self.grad_clip_norm > 0),
+                                    bool(self.skip_nonfinite_updates),
+                                    self.grad_accum))
 
     def _adam(self, grads, state: OptState, params):
         """One apply of clip -> L2 decay -> Adam -> learning rate, each
@@ -126,7 +148,8 @@ class Optimizer:
                     state._replace(mini_step=k + 1, acc=acc))
         updates, new = self._adam(acc, state, params)
         return updates, new._replace(
-            mini_step=0, acc=tree_map(torch.zeros_like, acc))
+            mini_step=0, acc=tree_map(torch.zeros_like, acc),
+            gradient_step=state.gradient_step + 1)
 
     def update(self, grads, state: OptState, params):
         if self.skip_nonfinite_updates:
@@ -135,7 +158,11 @@ class Optimizer:
             if not finite:
                 # the apply is skipped: moments, counts and the
                 # accumulation window stay as they were
-                return tree_map(torch.zeros_like, params), state
+                return tree_map(torch.zeros_like, params), state._replace(
+                    notfinite_count=state.notfinite_count + 1,
+                    last_finite=False,
+                    total_notfinite=state.total_notfinite + 1)
+            state = state._replace(notfinite_count=0, last_finite=True)
         return self._accumulated(grads, state, params)
 
 

@@ -76,7 +76,11 @@ def test_the_new_modules_are_among_the_checked_sources():
     checked = {str(p.relative_to(PORT)) for p in SOURCES[:-1]}
     assert {"serving/server.py", "serving/__init__.py", "cli/serve.py",
             "cli/__init__.py", "preprocess/grid.py", "preprocess/__init__.py",
-            "ops/cuda/fused_gkn.py", "ops/cuda/_plain.py"} <= checked
+            "ops/cuda/fused_gkn.py", "ops/cuda/_plain.py",
+            "cli/train.py", "cli/rollout.py", "data/schema.py",
+            "data/h5.py", "data/synthetic.py", "presets.py", "configs.py",
+            "utils/checkpoint.py", "utils/metrics.py", "utils/profiling.py",
+            "utils/movie.py", "utils/latent.py", "utils/backbone.py"} <= checked
 
 
 def test_an_edited_header_rebuilds_every_kernel(tmp_path, monkeypatch):
@@ -115,7 +119,11 @@ def test_entry_points_default_to_the_card(monkeypatch):
         load_params_npz,
     )
 
-    from molecular_dynamics_neural_operator_tpu_torch.cli import serve
+    from molecular_dynamics_neural_operator_tpu_torch.cli import (
+        rollout as cli_rollout,
+        serve,
+        train as cli_train,
+    )
     from molecular_dynamics_neural_operator_tpu_torch.serving import (
         RolloutServer,
     )
@@ -128,6 +136,11 @@ def test_entry_points_default_to_the_card(monkeypatch):
                  lambda: RolloutServer({}, cfg, impl="persistent", aa=[0]),
                  lambda: serve._load(serve.parse_args([])),
                  lambda: create_train_state(0, cfg, TrainConfig()),
+                 lambda: cli_train.main(["--data_path", "x.h5", "--run_path",
+                                         "r", "--graph_mode", "sparse"]),
+                 lambda: cli_rollout.main(["--data_path", "x.h5",
+                                           "--out_path", "o",
+                                           "--graph_mode", "sparse"]),
                  lambda: load_params_npz(ROOT / "tools" / "bench_ckpt.npz")):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()

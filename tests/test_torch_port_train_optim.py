@@ -79,8 +79,16 @@ def test_nonfinite_gradient_skips_the_apply_and_leaves_the_state_alone():
     params = tree_map(torch.as_tensor, _tree(rng))
     s0 = tx.init(params)
     upd, s1 = tx.update(tree_map(torch.as_tensor, grads[2]), s0, params)
-    assert s1 is s0
+    # moments, counts and accumulator stay; only the guard's counters move,
+    # as optax.apply_if_finite's do
+    assert (s1.count, s1.mini_step, s1.gradient_step) == (0, 0, 0)
+    assert s1.mu is s0.mu and s1.nu is s0.nu and s1.acc is s0.acc
+    assert (s1.notfinite_count, s1.last_finite, s1.total_notfinite) == \
+        (1, False, 1)
     assert all(not u.any() for u in (upd["a"]["w"], upd["a"]["b"], upd["c"]))
+    _, s2 = tx.update(tree_map(torch.as_tensor, grads[3]), s1, params)
+    assert (s2.count, s2.notfinite_count, s2.last_finite,
+            s2.total_notfinite) == (1, 0, True, 1)
 
 
 @pytest.mark.parametrize("kw", [
