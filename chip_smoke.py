@@ -102,7 +102,10 @@ Phases, each fatal:
    epoch loss within TOL_TRAIN_LOSS of the per-layer run's; the resumed
    step and Adam count carry on; ``config.json`` reads back to the run's
    configs; ``best.npz``/``last.npz`` restore; the movie maps and latents
-   are written. Prints samples/s and steps/s of each epoch.
+   are written; the epoch loop's latent sweep (batches of 256 and the
+   remainder) on the final parameters, kernels against the per-layer
+   path, each batch within TOL_TC_BF16 of its scale. Prints samples/s and
+   steps/s of each epoch and its time beyond the steps.
 14. cli.rollout: ``rollout_from_trajectory`` of ``tools/bench_ckpt.npz``
    for 128 steps with ``--impl persistent`` against ``--impl scan``, f32
    and bf16 at one stream and bf16 at four: exact launch counts, the same
@@ -2312,14 +2315,19 @@ def cli_train_run(traj, run_dir, extra, k: int = 0):
     row = json.loads((run_dir / "metrics.jsonl").read_text()
                      .splitlines()[-1])
     tag = f"cli.train {' '.join(extra) or '(teacher-forced)'}"
+    # the epoch beyond its steps at train_epoch's rate: eval, movie,
+    # latents, checkpoints and metric reads, and the first step's warm-up
+    loop_s = row["seconds"] - steps / row["steps_per_sec"]
     log(f"{tag}: epoch {row['epoch']}, train rel_l2 "
         f"{row['avg_train_loss']:.6g}, valid {row['avg_valid_loss']:.6g}; "
         f"{steps} steps at B={TRAIN_BATCH}: train_epoch "
         f"{row['examples_per_sec']:,.0f} samples/s, "
         f"{row['steps_per_sec']:.2f} steps/s; the whole epoch "
-        f"{row['seconds']:.2f} s = "
-        f"{steps * TRAIN_BATCH / row['seconds']:,.0f} samples/s with eval, "
-        f"movie, latents and checkpoints; launches {counts}")
+        f"{row['seconds']:.3f} s = "
+        f"{steps * TRAIN_BATCH / row['seconds']:,.0f} samples/s, of which "
+        f"{loop_s:.3f} s beyond the steps (the steps take as long at "
+        f"{loop_s * row['steps_per_sec']:.0f} steps an epoch); launches "
+        f"{counts}")
     require(all(np.isfinite(row[key]) for key in ("avg_train_loss",
                                                   "avg_valid_loss")),
             f"{tag}: non-finite loss {row}")
@@ -2329,68 +2337,66 @@ def cli_train_run(traj, run_dir, extra, k: int = 0):
     return args, state, row, counts
 
 
-def cli_epoch_breakdown(args, traj, state, out) -> None:
-    """Wall time of each part of a CLI epoch after its train steps, run
-    again on the final state as ``train_from_trajectory`` runs them: the
-    eval pass, the movie, the latent sweep with its plots, and the two
-    checkpoint writes."""
+def check_cli_latents(args, traj, params) -> None:
+    """The epoch loop's latent sweep (``collect_latents``, batches of 256
+    and a remainder) on the final parameters, with the training kernels
+    and on the per-layer path over the CLI's own validation range: each
+    batch's latents within TOL_TC_BF16 of its scale, and one
+    ``train_conv_fwd`` launch a batch on the kernel side."""
+    import dataclasses
+
     from molecular_dynamics_neural_operator_tpu_torch.cli import (
         train as cli_train,
     )
     from molecular_dynamics_neural_operator_tpu_torch.data import (
         WindowDataset,
     )
-    from molecular_dynamics_neural_operator_tpu_torch.train import (
-        eval_epoch,
-        make_eval_step,
-        train_valid_split,
+    from molecular_dynamics_neural_operator_tpu_torch.ops.cuda import (
+        train_conv as tc,
     )
-    from molecular_dynamics_neural_operator_tpu_torch.utils import (
-        BestCheckpointer,
+    from molecular_dynamics_neural_operator_tpu_torch.train import (
+        train_valid_split,
     )
     from molecular_dynamics_neural_operator_tpu_torch.utils.latent import (
         collect_latents,
-        log_latent_visualization,
-    )
-    from molecular_dynamics_neural_operator_tpu_torch.utils.movie import (
-        make_propagation_movie,
-        select_starting_points,
     )
 
-    model, _, train = cli_train.build_configs(args)
+    model, data, train = cli_train.build_configs(args)
     ds = WindowDataset(traj, window_size=model.window_size,
-                       graph_mode="sparse", max_edges=model.max_edges)
-    _, va_idx = train_valid_split(len(ds))
-
-    def timed(fn):
+                       horizon=data.horizon, threshold=data.threshold,
+                       graph_mode=model.graph_mode, max_edges=model.max_edges)
+    _, va_idx = train_valid_split(len(ds), data.split_pct, data.split_method,
+                                  seed=train.seed)
+    n_lat = min(train.latent_frames, len(va_idx))
+    lat = {}
+    for impl in ("pallas", "xla"):
+        before = tc.launch_counts()["train_conv_fwd"]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        return time.perf_counter() - t0
-
-    def latents():
-        lat = collect_latents(state.params, model, ds, int(va_idx[0]),
-                              len(va_idx))
-        for method in ("PCA", "TSNE"):
-            log_latent_visualization(lat, {"RMSD": traj.rmsd}, out, 0,
-                                     method)
-
-    starts = [int(va_idx[0] + s)
-              for s in select_starting_points(len(va_idx), model.window_size)]
-    parts = {
-        "eval": timed(lambda: eval_epoch(state.params, make_eval_step(model),
-                                         ds, va_idx, train.batch_size)),
-        "movie": timed(lambda: make_propagation_movie(
-            state.params, model, ds, out, 0, starts,
-            num_steps=train.num_movie_frames)),
-        "latents": timed(latents),
-        "checkpoints": timed(lambda: BestCheckpointer(out).update(
-            0, 1.0, state)),
-    }
-    log("cli.train epoch loop after the train steps, wall s: "
-        + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
-        + f"; {sum(parts.values()):.3f} in all")
+        lat[impl] = collect_latents(
+            params, dataclasses.replace(model, train_conv_impl=impl), ds,
+            int(va_idx[0]), n_lat)
+        lat[impl + "_s"] = time.perf_counter() - t0
+        lat[impl + "_launches"] = tc.launch_counts()["train_conv_fwd"] - before
+    batches = -(-n_lat // 256)
+    require(lat["pallas_launches"] == batches and lat["xla_launches"] == 0,
+            f"latent sweep: {lat['pallas_launches']} kernel and "
+            f"{lat['xla_launches']} per-layer launches for {batches} batches")
+    report = []
+    for lo in range(0, n_lat, 256):
+        got = torch.as_tensor(lat["pallas"][lo:lo + 256])
+        ref = torch.as_tensor(lat["xla"][lo:lo + 256])
+        err, rel = scaled_err(got, ref)
+        report.append(f"B={len(ref)} {rel:.2e}")
+        require(bool(np.isfinite(lat["pallas"][lo:lo + 256]).all())
+                and rel <= TOL_TC_BF16, f"latent sweep batch at {lo} "
+                f"(B={len(ref)}): error {err} is {rel:.2e} of its max, over "
+                f"{TOL_TC_BF16}")
+    log(f"cli.train latent sweep of {n_lat} validation windows on the final "
+        f"parameters, kernels against the per-layer path, error over max by "
+        f"batch: {', '.join(report)} (tolerance {TOL_TC_BF16}); wall "
+        f"{lat['pallas_s']:.3f} s on the kernels, {lat['xla_s']:.3f} s "
+        f"per-layer")
 
 
 def cli_train_phase(traj, root) -> dict:
@@ -2454,7 +2460,7 @@ def cli_train_phase(traj, root) -> dict:
                         "2"])
     add(c)
     require(rrow["epoch"] == 1, f"resumed at epoch {rrow['epoch']}")
-    cli_epoch_breakdown(args, traj, rstate, root / "breakdown")
+    check_cli_latents(args, traj, rstate.params)
     require(rstate.step == 2 * first_step
             and rstate.opt_state.count == 2 * first_step,
             f"resume: step {rstate.step}, Adam count "

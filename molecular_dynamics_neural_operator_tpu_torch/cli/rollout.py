@@ -37,7 +37,7 @@ import json
 import time
 from pathlib import Path
 
-from molecular_dynamics_neural_operator_tpu_torch.cli.train import (
+from molecular_dynamics_neural_operator_tpu_torch.cli import (
     refuse_unported,
 )
 

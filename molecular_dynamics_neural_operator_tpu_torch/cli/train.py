@@ -38,35 +38,9 @@ import argparse
 import time
 from pathlib import Path
 
-# flag -> (refused value test, what brings it), checked before any data
-# is read; the items are those of the roadmap's queue A
-REFUSED = {
-    "operator": (lambda v: v == "fno",
-                 "--operator fno: the FNO is not ported yet (queue A item 6)"),
-    "data_parallel": (bool, "--data_parallel: the parallel modules are not "
-                            "ported yet (queue A item 8)"),
-    "graph_mode": (lambda v: v == "dense",
-                   "--graph_mode dense: the dense graph is not ported yet "
-                   "(queue A item 4); pass --graph_mode sparse"),
-    "edge_layout": (lambda v: v == "blocked",
-                    "--edge_layout blocked: the blocked layout is not "
-                    "ported yet (queue A item 4)"),
-    "window_diff": (bool, "--window_diff: the window-difference encoding is "
-                          "not ported yet (queue A item 4)"),
-    "kernel_quant": (lambda v: v == "int8",
-                     "--kernel_quant int8: int8 kernels are not ported yet "
-                     "(queue A item 4)"),
-    "neighbor_impl": (lambda v: v == "cell_list",
-                      "--neighbor_impl cell_list: the cell list is not "
-                      "ported yet (queue A item 5)"),
-}
-
-
-def refuse_unported(args) -> None:
-    """``SystemExit`` naming the first flag whose module is not ported."""
-    for name, (refused, why) in REFUSED.items():
-        if refused(getattr(args, name, None)):
-            raise SystemExit(f"not supported by the PyTorch port: {why}")
+from molecular_dynamics_neural_operator_tpu_torch.cli import (
+    refuse_unported,
+)
 
 
 def parse_args(argv=None):
