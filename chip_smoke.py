@@ -20,7 +20,10 @@ from ``synthetic_trajectory(num_frames=4000, seed=13)``):
   (``impl="scan"``, ``conv_impl="pallas"``);
 - the CLIs: ``cli/train.py``'s ``train_from_trajectory`` and
   ``cli/rollout.py``'s ``rollout_from_trajectory`` with the trajectory
-  held in memory (the card's machine has no h5py to read ``--data_path``).
+  held in memory (the card's machine has no h5py to read ``--data_path``);
+- the dense graph of the BBA preset, the CLIs' default, and the remaining
+  GKN options (``window_diff``, the blocked layout, the segment scatter,
+  int8 kernels, ``legacy_no_lstm``).
 
 Phases, each fatal:
 
@@ -111,13 +114,44 @@ Phases, each fatal:
    and bf16 at one stream and bf16 at four: exact launch counts, the same
    edge lists, coordinates within TOL_ROLL; then 16 steps of phase 13's
    ``best.npz``. Prints the summaries' steps/s. Phases 13 and 14 run
-   last; their launches are added to the ``kernels`` line.
+   last but for 15 and 16; their launches are added to the ``kernels``
+   line.
+15. dense (the BBA preset: the dense graph, the default of both CLIs):
+   (a) the card's bf16 dense aggregation (``torch.bmm`` to f32 and its
+   backward) against its plain f32 products; (b) one batch of 128 through
+   the dense per-layer forward and the sparse forward on the training
+   kernels from the same adjacency: f32 outputs, loss and every gradient
+   leaf within TOL_DENSE, no training-kernel launch on the dense side,
+   bf16 reported; (c) ``train_from_trajectory`` with the default graph
+   flags (dense, B = 128, 24 steps) against the same epoch with
+   ``--graph_mode sparse``, within TOL_TRAIN_LOSS, no training-kernel
+   launch; (d) ``rollout_from_trajectory`` with the default graph flags,
+   128 steps of the bench checkpoint on the dense scan against ``--impl
+   persistent`` at E = 224 (128/384/128 launches): in f32 the same contact
+   maps at every step and coordinates within TOL_DENSE_ROLL, bf16
+   reported; (e) four requests through a dense ``RolloutServer(impl=
+   "scan")``, each within TOL_ROLL of a dedicated dense rollout; then,
+   with no claim, the dense teacher step's wall and device time and busy
+   share beside the sparse kernel and per-layer steps, and the dense and
+   sparse plain scans' steps/s.
+16. options: ``window_diff`` (train steps on the kernels against the
+   per-layer path, held as phase 6; ``impl="scan"`` serving with the
+   fused kernel against ``conv_impl="xla"``, as phase 9c); the blocked
+   layout at 448 slots (the "blocked" reduction against one-hot products
+   of the same graphs in f32, the training kernels against their plain
+   versions on the blocked batch, train steps as phase 6); the segment
+   scatter at 600 residues against a forced one-hot (forward and
+   gradient, f32); the int8 codes of a real kernel tensor within half a
+   step, a 128-step int8 scan rollout against bf16 (reported) and both
+   rates; ``legacy_no_lstm`` on the card against the CPU (forward and
+   gradient, f32).
 
 The last lines are the ``kernels`` JSON (seven kernels), the card, and
 ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA card.
-``--only rollout``, ``--only train``, ``--only serve`` or ``--only cli``
-runs one path's phases (for development; the ``kernels`` line then lists
-that path's kernels, none for ``cli``, which times no kernel). Imports
+``--only rollout``, ``--only train``, ``--only serve``, ``--only cli``,
+``--only dense`` or ``--only options`` runs one path's phases (for
+development; the ``kernels`` line then lists that path's kernels, none
+for ``cli``, ``dense`` and ``options``, which time no kernel). Imports
 nothing of JAX.
 """
 
@@ -2071,10 +2105,11 @@ def serve_dh(aa_np, traj) -> tuple[dict, float]:
     return counts, worst_plain
 
 
-def serve_scan_fused(aa_np, traj) -> tuple[int, float]:
+def serve_scan_fused(aa_np, traj, **opts) -> tuple[int, float]:
     """Phase 9c: ``impl="scan"`` with ``conv_impl="pallas"`` and one
-    sequence per request against ``conv_impl="xla"``; returns the fused
-    kernel's launch count and the largest error."""
+    sequence per request against ``conv_impl="xla"``, on the seeded live
+    weights with the model options ``opts``; returns the fused kernel's
+    launch count and the largest error."""
     from molecular_dynamics_neural_operator_tpu_torch.models import gkn_init
     from molecular_dynamics_neural_operator_tpu_torch.ops.cuda import (
         fused_gkn as fg,
@@ -2085,8 +2120,8 @@ def serve_scan_fused(aa_np, traj) -> tuple[int, float]:
 
     dev = torch.device("cuda")
     steps = SEGMENT
-    cfg_k = live_cfg("bfloat16", conv_impl="pallas")
-    cfg_x = live_cfg("bfloat16", conv_impl="xla")
+    cfg_k = live_cfg("bfloat16", conv_impl="pallas", **opts)
+    cfg_x = live_cfg("bfloat16", conv_impl="xla", **opts)
     params = gkn_init(cfg_k, seed=0, device=dev)
     t_len = cfg_k.window_size
     requests = [((aa_np + 3 * i) % 20, traj.positions[j:j + t_len], steps)
@@ -2121,7 +2156,8 @@ def serve_scan_fused(aa_np, traj) -> tuple[int, float]:
         worst = max(worst, hold_result(
             res, w0, want, tol, f"scan request {i}, pallas against xla"))
     log(f"serve scan, 4 x {steps} steps, one sequence per request, bf16, "
-        f"seeded weights {LIVE}: conv_impl='pallas' {4 * steps / wall_k:,.0f} "
+        f"seeded weights {LIVE}, options {opts}: conv_impl='pallas' "
+        f"{4 * steps / wall_k:,.0f} "
         f"served steps/s, 'xla' {4 * steps / wall_x:,.0f}; max abs err "
         f"between them {worst:.3e} A (tolerance {tol:.3e} A), same edge "
         f"lists; fused kernel launches {launches}")
@@ -2280,14 +2316,14 @@ CLI_ROLL_STEPS = 128
 CLI_TRAINED_STEPS = 16
 
 
-def cli_train_run(traj, run_dir, extra, k: int = 0):
-    """One ``train_from_trajectory`` call with the launch counts set to 0
-    just before it and read just after; the new epoch's metrics row
-    printed and checked: finite losses, and the launches the epoch implies
-    (on the kernel path K forwards and K backwards a train step, K = 1
-    teacher-forced, and one forward per eval batch and per latent batch of
-    256 frames; none on the per-layer path). Returns (args, state, metrics
-    row, launches)."""
+def cli_train_run(traj, run_dir, extra, k: int = 0, base=CLI_TRAIN):
+    """One ``train_from_trajectory`` call on the flags ``base + extra``
+    with the launch counts set to 0 just before it and read just after;
+    the new epoch's metrics row printed and checked: finite losses, and
+    the launches the epoch implies (on the kernel path K forwards and K
+    backwards a train step, K = 1 teacher-forced, and one forward per eval
+    batch and per latent batch of 256 frames; none on the per-layer path
+    or the dense graph). Returns (args, state, metrics row, launches)."""
     from molecular_dynamics_neural_operator_tpu_torch.cli import (
         train as cli_train,
     )
@@ -2298,13 +2334,14 @@ def cli_train_run(traj, run_dir, extra, k: int = 0):
         train_valid_split,
     )
 
-    args = cli_train.parse_args(CLI_TRAIN + ["--run_path", str(run_dir)]
+    args = cli_train.parse_args(base + ["--run_path", str(run_dir)]
                                 + extra)
     tr_idx, va_idx = train_valid_split(len(traj.positions) - 10)
     if k:
         tr_idx = tr_idx[tr_idx <= len(traj.positions) - 10 - k]
     steps = len(tr_idx) // TRAIN_BATCH
-    kernel = "xla" not in extra
+    model = cli_train.build_configs(args)[0]
+    kernel = model.train_conv_impl == "pallas" and model.graph_mode == "sparse"
     evals = -(-len(va_idx) // TRAIN_BATCH) + -(-len(va_idx) // 256)
     want = {"train_conv_fwd": (steps * max(k, 1) + evals) * kernel,
             "train_conv_bwd": steps * max(k, 1) * kernel}
@@ -2314,7 +2351,8 @@ def cli_train_run(traj, run_dir, extra, k: int = 0):
     counts = tc.launch_counts()
     row = json.loads((run_dir / "metrics.jsonl").read_text()
                      .splitlines()[-1])
-    tag = f"cli.train {' '.join(extra) or '(teacher-forced)'}"
+    tag = (f"cli.train {' '.join(extra) or '(teacher-forced)'}, "
+           f"{model.graph_mode} graph")
     # the epoch beyond its steps at train_epoch's rate: eval, movie,
     # latents, checkpoints and metric reads, and the first step's warm-up
     loop_s = row["seconds"] - steps / row["steps_per_sec"]
@@ -2479,10 +2517,11 @@ def cli_train_phase(traj, root) -> dict:
     return total
 
 
-def cli_roll_run(traj, out_dir, extra):
-    """One ``rollout_from_trajectory`` call with the rollout kernels'
-    counts set to 0 just before it and read just after: (summary,
-    coords, launches)."""
+def cli_roll_run(traj, out_dir, extra, dense: bool = False):
+    """One ``rollout_from_trajectory`` call (``--graph_mode sparse``, or
+    the CLI's default dense graph with ``dense``) with the rollout
+    kernels' counts set to 0 just before it and read just after:
+    (summary, coords, launches)."""
     from molecular_dynamics_neural_operator_tpu_torch.cli import (
         rollout as cli_rollout,
     )
@@ -2490,9 +2529,10 @@ def cli_roll_run(traj, out_dir, extra):
         persistent_rollout as pr,
     )
 
+    graph = [] if dense else ["--graph_mode", "sparse"]
     args = cli_rollout.parse_args(
-        ["--data_path", CLI_DATA, "--out_path", str(out_dir), "--graph_mode",
-         "sparse", "--predict_delta"] + extra)
+        ["--data_path", CLI_DATA, "--out_path", str(out_dir),
+         "--predict_delta"] + graph + extra)
     pr.reset_launch_counts()
     summary = cli_rollout.rollout_from_trajectory(args, traj)
     torch.cuda.synchronize()
@@ -2573,6 +2613,667 @@ def cli_phases(traj) -> dict:
     return counts
 
 
+# ---- phases 15-16: the dense graph and the remaining GKN options ---------
+
+# f32, the dense conv over all R sources against the sparse conv on the
+# training kernels over the E edges of the same adjacency: the same
+# products summed in another order, ulp-level (~1e-7) through 12 layers
+# and the backward; 1e-4 of a tensor's scale, of the loss and of each
+# gradient leaf's norm would not hold a wrong source, mask or degree.
+TOL_DENSE = 1e-4
+# f32, the dense scan rollout against the kernel rollout at E = 224 over
+# 128 steps: 1e-4 A, ten times the kernel-against-plain limit, for the
+# dense sums' other order carried through the steps.
+TOL_DENSE_ROLL = 1e-4
+# f32, a scatter mode against the one-hot products on the same graphs, and
+# the card against the CPU: the same f32 sums in another order (atomic
+# adds in "segment"), 1e-5 of the tensor's scale.
+TOL_SCATTER = 1e-5
+DENSE_SERVE_STEPS = SEGMENT
+BLOCKED_EDGES = 448  # 16 slots a residue at R = 28
+SEGMENT_R = 600  # past the one-hot scatter's 512 nodes
+SEGMENT_SLOTS = 12
+SEGMENT_BATCH = 4
+LEGACY_BATCH = 4
+
+
+def dense_cfg(cd: str, **kw):
+    """The BBA preset (dense graph, 384 slots for sparse rebuilds) at the
+    flagship widths with predict_delta."""
+    from molecular_dynamics_neural_operator_tpu_torch.presets import BBA
+
+    return dataclasses.replace(BBA, compute_dtype=cd, predict_delta=True,
+                               **kw)
+
+
+def leaf_gap(grads, ref) -> tuple[float, str]:
+    """The largest ||g - r|| / ||r|| over the leaves, and its leaf."""
+    ref = dict(tree_items(ref))
+    worst = (0.0, "")
+    for name, g in tree_items(grads):
+        r = ref[name]
+        require(bool(torch.isfinite(g).all()), f"gradient {name} not finite")
+        worst = max(worst, ((g - r).norm().item()
+                            / max(r.norm().item(), 1e-30), name))
+    return worst
+
+
+def check_dense_aggregate() -> None:
+    """The bf16 dense aggregation on the card (``torch.bmm`` with f32
+    output and its hand-written backward, ``ops/edge_conv.py``) against
+    its plain form, f32 products of the bf16-rounded operands: the output
+    within TOL_F32 of its scale, the gradients within TOL_BF16 (the card
+    rounds dx and dK to bf16 where the cast of an operand does)."""
+    from molecular_dynamics_neural_operator_tpu_torch.ops.edge_conv import (
+        edge_conv_dense,
+        masked_dense_kernels,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    r, w, b = 28, 64, 8
+    x = torch.randn(b, r, w, generator=gen, device="cuda")
+    k = torch.randn(b, r, r, w, w, generator=gen, device="cuda") * 0.05
+    adj = (torch.rand(b, r, r, generator=gen, device="cuda") < 0.3).float()
+    inv = 1.0 / adj.sum(-2).clamp(min=1.0)
+    conv = {"root": torch.randn(w, w, generator=gen, device="cuda") * 0.1,
+            "bias": torch.zeros(w, device="cuda")}
+    out, grads = {}, {}
+    for name, dtype in (("card", torch.bfloat16), ("plain", torch.float32)):
+        xs = x.clone().requires_grad_(True)
+        ks = k.to(torch.bfloat16).float().requires_grad_(True)
+        masked = masked_dense_kernels(ks, adj, dtype)
+        y = edge_conv_dense(conv, xs, masked, inv, torch.bfloat16)
+        (y * y.detach().cos()).sum().backward()
+        out[name], grads[name] = y.detach(), (xs.grad, ks.grad)
+    torch.cuda.synchronize()
+    err, rel = scaled_err(out["card"], out["plain"])
+    gx = scaled_err(grads["card"][0], grads["plain"][0])[1]
+    gk = scaled_err(grads["card"][1], grads["plain"][1])[1]
+    log(f"dense aggregation bf16, B={b}: the card's bmm against the plain "
+        f"f32 products, out {rel:.2e} of its scale (tolerance {TOL_F32}), "
+        f"dx {gx:.2e}, dK {gk:.2e} (tolerance {TOL_BF16:.2e})")
+    require(rel <= TOL_F32 and gx <= TOL_BF16 and gk <= TOL_BF16,
+            f"dense aggregation: out {rel:.2e}, dx {gx:.2e}, dK {gk:.2e}")
+
+
+def check_dense_against_sparse(traj) -> None:
+    """Dense check 1: one batch of B = 128 through the dense per-layer
+    forward and through the sparse forward on the training kernels, built
+    from the same stored adjacency (384 slots, no overflow): f32 outputs
+    within TOL_DENSE of their scale, the loss and every gradient leaf
+    within TOL_DENSE of its norm, no training-kernel launch on the dense
+    side; bf16 reported."""
+    from molecular_dynamics_neural_operator_tpu_torch.data import (
+        WindowDataset,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.data.prefetch import (
+        to_device,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.models import gkn_init
+    from molecular_dynamics_neural_operator_tpu_torch.ops.cuda import (
+        train_conv as tc,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.train import (
+        featurize_batch,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.train.loop import (
+        loss_and_grads,
+    )
+
+    t_len = dense_cfg("float32").window_size
+    idx = np.arange(TRAIN_BATCH) * 29
+    bd = to_device(WindowDataset(traj, window_size=t_len, graph_mode="dense")
+                   .get_batch(idx), "cuda")
+    bs = to_device(WindowDataset(traj, window_size=t_len, graph_mode="sparse",
+                                 max_edges=384).get_batch(idx), "cuda")
+    require(torch.equal(bs["mask"].sum(-1), bd["adj"].sum((-1, -2))),
+            "the sparse batch does not hold the dense batch's edges")
+    for cd in ("float32", "bfloat16"):
+        cfg_d = dense_cfg(cd, kernel_init_scale=0.1)
+        cfg_s = dataclasses.replace(cfg_d, graph_mode="sparse",
+                                    train_conv_impl="pallas")
+        params = gkn_init(cfg_d, seed=0, device="cuda")
+        tc.reset_launch_counts()
+        (l_d, (_, out_d)), g_d = loss_and_grads(params, cfg_d,
+                                                featurize_batch(cfg_d, bd))
+        torch.cuda.synchronize()
+        dense_counts = tc.launch_counts()
+        (l_s, (_, out_s)), g_s = loss_and_grads(params, cfg_s,
+                                                featurize_batch(cfg_s, bs))
+        torch.cuda.synchronize()
+        counts = {n: v - dense_counts[n]
+                  for n, v in tc.launch_counts().items()}
+        require(sum(dense_counts.values()) == 0
+                and counts == {"train_conv_fwd": 1, "train_conv_bwd": 1},
+                f"dense {cd}: training-kernel launches {dense_counts} on the "
+                f"dense side, {counts} on the sparse side")
+        err, rel = scaled_err(out_d, out_s)
+        rel_l = abs(float(l_d) - float(l_s)) / abs(float(l_s))
+        worst, leaf = leaf_gap(g_d, g_s)
+        log(f"dense {cd} B={TRAIN_BATCH}: dense per-layer against sparse on "
+            f"the training kernels, same adjacency: out max abs err "
+            f"{err:.3e} = {rel:.2e} of its scale, loss {float(l_d):.6f} "
+            f"against {float(l_s):.6f} ({rel_l:.2e}), worst gradient leaf "
+            f"{leaf} {worst:.2e} of its norm"
+            + (f" (tolerance {TOL_DENSE})" if cd == "float32"
+               else " (reported)"))
+        if cd == "float32":
+            require(rel <= TOL_DENSE and rel_l <= TOL_DENSE
+                    and worst <= TOL_DENSE,
+                    f"dense f32 against sparse: out {rel:.2e}, loss "
+                    f"{rel_l:.2e}, {leaf} {worst:.2e}")
+            continue
+        # the segment scatter sums the messages unrounded, as the dense
+        # conv does: the bf16 gap to the kernels is their cast points
+        cfg_g = dataclasses.replace(cfg_s, train_conv_impl="xla",
+                                    scatter_mode="segment")
+        (l_g, (_, out_g)), g_g = loss_and_grads(params, cfg_g,
+                                                featurize_batch(cfg_g, bs))
+        worst, leaf = leaf_gap(g_d, g_g)
+        log(f"dense bf16 against the sparse per-layer segment scatter (the "
+            f"same cast points): out {scaled_err(out_d, out_g)[1]:.2e} of "
+            f"scale, loss {abs(float(l_d) - float(l_g)) / abs(float(l_g)):.2e}"
+            f", worst gradient leaf {leaf} {worst:.2e} of its norm "
+            f"(reported)")
+
+
+def dense_cli_phase(traj, root) -> dict:
+    """Dense checks 2-4: ``train_from_trajectory`` and
+    ``rollout_from_trajectory`` with the CLIs' default graph flags.
+    Returns the rollout kernels' launches."""
+    base = ["--data_path", CLI_DATA, "--predict_delta", "--kernel_init_scale",
+            "0.1", "--lr", str(TRAIN_LR), "--batch_size", str(TRAIN_BATCH),
+            "--epochs", "1"]
+    # the default flags train in bf16, where the dense conv sums unrounded
+    # messages and the sparse one rounds each (the JAX package's cast
+    # points) and Adam's first steps follow the gradients' signs; in f32
+    # the two are the same sums. Both held to TOL_TRAIN_LOSS.
+    for cd in ("bfloat16", "float32"):
+        extra = [] if cd == "bfloat16" else ["--compute_dtype", cd]
+        _, _, drow, dcounts = cli_train_run(traj, root / f"dense_{cd}",
+                                            extra, base=base)
+        _, _, srow, scounts = cli_train_run(
+            traj, root / f"sparse_{cd}", extra + ["--graph_mode", "sparse"],
+            base=base)
+        rel = abs(drow["avg_train_loss"] - srow["avg_train_loss"]) / abs(
+            srow["avg_train_loss"])
+        log(f"cli.train {'default flags' if not extra else ' '.join(extra)} "
+            f"(dense) against --graph_mode sparse: mean rel_l2 "
+            f"{drow['avg_train_loss']:.6g} and {srow['avg_train_loss']:.6g}, "
+            f"{rel:.2e} relative (limit {TOL_TRAIN_LOSS}); samples/s "
+            f"{drow['examples_per_sec']:,.0f} dense, "
+            f"{srow['examples_per_sec']:,.0f} sparse on the kernels; "
+            f"training-kernel launches {dcounts} and {scounts}")
+        require(sum(dcounts.values()) == 0,
+                f"the dense epoch launched {dcounts}")
+        require(rel <= TOL_TRAIN_LOSS, f"dense and sparse CLI epochs differ "
+                f"by {rel:.2e} in {cd}")
+
+    bench = ["--checkpoint", str(CKPT), "--max_edges", "224", "--clip",
+             str(CLIP), "--num_steps", str(CLI_ROLL_STEPS)]
+    t_len = dense_cfg("float32").window_size
+    w0 = torch.as_tensor(traj.positions[:t_len], device="cuda")
+    n = CLI_ROLL_STEPS
+    total = {}
+    for cd in ("float32", "bfloat16"):
+        flags = bench + ["--compute_dtype", cd]
+        ds_, dc, dn = cli_roll_run(traj, root / f"dense_{cd}", flags,
+                                   dense=True)
+        ks, kc, kn = cli_roll_run(traj, root / f"kernel_{cd}",
+                                  flags + ["--impl", "persistent"],
+                                  dense=True)
+        want = {"graph_encode": n, "edge_mlp": 3 * n, "conv_head": n}
+        require(sum(dn.values()) == 0 and kn == want,
+                f"dense rollout {cd}: launches {dn} on the scan, {kn} under "
+                f"--impl persistent, expected {want}")
+        for name, v in kn.items():
+            total[name] = total.get(name, 0) + v
+        differing = same_edge_lists(w0, dc, kc)
+        err = (dc - kc).abs().max().item()
+        log(f"cli.rollout default flags {cd}: the dense scan against the "
+            f"kernel rollout at E=224 over {n} steps, contact maps differ at "
+            f"{differing} steps, coords max abs err {err:.3e} A"
+            + (f" (limit {TOL_DENSE_ROLL})" if cd == "float32"
+               else " (reported)")
+            + f"; steps/s {ds_['steps_per_s']:,.1f} dense scan, "
+            f"{ks['steps_per_s']:,.1f} kernels (one call each, set-up "
+            f"included); launches {kn}")
+        if cd == "float32":
+            require(differing == 0 and err <= TOL_DENSE_ROLL,
+                    f"dense rollout f32: maps differ at {differing} steps, "
+                    f"error {err} A")
+    return total
+
+
+def check_dense_live_rollout(traj) -> None:
+    """The dense scan rollout on the seeded live weights (every conv layer
+    alive; the bench checkpoint's last one is dead) against the kernel
+    rollout at E = 224, f32, 128 steps: the same contact maps at every
+    step and coordinates within TOL_HEAD_F32 x steps x the largest
+    displacement of one step, as the serving checks hold live rollouts."""
+    from molecular_dynamics_neural_operator_tpu_torch.models import gkn_init
+    from molecular_dynamics_neural_operator_tpu_torch.ops.cuda import (
+        persistent_rollout as pr,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.rollout import (
+        make_rollout_fn,
+    )
+
+    cfg = live_cfg("float32")
+    params = gkn_init(cfg, seed=0, device="cuda")
+    aa = torch.as_tensor(traj.aminoacids, device="cuda")
+    w0 = torch.as_tensor(traj.positions[:cfg.window_size], device="cuda")
+    require(layers_alive(params, cfg, aa, w0), "the live weights' conv "
+            "stack has a dead layer")
+    with torch.no_grad():
+        dense = make_rollout_fn(dataclasses.replace(cfg, graph_mode="dense"),
+                                STEPS, THRESHOLD, clip=CLIP)(
+            params, aa, w0)[0]
+        kern = pr.make_persistent_rollout_fn(cfg, STEPS, THRESHOLD, CLIP)(
+            params, aa, w0)[0]
+    torch.cuda.synchronize()
+    step_move = torch.cat([w0[-1:], kern]).diff(dim=0).abs().max().item()
+    tol = TOL_HEAD_F32 * STEPS * step_move
+    differing = same_edge_lists(w0, dense, kern)
+    err = (dense - kern).abs().max().item()
+    log(f"dense scan rollout against the kernel rollout at E=224, f32, "
+        f"{STEPS} steps, seeded weights {LIVE}: contact maps differ at "
+        f"{differing} steps, coords max abs err {err:.3e} A (tolerance "
+        f"{tol:.3e} A)")
+    require(differing == 0 and err <= tol, f"dense live rollout: maps differ "
+            f"at {differing} steps, error {err} A")
+
+
+def serve_dense(traj) -> None:
+    """Dense check 5: four requests through a dense ``RolloutServer(impl=
+    "scan")`` (f32, the bench checkpoint, one segment), each within
+    TOL_ROLL of a dedicated dense rollout."""
+    from molecular_dynamics_neural_operator_tpu_torch.rollout import (
+        make_rollout_fn,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.serving import (
+        RolloutServer,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.utils.checkpoint import (
+        load_params_npz,
+    )
+
+    cfg = dense_cfg("float32")
+    params = load_params_npz(CKPT, device="cuda")
+    aa = np.asarray(traj.aminoacids, np.int32)
+    t_len, n = cfg.window_size, DENSE_SERVE_STEPS
+    starts = (0, 1000, 2000, 3000)
+    requests = [(aa, traj.positions[j:j + t_len], n) for j in starts]
+    with RolloutServer(params, cfg, segment_steps=SEGMENT, max_streams=4,
+                       threshold=THRESHOLD, clip=CLIP, impl="scan") as srv:
+        srv.warmup([4])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results = [f.result(timeout=600) for f in srv.submit_many(requests)]
+        wall = time.perf_counter() - t0
+    roll = make_rollout_fn(cfg, n, THRESHOLD, clip=CLIP)
+    worst = 0.0
+    aa_t = torch.as_tensor(aa, device="cuda")
+    for j, res in zip(starts, results):
+        w0 = torch.as_tensor(traj.positions[j:j + t_len], device="cuda")
+        with torch.no_grad():
+            ref = roll(params, aa_t, w0)[0]
+        worst = max(worst, hold_result(res, w0, ref, TOL_ROLL,
+                                       f"dense served request at {j}"))
+    log(f"dense RolloutServer(impl='scan'), f32, 4 x {n} steps: each within "
+        f"{worst:.3e} A of a dedicated dense rollout (limit {TOL_ROLL}), the "
+        f"same contact maps; {4 * n / wall:,.0f} served steps/s")
+
+
+def time_dense(traj) -> None:
+    """Timing, no claim: the dense teacher step's wall and device time and
+    busy share beside the sparse step on the training kernels and on the
+    per-layer path (bf16, B = 128, the training cell's 256 slots); the
+    dense and sparse plain scan rollouts' steps/s."""
+    from molecular_dynamics_neural_operator_tpu_torch.data import (
+        WindowDataset,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.data.prefetch import (
+        to_device,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.rollout import (
+        make_rollout_fn,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.train import (
+        create_train_state,
+        make_train_step,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.utils.checkpoint import (
+        load_params_npz,
+    )
+
+    cfg_k, tcfg = training_cfgs()
+    t_len = cfg_k.window_size
+    idx = np.arange(TRAIN_BATCH) * 29
+    cells = (("dense (per-layer)", dense_cfg("bfloat16", kernel_init_scale=0.1),
+              "dense", 384),
+             ("sparse on the training kernels", cfg_k, "sparse", 256),
+             ("sparse per-layer", training_cfgs("xla")[0], "sparse", 256))
+    for tag, cfg, mode, e in cells:
+        batch = to_device(WindowDataset(traj, window_size=t_len,
+                                        graph_mode=mode, max_edges=e)
+                          .get_batch(idx), "cuda")
+        torch.cuda.reset_peak_memory_stats()
+        state, tx, _ = create_train_state(0, cfg, tcfg)
+        step = make_train_step(cfg, tx)
+        wall = wall_ms(step, state, batch)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        state, tx, _ = create_train_state(0, cfg, tcfg)
+        busy = profile_step(make_train_step(cfg, tx), state, batch, wall,
+                            f"teacher step, {tag}")
+        log(f"teacher step {tag}, B={TRAIN_BATCH} bf16: {wall:.2f} ms wall "
+            f"= {TRAIN_BATCH / wall * 1e3:,.0f} samples/s, {busy:.2f} ms "
+            f"device, busy share {busy / wall:.2f}, peak memory {peak:.2f} GB")
+    params = load_params_npz(CKPT, device="cuda")
+    aa = torch.as_tensor(traj.aminoacids, device="cuda")
+    window0 = torch.as_tensor(traj.positions[:t_len], device="cuda")
+    rates = {}
+    for tag, cfg in (("dense", dense_cfg("bfloat16")),
+                     ("sparse E=224", bench_cfg("bfloat16"))):
+        with torch.no_grad():
+            rates[tag] = steps_per_s(
+                lambda n, c=cfg: make_rollout_fn(c, n, THRESHOLD, clip=CLIP),
+                params, aa, window0, 16, 80)
+    log(f"plain scan rollout, bf16, single stream, the bench checkpoint: "
+        f"dense {rates['dense']:,.1f} steps/s, sparse E=224 "
+        f"{rates['sparse E=224']:,.1f} steps/s (slope between 16 and 80 "
+        f"steps, min of 3)")
+
+
+def dense_phase(traj) -> dict:
+    """Phase 15; returns the rollout kernels' launches."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    check_dense_aggregate()
+    check_dense_against_sparse(traj)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dense_") as tmp:
+        counts = dense_cli_phase(traj, Path(tmp))
+    check_dense_live_rollout(traj)
+    serve_dense(traj)
+    time_dense(traj)
+    log(f"dense path launches: {counts}; the phase took "
+        f"{time.perf_counter() - t0:.1f} s")
+    return counts
+
+
+def train_pair(cfg_k, cfg_x, ds, tag: str) -> dict:
+    """TRAIN_STEPS train steps from one state on the training kernels
+    (``cfg_k``) and on the per-layer path (``cfg_x``), held as phase 6
+    holds them; returns the kernel run's launches (TRAIN_STEPS of each)."""
+    from molecular_dynamics_neural_operator_tpu_torch.ops.cuda import (
+        train_conv as tc,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.train import (
+        create_train_state,
+        make_train_step,
+        train_valid_split,
+    )
+
+    _, tcfg = training_cfgs()
+    train_idx, _ = train_valid_split(len(ds))
+    indices = train_idx[:TRAIN_STEPS * TRAIN_BATCH]
+    state0, tx, _ = create_train_state(tcfg.seed, cfg_k, tcfg,
+                                       steps_per_epoch=TRAIN_STEPS)
+    tc.reset_launch_counts()
+    kernel = run_train_steps(state0, make_train_step(cfg_k, tx), tcfg, ds,
+                             indices)
+    counts = tc.launch_counts()
+    plain = run_train_steps(state0, make_train_step(cfg_x, tx), tcfg, ds,
+                            indices)
+    want = {"train_conv_fwd": TRAIN_STEPS, "train_conv_bwd": TRAIN_STEPS}
+    require(counts == want, f"{tag}: launches {counts}, expected {want}")
+    worst, leaf, _, _ = compare_training_runs(state0, kernel, plain, tag)
+    log(f"{tag}: {TRAIN_STEPS} steps at B={TRAIN_BATCH} bf16, kernels "
+        f"{kernel[1]}, per-layer {plain[1]}; the movement of {leaf} differs "
+        f"by {worst:.3e} of its norm (tolerance {TOL_TRAIN_MOVE}); launches "
+        f"{counts}")
+    return counts
+
+
+def check_blocked(traj) -> dict:
+    """Options check 2: the blocked layout at BLOCKED_EDGES slots. The
+    per-layer "blocked" reduction against the one-hot products of the
+    same graphs packed CSR (f32, TOL_SCATTER); the training kernels on the
+    blocked batch against their plain versions; then train steps on the
+    blocked dataset, kernels against the per-layer one-hot path."""
+    from molecular_dynamics_neural_operator_tpu_torch.data import (
+        WindowDataset,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.data.prefetch import (
+        to_device,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.models import (
+        gkn_apply,
+        gkn_init,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.train import (
+        featurize_batch,
+    )
+
+    t_len = bench_cfg("float32").window_size
+    kw = dict(window_size=t_len, graph_mode="sparse", max_edges=BLOCKED_EDGES)
+    ds_b = WindowDataset(traj, edge_layout="blocked", **kw)
+    ds_c = WindowDataset(traj, **kw)
+    idx = np.arange(TRAIN_BATCH) * 29
+    bb = to_device(ds_b.get_batch(idx), "cuda")
+    bc = to_device(ds_c.get_batch(idx), "cuda")
+    gaps = int((bb["mask"].diff(dim=-1) > 0).sum())
+    cfg_b = dataclasses.replace(train_cfg("float32", "xla", 0.1),
+                                max_edges=BLOCKED_EDGES,
+                                scatter_mode="blocked")
+    cfg_c = dataclasses.replace(cfg_b, scatter_mode="auto")
+    params = gkn_init(cfg_b, seed=0, device="cuda")
+    with torch.no_grad():
+        out_b = gkn_apply(params, cfg_b, featurize_batch(cfg_b, bb))
+        out_c = gkn_apply(params, cfg_c, featurize_batch(cfg_c, bc))
+    torch.cuda.synchronize()
+    err, rel = scaled_err(out_b, out_c)
+    log(f"blocked layout, {BLOCKED_EDGES} slots ({gaps} padded runs between "
+        f"real slots in the batch), f32 B={TRAIN_BATCH}: 'blocked' reduction "
+        f"against the one-hot products of the same graphs packed CSR, "
+        f"{rel:.2e} of scale (tolerance {TOL_SCATTER})")
+    require(gaps > 0 and rel <= TOL_SCATTER,
+            f"blocked against onehot: {rel:.2e} ({gaps} gaps)")
+    for cd in ("float32", "bfloat16"):
+        check_train_conv(params, bb, cd)
+    # the kernels round each message in bf16 as the one-hot products do
+    # (the "blocked" reduction sums them unrounded), so the per-layer side
+    # of the training pair takes the one-hot products of the blocked batch
+    cfg_k, _ = training_cfgs()
+    cfg_k = dataclasses.replace(cfg_k, max_edges=BLOCKED_EDGES,
+                                scatter_mode="blocked")
+    return train_pair(cfg_k, dataclasses.replace(
+        cfg_k, train_conv_impl="xla", scatter_mode="onehot"), ds_b,
+        "blocked-layout training")
+
+
+def check_segment() -> None:
+    """Options check 3: SEGMENT_R residues, SEGMENT_SLOTS slots a residue,
+    f32: the forward's "auto" rule (segment) and its loss gradient against
+    a forced "onehot", each within TOL_SCATTER of scale."""
+    from molecular_dynamics_neural_operator_tpu_torch.data import (
+        WindowDataset,
+        synthetic_trajectory,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.data.prefetch import (
+        to_device,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.models import gkn_init
+    from molecular_dynamics_neural_operator_tpu_torch.train import (
+        featurize_batch,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.train.loop import (
+        loss_and_grads,
+    )
+
+    e = SEGMENT_SLOTS * SEGMENT_R
+    cfg = dataclasses.replace(train_cfg("float32", "xla", 0.1),
+                              num_residues=SEGMENT_R, max_edges=e)
+    traj = synthetic_trajectory(num_frames=60, num_residues=SEGMENT_R,
+                                seed=13)
+    ds = WindowDataset(traj, window_size=cfg.window_size, graph_mode="sparse",
+                       max_edges=e)
+    gb = featurize_batch(cfg, to_device(
+        ds.get_batch(np.arange(SEGMENT_BATCH) * 10), "cuda"))
+    params = gkn_init(cfg, seed=0, device="cuda")
+    (l_s, (_, out_s)), g_s = loss_and_grads(params, cfg, gb)
+    (l_o, (_, out_o)), g_o = loss_and_grads(
+        params, dataclasses.replace(cfg, scatter_mode="onehot"), gb)
+    torch.cuda.synchronize()
+    _, rel = scaled_err(out_s, out_o)
+    rel_l = abs(float(l_s) - float(l_o)) / abs(float(l_o))
+    worst = max((scaled_err(g, dict(tree_items(g_o))[name])[1], name)
+                for name, g in tree_items(g_s))
+    log(f"segment scatter at R={SEGMENT_R}, E={e} ({int(gb.graph.mask.sum())} "
+        f"real edges in B={SEGMENT_BATCH}), f32: against a forced onehot, "
+        f"out {rel:.2e} of scale, loss {rel_l:.2e}, worst gradient leaf "
+        f"{worst[1]} {worst[0]:.2e} of its scale (tolerance {TOL_SCATTER})")
+    require(rel <= TOL_SCATTER and rel_l <= TOL_SCATTER
+            and worst[0] <= TOL_SCATTER,
+            f"segment against onehot: out {rel:.2e}, loss {rel_l:.2e}, "
+            f"{worst[1]} {worst[0]:.2e}")
+
+
+def check_int8(traj) -> None:
+    """Options check 4: the int8 codes of a real graph's bf16 kernel tensor
+    within half a step (plus one f32 unit in the last place) of the
+    kernels; then a 128-step bf16 sparse scan rollout with int8 against
+    one without, reported, and both rates. On the seeded live weights:
+    the bench checkpoint's last conv layer is dead, so its rollout does
+    not see the kernels' rounding."""
+    from molecular_dynamics_neural_operator_tpu_torch.models import gkn_init
+    from molecular_dynamics_neural_operator_tpu_torch.ops.edge_conv import (
+        edge_kernel_matrices,
+        quantize_kernels_int8,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.rollout import (
+        make_rollout_fn,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.rollout.scan import (
+        _build_graph,
+    )
+
+    cfg = live_cfg("bfloat16")
+    cfg8 = dataclasses.replace(cfg, kernel_quant="int8")
+    params = gkn_init(cfg, seed=0, device="cuda")
+    aa = torch.as_tensor(traj.aminoacids, device="cuda")
+    window0 = torch.as_tensor(traj.positions[:cfg.window_size], device="cuda")
+    with torch.no_grad():
+        graph, _ = _build_graph(cfg, window0[-1], THRESHOLD)
+        k = edge_kernel_matrices(params["edge_kernel"], graph.edge_feats,
+                                 cfg.width, torch.bfloat16).float()
+        k8, s = quantize_kernels_int8(k)
+        err = (k8.float() * s[..., None, None] - k).abs()
+        ulp = torch.nextafter(k.abs(), torch.full_like(k, float("inf"))) \
+            - k.abs()
+        slack = (s[..., None, None] / 2 + ulp - err).min().item()
+        ref = make_rollout_fn(cfg, STEPS, THRESHOLD, clip=CLIP)(
+            params, aa, window0)[0]
+        q = make_rollout_fn(cfg8, STEPS, THRESHOLD, clip=CLIP)(
+            params, aa, window0)[0]
+    torch.cuda.synchronize()
+    log(f"int8 codes of a graph's kernels ({k.shape[0]} slots, seeded "
+        f"weights {LIVE}): "
+        f"|k8 s - k| <= s/2 + ulp holds with {slack:.3e} to spare at the "
+        f"tightest element; {STEPS}-step bf16 scan rollout with int8 against "
+        f"without: coords max abs diff {(q - ref).abs().max().item():.3e} A, "
+        f"edge lists differ at {same_edge_lists(window0, q, ref)} steps "
+        f"(reported)")
+    require(slack >= 0 and bool(torch.isfinite(q).all()),
+            f"int8: slack {slack}, finite {bool(torch.isfinite(q).all())}")
+    rates = {"bf16": [], "int8": []}
+    for tag in ("bf16", "int8", "int8", "bf16"):
+        c = cfg8 if tag == "int8" else cfg
+        with torch.no_grad():
+            rates[tag].append(steps_per_s(
+                lambda n, c=c: make_rollout_fn(c, n, THRESHOLD, clip=CLIP),
+                params, aa, window0, 16, 80))
+    log(f"plain scan rollout, single stream, E=224, seeded weights, in turns "
+        f"bf16, int8, int8, bf16: bf16 {rates['bf16']} steps/s, int8 "
+        f"{rates['int8']} steps/s")
+
+
+def check_legacy(traj) -> None:
+    """Options check 5: ``legacy_no_lstm`` (f32, flagship widths): the
+    forward and the loss gradient of one batch on the card against the
+    port's CPU run with the same weights, within TOL_SCATTER of scale."""
+    from molecular_dynamics_neural_operator_tpu_torch.data import (
+        WindowDataset,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.data.prefetch import (
+        to_device,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.models import gkn_init
+    from molecular_dynamics_neural_operator_tpu_torch.train import (
+        featurize_batch,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.train.loop import (
+        loss_and_grads,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.train.optim import (
+        tree_map,
+    )
+
+    cfg = dataclasses.replace(train_cfg("float32", "xla", 0.1),
+                              legacy_no_lstm=True)
+    ds = WindowDataset(traj, window_size=cfg.window_size, graph_mode="sparse",
+                       max_edges=cfg.max_edges)
+    host = ds.get_batch(np.arange(LEGACY_BATCH) * 97)
+    params = gkn_init(cfg, seed=0, device="cuda")
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        p = tree_map(lambda t, d=dev: t.to(d), params)
+        (l2, (_, out)), grads = loss_and_grads(
+            p, cfg, featurize_batch(cfg, to_device(host, dev)))
+        runs[dev] = (float(l2), out.cpu(), tree_map(lambda t: t.cpu(), grads))
+    (l_c, out_c, g_c), (l_h, out_h, g_h) = runs["cuda"], runs["cpu"]
+    _, rel = scaled_err(out_c, out_h)
+    rel_l = abs(l_c - l_h) / abs(l_h)
+    worst = max((scaled_err(g, dict(tree_items(g_h))[name])[1], name)
+                for name, g in tree_items(g_c))
+    log(f"legacy_no_lstm f32 B={LEGACY_BATCH}: the card against the CPU, out "
+        f"{rel:.2e} of scale, loss {rel_l:.2e}, worst gradient leaf "
+        f"{worst[1]} {worst[0]:.2e} of its scale (tolerance {TOL_SCATTER}); "
+        f"leaves {sorted(params)}")
+    require(rel <= TOL_SCATTER and rel_l <= TOL_SCATTER
+            and worst[0] <= TOL_SCATTER,
+            f"legacy card against CPU: out {rel:.2e}, loss {rel_l:.2e}, "
+            f"{worst[1]} {worst[0]:.2e}")
+
+
+def options_phase(traj) -> dict:
+    """Phase 16; returns the launches of the training and fused kernels."""
+    from molecular_dynamics_neural_operator_tpu_torch.data import (
+        WindowDataset,
+    )
+
+    t0 = time.perf_counter()
+    cfg_k, _ = training_cfgs()
+    cfg_k = dataclasses.replace(cfg_k, window_diff=True)
+    ds = WindowDataset(traj, window_size=cfg_k.window_size,
+                       graph_mode="sparse", max_edges=cfg_k.max_edges)
+    counts = train_pair(cfg_k, dataclasses.replace(cfg_k,
+                                                   train_conv_impl="xla"),
+                        ds, "window_diff training")
+    fused, _ = serve_scan_fused(np.asarray(traj.aminoacids, np.int32), traj,
+                                window_diff=True)
+    counts["fused_edge_conv_stack"] = fused
+    for name, n in check_blocked(traj).items():
+        counts[name] += n
+    check_segment()
+    check_int8(traj)
+    check_legacy(traj)
+    log(f"options path launches: {counts}; the phase took "
+        f"{time.perf_counter() - t0:.1f} s")
+    return counts
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2649,7 +3350,7 @@ def rollout_phases(traj) -> list:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--only", choices=("rollout", "train", "serve",
-                                           "cli"),
+                                           "cli", "dense", "options"),
                         help="run one path's phases (development)")
     args = parser.parse_args()
     only = args.only
@@ -2723,10 +3424,12 @@ def main() -> int:
         busy = profile_train_step(batch, step_ms)
         time_curriculum(ds, train_idx, step_ms, busy)
     kernels += serve_kernels
-    if only in (None, "cli"):
-        cli_counts = cli_phases(traj)
-        for rec in kernels:
-            rec["launches"] += cli_counts.get(rec["name"], 0)
+    for path, phase in (("cli", cli_phases), ("dense", dense_phase),
+                        ("options", options_phase)):
+        if only in (None, path):
+            counts = phase(traj)
+            for rec in kernels:
+                rec["launches"] += counts.get(rec["name"], 0)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

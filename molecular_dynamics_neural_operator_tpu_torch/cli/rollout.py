@@ -3,7 +3,7 @@
 
     python -m molecular_dynamics_neural_operator_tpu_torch.cli.rollout \\
         --data_path traj.h5 --checkpoint runs/bba/best.npz \\
-        --out_path runs/bba/rollout --graph_mode sparse
+        --out_path runs/bba/rollout
 
 The JAX CLI's flags, defaults and output files, flag for flag: roll out
 ``--num_steps`` steps from the window at ``--start_frame`` and write
@@ -13,18 +13,19 @@ rolls S windows ``--stream_stride`` frames apart at once;
 ``--movie`` renders forecast against real contact maps, ``--backbone``
 the first steps' backbones. ``--impl persistent`` runs the rollout
 kernels (``ops/cuda/persistent_rollout.py``: ``graph_encode``,
-``edge_mlp`` ×3 and ``conv_head`` every step), ``--impl scan`` the plain
-PyTorch rollout (``rollout/scan.py``). The checkpoint is a TrainState or
+``edge_mlp`` ×3 and ``conv_head`` every step), which build their own
+sparse graph of ``--max_edges`` slots whatever ``--graph_mode`` says, as
+the JAX kernel does; ``--impl scan`` the PyTorch rollout
+(``rollout/scan.py``) on the graph ``--graph_mode`` names, by default the
+dense all-pairs graph. The checkpoint is a TrainState or
 bare-params file of either package; only its parameters are read.
 
 ``--device`` picks the card (``cuda``, the default; a missing card is an
 error) or ``cpu``, where the kernel path runs each kernel's plain
-version. Flags whose module is not ported yet are refused by name with
-``SystemExit`` before any data is read (``--graph_mode dense``,
-``--window_diff``, ``--kernel_quant int8``, ``--neighbor_impl
-cell_list``); ``--graph_mode`` keeps the JAX default ``dense``, so the
-port needs ``--graph_mode sparse``. ``--compilation_cache`` is accepted
-as a no-op.
+version. ``--neighbor_impl cell_list``, whose module is not ported yet,
+is refused by name with ``SystemExit`` before any data is read, and so,
+as in the JAX CLI, is ``--kernel_quant int8`` without ``--graph_mode
+sparse``. ``--compilation_cache`` is accepted as a no-op.
 
 ``main(argv)`` parses, loads the trajectory and calls
 ``rollout_from_trajectory(args, traj)``.
@@ -56,8 +57,7 @@ def parse_args(argv=None):
     p.add_argument("--kernel_width", type=int, default=1024)
     p.add_argument("--depth", type=int, default=6)
     p.add_argument("--num_residues", type=int, default=28)
-    p.add_argument("--graph_mode", choices=["dense", "sparse"], default="dense",
-                   help="the port rolls out sparse graphs only")
+    p.add_argument("--graph_mode", choices=["dense", "sparse"], default="dense")
     p.add_argument("--max_edges", type=int, default=384,
                    help="padded edge capacity for sparse-mode rebuilds")
     p.add_argument("--neighbor_impl", choices=["dense_rank", "cell_list"],
@@ -101,6 +101,8 @@ def parse_args(argv=None):
                    help="cuda (default; a missing card is an error) or cpu")
     args = p.parse_args(argv)
     refuse_unported(args)
+    if args.kernel_quant != "none" and args.graph_mode != "sparse":
+        raise SystemExit("--kernel_quant int8 requires --graph_mode sparse")
     return args
 
 

@@ -1,7 +1,7 @@
 """Training CLI of the GKN (``molecular_dynamics_neural_operator_tpu/cli/train.py``).
 
     python -m molecular_dynamics_neural_operator_tpu_torch.cli.train \\
-        --data_path traj.h5 --run_path runs/bba --graph_mode sparse
+        --data_path traj.h5 --run_path runs/bba
 
 The JAX CLI's flags, defaults and output files, flag for flag: the run
 directory gets ``config.json`` (``configs.to_json``, readable by both
@@ -17,14 +17,16 @@ the first epoch to ``<run_path>/trace``.
 ``--device`` picks the card (``cuda``, the default; a missing card is an
 error) or ``cpu``. ``--train_conv_impl auto`` takes the training kernels
 (``"pallas"``, ``ops/cuda/train_conv.py``) on the card with a sparse
-graph and the per-layer PyTorch path (``"xla"``) otherwise.
+graph and the per-layer PyTorch path (``"xla"``) otherwise: the default
+``--graph_mode dense``, as in the JAX package, trains on the dense
+all-pairs graph without them. ``--edge_layout blocked`` packs the sparse
+edge lists in the block layout and aggregates them with
+``scatter_mode="blocked"``.
 
 Flags whose module is not ported yet are refused by name with
-``SystemExit`` before any data is read: ``--operator fno`` (FNO),
-``--data_parallel``, ``--graph_mode dense``, ``--edge_layout blocked`` and
-``--window_diff``. ``--graph_mode`` keeps the JAX default ``dense``, so
-the port needs ``--graph_mode sparse``. ``--compilation_cache`` has no
-counterpart and is accepted as a no-op.
+``SystemExit`` before any data is read: ``--operator fno`` (FNO) and
+``--data_parallel``. ``--compilation_cache`` has no counterpart and is
+accepted as a no-op.
 
 ``main(argv)`` parses, loads the trajectory and calls
 ``train_from_trajectory(args, traj)``, which does everything after the
@@ -123,8 +125,7 @@ def parse_args(argv=None):
     p.add_argument("--fno_predict_prior", choices=["last", "extrapolate"],
                    default="last")
     p.add_argument("--fno_predict_delta", action="store_true")
-    p.add_argument("--graph_mode", choices=["dense", "sparse"], default="dense",
-                   help="the port trains sparse graphs only")
+    p.add_argument("--graph_mode", choices=["dense", "sparse"], default="dense")
     p.add_argument("--max_edges", type=int, default=384,
                    help="padded edge capacity for sparse mode")
     p.add_argument("--edge_layout", choices=["csr", "blocked"],

@@ -8,14 +8,21 @@ Window and horizon indexing as in the JAX package:
 - target y = positions[idx + window_size + horizon - 1].
 
 A batch is a dict of numpy arrays: ``aa`` (R,), ``window`` (B, T, R, 3),
-``y`` (B, R, 3) and, in sparse mode, ``edges`` (B, 2, E) int32 with
-``mask`` (B, E) f32 in the CSR-packed order of the stored lists. Edge
-features are built on the device from the window.
+``y`` (B, R, 3) and the graph of the window's first frame, from the stored
+contact maps or recomputed from the coordinates:
 
-Ported: ``graph_mode`` "sparse" and "none" with ``edge_layout="csr"``,
-stored or recomputed contact maps, and ``dense_adj``, one frame's
-(R, R) map. The dense mode, the blocked layout and
-the native C++ packer are not ported yet.
+- ``graph_mode="dense"``: ``adj`` (B, R, R) f32, [source, target];
+- ``graph_mode="sparse"``: ``edges`` (B, 2, E) int32 with ``mask`` (B, E)
+  f32, in the CSR-packed order of the stored lists
+  (``edge_layout="csr"``) or in the block layout (``"blocked"``: node n
+  owns slots [n*max_degree, (n+1)*max_degree), max_degree = E / R, its
+  incoming edges front to back in stored order), which the
+  ``scatter_mode="blocked"`` conv reduces by slot position;
+- ``graph_mode="none"``: no graph.
+
+Edge features are built on the device from the window. The JAX package's
+native C++ packer (``data/packing.py``) is not ported: this is its numpy
+path, which gives the same arrays.
 """
 
 from __future__ import annotations
@@ -36,23 +43,26 @@ class WindowDataset:
         window_size: int = 10,
         horizon: int = 1,
         threshold: float = 8.0,
-        graph_mode: str = "dense",  # "sparse" | "none" are ported
+        graph_mode: str = "dense",  # "dense" | "sparse" | "none"
         max_edges: int = 384,
         use_stored_contact_maps: bool = True,
-        edge_layout: str = "csr",
+        edge_layout: str = "csr",  # "csr" | "blocked"
     ):
         if traj.num_frames - window_size - horizon + 1 < 0:
             raise ValueError(
                 "The sum of window_size and horizon is longer than the "
                 "input data")
-        if graph_mode not in ("sparse", "none"):
-            raise NotImplementedError(
-                f"graph_mode={graph_mode!r} is not ported yet; 'sparse' "
-                "and 'none' are")
-        if edge_layout != "csr":
-            raise NotImplementedError(
-                f"edge_layout={edge_layout!r} is not ported yet; only "
-                "'csr' is")
+        if edge_layout not in ("csr", "blocked"):
+            raise ValueError(f"unknown edge_layout: {edge_layout}")
+        if edge_layout == "blocked":
+            if graph_mode != "sparse":
+                raise ValueError("edge_layout='blocked' requires sparse "
+                                 "graph_mode")
+            if max_edges % traj.num_residues:
+                raise ValueError(
+                    f"blocked layout needs max_edges divisible by "
+                    f"num_residues; got {max_edges} % {traj.num_residues}")
+            self.max_degree = max_edges // traj.num_residues
         self.traj = traj
         self.window_size = window_size
         self.horizon = horizon
@@ -70,6 +80,56 @@ class WindowDataset:
                 raise ValueError(
                     f"stored edge count {self._max_stored} exceeds "
                     f"max_edges {max_edges}")
+            if edge_layout == "blocked":
+                # the per-node limit, checked once here rather than by a
+                # batch deep into an epoch
+                max_deg = self._max_stored_in_degree()
+                if max_deg > self.max_degree:
+                    raise ValueError(
+                        f"stored max in-degree {max_deg} exceeds the "
+                        f"blocked layout's max_degree {self.max_degree} "
+                        f"(= max_edges {max_edges} / num_residues "
+                        f"{traj.num_residues}); raise max_edges to at "
+                        f"least {max_deg * traj.num_residues}")
+
+    @staticmethod
+    def _group_rank(key: np.ndarray):
+        """(order, rank): a stable argsort of ``key`` and, for each sorted
+        position, its rank among the equal keys before it."""
+        order = np.argsort(key, kind="stable")
+        sk = key[order]
+        change = np.ones(len(sk), bool)
+        change[1:] = sk[1:] != sk[:-1]
+        group_start = np.flatnonzero(change)
+        rank = np.arange(len(sk)) - group_start[np.cumsum(change) - 1]
+        return order, rank
+
+    def _max_stored_in_degree(self, chunk: int | None = None) -> int:
+        """The largest in-degree of any (frame, target node) over the
+        stored edge lists, in chunks of frames of bounded memory. Fills
+        ``self._slot_flat``, each stored edge's block-layout slot (dst *
+        max_degree + its rank among its node's edges), which a frame
+        keeps for good, so a batch is a gather and a scatter."""
+        r = self.num_residues
+        if chunk is None:
+            chunk = max(1, (1 << 27) // max(r, 1))
+        nf = len(self._offsets) - 1
+        self._slot_flat = np.zeros(int(self._offsets[-1]), np.int64)
+        m = 0
+        for i0 in range(0, nf, chunk):
+            i1 = min(i0 + chunk, nf)
+            s, e = int(self._offsets[i0]), int(self._offsets[i1])
+            if e == s:
+                continue
+            dst = self._edges_flat[1, s:e].astype(np.int64)
+            owner = np.repeat(np.arange(i1 - i0, dtype=np.int64),
+                              np.diff(self._offsets[i0:i1 + 1]))
+            order, rank = self._group_rank(owner * r + dst)
+            m = max(m, int(rank.max()) + 1)
+            slot = np.empty(len(order), np.int64)
+            slot[order] = dst[order] * self.max_degree + rank
+            self._slot_flat[s:e] = slot
+        return m
 
     def __len__(self) -> int:
         return self.traj.num_frames - self.window_size - self.horizon + 1
@@ -105,13 +165,62 @@ class WindowDataset:
     def dense_adj(self, frame_idx: int) -> np.ndarray:
         """The (R, R) contact map of one frame, stored or recomputed from
         the coordinates: the movie's "real" map."""
-        idx = np.asarray([frame_idx], np.int64)
+        return self._batch_adj(np.asarray([frame_idx], np.int64))[0]
+
+    def _batch_adj(self, idx: np.ndarray) -> np.ndarray:
+        """(B, R, R) contact maps of frames ``idx``, stored or recomputed."""
         if self.use_stored_contact_maps:
-            return self._stored_adj(idx)[0]
-        return self._recomputed_adj(idx)[0]
+            return self._stored_adj(idx)
+        return self._recomputed_adj(idx)
+
+    def _blocked_pack(self, owner, src, dst, b: int):
+        """Batch COO (owner, src, dst) -> the block layout: node n owns
+        slots [n*max_degree, (n+1)*max_degree), its incoming edges front
+        to back."""
+        r, max_deg = self.num_residues, self.max_degree
+        order, rank = self._group_rank(owner * r + dst)
+        if len(rank) and int(rank.max()) >= max_deg:
+            raise ValueError(
+                f"node in-degree {int(rank.max()) + 1} exceeds the blocked "
+                f"layout's max_degree {max_deg} "
+                f"(= max_edges {self.max_edges} / num_residues {r})")
+        slot = dst[order] * max_deg + rank
+        ow = owner[order]
+        edges = np.zeros((b, 2, self.max_edges), np.int32)
+        mask = np.zeros((b, self.max_edges), np.float32)
+        edges[ow, 0, slot] = src[order]
+        edges[ow, 1, slot] = dst[order]
+        mask[ow, slot] = 1.0
+        return edges, mask
+
+    def _sparse_edges_blocked(self, idx: np.ndarray):
+        """(B, 2, E) + mask in the block layout, from the stored lists
+        (their precomputed slots) or from recomputed contact maps: both
+        paths emit the block layout, which a "blocked" conv reduces by
+        slot position."""
+        b = len(idx)
+        if not self.use_stored_contact_maps:
+            ow, src, dst = np.nonzero(self._recomputed_adj(idx))
+            return self._blocked_pack(ow, src.astype(np.int64),
+                                      dst.astype(np.int64), b)
+        starts = self._offsets[idx].astype(np.int64)
+        ends = self._offsets[idx + 1].astype(np.int64)
+        edge_slots = np.concatenate(
+            [np.arange(s, e) for s, e in zip(starts, ends)]
+        ) if b else np.zeros(0, np.int64)
+        owner = np.repeat(np.arange(b), ends - starts)
+        slot = self._slot_flat[edge_slots]
+        edges = np.zeros((b, 2, self.max_edges), np.int32)
+        mask = np.zeros((b, self.max_edges), np.float32)
+        edges[owner, 0, slot] = self._edges_flat[0, edge_slots]
+        edges[owner, 1, slot] = self._edges_flat[1, edge_slots]
+        mask[owner, slot] = 1.0
+        return edges, mask
 
     def _sparse_edges(self, idx: np.ndarray):
         """Padded edge lists (B, 2, E) + mask (B, E)."""
+        if self.edge_layout == "blocked":
+            return self._sparse_edges_blocked(idx)
         b = len(idx)
         e_max = self.max_edges
         edges = np.zeros((b, 2, e_max), np.int32)
@@ -150,7 +259,9 @@ class WindowDataset:
                 raise ValueError("rollout_horizon exceeds trajectory length "
                                  "for these indices")
             out["y_seq"] = self.traj.positions[gather].astype(np.float32)
-        if self.graph_mode == "sparse":
+        if self.graph_mode == "dense":
+            out["adj"] = self._batch_adj(idx)
+        elif self.graph_mode == "sparse":
             out["edges"], out["mask"] = self._sparse_edges(idx)
         return out
 

@@ -1,5 +1,7 @@
 from molecular_dynamics_neural_operator_tpu_torch.models.gkn import (
+    DenseGraph,
     GKNBatch,
+    Graph,
     SparseGraph,
     gkn_apply,
     gkn_apply_single,
@@ -12,5 +14,5 @@ from molecular_dynamics_neural_operator_tpu_torch.models.losses import (
     mse,
 )
 
-__all__ = ["GKNBatch", "SparseGraph", "gkn_apply", "gkn_apply_single",
+__all__ = ["DenseGraph", "GKNBatch", "Graph", "SparseGraph", "gkn_apply", "gkn_apply_single",
            "gkn_init", "lp_abs", "lp_rel", "mse", "residual_prior"]

@@ -1,35 +1,43 @@
 """Graph Kernel Network forward (``molecular_dynamics_neural_operator_tpu/models/gkn.py``).
 
-The sparse one-hot path of ``gkn_apply_single``: per-residue LSTM over the
-window, amino-acid embedding, fc1, 2*depth weight-tied edge convs sharing
-one edge-kernel MLP, fc2 head with the optional residual prior. Any
+``gkn_apply_single``: per-residue LSTM over the window (over
+``[last frame ; scaled successive differences]`` under ``window_diff``,
+none under ``legacy_no_lstm``, whose node features take the last frame
+as it is), amino-acid embedding, fc1, 2*depth weight-tied edge convs
+sharing one edge-kernel MLP (one stack of depth under
+``legacy_no_lstm``), fc2 head with the optional residual prior. Any
 leading axes of ``window`` and the graph are batch axes (the JAX
-package's ``vmap`` written out). With ``fused_conv_vjp`` the tied stack
-runs through ``ops/conv_stack.tied_conv_stack`` and its hand-written
-backward; both forms are differentiable.
+package's ``vmap`` written out). The graph is a ``DenseGraph`` (an
+all-pairs adjacency: the masked kernel tensor is built once a forward,
+``ops/edge_conv.py::masked_dense_kernels``) or a ``SparseGraph`` (a
+padded edge list, aggregated by the ``scatter_mode`` that ``scatter_hint``,
+``cfg.scatter_mode`` or the node count picks; with ``kernel_quant="int8"``
+the kernel tensor is int8 and the per-edge scale rides on the message
+mask). With ``fused_conv_vjp`` the tied one-hot stack runs through
+``ops/conv_stack.tied_conv_stack`` and its hand-written backward.
 
 ``gkn_apply`` is the batched training and evaluation forward over a
 ``GKNBatch``. With ``train_conv_impl="pallas"`` (the JAX package's name
 for its hand-written training kernel, kept so that one configuration
-describes one model in both packages) the conv stack runs as the
-hand-written kernel of ``ops/cuda/train_conv.py``, forward and backward:
-CUDA for CUDA tensors, its plain version for CPU tensors. ``"xla"``
-selects the per-layer path through ``gkn_apply_single``.
+describes one model in both packages) the conv stack of a sparse batch
+runs as the hand-written kernel of ``ops/cuda/train_conv.py``, forward and
+backward: CUDA for CUDA tensors, its plain version for CPU tensors
+(``takes_train_kernel`` has the rule). Everything else takes the
+per-layer path through ``gkn_apply_single``.
 
 With ``electrostatics="dh"`` the Debye-Hückel potential at each residue,
 from the window's last frame, is the eighth fc1 input
 (``preprocess/grid.py``). With ``conv_impl="pallas"`` (again the JAX
-package's name) the edge MLP and both conv stacks run as the fused
-hand-written kernel of ``ops/cuda/fused_gkn.py``, forward only.
+package's name) the edge MLP and both conv stacks of a sparse graph run as
+the fused hand-written kernel of ``ops/cuda/fused_gkn.py``, forward only.
 
-Not ported yet (``NotImplementedError``): dense graphs, ``window_diff``,
-``legacy_no_lstm``, ``kernel_quant="int8"`` and the segment/blocked
-scatter modes.
+Not ported yet (``NotImplementedError`` from ``check_supported``):
+``neighbor_impl="cell_list"``.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional, Union
 
 import torch
 
@@ -44,11 +52,17 @@ from molecular_dynamics_neural_operator_tpu_torch.ops.cuda.fused_gkn import (
 from molecular_dynamics_neural_operator_tpu_torch.ops.cuda.train_conv import (
     train_conv,
 )
+from molecular_dynamics_neural_operator_tpu_torch.geometry.contact import (
+    degree_from_adjacency,
+)
 from molecular_dynamics_neural_operator_tpu_torch.ops.edge_conv import (
     SCATTER_ONEHOT_MAX_NODES,
+    edge_conv_dense,
     edge_conv_init,
     edge_conv_sparse,
     edge_kernel_matrices,
+    masked_dense_kernels,
+    quantize_kernels_int8,
     sparse_inv_degree,
 )
 from molecular_dynamics_neural_operator_tpu_torch.ops.lstm import (
@@ -67,6 +81,14 @@ from molecular_dynamics_neural_operator_tpu_torch.preprocess.grid import (
 )
 
 
+class DenseGraph(NamedTuple):
+    """adj (..., R, R) 0/1 with [source, target] axes; edge_feats
+    (..., R, R, 6) = [pos_src ; pos_dst]."""
+
+    adj: torch.Tensor
+    edge_feats: torch.Tensor
+
+
 class SparseGraph(NamedTuple):
     """edges (..., 2, E) int32 [src; dst]; mask (..., E) f32;
     edge_feats (..., E, 6)."""
@@ -76,6 +98,9 @@ class SparseGraph(NamedTuple):
     edge_feats: torch.Tensor
 
 
+Graph = Union[DenseGraph, SparseGraph]
+
+
 class GKNBatch(NamedTuple):
     """One training or evaluation batch: aa (R,) int amino-acid labels
     (one protein for the whole batch), window (B, T, R, 3), graph with a
@@ -83,16 +108,16 @@ class GKNBatch(NamedTuple):
 
     aa: torch.Tensor
     window: torch.Tensor
-    graph: SparseGraph
+    graph: Graph
     y: torch.Tensor
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for the options the port does not cover yet. Ported: the
-    sparse one-hot forward (rollout and training), both priors,
-    ``head_scale``, tied and untied edge kernels, ``fused_conv_vjp``,
-    ``electrostatics="dh"`` and both values of ``train_conv_impl`` and
-    ``conv_impl``."""
+    """Raise for what the port does not cover yet: the cell list
+    (``neighbor_impl="cell_list"``, ``NotImplementedError``); and, as the
+    JAX package raises them, ``ValueError`` for an unknown
+    ``train_conv_impl``, ``conv_impl``, ``electrostatics`` or
+    ``kernel_quant`` and for ``legacy_no_lstm`` with the fused kernel."""
     if cfg.train_conv_impl not in ("xla", "pallas"):
         raise ValueError(
             f"unknown train_conv_impl: {cfg.train_conv_impl!r}")
@@ -100,21 +125,12 @@ def check_supported(cfg: ModelConfig) -> None:
         raise ValueError(f"unknown conv_impl: {cfg.conv_impl!r}")
     if cfg.electrostatics not in ("none", "dh"):
         raise ValueError(f"unknown electrostatics: {cfg.electrostatics!r}")
+    if cfg.kernel_quant not in ("none", "int8"):
+        raise ValueError(f"unknown kernel_quant: {cfg.kernel_quant!r}")
     if cfg.legacy_no_lstm and cfg.conv_impl == "pallas":
         raise ValueError(
             "legacy_no_lstm (single conv stack) supports conv_impl='xla' "
             "only: the fused kernel bakes in both stacks")
-    for flag, name in ((cfg.window_diff, "window_diff"),
-                       (cfg.legacy_no_lstm, "legacy_no_lstm")):
-        if flag:
-            raise NotImplementedError(f"{name}=True is not ported yet")
-    if cfg.graph_mode != "sparse":
-        raise NotImplementedError("only graph_mode='sparse' is ported")
-    if cfg.kernel_quant != "none":
-        raise NotImplementedError("kernel_quant='int8' is not ported yet")
-    if cfg.scatter_mode not in ("auto", "onehot"):
-        raise NotImplementedError(
-            f"scatter_mode={cfg.scatter_mode!r} is not ported yet")
     if cfg.neighbor_impl != "dense_rank":
         raise NotImplementedError(
             f"neighbor_impl={cfg.neighbor_impl!r} is not ported yet")
@@ -145,6 +161,10 @@ def gkn_init(cfg: ModelConfig, seed: int = 0, device=None):
         "conv2": edge_conv_init(gen, w, device),
         "fc2": linear_init(gen, w, cfg.out_width, device),
     }
+    if cfg.legacy_no_lstm:
+        # no window encoder and one conv stack
+        for name in ("lstm", "lstm_fc", "conv2"):
+            del params[name]
     if not cfg.tie_edge_kernel:
         params["edge_kernel2"] = mlp_init(
             gen, [cfg.edge_features, cfg.ker_width, cfg.ker_width, w * w],
@@ -163,16 +183,21 @@ def gkn_init(cfg: ModelConfig, seed: int = 0, device=None):
     return params
 
 
-def encode_nodes(params, emb_aa, window, phi=None):
-    """window (..., T, R, 3) + embedding rows emb_aa (R, D) or (..., R, D)
-    -> node features (..., R, width): LSTM over time, lstm_fc, concat with
-    the embedding [and the potential phi (..., R)], fc1, ReLU. All f32."""
-    h = lstm_apply(params["lstm"], window.movedim(-3, 0))       # (..., R, 3)
-    h = linear_apply(params["lstm_fc"], h)
+def lift_nodes(params, emb_aa, h, phi=None):
+    """[embedding rows emb_aa (R, D) or (..., R, D) ; h (..., R, 3)
+    [; the potential phi (..., R)]] -> fc1 -> ReLU: (..., R, width)."""
     feats = [emb_aa.expand(h.shape[:-1] + (-1,)), h]
     if phi is not None:
         feats.append(phi[..., None])
     return torch.relu(linear_apply(params["fc1"], torch.cat(feats, dim=-1)))
+
+
+def encode_nodes(params, emb_aa, window, phi=None):
+    """window (..., T, R, 3) -> node features (..., R, width): LSTM over
+    time, lstm_fc, then ``lift_nodes``. All f32."""
+    h = lstm_apply(params["lstm"], window.movedim(-3, 0))       # (..., R, 3)
+    return lift_nodes(params, emb_aa, linear_apply(params["lstm_fc"], h),
+                      phi)
 
 
 def dh_potential(cfg: ModelConfig, charges, frame):
@@ -190,7 +215,15 @@ def _encode_nodes(params, cfg: ModelConfig, aa, window):
         # from the window's last frame: recomputed from the predicted
         # coordinates at every rollout step
         phi = dh_potential(cfg, residue_charges(aa), window[..., -1, :, :])
-    return encode_nodes(params, params["emb"][aa.long()], window, phi)
+    emb = params["emb"][aa.long()]
+    if cfg.legacy_no_lstm:
+        return lift_nodes(params, emb, window[..., -1, :, :], phi)
+    if cfg.window_diff:
+        # [last frame ; scaled successive differences]: the same (T, R, 3)
+        diffs = (window[..., 1:, :, :] - window[..., :-1, :, :]) \
+            * cfg.window_diff_scale
+        window = torch.cat([window[..., -1:, :, :], diffs], dim=-3)
+    return encode_nodes(params, emb, window, phi)
 
 
 def residual_prior(cfg: ModelConfig, window):
@@ -208,45 +241,87 @@ def residual_prior(cfg: ModelConfig, window):
     raise ValueError(f"unknown predict_prior: {cfg.predict_prior!r}")
 
 
-def gkn_apply_single(params, cfg: ModelConfig, aa, window,
-                     graph: SparseGraph, return_latent: bool = False,
+def _scatter_mode(cfg: ModelConfig, num_nodes: int,
+                  scatter_hint: Optional[str]) -> str:
+    """The JAX rule: the hint, else a ``cfg.scatter_mode`` other than
+    "auto", else "onehot" up to 512 nodes and "segment" above."""
+    if cfg.scatter_mode != "auto" and scatter_hint is None:
+        scatter_hint = cfg.scatter_mode
+    return scatter_hint or ("onehot" if num_nodes <= SCATTER_ONEHOT_MAX_NODES
+                            else "segment")
+
+
+def gkn_apply_single(params, cfg: ModelConfig, aa, window, graph: Graph,
+                     return_latent: bool = False,
+                     scatter_hint: Optional[str] = None,
                      tensor_cores: bool = False):
     """Forward one example (or a batch along leading axes).
-    window (..., T, R, 3) -> (..., R, out_width). ``tensor_cores`` is
-    passed to the edge-kernel MLP (``ops/mlp.py``)."""
+    window (..., T, R, 3) -> (..., R, out_width). ``scatter_hint``
+    overrides the sparse aggregation choice (``_scatter_mode``); pass
+    "blocked" only for graphs in the cell-list block layout.
+    ``tensor_cores`` is passed to the edge-kernel MLP (``ops/mlp.py``)."""
     check_supported(cfg)
-    if not isinstance(graph, SparseGraph):
-        raise NotImplementedError("dense graphs are not ported yet")
-    num_nodes = window.shape[-2]
-    if num_nodes > SCATTER_ONEHOT_MAX_NODES:
-        raise NotImplementedError(
-            "more than 512 nodes needs the segment scatter, not ported yet")
+    dense = isinstance(graph, DenseGraph)
+    if cfg.kernel_quant != "none" and (dense or cfg.conv_impl == "pallas"):
+        raise ValueError(
+            "kernel_quant='int8' requires the sparse XLA conv path "
+            "(graph_mode='sparse', conv_impl='xla'): the dense and "
+            "fused paths keep the kernel tensor in the compute dtype")
     cd = compute_dtype(cfg)
     x = _encode_nodes(params, cfg, aa, window)
+    stacks = (("conv1", "edge_kernel"),) if cfg.legacy_no_lstm else (
+        ("conv1", "edge_kernel"),
+        ("conv2", "edge_kernel" if cfg.tie_edge_kernel else "edge_kernel2"))
+    if dense:
+        inv_deg = 1.0 / degree_from_adjacency(graph.adj)
+        masked = {}
+        for _, mlp in stacks:
+            if mlp not in masked:
+                k = edge_kernel_matrices(params[mlp], graph.edge_feats,
+                                         cfg.width, cd, tensor_cores)
+                masked[mlp] = masked_dense_kernels(k, graph.adj, cd)
+        for conv, mlp in stacks:
+            for _ in range(cfg.depth):
+                x = torch.relu(edge_conv_dense(params[conv], x, masked[mlp],
+                                               inv_deg, cd))
+        return _head(params, cfg, window, x, return_latent)
     if cfg.conv_impl == "pallas":
         # edge MLP and both conv stacks as one hand-written kernel
         x = fused_conv_stack_from_graph(params, cfg, x, graph.edges,
                                         graph.mask, graph.edge_feats)
         return _head(params, cfg, window, x, return_latent)
-    k1 = edge_kernel_matrices(params["edge_kernel"], graph.edge_feats,
-                              cfg.width, cd, tensor_cores)
-    k2 = k1 if cfg.tie_edge_kernel else edge_kernel_matrices(
-        params["edge_kernel2"], graph.edge_feats, cfg.width, cd,
-        tensor_cores)
-    inv_deg = sparse_inv_degree(graph.edges, graph.mask, num_nodes)
-    if cfg.fused_conv_vjp and cfg.tie_edge_kernel and cfg.depth > 0:
+    scatter = _scatter_mode(cfg, window.shape[-2], scatter_hint)
+    inv_deg = sparse_inv_degree(graph.edges, graph.mask, window.shape[-2],
+                                scatter)
+    kernels, msg_mask = {}, {}
+    for _, mlp in stacks:
+        if mlp in kernels:
+            continue
+        k = edge_kernel_matrices(params[mlp], graph.edge_feats, cfg.width,
+                                 cd, tensor_cores)
+        msg_mask[mlp] = graph.mask
+        if cfg.kernel_quant == "int8":
+            # the degree stays the unscaled mask's; the messages carry
+            # the per-edge scale
+            k, kscale = quantize_kernels_int8(k)
+            msg_mask[mlp] = graph.mask * kscale
+        kernels[mlp] = k
+    if (cfg.fused_conv_vjp and cfg.tie_edge_kernel and cfg.depth > 0
+            and scatter == "onehot" and cfg.kernel_quant == "none"
+            and not cfg.legacy_no_lstm):
         # hand-written backward over the whole tied stack: one-pass
         # kernel-tensor gradient (ops/conv_stack.py)
         x = tied_conv_stack(
-            cfg.depth, cd, x, k1, graph.edges, graph.mask, inv_deg,
+            cfg.depth, cd, x, kernels["edge_kernel"], graph.edges,
+            graph.mask, inv_deg,
             params["conv1"]["root"], params["conv1"]["bias"],
             params["conv2"]["root"], params["conv2"]["bias"])
     else:
-        for conv, kernels in (("conv1", k1), ("conv2", k2)):
+        for conv, mlp in stacks:
             for _ in range(cfg.depth):
                 x = torch.relu(edge_conv_sparse(
-                    params[conv], x, kernels, graph.edges, graph.mask,
-                    inv_deg, "onehot", cd))
+                    params[conv], x, kernels[mlp], graph.edges,
+                    msg_mask[mlp], inv_deg, scatter, cd))
     return _head(params, cfg, window, x, return_latent)
 
 
@@ -263,9 +338,10 @@ def _head(params, cfg: ModelConfig, window, x, return_latent: bool):
 
 def takes_train_kernel(cfg: ModelConfig, batch: GKNBatch) -> bool:
     """The JAX package's dispatch rule for ``train_conv_impl="pallas"``:
-    a sparse graph, a tied edge kernel, depth > 0, no quantization, the
-    LSTM encoder and at most 512 nodes. Anything else takes the per-layer
-    path.
+    a sparse graph (in any edge layout: the kernel reads the edge indices,
+    not the slot positions), a tied edge kernel, depth > 0, no
+    quantization, the LSTM encoder (``window_diff`` included) and at most
+    512 nodes. Anything else takes the per-layer path.
 
     Every width takes the kernel, as the JAX package's every width takes
     its Pallas kernel: CPU tensors its plain version, CUDA tensors the
@@ -282,13 +358,20 @@ def takes_train_kernel(cfg: ModelConfig, batch: GKNBatch) -> bool:
 
 
 def gkn_apply(params, cfg: ModelConfig, batch: GKNBatch,
-              return_latent: bool = False):
+              return_latent: bool = False,
+              scatter_hint: Optional[str] = None):
     """Batched forward over ``batch.window`` and ``batch.graph``:
-    (B, R, out_width) [and the (B, R, width) latent]."""
+    (B, R, out_width) [and the (B, R, width) latent]. ``scatter_hint``
+    overrides ``cfg.scatter_mode`` on the per-layer path: callers whose
+    graphs were rebuilt on the device pass
+    ``rollout.scan.rebuilt_scatter_hint``, so that a "blocked" dataset
+    layout never reduces a CSR-packed rebuild. The kernel path reads the
+    edge indices and ignores it."""
     if takes_train_kernel(cfg, batch):
         return _gkn_apply_kernel_batched(params, cfg, batch, return_latent)
     return gkn_apply_single(params, cfg, batch.aa, batch.window, batch.graph,
-                            return_latent, tensor_cores=True)
+                            return_latent, scatter_hint=scatter_hint,
+                            tensor_cores=True)
 
 
 def _gkn_apply_kernel_batched(params, cfg: ModelConfig, batch: GKNBatch,

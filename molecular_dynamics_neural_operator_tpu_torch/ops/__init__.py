@@ -1,7 +1,10 @@
 from molecular_dynamics_neural_operator_tpu_torch.ops.edge_conv import (
+    edge_conv_dense,
     edge_conv_init,
     edge_conv_sparse,
     edge_kernel_matrices,
+    masked_dense_kernels,
+    quantize_kernels_int8,
     sparse_inv_degree,
 )
 from molecular_dynamics_neural_operator_tpu_torch.ops.lstm import (
@@ -16,9 +19,12 @@ from molecular_dynamics_neural_operator_tpu_torch.ops.mlp import (
 )
 
 __all__ = [
+    "edge_conv_dense",
     "edge_conv_init",
     "edge_conv_sparse",
     "edge_kernel_matrices",
+    "masked_dense_kernels",
+    "quantize_kernels_int8",
     "sparse_inv_degree",
     "lstm_apply",
     "lstm_init",

@@ -2,16 +2,27 @@
 
     x_i' = x_i @ root + mean_{j in N(i)} x_j @ reshape(h(e_ji), w, w) + bias
 
-Sparse padded edge lists with one-hot incidence products (the JAX
-package's ``"onehot"`` scatter mode), every function batched over any
-leading axes. The kernel matrices are computed once per forward and shared
-by all 2*depth layers. Every function is differentiable; the whole tied
-stack with a hand-written backward is ``ops/conv_stack.py``, and as a
-CUDA kernel ``ops/cuda/train_conv.py``.
+Every function is batched over any leading axes and differentiable. The
+kernel matrices are computed once per forward and shared by all 2*depth
+layers. Two graph forms:
 
-Not ported yet (they raise ``NotImplementedError``): the ``"segment"`` and
-``"blocked"`` scatter modes, ``edge_conv_dense`` and the int8
-``quantize_kernels_int8`` serving option.
+- dense: the (R, R, w, w) kernel tensor pre-multiplied by the adjacency,
+  contracted over sources and channels (``edge_conv_dense``);
+- sparse: padded edge lists with a ``scatter_mode``: ``"onehot"``
+  (incidence products; the rule below 512 nodes), ``"segment"`` (a
+  gather and a scatter-add, above) or ``"blocked"`` (the cell-list block
+  layout, where slot n*max_degree + d targets node n, so the scatter is a
+  per-node sum).
+
+The whole tied sparse stack with a hand-written backward is
+``ops/conv_stack.py``, and as a CUDA kernel ``ops/cuda/train_conv.py``.
+``quantize_kernels_int8`` is the int8 serving option: the per-edge scale
+is folded into the message mask.
+
+Cast points, as in the JAX package: ``"onehot"`` rounds each message to
+the compute dtype before its scatter product; ``"segment"`` and
+``"blocked"`` sum the f32 messages unrounded; the dense conv contracts the
+rounded x with the rounded kernel tensor and accumulates in f32.
 """
 
 from __future__ import annotations
@@ -23,15 +34,20 @@ from molecular_dynamics_neural_operator_tpu_torch.ops.mlp import (
     round_to,
 )
 
-# Above this node count the JAX package aggregates with segment_sum.
+# Above this node count the "auto" rule aggregates with the segment
+# scatter instead of (E, N) one-hot products.
 SCATTER_ONEHOT_MAX_NODES = 512
 
 
-def _onehot_only(scatter_mode: str) -> None:
-    if scatter_mode != "onehot":
-        raise NotImplementedError(
-            f"scatter_mode={scatter_mode!r} is not ported yet; only "
-            "'onehot' is")
+def _check_blocked_layout(num_edges: int, num_nodes: int) -> None:
+    """The "blocked" modes need the cell-list block layout, E ==
+    num_nodes * max_degree; divisibility is the checkable part."""
+    if num_edges % num_nodes:
+        raise ValueError(
+            f"blocked scatter requires the cell-list block layout "
+            f"(E == num_nodes * max_degree); got E={num_edges}, "
+            f"num_nodes={num_nodes}"
+        )
 
 
 def edge_conv_init(gen: torch.Generator, width: int, device=None):
@@ -46,11 +62,100 @@ def edge_kernel_matrices(mlp_params, edge_feats: torch.Tensor, width: int,
                          compute_dtype=None,
                          tensor_cores: bool = False) -> torch.Tensor:
     """h(e) for every edge as (..., width, width) in ``compute_dtype``
-    (f32 if unset). edge_feats: (..., F)."""
+    (f32 if unset). edge_feats: (..., F); the leading axes are edge axes,
+    (E,) sparse or (R, R) dense."""
     h = mlp_apply(mlp_params, edge_feats, compute_dtype=compute_dtype,
                   tensor_cores=tensor_cores)
     out_dtype = compute_dtype or torch.float32
     return h.reshape(edge_feats.shape[:-1] + (width, width)).to(out_dtype)
+
+
+def quantize_kernels_int8(kernels: torch.Tensor):
+    """Symmetric per-edge int8 quantization of kernels (..., E, w, w):
+    (k8 int8, scale f32 (..., E)) with k8 * scale ~ kernels, scale =
+    max|k| / 127 (at least 1e-30 / 127). ``torch.round`` rounds half to
+    even, as ``jnp.round`` does."""
+    k = kernels.float()
+    amax = torch.amax(torch.abs(k), dim=(-2, -1))
+    scale = torch.clamp(amax, min=1e-30) / 127.0
+    k8 = torch.clamp(torch.round(k / scale[..., None, None]), -127.0, 127.0)
+    return k8.to(torch.int8), scale
+
+
+class _DenseAggregate(torch.autograd.Function):
+    """x (N, 1, K) @ op (N, K, M), both bf16 on the card, accumulated and
+    returned in f32 (``torch.bmm`` with ``out_dtype``). The gradients are
+    taken from the bf16-rounded cotangent: dx accumulated in f32 and
+    rounded to bf16, as the cast of an operand rounds it; dop, one product
+    per element, rounded once to the operand's bf16."""
+
+    @staticmethod
+    def forward(ctx, xb, op):
+        ctx.save_for_backward(xb, op)
+        return torch.bmm(xb, op, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        xb, op = ctx.saved_tensors
+        gb = g.to(op.dtype)
+        dx = dop = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.bmm(gb, op.transpose(1, 2),
+                           out_dtype=torch.float32).to(xb.dtype)
+        if ctx.needs_input_grad[1]:
+            dop = torch.bmm(xb.transpose(1, 2), gb)
+        return dx, dop
+
+
+def _dense_aggregate(xr: torch.Tensor, op: torch.Tensor, cd) -> torch.Tensor:
+    """sum over (j, w) of xr[j, w] op[(j, w), (i, v)]: xr (..., R, w)
+    already rounded to ``cd``, op (..., R*w, R*w) -> (..., R, w) f32."""
+    rw = op.shape[-1]
+    row = xr.reshape(xr.shape[:-2] + (1, rw))
+    if op.is_cuda and op.dtype == torch.bfloat16:
+        n = row.numel() // rw
+        agg = _DenseAggregate.apply(row.reshape(n, 1, rw).to(op.dtype),
+                                    op.reshape(n, rw, rw))
+    else:
+        agg = row @ round_to(op, cd)
+    return agg.reshape(xr.shape)
+
+
+def edge_conv_dense(conv_params, x, kernels_masked, inv_deg,
+                    compute_dtype=None):
+    """One dense conv layer.
+
+    x: (..., R, w); kernels_masked: (..., R, R, w, w), the kernel tensor
+    times the adjacency adj[j, i], source axis first, [j, i, w, v];
+    inv_deg: (..., R) = 1/deg_i.
+    out[i] = inv_deg[i] * sum_{j, w} x[j, w] K[j, i, w, v] + x[i] @ root
+             + bias.
+    The sum is one product of x as a row of R*w with K as an (R*w, R*w)
+    matrix over [(j, w), (i, v)]: a ``kernels_masked`` that is the
+    [j, i, w, v] view of a tensor stored as [j, w, i, v] (what
+    ``masked_dense_kernels`` returns) is read in place; any other layout
+    is copied into that one first.
+    """
+    cd = compute_dtype or x.dtype
+    r, w = x.shape[-2], x.shape[-1]
+    op = kernels_masked.transpose(-3, -2).reshape(
+        kernels_masked.shape[:-4] + (r * w, r * w))
+    xr = round_to(x, cd)
+    agg = _dense_aggregate(xr, op, cd) * inv_deg[..., None]
+    root = xr @ round_to(conv_params["root"], cd)
+    return agg + root + conv_params["bias"]
+
+
+def masked_dense_kernels(kernels: torch.Tensor, adj: torch.Tensor,
+                         compute_dtype=None) -> torch.Tensor:
+    """kernels (..., R, R, w, w) [j, i, w, v] times adj (..., R, R)
+    [j, i], in ``compute_dtype`` (f32 if unset; multiplying by 0/1 is
+    exact): stored once as [j, w, i, v] and returned as its [j, i, w, v]
+    view, the layout ``edge_conv_dense`` contracts without a copy."""
+    cd = compute_dtype or torch.float32
+    k = kernels.to(cd).transpose(-3, -2)                  # [j, w, i, v]
+    masked = k * adj.to(cd)[..., :, None, :, None]
+    return masked.contiguous().transpose(-3, -2)
 
 
 def _onehot(idx: torch.Tensor, num_nodes: int) -> torch.Tensor:
@@ -59,25 +164,49 @@ def _onehot(idx: torch.Tensor, num_nodes: int) -> torch.Tensor:
     return (idx[..., :, None] == nodes).float()
 
 
+def _segment_sum(vals: torch.Tensor, idx: torch.Tensor,
+                 num_segments: int) -> torch.Tensor:
+    """vals (..., E, C) summed into (..., num_segments, C) by idx
+    (..., E)."""
+    lead, e, c = vals.shape[:-2], vals.shape[-2], vals.shape[-1]
+    v = vals.reshape(-1, e, c)
+    index = idx.long().reshape(-1, e, 1).expand(-1, e, c)
+    out = torch.zeros(v.shape[0], num_segments, c, dtype=vals.dtype,
+                      device=vals.device)
+    return out.scatter_add(1, index, v).reshape(lead + (num_segments, c))
+
+
 def edge_conv_sparse(conv_params, x, kernels, edges, mask, inv_deg,
                      scatter_mode: str = "onehot", compute_dtype=None):
     """One sparse conv layer.
 
-    x: (..., R, w); kernels: (..., E, w, w); edges: (..., 2, E) int
-    [src; dst]; mask: (..., E); inv_deg: (..., R). Gathered rows, messages
+    x: (..., R, w); kernels: (..., E, w, w) (int8 is converted before any
+    product); edges: (..., 2, E) int [src; dst]; mask: (..., E), which
+    may carry a per-edge scale; inv_deg: (..., R). Gathered rows, messages
     and the root product are rounded to ``compute_dtype`` at the JAX
     package's cast points; every sum accumulates in f32.
     """
-    _onehot_only(scatter_mode)
     cd = compute_dtype or x.dtype
     r = x.shape[-2]
-    g = _onehot(edges[..., 0, :], r)                            # (..., E, R)
-    s = _onehot(edges[..., 1, :], r)
-    xs = g @ round_to(x, cd)                                    # (..., E, w)
+    src, dst = edges[..., 0, :], edges[..., 1, :]
+    if scatter_mode == "onehot":
+        xs = _onehot(src, r) @ round_to(x, cd)                  # (..., E, w)
+    elif scatter_mode in ("segment", "blocked"):
+        xs = torch.take_along_dim(x, src.long()[..., None], dim=-2)
+    else:
+        raise ValueError(f"unknown scatter_mode: {scatter_mode}")
     m = torch.einsum("...ew,...ewv->...ev", round_to(xs, cd),
                      round_to(kernels, cd))
     m = m * mask[..., None]
-    agg = s.transpose(-1, -2) @ round_to(m, cd)                 # (..., R, w)
+    if scatter_mode == "onehot":
+        agg = _onehot(dst, r).transpose(-1, -2) @ round_to(m, cd)
+    elif scatter_mode == "blocked":
+        # slot n*max_degree + d targets node n: a per-node sum, padded
+        # slots add 0 through the mask
+        _check_blocked_layout(m.shape[-2], r)
+        agg = m.reshape(m.shape[:-2] + (r, -1, m.shape[-1])).sum(dim=-2)
+    else:
+        agg = _segment_sum(m, dst, r)
     agg = agg * inv_deg[..., None]
     root = round_to(x, cd) @ round_to(conv_params["root"], cd)
     return agg + root + conv_params["bias"]
@@ -87,15 +216,14 @@ def sparse_inv_degree(edges, mask, num_nodes: int,
                       scatter_mode: str = "onehot") -> torch.Tensor:
     """1 / (number of real incoming edges) per target node, min degree 1.
     Padded slots (mask 0) count for nothing, whatever node they name."""
-    _onehot_only(scatter_mode)
-    s = _onehot(edges[..., 1, :], num_nodes)                    # (..., E, R)
-    deg = (mask.float()[..., None, :] @ s).squeeze(-2)          # (..., R)
+    mask = mask.float()
+    if scatter_mode == "onehot":
+        s = _onehot(edges[..., 1, :], num_nodes)                # (..., E, R)
+        deg = (mask[..., None, :] @ s).squeeze(-2)              # (..., R)
+    elif scatter_mode == "blocked":
+        _check_blocked_layout(mask.shape[-1], num_nodes)
+        deg = mask.reshape(mask.shape[:-1] + (num_nodes, -1)).sum(dim=-1)
+    else:
+        deg = _segment_sum(mask[..., None], edges[..., 1, :],
+                           num_nodes)[..., 0]
     return 1.0 / torch.clamp(deg, min=1.0)
-
-
-def edge_conv_dense(*args, **kwargs):
-    raise NotImplementedError("dense graphs are not ported yet")
-
-
-def quantize_kernels_int8(*args, **kwargs):
-    raise NotImplementedError("kernel_quant='int8' is not ported yet")

@@ -1,8 +1,9 @@
 """Autoregressive free rollout (``molecular_dynamics_neural_operator_tpu/rollout/scan.py``).
 
 Each step rebuilds the contact graph from the window's last (or first)
-frame, runs the GKN forward, optionally clips the prediction and slides
-the window. The JAX ``lax.scan`` becomes a Python loop over plain tensor
+frame (all pairs under ``graph_mode="dense"``, a padded edge list under
+``"sparse"``), runs the GKN forward, optionally clips the prediction and
+slides the window. The JAX ``lax.scan`` becomes a Python loop over plain tensor
 ops; the edge-overflow flag stays a device tensor, so the loop never waits
 on the card. This is the plain counterpart of the CUDA rollout
 (``ops/cuda/persistent_rollout.py``) and its oracle on the card.
@@ -21,23 +22,49 @@ from molecular_dynamics_neural_operator_tpu_torch.configs import ModelConfig
 from molecular_dynamics_neural_operator_tpu_torch.device import resolve_device
 from molecular_dynamics_neural_operator_tpu_torch.geometry.contact import (
     contact_map,
+    dense_edge_features,
     edge_features_from_edges,
     padded_edges_device,
 )
 from molecular_dynamics_neural_operator_tpu_torch.models.gkn import (
+    DenseGraph,
     SparseGraph,
     check_supported,
     gkn_apply_single,
+)
+from molecular_dynamics_neural_operator_tpu_torch.ops.edge_conv import (
+    SCATTER_ONEHOT_MAX_NODES,
 )
 
 COLLECT_MODES = ("coords", "contact_maps", "both")
 
 
+def rebuilt_scatter_hint(cfg: ModelConfig, num_nodes: int) -> str | None:
+    """Aggregation of a graph REBUILT on the device in a rollout or
+    curriculum step. A rebuild is never in the dataset's edge layout:
+    ``padded_edges_device`` packs it front to back (the cell list, not
+    ported yet, emits the block layout). ``cfg.scatter_mode`` describes
+    the dataset's graphs (``edge_layout="blocked"``) and must not reach a
+    rebuild, where "blocked" would sum unrelated slots into each node.
+    None in dense mode, which has no scatter."""
+    if cfg.graph_mode != "sparse":
+        return None
+    if (cfg.neighbor_impl == "cell_list"
+            and num_nodes > SCATTER_ONEHOT_MAX_NODES):
+        return "blocked"
+    return "onehot" if num_nodes <= SCATTER_ONEHOT_MAX_NODES else "segment"
+
+
 def _build_graph(cfg: ModelConfig, frame, threshold: float):
     """(graph, overflow): overflow is True where the true edge count
-    exceeds ``cfg.max_edges`` and edges were dropped."""
+    exceeds ``cfg.max_edges`` and edges were dropped (never, dense)."""
     check_supported(cfg)
     adj = contact_map(frame, threshold)
+    if cfg.graph_mode == "dense":
+        overflow = torch.zeros(frame.shape[:-2], dtype=torch.bool,
+                               device=frame.device)
+        return DenseGraph(adj=adj,
+                          edge_feats=dense_edge_features(frame)), overflow
     edges, mask, count = padded_edges_device(adj, cfg.max_edges,
                                              return_count=True)
     graph = SparseGraph(edges=edges, mask=mask,
@@ -50,7 +77,10 @@ def _step(params, cfg: ModelConfig, aa, window, threshold: float,
     frame = window[..., -1, :, :] if graph_frame == "last" \
         else window[..., 0, :, :]
     graph, overflow = _build_graph(cfg, frame, threshold)
-    out = gkn_apply_single(params, cfg, aa, window, graph)
+    # the rebuild's layout is this step's, not cfg.scatter_mode's
+    out = gkn_apply_single(params, cfg, aa, window, graph,
+                           scatter_hint=rebuilt_scatter_hint(
+                               cfg, window.shape[-2]))
     if clip is not None:
         out = torch.clamp(out, -clip, clip)
     new_window = torch.cat([window[..., 1:, :, :], out[..., None, :, :]],

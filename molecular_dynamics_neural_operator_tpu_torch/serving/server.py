@@ -24,11 +24,13 @@ differently from one over E rows: hold that path to 1e-5 A with equal
 edge lists.
 
 ``impl="scan"`` builds its segment from ``rollout_scan`` (one amino-acid
-sequence per request; with ``conv_impl="pallas"`` through the fused
+sequence per request, on the graph ``cfg.graph_mode`` names, dense or
+sparse; with ``conv_impl="pallas"`` a sparse graph goes through the fused
 kernel of ``ops/cuda/fused_gkn.py``). ``impl="persistent"`` builds it from
 the rollout kernels (``ops/cuda/persistent_rollout.py``), which embed one
-shared sequence; its weights are cast once and its step buffers are kept
-per padded stream count for the server's lifetime.
+shared sequence and build their own sparse graph of ``cfg.max_edges``
+slots whatever ``cfg.graph_mode`` says; its weights are cast once and its
+step buffers are kept per padded stream count for the server's lifetime.
 
 Threads and CUDA streams. The scheduler thread only enqueues work on a
 stream of its own and never reads a device value. A reader thread turns

@@ -6,8 +6,9 @@ model's own predictions, the mismatch behind the reference's rollout
 collapse. Here a train step unrolls K free-rollout steps: step 1 on the
 dataset's stored graph (or one rebuilt from the window's last frame),
 steps 2..K on graphs rebuilt from the model's own predictions exactly as
-the rollout does (``rollout/scan.py``), and the loss is a weighted sum of
-the per-step relative L2 errors. K = 1 is the teacher-forced objective.
+the rollout does (``rollout/scan.py``; all pairs under
+``graph_mode="dense"``), and the loss is a weighted sum of the per-step
+relative L2 errors. K = 1 is the teacher-forced objective.
 
 The JAX package's ``lax.scan`` over the steps is a Python loop here (K is
 static), ``stop_gradient`` is ``.detach()`` and the burn-in of
@@ -35,6 +36,7 @@ from molecular_dynamics_neural_operator_tpu_torch.models.gkn import (
 from molecular_dynamics_neural_operator_tpu_torch.rollout.scan import (
     _build_graph,
     _step,
+    rebuilt_scatter_hint,
 )
 from molecular_dynamics_neural_operator_tpu_torch.train.loop import (
     featurize_batch,
@@ -122,15 +124,13 @@ def curriculum_loss_batched(params, cfg: ModelConfig, gbatch: GKNBatch,
       and at 1e-6; ``"absolute"`` divides by ``||y_t||``.
     - ``unroll_scans`` is accepted for the JAX package's signature: the
       loop is unrolled here anyway.
-    - A ``teacher_scatter_hint`` other than ``"onehot"`` is not ported
-      (the JAX package's ``axis_name``, the data-parallel delta floor, is
-      not either).
+    - ``teacher_scatter_hint`` is the first step's aggregation
+      (``gkn_apply``'s ``scatter_hint``): a first-step graph rebuilt on the
+      device passes ``rebuilt_scatter_hint``; the free steps always do.
+      (The JAX package's ``axis_name``, the data-parallel delta floor, is
+      not ported.)
     """
     del unroll_scans
-    if teacher_scatter_hint not in (None, "onehot"):
-        raise NotImplementedError(
-            f"teacher_scatter_hint={teacher_scatter_hint!r} is not ported "
-            "yet: only the one-hot scatter (at most 512 nodes) is")
     b, k = y_seq.shape[0], y_seq.shape[1]
     j = k if grad_steps is None else int(grad_steps)
     if not 1 <= j <= k:
@@ -163,7 +163,9 @@ def curriculum_loss_batched(params, cfg: ModelConfig, gbatch: GKNBatch,
     def free_step(cfg_x, window, y_t):
         graph, ov = _build_graph(cfg_x, window[:, -1], threshold)
         out = gkn_apply(params, cfg_x, GKNBatch(aa=gbatch.aa, window=window,
-                                                graph=graph, y=y_t))
+                                                graph=graph, y=y_t),
+                        scatter_hint=rebuilt_scatter_hint(
+                            cfg_x, window.shape[-2]))
         if coord_clip is not None:
             out = torch.clamp(out, -coord_clip, coord_clip)
         return torch.cat([window[:, 1:], out[:, None]], dim=1), out, ov.any()
@@ -173,7 +175,8 @@ def curriculum_loss_batched(params, cfg: ModelConfig, gbatch: GKNBatch,
     # was made under no_grad: the window reaches the supervised span
     # detached, as the JAX package's stop_gradient leaves it.
     with burn_in(0):
-        out = gkn_apply(params, cfg_burn, gbatch)
+        out = gkn_apply(params, cfg_burn, gbatch,
+                        scatter_hint=teacher_scatter_hint)
     if burn == 0:
         loss_vec = weights[0] * rel(out, y_seq[:, 0], gbatch.window[:, -1])
     else:
@@ -244,8 +247,10 @@ def make_curriculum_train_step(cfg: ModelConfig, tx, rollout_steps: int,
         graph, ov0 = _build_graph(cfg, batch["window"][:, -1], threshold)
         gbatch = GKNBatch(aa=batch["aa"], window=batch["window"],
                           graph=graph, y=batch["y"])
-        loss, (m, ovf) = curriculum_loss_batched(params, cfg, gbatch,
-                                                 batch["y_seq"], **opts)
+        loss, (m, ovf) = curriculum_loss_batched(
+            params, cfg, gbatch, batch["y_seq"], **opts,
+            teacher_scatter_hint=rebuilt_scatter_hint(
+                cfg, batch["window"].shape[-2]))
         return loss, (m, ovf | ov0.any())
 
     def step(state: TrainState, batch: dict):

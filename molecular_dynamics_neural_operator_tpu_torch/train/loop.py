@@ -5,7 +5,7 @@ The loss is the sum over the batch of per-example relative L2 errors on
 the (R*3)-flattened coordinates, with plain MSE tracked alongside.
 Per-epoch numbers are means over batches. Edge features are built on the
 device from the window inside the step; the host ships coordinates and the
-edge list only.
+graph only: an edge list, or under ``graph_mode="dense"`` an adjacency.
 """
 
 from __future__ import annotations
@@ -23,9 +23,11 @@ from molecular_dynamics_neural_operator_tpu_torch.data.windows import (
     batch_iterator,
 )
 from molecular_dynamics_neural_operator_tpu_torch.geometry.contact import (
+    dense_edge_features,
     edge_features_from_edges,
 )
 from molecular_dynamics_neural_operator_tpu_torch.models.gkn import (
+    DenseGraph,
     GKNBatch,
     SparseGraph,
     gkn_apply,
@@ -46,20 +48,22 @@ from molecular_dynamics_neural_operator_tpu_torch.train.state import (
 
 def featurize_batch(cfg: ModelConfig, batch: dict,
                     graph_frame: str = "first") -> GKNBatch:
-    """Build the GKNBatch from a batch dict of tensors. graph_frame: which
-    window frame the edge features come from, "first" (the training
-    dataset's convention) or "last" (the rollout's)."""
+    """Build the GKNBatch from a batch dict of tensors: a ``DenseGraph``
+    from ``"adj"``, else a ``SparseGraph`` from ``"edges"`` and ``"mask"``.
+    graph_frame: which window frame the edge features come from, "first"
+    (the training dataset's convention) or "last" (the rollout's)."""
     if graph_frame not in ("first", "last"):
         raise ValueError(f"unknown graph_frame: {graph_frame!r} "
                          "(expected 'first' or 'last')")
-    if "edges" not in batch:
-        raise NotImplementedError("only sparse batches (edges, mask) are "
-                                  "ported; dense adjacency is not")
     window = batch["window"]
     frame = window[:, 0] if graph_frame == "first" else window[:, -1]
-    graph = SparseGraph(edges=batch["edges"], mask=batch["mask"],
-                        edge_feats=edge_features_from_edges(frame,
-                                                            batch["edges"]))
+    if "adj" in batch:
+        graph = DenseGraph(adj=batch["adj"],
+                           edge_feats=dense_edge_features(frame))
+    else:
+        graph = SparseGraph(edges=batch["edges"], mask=batch["mask"],
+                            edge_feats=edge_features_from_edges(
+                                frame, batch["edges"]))
     return GKNBatch(aa=batch["aa"], window=window, graph=graph, y=batch["y"])
 
 

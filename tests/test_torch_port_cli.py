@@ -283,15 +283,17 @@ def test_rollout_cli_matches_jax(case, roll_runs):
 
 # ---- refusals, device and no-op flags ---------------------------------------
 
+# (cli, flags, the queue A item that refuses them, or None where the flag
+# is ported now and the CLI goes on to read the data)
 REFUSALS = [
     ("train", ["--graph_mode", "sparse", "--operator", "fno"], 6),
     ("train", ["--graph_mode", "sparse", "--data_parallel"], 8),
-    ("train", [], 4),  # the JAX default --graph_mode dense
-    ("train", ["--graph_mode", "sparse", "--edge_layout", "blocked"], 4),
-    ("train", ["--graph_mode", "sparse", "--window_diff"], 4),
-    ("rollout", [], 4),
-    ("rollout", ["--graph_mode", "sparse", "--window_diff"], 4),
-    ("rollout", ["--graph_mode", "sparse", "--kernel_quant", "int8"], 4),
+    ("train", [], None),  # the JAX default --graph_mode dense
+    ("train", ["--graph_mode", "sparse", "--edge_layout", "blocked"], None),
+    ("train", ["--graph_mode", "sparse", "--window_diff"], None),
+    ("rollout", [], None),
+    ("rollout", ["--graph_mode", "sparse", "--window_diff"], None),
+    ("rollout", ["--graph_mode", "sparse", "--kernel_quant", "int8"], None),
     ("rollout", ["--graph_mode", "sparse", "--neighbor_impl", "cell_list"],
      5),
 ]
@@ -301,6 +303,9 @@ REFUSALS = [
                          ids=[f"{c}{''.join(f)}" for c, f, _ in REFUSALS])
 def test_unported_flags_are_refused_before_any_data_is_read(cli, flags, item,
                                                             tmp_path):
+    """A flag whose module is not ported exits naming its queue item
+    before the data is read; a ported one (item None) is accepted, and
+    the CLI fails only at the missing data file."""
     missing = tmp_path / "missing.h5"  # never opened
     if cli == "train":
         argv = ["--data_path", str(missing), "--run_path",
@@ -310,9 +315,23 @@ def test_unported_flags_are_refused_before_any_data_is_read(cli, flags, item,
         argv = ["--data_path", str(missing), "--out_path",
                 str(tmp_path / "out")] + flags
         main = prollout.main
-    with pytest.raises(SystemExit, match=f"queue A item {item}"):
-        main(argv + ["--device", "cpu"])
+    if item is None:
+        with pytest.raises((FileNotFoundError, OSError, ValueError),
+                           match="missing.h5|data_path does not exist"):
+            main(argv + ["--device", "cpu"])
+    else:
+        with pytest.raises(SystemExit, match=f"queue A item {item}"):
+            main(argv + ["--device", "cpu"])
     assert not (tmp_path / "run").exists() and not (tmp_path / "out").exists()
+
+
+def test_int8_rollouts_need_the_sparse_graph_as_in_jax(tmp_path):
+    argv = ["--data_path", str(tmp_path / "missing.h5"), "--out_path",
+            str(tmp_path / "out"), "--kernel_quant", "int8"]
+    with pytest.raises(SystemExit, match="requires --graph_mode sparse"):
+        prollout.main(argv + ["--device", "cpu"])
+    with pytest.raises(SystemExit, match="requires --graph_mode sparse"):
+        jrollout.main(argv)
 
 
 def test_the_clis_need_the_card_unless_asked_for_the_cpu(h5, tmp_path,

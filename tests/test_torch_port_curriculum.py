@@ -279,16 +279,23 @@ def test_grad_steps_k_equals_full_backprop_and_burn_in_gets_no_gradient():
 
 
 def test_options_that_are_not_ported_are_refused_by_name():
-    _, cfg, batch, jparams = _setup("xla", 2)
+    jcfg, cfg, batch, jparams = _setup("xla", 2)
     tb = {k: torch.as_tensor(v) for k, v in batch.items()}
     gb = loop.featurize_batch(cfg, tb)
     params = params_from_jax(jparams, "cpu")
-    with pytest.raises(NotImplementedError, match="teacher_scatter_hint"):
-        curriculum.curriculum_loss_batched(params, cfg, gb, tb["y_seq"],
-                                           teacher_scatter_hint="segment")
+    # every teacher_scatter_hint is ported: "segment" sums what "onehot"
+    # sums, as the JAX package's does
+    seg = curriculum.curriculum_loss_batched(params, cfg, gb, tb["y_seq"],
+                                             teacher_scatter_hint="segment")
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    jseg = jcurriculum.curriculum_loss_batched(
+        jparams, jcfg, jloop.featurize_batch(jcfg, jb), jb["y_seq"],
+        teacher_scatter_hint="segment")
+    np.testing.assert_allclose(float(seg[0]), float(jseg[0]), rtol=RTOL)
     # accepted: the one-hot hint and unroll_scans (the loop is unrolled)
     a = curriculum.curriculum_loss_batched(params, cfg, gb, tb["y_seq"],
                                            teacher_scatter_hint="onehot",
                                            unroll_scans=True)
     b = curriculum.curriculum_loss_batched(params, cfg, gb, tb["y_seq"])
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    np.testing.assert_allclose(float(seg[0]), float(a[0]), rtol=RTOL)

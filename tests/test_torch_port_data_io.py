@@ -394,22 +394,42 @@ def test_presets_match_jax():
 
 
 def test_the_solvated_preset_still_refuses_to_build():
+    """Past the one-hot scatter's 512 nodes, as the 10k preset, the
+    forward now aggregates with the segment scatter (it gives the forced
+    one-hot's sums); what the preset still waits for, the cell list, is
+    refused by name."""
+    from molecular_dynamics_neural_operator_tpu_torch.geometry import (
+        contact_map,
+        edge_features_from_edges,
+        padded_edges_device,
+    )
     from molecular_dynamics_neural_operator_tpu_torch.models.gkn import (
         SparseGraph,
+        check_supported,
         gkn_apply_single,
     )
 
     cfg = dataclasses.replace(presets.SOLVATED_10K, width=4, ker_width=4,
-                              depth=1)
+                              depth=1, compute_dtype="float32")
     params = __import__(
         "molecular_dynamics_neural_operator_tpu_torch.models",
         fromlist=["gkn_init"]).gkn_init(cfg, device="cpu")
     r = 600  # past the one-hot scatter's 512 nodes, as the 10k preset
-    graph = SparseGraph(torch.zeros(2, 4, dtype=torch.int32),
-                        torch.ones(4), torch.zeros(4, 6))
-    with pytest.raises(NotImplementedError, match="512 nodes"):
-        gkn_apply_single(params, cfg, torch.zeros(r, dtype=torch.int32),
-                         torch.zeros(cfg.window_size, r, 3), graph)
+    rng = np.random.default_rng(0)
+    window = torch.as_tensor(rng.uniform(0, 55, size=(cfg.window_size, r, 3)),
+                             dtype=torch.float32)
+    edges, mask = padded_edges_device(contact_map(window[-1]), 12 * r)
+    graph = SparseGraph(edges, mask, edge_features_from_edges(window[-1],
+                                                              edges))
+    aa = torch.as_tensor(rng.integers(0, 20, r))
+    with torch.no_grad():
+        auto = gkn_apply_single(params, cfg, aa, window, graph)
+        onehot = gkn_apply_single(params, cfg, aa, window, graph,
+                                  scatter_hint="onehot")
+    assert auto.shape == (r, 3) and torch.isfinite(auto).all()
+    np.testing.assert_allclose(auto.numpy(), onehot.numpy(), 1e-5, 1e-5)
+    with pytest.raises(NotImplementedError, match="cell_list"):
+        check_supported(dataclasses.replace(cfg, neighbor_impl="cell_list"))
 
 
 # ---- TrainState checkpoints across packages --------------------------------

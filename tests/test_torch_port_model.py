@@ -131,6 +131,30 @@ def test_gkn_init_matches_jax_structure():
                                   dict(neighbor_impl="cell_list"),
                                   dict(graph_mode="dense")])
 def test_unported_options_raise(opts):
+    """Only the cell list is still refused; every other option is ported
+    and its one-step forward matches the JAX package's."""
     cfg = dataclasses.replace(ModelConfig(**BASE), **opts)
-    with pytest.raises(NotImplementedError):
-        gkn.check_supported(cfg)
+    if cfg.neighbor_impl == "cell_list":
+        with pytest.raises(NotImplementedError, match="cell_list"):
+            gkn.check_supported(cfg)
+        return
+    gkn.check_supported(cfg)
+    jcfg = JaxModelConfig(**dataclasses.asdict(cfg))
+    jparams = jax.tree.map(np.asarray,
+                           jgkn.gkn_init(jax.random.PRNGKey(9), jcfg))
+    aa, window = _inputs(jcfg, 3)
+    frame = jnp.asarray(window[-1])
+    if cfg.graph_mode == "dense":
+        jgraph = jgkn.DenseGraph(jgeo.contact_map(frame, 8.0),
+                                 jgeo.dense_edge_features(frame))
+        graph = gkn.DenseGraph(*(torch.as_tensor(np.array(t))
+                                 for t in jgraph))
+    else:
+        jgraph = _jax_graph(jcfg, window)
+        graph = _port_graph(jgraph)
+    want = jgkn.gkn_apply_single(jparams, jcfg, jnp.asarray(aa),
+                                 jnp.asarray(window), jgraph)
+    got = gkn.gkn_apply_single(params_from_jax(jparams, "cpu"), cfg,
+                               torch.as_tensor(aa), torch.as_tensor(window),
+                               graph)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), RTOL, ATOL)

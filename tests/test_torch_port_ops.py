@@ -131,12 +131,22 @@ def test_sparse_inv_degree_matches_jax_and_ignores_padding():
 
 
 def test_unported_modes_raise():
-    e = torch.zeros(2, 4, dtype=torch.int32)
-    m = torch.ones(4)
-    with pytest.raises(NotImplementedError):
-        edge_conv.sparse_inv_degree(e, m, 3, "segment")
-    with pytest.raises(NotImplementedError):
-        edge_conv.edge_conv_dense()
+    """The segment and blocked degrees are ported (they match the one-hot
+    count and the JAX package's); a blocked count on a list that is not
+    in the block layout raises the JAX package's ValueError."""
+    pos, edges, mask = _graph(4, e=168)  # 14 slots a node
+    te, tm = torch.as_tensor(edges), torch.as_tensor(mask)
+    onehot = edge_conv.sparse_inv_degree(te, tm, 12)
+    for mode in ("segment", "blocked"):
+        got = edge_conv.sparse_inv_degree(te, tm, 12, mode)
+        want = jconv.sparse_inv_degree(jnp.asarray(edges), jnp.asarray(mask),
+                                       12, mode)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        if mode == "segment":
+            np.testing.assert_array_equal(got.numpy(), onehot.numpy())
+    with pytest.raises(ValueError, match="block layout"):
+        edge_conv.sparse_inv_degree(torch.zeros(2, 4, dtype=torch.int32),
+                                    torch.ones(4), 3, "blocked")
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])

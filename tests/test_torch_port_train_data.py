@@ -148,10 +148,15 @@ def test_window_dataset_refusals():
         WindowDataset(traj, window_size=4, graph_mode="sparse", max_edges=8)
     with pytest.raises(ValueError, match="longer than the input"):
         WindowDataset(traj, window_size=30, graph_mode="sparse")
-    with pytest.raises(NotImplementedError):
-        WindowDataset(traj, window_size=4, graph_mode="dense")
-    with pytest.raises(NotImplementedError):
+    # the dense mode and the blocked layout are ported; the blocked
+    # layout refuses what the JAX package refuses
+    dense = WindowDataset(traj, window_size=4, graph_mode="dense")
+    assert dense.get_batch([0])["adj"].shape == (1, 12, 12)
+    with pytest.raises(ValueError, match="divisible by num_residues"):
         WindowDataset(traj, window_size=4, graph_mode="sparse",
+                      max_edges=100, edge_layout="blocked")
+    with pytest.raises(ValueError, match="requires sparse"):
+        WindowDataset(traj, window_size=4, graph_mode="dense",
                       edge_layout="blocked")
     none = WindowDataset(traj, window_size=4, graph_mode="none")
     assert set(none.get_batch([0])) == {"aa", "window", "y"}

@@ -201,10 +201,14 @@ def test_pallas_impl_reaches_the_kernel_wrapper_and_checks_the_config(
     assert tc.launch_counts() == {"train_conv_fwd": 0, "train_conv_bwd": 0}
     with pytest.raises(ValueError, match="unknown train_conv_impl"):
         gkn.check_supported(dataclasses.replace(cfg, train_conv_impl="cuda"))
-    with pytest.raises(NotImplementedError):
+    # the legacy variant is ported and, as in the JAX package, never takes
+    # the training kernel
+    called.clear()
+    with torch.no_grad():
         gkn.gkn_apply(params_from_jax(jparams, "cpu"),
                       dataclasses.replace(cfg, legacy_no_lstm=True),
                       loop.featurize_batch(cfg, _tensors(batch)))
+    assert called == []
 
 
 @pytest.mark.parametrize("width", [72, 96])
