@@ -23,7 +23,11 @@ from ``synthetic_trajectory(num_frames=4000, seed=13)``):
   held in memory (the card's machine has no h5py to read ``--data_path``);
 - the dense graph of the BBA preset, the CLIs' default, and the remaining
   GKN options (``window_diff``, the blocked layout, the segment scatter,
-  int8 kernels, ``legacy_no_lstm``).
+  int8 kernels, ``legacy_no_lstm``);
+- large systems: the cell-list rebuild at 10,000 atoms, the
+  ``SOLVATED_10K`` preset's rollout at full width and the config-5
+  training shape;
+- the FNO at the training CLI's defaults on BBA.
 
 Phases, each fatal:
 
@@ -146,13 +150,49 @@ Phases, each fatal:
    rates; ``legacy_no_lstm`` on the card against the CPU (forward and
    gradient, f32).
 
+17. large systems (no kernel on the path; the launch counts stay 0):
+   (a) the cell list at 10,000 atoms on the card against the port's CPU
+   cell list (edges, mask and both flags exactly, two frames as one
+   batch) and, per node, against an all-pairs search in row blocks, on
+   the loose chain of ``tools/scale_smoke.py`` and the config-5 breathing
+   grid (``tools/config5_campaign.py``), at the campaign's settings
+   (``LARGE_CELLS``) and with room for the chain; too small capacities
+   raise ``cell_overflow`` and ``degree_overflow``. (b) ``SOLVATED_10K``
+   at full width (bf16, dh, seeded weights with ``kernel_init_scale``
+   1/(8·depth), the clip 1000): 16 steps on each system with every
+   step's flags, no overflow on the grid's first frame, the "blocked"
+   hint; 4 f32 steps with the blocked reduction against a forced segment
+   scatter on the same graphs (1e-5 of the coordinates' scale); steps/s,
+   device ms of a step by part (rebuild, dh, edge MLP, convs), peak
+   memory. (c) the config-5 training shape (f32, width
+   32, ker_width 128, depth 4, dh, blocked, KD-tree graphs): one K = 4
+   step with ``grad_steps=1`` at 1,200 atoms on the card against the CPU
+   (the same rebuilt edge lists, the loss and every gradient leaf within
+   TOL_CURRICULUM_GRAD of its norm), then 6 steps at 10,000 atoms with
+   their time and peak memory. (d) ``rollout_from_trajectory`` with
+   ``--neighbor_impl cell_list`` on the bench checkpoint for 128 f32
+   steps against the ranked rebuild: the same contact maps at every
+   step, coordinates within TOL_ROLL.
+18. FNO (the CLI's defaults: R = 28, window 10, width 32, modes 12,
+   depth 4, f32, B = 128; no kernel on the path): (a) ``_spectral_conv``
+   fft against dft and the card's fft against the CPU's at R = 28 and
+   160, with cuFFT's own ``irfft2`` of the same spectrum reported; (b) one
+   train step, card against CPU, with ``spectral_impl`` "auto" and "fft":
+   loss and every gradient leaf; (c) ``train_from_trajectory --operator
+   fno``: an epoch and a ``--rollout_steps 4`` epoch on the card, the
+   first on the CPU too (loss within TOL_TRAIN_LOSS), ``config.json``'s
+   fno section, ``best.npz``/``last.npz``, the movie; (d) 128 steps of
+   ``fno_rollout_scan`` of the trained weights, card against CPU; (e) a
+   train step's samples/s, device time and busy share, rollout steps/s,
+   the spectral conv's times.
+
 The last lines are the ``kernels`` JSON (seven kernels), the card, and
 ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA card.
 ``--only rollout``, ``--only train``, ``--only serve``, ``--only cli``,
-``--only dense`` or ``--only options`` runs one path's phases (for
-development; the ``kernels`` line then lists that path's kernels, none
-for ``cli``, ``dense`` and ``options``, which time no kernel). Imports
-nothing of JAX.
+``--only dense``, ``--only options``, ``--only large`` or ``--only fno``
+runs one path's phases (for development; the ``kernels`` line then lists
+that path's kernels, none for ``cli``, ``dense``, ``options``, ``large``
+and ``fno``, which time no kernel). Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -3274,6 +3314,853 @@ def options_phase(traj) -> dict:
     return counts
 
 
+# ---- phase 17: large systems, the cell-list rebuild ---------------------
+
+LARGE_N = 10_000
+# the rebuild of the config-5 campaign (tools/config5_campaign.py) at
+# 10,000 atoms: its cell capacity, and its max_degree rule, the largest
+# in-degree of the breathing grid's frames (35) plus 8, rounded up to a
+# multiple of 8. Its table of 16,384 buckets puts up to 34 atoms of the
+# grid in one bucket (hash collisions of cells that hold up to 21), past
+# the capacity; 65,536 buckets hold at most 22.
+LARGE_CELLS = dict(max_degree=48, cell_capacity=32, num_cells=65536)
+# the loose chain's largest in-degree at 8 A is 101 (an all-pairs count on
+# the CPU), past LARGE_CELLS: its rebuild without overflow needs this room
+CHAIN_ROOM = dict(max_degree=128, cell_capacity=64, num_cells=65536)
+LARGE_STEPS = 16
+LARGE_F32_STEPS = 4
+C5_SMALL = 1_200
+C5_FRAMES = 24
+C5_K = 4
+C5_STEPS = 6
+
+
+def serpentine_grid(n: int, spacing: float) -> np.ndarray:
+    """The first n points of a boustrophedon walk over a cubic grid:
+    consecutive chain indices are neighbouring grid points."""
+    side = int(np.ceil(n ** (1 / 3)))
+    pts = []
+    for z in range(side):
+        ys = range(side) if z % 2 == 0 else range(side - 1, -1, -1)
+        for yi, y in enumerate(ys):
+            fwd = (z * side + yi) % 2 == 0
+            for x in (range(side) if fwd else range(side - 1, -1, -1)):
+                pts.append((x, y, z))
+                if len(pts) == n:
+                    return np.asarray(pts, np.float32) * spacing
+    return np.asarray(pts[:n], np.float32) * spacing
+
+
+def breathing_trajectory(base: np.ndarray, num_frames: int, seed: int = 5,
+                         amplitude: float = 0.35,
+                         dt: float = 0.02) -> np.ndarray:
+    """base plus a smooth field of 8 sine modes, (num_frames, N, 3)."""
+    rng = np.random.default_rng(seed)
+    m = 8
+    k = rng.normal(size=(m, 3)).astype(np.float32) * 0.15
+    phi = rng.uniform(0, 2 * np.pi, size=m).astype(np.float32)
+    psi = rng.uniform(0, 2 * np.pi, size=m).astype(np.float32)
+    w = rng.uniform(0.5, 2.0, size=m).astype(np.float32)
+    e = rng.normal(size=(m, 3)).astype(np.float32)
+    e /= np.linalg.norm(e, axis=1, keepdims=True)
+    spatial = np.sin(base @ k.T + phi)
+    t = (np.arange(num_frames, dtype=np.float32) * dt)[:, None]
+    temporal = np.sin(w[None] * t + psi[None]) * amplitude
+    disp = np.einsum("rm,nm,mc->nrc", spatial, temporal, e)
+    return (base[None] + disp).astype(np.float32)
+
+
+def kdtree_edges(positions: np.ndarray) -> list:
+    """Each frame's COO edges at THRESHOLD with self-loops (scipy)."""
+    from scipy.spatial import cKDTree
+
+    out = []
+    r = positions.shape[1]
+    for frame in positions:
+        pairs = cKDTree(frame).query_pairs(THRESHOLD, output_type="ndarray")
+        src = np.concatenate([pairs[:, 0], pairs[:, 1], np.arange(r)])
+        dst = np.concatenate([pairs[:, 1], pairs[:, 0], np.arange(r)])
+        out.append(np.stack([src, dst]).astype(np.int32))
+    return out
+
+
+def loose_chain(n: int, frames: int) -> np.ndarray:
+    """The loose random chain of ``tools/scale_smoke.py`` drifting by
+    0.05 A a frame, (frames, n, 3)."""
+    rng = np.random.default_rng(0)
+    base = np.cumsum(rng.normal(size=(n, 3)) * 2.2, axis=0).astype(np.float32)
+    return np.stack([base + 0.05 * i for i in range(frames)])
+
+
+def event_ms(fn, reps: int = 3) -> float:
+    """Time of one ``fn()`` call between CUDA events over ``reps`` calls
+    after a warm-up; the host stays ahead of the device, so this is the
+    device's time where no call reads the device."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def reset_all_launches() -> None:
+    from molecular_dynamics_neural_operator_tpu_torch.ops.cuda import (
+        fused_gkn,
+        persistent_rollout as pr,
+        train_conv as tc,
+    )
+
+    pr.reset_launch_counts()
+    tc.reset_launch_counts()
+    fused_gkn.fused_edge_conv_stack.launches = 0
+
+
+def all_launches() -> dict:
+    from molecular_dynamics_neural_operator_tpu_torch.ops.cuda import (
+        fused_gkn,
+        persistent_rollout as pr,
+        train_conv as tc,
+    )
+
+    return {**pr.launch_counts(), **tc.launch_counts(),
+            "fused_edge_conv_stack": fused_gkn.fused_edge_conv_stack.launches}
+
+
+def hold_against_all_pairs(pos, out, max_degree: int, tag: str):
+    """One example's cell list ``out`` of pos (N, 3) on the card against
+    an all-pairs search at THRESHOLD in blocks of 1,000 rows: a node with
+    at most ``max_degree`` neighbours keeps exactly them, one with more
+    keeps ``max_degree`` of them. Returns (largest true degree, nodes past
+    max_degree)."""
+    n = pos.shape[0]
+    kept = torch.zeros(n, n, dtype=torch.bool, device=pos.device)
+    real = out.mask > 0
+    kept[out.edges[1][real].long(), out.edges[0][real].long()] = True
+    require(int(real.sum()) == int(kept.sum()),
+            f"{tag}: a node keeps one neighbour twice")
+    most, above = 0, 0
+    for i in range(0, n, 1000):
+        d = pos[i:i + 1000, None, :] - pos[None]
+        d2 = (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) + d[..., 2] * d[..., 2]
+        true = d2 < THRESHOLD * THRESHOLD
+        deg = true.sum(dim=1)
+        k = kept[i:i + 1000]
+        fits = deg <= max_degree
+        require(torch.equal(k[fits], true[fits]),
+                f"{tag}: nodes {i}..{i + 999} keep other neighbours than "
+                "the all-pairs search finds")
+        require(not bool((k & ~true).any()),
+                f"{tag}: a kept edge is longer than {THRESHOLD} A")
+        require(bool((k[~fits].sum(dim=1) == max_degree).all()),
+                f"{tag}: a node past max_degree keeps fewer than "
+                f"{max_degree} neighbours")
+        most = max(most, int(deg.max()))
+        above += int((~fits).sum())
+    return most, above
+
+
+def check_cell_lists(dev) -> None:
+    """Phase 17a: the cell list on the card against the port's CPU cell
+    list (edges, mask and both flags, exactly, two frames as one batch)
+    and against an all-pairs search, on the loose chain and the config-5
+    grid at 10,000 atoms; too small capacities raise the flags."""
+    from molecular_dynamics_neural_operator_tpu_torch.geometry import (
+        cell_list_edges,
+    )
+
+    grid = breathing_trajectory(serpentine_grid(LARGE_N, 4.0), 2)
+    chain = loose_chain(LARGE_N, 2)
+    cases = (("loose chain", chain, LARGE_CELLS, None),
+             ("loose chain", chain, CHAIN_ROOM, (False, False)),
+             ("config-5 grid", grid, LARGE_CELLS, (False, False)),
+             ("config-5 grid", grid[:1], dict(LARGE_CELLS, max_degree=32),
+              None),
+             ("config-5 grid", grid[:1], dict(LARGE_CELLS, cell_capacity=4),
+              (True, False)),
+             ("config-5 grid", grid[:1], dict(LARGE_CELLS, max_degree=8),
+              (False, True)))
+    for name, frames, opts, flags in cases:
+        tag = f"cell list, {name}, {opts}"
+        cpu = cell_list_edges(torch.as_tensor(frames), THRESHOLD, **opts)
+        pos = torch.as_tensor(frames, device=dev)
+        card = cell_list_edges(pos, THRESHOLD, **opts)
+        torch.cuda.synchronize()
+        for field in card._fields:
+            require(torch.equal(getattr(card, field).cpu(),
+                                getattr(cpu, field)),
+                    f"{tag}: {field} differs between the card and the CPU")
+        got = [(bool(c), bool(d)) for c, d in
+               zip(card.cell_overflow, card.degree_overflow)]
+        if flags is not None:
+            require(all(g == flags for g in got),
+                    f"{tag}: flags {got}, expected {flags}")
+        held = []
+        for b, (cell_over, _) in enumerate(got):
+            if not cell_over:
+                one = type(card)(*(t[b] for t in card))
+                held.append(hold_against_all_pairs(pos[b], one,
+                                                   opts["max_degree"], tag))
+        ms = event_ms(lambda: cell_list_edges(pos, THRESHOLD, **opts))
+        log(f"{tag}: card equals CPU exactly over {frames.shape[0]} "
+            f"frame(s); flags (cell, degree) {got}; mean kept degree "
+            f"{card.mask.sum().item() / card.mask[..., 0].numel() / LARGE_N:.2f}"
+            f"; all-pairs (largest true degree, nodes past max_degree) per "
+            f"frame without cell overflow {held}; the batch's rebuild "
+            f"{ms:.2f} ms on the card")
+
+
+def solvated_cfg(cd: str):
+    """``SOLVATED_10K`` with dh and the cell list of LARGE_CELLS, at its
+    full width. Seeded weights with ``kernel_init_scale`` 1/(8·depth):
+    the edge features are raw coordinates, four times the protein's on
+    the 85 A grid, and at configs.py's 1/(2·depth) the first f32 step
+    already moves atoms by 2e4 A and the second overflows (a CPU run at
+    1,500 atoms); at 1/(8·depth) a step moves the grid's atoms by about
+    0.1 A."""
+    from molecular_dynamics_neural_operator_tpu_torch import presets
+
+    cfg = presets.SOLVATED_10K
+    return dataclasses.replace(
+        cfg, compute_dtype=cd, electrostatics="dh",
+        neighbor_impl="cell_list",
+        max_edges=LARGE_N * LARGE_CELLS["max_degree"],
+        kernel_init_scale=1.0 / (8 * cfg.depth), **LARGE_CELLS)
+
+
+def step_flags(params, cfg, aa, window, steps: int):
+    """``steps`` rollout steps through ``rollout.scan._step``, the step
+    ``rollout_scan`` takes, with the clip CURRICULUM_CLIP: (coords
+    (steps, N, 3), each step's overflow flag)."""
+    from molecular_dynamics_neural_operator_tpu_torch.rollout import scan
+
+    outs, flags = [], []
+    for _ in range(steps):
+        window, out, ov = scan._step(params, cfg, aa, window, THRESHOLD,
+                                     "last", clip=CURRICULUM_CLIP)
+        outs.append(out)
+        flags.append(ov)
+    return torch.stack(outs), [bool(f) for f in flags]
+
+
+def solvated_rollout(dev) -> None:
+    """Phase 17b: the SOLVATED_10K preset at its full width with the cell
+    list and dh, seeded weights (``solvated_cfg``): 16 bf16 steps with the
+    rollout's clip at CURRICULUM_CLIP on the config-5 grid (no overflow on
+    its first frame) and on the loose chain (which overflows the
+    settings: its largest in-degree is 101, and the seeded model drives
+    its 470 A span apart), each step's flags printed; 4 f32 steps with the
+    blocked reduction against a forced segment scatter on the same graphs;
+    steps/s, device ms by part, peak memory."""
+    from molecular_dynamics_neural_operator_tpu_torch.device import (
+        compute_dtype,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.models import gkn
+    from molecular_dynamics_neural_operator_tpu_torch.ops.edge_conv import (
+        edge_conv_sparse,
+        edge_kernel_matrices,
+        sparse_inv_degree,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.preprocess.grid import (
+        residue_charges,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.rollout import (
+        make_rollout_fn,
+        scan,
+    )
+
+    cfg = solvated_cfg("bfloat16")
+    require(scan.rebuilt_scatter_hint(cfg, LARGE_N) == "blocked",
+            "the 10k-atom rebuild does not take the blocked reduction")
+    params = gkn.gkn_init(cfg, seed=0, device=dev)
+    aa = torch.as_tensor(np.random.default_rng(1).integers(0, 20, LARGE_N),
+                         device=dev)
+    t = cfg.window_size
+    grid = torch.as_tensor(breathing_trajectory(
+        serpentine_grid(LARGE_N, 4.0), t), device=dev)
+    chain = torch.as_tensor(loose_chain(LARGE_N, t), device=dev)
+    _, first = scan._build_graph(cfg, grid[-1], THRESHOLD)
+    require(not bool(first), "the config-5 grid's first frame overflows")
+    with torch.no_grad():
+        for name, window in (("config-5 grid", grid), ("loose chain", chain)):
+            coords, flags = step_flags(params, cfg, aa, window, LARGE_STEPS)
+            require(bool(torch.isfinite(coords).all()),
+                    f"10k rollout on the {name}: coordinates not finite")
+            moved = (coords - window[-1]).abs().amax(dim=(1, 2))
+            log(f"SOLVATED_10K bf16 on the {name}, {LARGE_STEPS} steps: "
+                f"finite; each step's overflow flag {flags}; largest "
+                f"distance from the first frame after steps 1/4/{LARGE_STEPS} "
+                f"{moved[0]:.3g}/{moved[3]:.3g}/{moved[-1]:.3g} A")
+
+        roll = make_rollout_fn(cfg, LARGE_STEPS, THRESHOLD,
+                               clip=CURRICULUM_CLIP)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        coords, _, diags = roll(params, aa, grid)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        require(bool(torch.isfinite(coords).all()),
+                "make_rollout_fn on the grid: not finite")
+
+        # the step by part, on the grid's last frame
+        cd = compute_dtype(cfg)
+        frame = grid[-1]
+        graph, _ = scan._build_graph(cfg, frame, THRESHOLD)
+        charges = residue_charges(aa)
+        kern = edge_kernel_matrices(params["edge_kernel"], graph.edge_feats,
+                                    cfg.width, cd)
+        x0 = gkn._encode_nodes(params, cfg, aa, grid)
+        inv_deg = sparse_inv_degree(graph.edges, graph.mask, LARGE_N,
+                                    "blocked")
+
+        def convs():
+            h = x0
+            for conv in ("conv1", "conv2"):
+                for _ in range(cfg.depth):
+                    h = torch.relu(edge_conv_sparse(
+                        params[conv], h, kern, graph.edges, graph.mask,
+                        inv_deg, "blocked", cd))
+            return h
+
+        parts = {
+            "rebuild": event_ms(lambda: scan._build_graph(cfg, frame,
+                                                          THRESHOLD)),
+            "dh": event_ms(lambda: gkn.dh_potential(cfg, charges, frame)),
+            "edge MLP": event_ms(lambda: edge_kernel_matrices(
+                params["edge_kernel"], graph.edge_feats, cfg.width, cd)),
+            "convs": event_ms(convs),
+        }
+        step = event_ms(lambda: scan._step(params, cfg, aa, grid, THRESHOLD,
+                                           "last", clip=CURRICULUM_CLIP))
+    log(f"SOLVATED_10K bf16 (width 64, ker_width 1024, depth 6, E = "
+        f"{cfg.max_edges:,} slots), make_rollout_fn on the grid: "
+        f"{LARGE_STEPS} steps in {dt:.3f} s = {LARGE_STEPS / dt:.2f} "
+        f"steps/s (one call, no warm-up of its own), overflow "
+        f"{bool(diags['edge_overflow'])}, peak memory {peak:.2f} GB; a step "
+        f"{step:.2f} ms of device time (CUDA events), by part: "
+        + ", ".join(f"{k} {v:.2f} ms" for k, v in parts.items()))
+
+    # f32: the blocked reduction against the segment scatter on each step's
+    # graph; the window advances with the blocked output
+    from molecular_dynamics_neural_operator_tpu_torch.models.gkn import (
+        gkn_apply_single,
+        residual_prior,
+    )
+
+    cfg32 = solvated_cfg("float32")
+    window, worst = grid, (0.0, 0.0)
+    with torch.no_grad():
+        for i in range(LARGE_F32_STEPS):
+            graph, ov = scan._build_graph(cfg32, window[-1], THRESHOLD)
+            out_b = gkn_apply_single(params, cfg32, aa, window, graph,
+                                     scatter_hint="blocked")
+            out_s = gkn_apply_single(params, cfg32, aa, window, graph,
+                                     scatter_hint="segment")
+            head = (out_s - residual_prior(cfg32, window)).abs().max().item()
+            scale = out_s.abs().max().item()
+            err = (out_b - out_s).abs().max().item()
+            require(err <= TOL_F32 * scale and not bool(ov),
+                    f"f32 10k step {i}: blocked against segment {err} > "
+                    f"{TOL_F32} of the coordinates' {scale}, overflow "
+                    f"{bool(ov)}")
+            worst = max(worst, (err / scale, err / head))
+            window = torch.cat([window[1:], out_b[None]])
+    log(f"SOLVATED_10K f32, {LARGE_F32_STEPS} steps, blocked against "
+        f"segment (its atomic adds sum in another order) on the same "
+        f"graphs: worst error {worst[0]:.2e} of the coordinates' scale "
+        f"(limit {TOL_F32}, the JAX package's tests/test_cells.py), "
+        f"{worst[1]:.2e} of the head's output")
+
+
+def config5_data(n: int):
+    """The config-5 campaign's system at n atoms: the breathing grid
+    (C5_FRAMES frames), its KD-tree edges in the blocked layout, max_degree
+    from the data with 8 of headroom, and the campaign's
+    ``--kernel_init_scale`` 1/(2*depth), without which the seeded f32
+    forward reaches the coordinate clip and every gradient is 0;
+    (cfg, dataset)."""
+    from molecular_dynamics_neural_operator_tpu_torch.configs import (
+        ModelConfig,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.data import (
+        TrajectoryData,
+        WindowDataset,
+    )
+
+    pos = breathing_trajectory(serpentine_grid(n, 4.0), C5_FRAMES)
+    edges = kdtree_edges(pos)
+    deg = max(int(np.bincount(e[1], minlength=n).max()) for e in edges)
+    max_degree = ((deg + 8 + 7) // 8) * 8
+    traj = TrajectoryData(
+        positions=pos, edge_indices=edges,
+        aminoacids=np.random.default_rng(0).integers(0, 20, n).astype(
+            np.int32))
+    cfg = ModelConfig(
+        compute_dtype="float32", graph_mode="sparse", num_residues=n,
+        max_edges=n * max_degree, width=32, ker_width=128, depth=4,
+        predict_delta=True, electrostatics="dh", scatter_mode="blocked",
+        kernel_init_scale=1.0 / (2 * 4), train_conv_impl="xla",
+        neighbor_impl="cell_list",
+        max_degree=max_degree, cell_capacity=LARGE_CELLS["cell_capacity"],
+        num_cells=LARGE_CELLS["num_cells"])
+    ds = WindowDataset(traj, window_size=cfg.window_size,
+                       graph_mode="sparse", max_edges=cfg.max_edges,
+                       threshold=THRESHOLD, edge_layout="blocked")
+    return cfg, ds
+
+
+def config5_training(dev) -> None:
+    """Phase 17c: the config-5 training shape (f32, width 32, ker_width
+    128, depth 4, dh, blocked, the cell list; B = 1). At 1,200 atoms one
+    K = 4 step with ``grad_steps=1`` on the card against the CPU: the same
+    rebuilt edge lists, the loss and every gradient leaf within
+    TOL_CURRICULUM_GRAD of its norm. At 10,000 atoms C5_STEPS steps
+    through ``make_curriculum_train_step``: finite losses, time, peak
+    memory."""
+    from molecular_dynamics_neural_operator_tpu_torch.configs import (
+        TrainConfig,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.data.prefetch import (
+        to_device,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.models import gkn_init
+    from molecular_dynamics_neural_operator_tpu_torch.train import (
+        create_train_state,
+        curriculum_loss_batched,
+        featurize_batch,
+        make_curriculum_train_step,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.train.loop import (
+        value_and_grad,
+    )
+
+    cfg, ds = config5_data(C5_SMALL)
+    host = ds.get_batch(np.array([0]), rollout_horizon=C5_K)
+    res = {}
+    for where in ("cuda", "cpu"):
+        batch = to_device(host, where)
+        params = gkn_init(cfg, seed=0, device=where)
+        with RecordGraphs() as rec:
+            (loss, (m, ov)), grads = value_and_grad(
+                lambda p: curriculum_loss_batched(
+                    p, cfg, featurize_batch(cfg, batch), batch["y_seq"],
+                    coord_clip=CURRICULUM_CLIP, grad_steps=1,
+                    return_overflow=True), params)
+        res[where] = (float(loss), bool(ov), rec.graphs,
+                      {k: v.cpu() for k, v in tree_items(grads)})
+    (l_c, ov_c, gr_c, g_c), (l_h, ov_h, gr_h, g_h) = res["cuda"], res["cpu"]
+    require(len(gr_c) == len(gr_h) == C5_K - 1,
+            f"config 5: rebuilt {len(gr_c)} and {len(gr_h)} graphs")
+    for i, ((e_c, m_c), (e_h, m_h)) in enumerate(zip(gr_c, gr_h)):
+        require(torch.equal(e_c.cpu(), e_h) and torch.equal(m_c.cpu(), m_h),
+                f"config 5 at {C5_SMALL} atoms: the edge lists rebuilt at "
+                f"step {i + 2} differ between the card and the CPU")
+    require(ov_c == ov_h, f"config 5: overflow {ov_c} on the card, {ov_h} "
+            "on the CPU")
+    rel_l = abs(l_c - l_h) / abs(l_h)
+    gaps = {name: (g_c[name] - g).norm().item() / g.norm().item()
+            for name, g in g_h.items() if g.norm().item() > 0}
+    worst = max(gaps.items(), key=lambda kv: kv[1])
+    log(f"config-5 training shape at {C5_SMALL} atoms (max_degree "
+        f"{cfg.max_degree}, E = {cfg.max_edges:,}), K={C5_K}, grad_steps=1, "
+        f"card against CPU: the same edge lists at all {len(gr_c)} "
+        f"rebuilds (overflow {ov_c}); loss {l_c:.7g} against {l_h:.7g} "
+        f"({rel_l:.2e}); worst "
+        f"gradient leaf {worst[0]} {worst[1]:.2e} of its norm, "
+        f"{len(gaps)} leaves with a gradient (limit {TOL_CURRICULUM_GRAD})")
+    require(rel_l <= TOL_CURRICULUM_GRAD and worst[1] <= TOL_CURRICULUM_GRAD,
+            f"config 5: loss {rel_l:.2e} or gradient {worst} past "
+            f"{TOL_CURRICULUM_GRAD}")
+
+    cfg, ds = config5_data(LARGE_N)
+    tcfg = TrainConfig(lr=3e-4, weight_decay=1e-6, batch_size=1,
+                       grad_clip_norm=1.0, skip_nonfinite_updates=True)
+    state, tx, _ = create_train_state(0, cfg, tcfg, device=dev)
+    step = make_curriculum_train_step(
+        cfg, tx, rollout_steps=C5_K, threshold=THRESHOLD,
+        coord_clip=CURRICULUM_CLIP, grad_steps=1, unroll_scans=True)
+    batches = [to_device(ds.get_batch(np.array([i]), rollout_horizon=C5_K),
+                         dev) for i in range(C5_STEPS)]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, m = step(state, batches[0])
+    losses = [float(m["rel_l2"])]
+    first = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ms = []
+    for b in batches[1:]:
+        state, m = step(state, b)
+        ms.append(m)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / (C5_STEPS - 1)
+    losses += [float(x["rel_l2"]) for x in ms]
+    overflow = any(bool(x["edge_overflow"]) for x in ms)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"config-5 training shape at {LARGE_N} atoms (max_degree "
+        f"{cfg.max_degree}, E = {cfg.max_edges:,}), K={C5_K}, "
+        f"grad_steps=1, B=1: losses {[f'{x:.6g}' for x in losses]}, "
+        f"overflow {overflow}; the first step {first:.2f} s, then "
+        f"{dt * 1e3:.1f} ms a step (wall, with the optimizer's host read); "
+        f"peak memory {peak:.2f} GB")
+    require(all(np.isfinite(losses)), f"config 5 at 10k: losses {losses}")
+
+
+def large_cli_phase(traj, root) -> None:
+    """Phase 17d: ``rollout_from_trajectory`` with ``--neighbor_impl
+    cell_list`` on the bench checkpoint for 128 steps against the ranked
+    rebuild, f32: the same contact maps at every step, coordinates within
+    TOL_ROLL, no kernel launched."""
+    from molecular_dynamics_neural_operator_tpu_torch.configs import (
+        ModelConfig,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.rollout.scan import (
+        rebuilt_scatter_hint,
+    )
+
+    cells = ["--neighbor_impl", "cell_list", "--max_degree", "32",
+             "--cell_capacity", "32", "--num_cells", "4096"]
+    require(rebuilt_scatter_hint(ModelConfig(
+        graph_mode="sparse", neighbor_impl="cell_list"), 28) == "onehot",
+        "the BBA cell-list rebuild does not take the one-hot scatter")
+    flags = ["--checkpoint", str(CKPT), "--max_edges", "224", "--clip",
+             str(CLIP), "--num_steps", str(CLI_ROLL_STEPS),
+             "--compute_dtype", "float32", "--impl", "scan"]
+    cs, cc, c_counts = cli_roll_run(traj, root / "cell_list", flags + cells)
+    rs, rc, r_counts = cli_roll_run(traj, root / "dense_rank", flags)
+    t_len = bench_cfg("float32").window_size
+    w0 = torch.as_tensor(traj.positions[:t_len], device="cuda")
+    differing = same_edge_lists(w0, cc, rc)
+    err = (cc - rc).abs().max().item()
+    log(f"cli.rollout --neighbor_impl cell_list, f32, {CLI_ROLL_STEPS} "
+        f"steps of the bench checkpoint against the ranked rebuild: "
+        f"contact maps differ at {differing} steps, coords max abs err "
+        f"{err:.3e} A (limit {TOL_ROLL}); steps/s {cs['steps_per_s']:,.1f} "
+        f"against {rs['steps_per_s']:,.1f} (one call each); launches "
+        f"{c_counts} and {r_counts}")
+    require(differing == 0 and err <= TOL_ROLL,
+            f"cell-list CLI rollout: {differing} steps, error {err}")
+    require(not any(c_counts.values()) and not any(r_counts.values()),
+            "the scan rollouts launched a rollout kernel")
+
+
+def large_phase(traj) -> dict:
+    """Phase 17; no kernel lies on its path."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    reset_all_launches()
+    check_cell_lists(dev)
+    solvated_rollout(dev)
+    config5_training(dev)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_large_") as tmp:
+        large_cli_phase(traj, Path(tmp))
+    counts = all_launches()
+    require(not any(counts.values()),
+            f"a kernel launched on the large-system path: {counts}")
+    log(f"large-system path launches: none {counts}; the phase took "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {}
+
+
+# ---- phase 18: the FNO ----------------------------------------------------
+
+FNO_BATCH = 128
+FNO_ROLL_STEPS = 128
+FNO_EXACT_STEPS = 16
+# card against CPU, and the fft form against the dft form: f32 transforms
+# and complex products summed in other orders, ~1e-7 of the output's
+# scale per layer through 4 layers; 1e-5 of scale is a hundred times that,
+# while a wrong mode block or a wrong inverse moves the output by its own
+# size
+TOL_FNO = 1e-5
+# the same, per gradient leaf, over the leaf's norm (the f32 training
+# limit of phase 11a)
+TOL_FNO_GRAD = 1e-4
+# the 128-step rollout of the trained FNO, card against CPU, each step
+# against the largest distance: the first 16 steps within TOL_FNO; later
+# each step's ~1e-7 difference is fed back and may grow by the map's gain,
+# so the whole rollout is held to 1e-3 of scale, still a hundredth of the
+# ~1e-1 change that a wrong transform makes in one step
+TOL_FNO_ROLL = 1e-3
+FNO_CLI = ["--data_path", CLI_DATA, "--operator", "fno", "--epochs", "1",
+           "--batch_size", str(FNO_BATCH)]
+
+
+def fno_cfg(**kw):
+    """The CLI's FNO on BBA: width 32, modes 12, depth 4, window 10."""
+    from molecular_dynamics_neural_operator_tpu_torch.configs import (
+        FNOConfig,
+    )
+
+    return FNOConfig(in_channels=10, num_residues=28, **kw)
+
+
+class GradRecorder:
+    """An optimizer that keeps the gradients as its state and leaves the
+    parameters as they are: after ``step(state, batch)`` the new state's
+    ``opt_state`` holds the step's gradients."""
+
+    def update(self, grads, opt_state, params):
+        from molecular_dynamics_neural_operator_tpu_torch.train.optim import (
+            tree_map,
+        )
+
+        return tree_map(torch.zeros_like, grads), grads
+
+
+def check_spectral(dev) -> dict:
+    """Phase 18a: ``_spectral_conv`` at the CLI's width and modes, fft
+    against dft on the card and the card's fft against the CPU's, at
+    R = 28 (B = 128) and R = 160 (B = 16); cuFFT's own two-axis C2R of the
+    same spectrum reported beside the written-out inverse. Returns the
+    forms' device µs at R = 28."""
+    from molecular_dynamics_neural_operator_tpu_torch.models import fno
+
+    cfg = fno_cfg()
+    sp = fno.fno_init(cfg, seed=0, device=dev)["spectral_0"]
+    sp_cpu = {k: v.cpu() for k, v in sp.items()}
+    us = {}
+    for r, b in ((28, FNO_BATCH), (160, 16)):
+        x = torch.as_tensor(np.random.default_rng(r).normal(
+            size=(b, r, r, cfg.width)).astype(np.float32), device=dev)
+        with torch.no_grad():
+            out = {impl: fno._spectral_conv(sp, x, cfg.modes1, cfg.modes2,
+                                            impl)
+                   for impl in ("fft", "dft")}
+            cpu = fno._spectral_conv(sp_cpu, x.cpu(), cfg.modes1, cfg.modes2,
+                                     "fft")
+            # the spectrum the fft form inverts, through cuFFT's C2R
+            w = torch.complex(sp["w_real"], sp["w_imag"])
+            xf = torch.fft.rfft2(x, dim=(-3, -2))
+            out_f = torch.zeros_like(xf)
+            m1, m2 = cfg.modes1, cfg.modes2
+            out_f[..., :m1, :m2, :] = fno._mix(xf[..., :m1, :m2, :], w)
+            out_f[..., -m1:, :m2, :] = fno._mix(xf[..., -m1:, :m2, :],
+                                                w.conj())
+            c2r = torch.fft.irfft2(out_f, s=(r, r), dim=(-3, -2))
+        scale = max(1.0, out["dft"].abs().max().item())
+        e_forms = (out["fft"] - out["dft"]).abs().max().item() / scale
+        e_cpu = (out["fft"].cpu() - cpu).abs().max().item() / scale
+        e_c2r = (c2r - out["fft"]).abs().max().item() / scale
+        times = {impl: 1e3 * event_ms(
+            lambda impl=impl: fno._spectral_conv(sp, x, m1, m2, impl), 20)
+            for impl in ("fft", "dft")}
+        log(f"FNO spectral conv at R={r}, B={b}, width {cfg.width}, modes "
+            f"{m1}: fft against dft {e_forms:.2e} of scale, the card's fft "
+            f"against the CPU's {e_cpu:.2e} (limit {TOL_FNO}); cuFFT's "
+            f"irfft2 of the same non-Hermitian spectrum differs from the "
+            f"written-out inverse by {e_c2r:.2e} of scale; device time fft "
+            f"{times['fft']:.1f} us, dft {times['dft']:.1f} us")
+        require(e_forms <= TOL_FNO and e_cpu <= TOL_FNO,
+                f"spectral conv at R={r}: forms {e_forms:.2e}, card against "
+                f"CPU {e_cpu:.2e}")
+        if r == 28:
+            us = times
+    return us
+
+
+def check_fno_step(ds) -> None:
+    """Phase 18b: one train step at B = 128, card against CPU from the
+    same weights and batch: the loss within TOL_FNO, every gradient leaf
+    within TOL_FNO_GRAD of its norm, with ``spectral_impl`` "auto" (the
+    dft form at R = 28) and "fft"."""
+    from molecular_dynamics_neural_operator_tpu_torch.data.prefetch import (
+        to_device,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.models import fno
+    from molecular_dynamics_neural_operator_tpu_torch.train.state import (
+        TrainState,
+    )
+
+    host = ds.get_batch(np.linspace(0, len(ds) - 1, FNO_BATCH).astype(int))
+    for impl in ("auto", "fft"):
+        cfg = fno_cfg(spectral_impl=impl)
+        res = {}
+        for where in ("cuda", "cpu"):
+            step = fno.make_fno_window_train_step(cfg, GradRecorder())
+            state, m = step(TrainState(fno.fno_init(cfg, seed=0,
+                                                    device=where),
+                                       None, 0, 0), to_device(host, where))
+            res[where] = (float(m["rel_l2"]),
+                          {k: v.cpu() for k, v in tree_items(state.opt_state)})
+        (l_c, g_c), (l_h, g_h) = res["cuda"], res["cpu"]
+        rel_l = abs(l_c - l_h) / abs(l_h)
+        gaps = {k: (g_c[k] - g).norm().item() / g.norm().item()
+                for k, g in g_h.items() if g.norm().item() > 0}
+        worst = max(gaps.items(), key=lambda kv: kv[1])
+        log(f"FNO train step ({impl}), B={FNO_BATCH}, card against CPU: "
+            f"loss {l_c:.7g} against {l_h:.7g} ({rel_l:.2e}, limit "
+            f"{TOL_FNO}); worst gradient leaf {worst[0]} {worst[1]:.2e} of "
+            f"its norm over {len(gaps)} leaves (limit {TOL_FNO_GRAD})")
+        require(rel_l <= TOL_FNO and worst[1] <= TOL_FNO_GRAD,
+                f"FNO step ({impl}): loss {rel_l:.2e}, gradient {worst}")
+
+
+def fno_cli_run(traj, run_dir, extra):
+    """One ``train_from_trajectory`` of ``--operator fno``: (args, state,
+    the epoch's metrics row)."""
+    from molecular_dynamics_neural_operator_tpu_torch.cli import (
+        train as cli_train,
+    )
+
+    args = cli_train.parse_args(FNO_CLI + ["--run_path", str(run_dir)]
+                                + extra)
+    state = cli_train.train_from_trajectory(args, traj)
+    torch.cuda.synchronize()
+    row = json.loads((run_dir / "metrics.jsonl").read_text()
+                     .splitlines()[-1])
+    require(all(np.isfinite(row[k]) for k in ("avg_train_loss",
+                                               "avg_valid_loss")),
+            f"cli.train --operator fno {extra}: losses {row}")
+    return args, state, row
+
+
+def fno_cli_phase(traj, root):
+    """Phase 18c: ``cli.train --operator fno`` on the card (an epoch and a
+    ``--rollout_steps 4`` epoch) and the first epoch on the CPU: finite
+    losses, config.json's fno section, best.npz and last.npz restore, the
+    movie, the epoch loss within TOL_TRAIN_LOSS of the CPU's. Returns the
+    card's trained state."""
+    from molecular_dynamics_neural_operator_tpu_torch import configs
+    from molecular_dynamics_neural_operator_tpu_torch.train import (
+        train_valid_split,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.utils.checkpoint import (
+        restore_checkpoint,
+    )
+
+    steps = len(train_valid_split(len(traj.positions) - 10)[0]) // FNO_BATCH
+    runs = {}
+    for tag, extra in (("card", []), ("card K=4", ["--rollout_steps", "4"]),
+                       ("cpu", ["--device", "cpu"])):
+        run_dir = root / tag.replace(" ", "_").replace("=", "")
+        t0 = time.perf_counter()
+        args, state, row = fno_cli_run(traj, run_dir, extra)
+        runs[tag] = (args, state, row, run_dir)
+        log(f"cli.train --operator fno {' '.join(extra)}: train rel_l2 "
+            f"{row['avg_train_loss']:.6g}, valid "
+            f"{row['avg_valid_loss']:.6g}; {steps} steps at "
+            f"B={FNO_BATCH}, the epoch {row['seconds']:.3f} s = "
+            f"{steps * FNO_BATCH / row['seconds']:,.0f} samples/s "
+            f"(the call {time.perf_counter() - t0:.2f} s)")
+    args, state, row, run_dir = runs["card"]
+    got = configs.experiment_from_json((run_dir / "config.json").read_text())
+    require(got.fno == fno_cfg(), f"config.json's fno section {got.fno}")
+    for name in ("best.npz", "last.npz"):
+        back, meta = restore_checkpoint(run_dir / name, state)
+        require(meta.get("epoch") == 0 and all(
+            torch.equal(a, b) for (_, a), (_, b) in
+            zip(tree_items(back.params), tree_items(state.params))),
+            f"{name} does not restore the run's parameters")
+    movie = Path(row.get("movie", ""))
+    require(movie.exists(), f"no movie written ({row.get('movie')})")
+    cpu_loss = runs["cpu"][2]["avg_train_loss"]
+    rel = abs(row["avg_train_loss"] - cpu_loss) / abs(cpu_loss)
+    log(f"cli.train --operator fno: config.json's fno section reads back, "
+        f"best.npz and last.npz restore, the movie is {movie.name}; the "
+        f"card's epoch loss {rel:.2e} from the CPU's (limit "
+        f"{TOL_TRAIN_LOSS})")
+    require(rel <= TOL_TRAIN_LOSS, f"FNO epoch: card against CPU {rel:.2e}")
+    return state
+
+
+def check_fno_rollout(traj, params) -> float:
+    """Phase 18d: 128 steps of ``fno_rollout_scan`` of the trained
+    parameters, card against CPU. Returns the card's steps/s."""
+    from molecular_dynamics_neural_operator_tpu_torch.models import fno
+
+    cfg = fno_cfg()
+    ch0 = fno.distance_matrix_channels(torch.as_tensor(traj.positions[:10]))
+    with torch.no_grad():
+        card, _ = fno.fno_rollout_scan(params, cfg, ch0.cuda(),
+                                       FNO_ROLL_STEPS)
+        cpu, _ = fno.fno_rollout_scan({k: {n: t.cpu() for n, t in v.items()}
+                                       for k, v in params.items()}, cfg, ch0,
+                                      FNO_ROLL_STEPS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fno.fno_rollout_scan(params, cfg, ch0.cuda(), FNO_ROLL_STEPS)
+        torch.cuda.synchronize()
+        rate = FNO_ROLL_STEPS / (time.perf_counter() - t0)
+    scale = max(1.0, cpu.abs().max().item())
+    err = (card.cpu() - cpu).abs().flatten(1).amax(dim=1) / scale
+    log(f"fno_rollout_scan, {FNO_ROLL_STEPS} steps of the trained FNO, card "
+        f"against CPU: error over scale {scale:.1f} A, first "
+        f"{FNO_EXACT_STEPS} steps {err[:FNO_EXACT_STEPS].max().item():.2e} "
+        f"(limit {TOL_FNO}), all {err.max().item():.2e} (limit "
+        f"{TOL_FNO_ROLL}), at steps 32/64/128 "
+        f"{err[31].item():.2e}/{err[63].item():.2e}/{err[-1].item():.2e}; "
+        f"finite {bool(torch.isfinite(card).all())}; {rate:,.1f} steps/s "
+        f"on the card")
+    require(bool(torch.isfinite(card).all()), "FNO rollout not finite")
+    require(err[:FNO_EXACT_STEPS].max().item() <= TOL_FNO
+            and err.max().item() <= TOL_FNO_ROLL,
+            f"FNO rollout: card against CPU {err.max().item():.2e}")
+    return rate
+
+
+def time_fno(ds) -> None:
+    """Phase 18e: a teacher-forced train step's wall time, samples/s,
+    device time and busy share (``torch.profiler``), at B = 128."""
+    from molecular_dynamics_neural_operator_tpu_torch.data.prefetch import (
+        to_device,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.models import fno
+    from molecular_dynamics_neural_operator_tpu_torch.train.optim import (
+        make_optimizer,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.train.state import (
+        TrainState,
+    )
+
+    batch = to_device(ds.get_batch(np.arange(FNO_BATCH)), "cuda")
+    for impl in ("auto", "fft"):
+        cfg = fno_cfg(spectral_impl=impl)
+        tx, _ = make_optimizer(lr=1e-3)
+        params = fno.fno_init(cfg, seed=0, device="cuda")
+        state = TrainState(params, tx.init(params), 0, 0)
+        step = fno.make_fno_window_train_step(cfg, tx)
+        wall = wall_ms(step, state, batch)
+        busy = profile_step(step, state, batch, wall,
+                            f"FNO train step ({impl})")
+        log(f"FNO train step ({impl}), B={FNO_BATCH}: {wall:.2f} ms wall = "
+            f"{FNO_BATCH / wall * 1e3:,.0f} samples/s; device busy "
+            f"{busy:.2f} ms ({busy / wall:.2f})")
+
+
+def fno_phase(traj) -> dict:
+    """Phase 18; no kernel lies on its path."""
+    import tempfile
+
+    from molecular_dynamics_neural_operator_tpu_torch.data import (
+        WindowDataset,
+    )
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    reset_all_launches()
+    ds = WindowDataset(traj, window_size=10, graph_mode="none")
+    us = check_spectral(dev)
+    check_fno_step(ds)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fno_") as tmp:
+        state = fno_cli_phase(traj, Path(tmp))
+    rate = check_fno_rollout(traj, state.params)
+    time_fno(ds)
+    counts = all_launches()
+    require(not any(counts.values()),
+            f"a kernel launched on the FNO path: {counts}")
+    log(f"FNO path: spectral conv fft {us['fft']:.1f} us, dft "
+        f"{us['dft']:.1f} us; rollout {rate:,.1f} steps/s; launches none "
+        f"{counts}; the phase took {time.perf_counter() - t0:.1f} s")
+    return {}
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3350,7 +4237,8 @@ def rollout_phases(traj) -> list:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--only", choices=("rollout", "train", "serve",
-                                           "cli", "dense", "options"),
+                                           "cli", "dense", "options",
+                                           "large", "fno"),
                         help="run one path's phases (development)")
     args = parser.parse_args()
     only = args.only
@@ -3425,7 +4313,8 @@ def main() -> int:
         time_curriculum(ds, train_idx, step_ms, busy)
     kernels += serve_kernels
     for path, phase in (("cli", cli_phases), ("dense", dense_phase),
-                        ("options", options_phase)):
+                        ("options", options_phase), ("large", large_phase),
+                        ("fno", fno_phase)):
         if only in (None, path):
             counts = phase(traj)
             for rec in kernels:

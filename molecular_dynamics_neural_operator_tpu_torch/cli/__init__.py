@@ -1,16 +1,12 @@
 """The port's command-line entry points, and the refusal of the flags
-whose module is not ported yet, shared by ``train`` and ``rollout``."""
+whose module is not ported yet: ``train``'s ``--data_parallel`` alone,
+which waits for the parallel modules."""
 
 # flag -> (refused value test, what brings it), checked before any data
 # is read; the items are those of the roadmap's queue A
 REFUSED = {
-    "operator": (lambda v: v == "fno",
-                 "--operator fno: the FNO is not ported yet (queue A item 6)"),
     "data_parallel": (bool, "--data_parallel: the parallel modules are not "
                             "ported yet (queue A item 8)"),
-    "neighbor_impl": (lambda v: v == "cell_list",
-                      "--neighbor_impl cell_list: the cell list is not "
-                      "ported yet (queue A item 5)"),
 }
 
 

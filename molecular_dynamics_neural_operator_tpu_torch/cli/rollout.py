@@ -20,12 +20,17 @@ the JAX kernel does; ``--impl scan`` the PyTorch rollout
 dense all-pairs graph. The checkpoint is a TrainState or
 bare-params file of either package; only its parameters are read.
 
+``--neighbor_impl cell_list`` (with ``--graph_mode sparse``) rebuilds
+each step's graph with the O(N) cell list of ``geometry/cells.py``
+(``--max_degree`` edges an atom, ``--cell_capacity`` atoms a cell,
+``--num_cells`` hash buckets), the rebuild of the ``SOLVATED_10K``
+preset; the default ``dense_rank`` ranks the contact map.
+
 ``--device`` picks the card (``cuda``, the default; a missing card is an
 error) or ``cpu``, where the kernel path runs each kernel's plain
-version. ``--neighbor_impl cell_list``, whose module is not ported yet,
-is refused by name with ``SystemExit`` before any data is read, and so,
-as in the JAX CLI, is ``--kernel_quant int8`` without ``--graph_mode
-sparse``. ``--compilation_cache`` is accepted as a no-op.
+version. As in the JAX CLI, ``--kernel_quant int8`` without
+``--graph_mode sparse`` is refused with ``SystemExit`` before any data
+is read. ``--compilation_cache`` is accepted as a no-op.
 
 ``main(argv)`` parses, loads the trajectory and calls
 ``rollout_from_trajectory(args, traj)``.
@@ -37,10 +42,6 @@ import argparse
 import json
 import time
 from pathlib import Path
-
-from molecular_dynamics_neural_operator_tpu_torch.cli import (
-    refuse_unported,
-)
 
 
 def parse_args(argv=None):
@@ -61,7 +62,9 @@ def parse_args(argv=None):
     p.add_argument("--max_edges", type=int, default=384,
                    help="padded edge capacity for sparse-mode rebuilds")
     p.add_argument("--neighbor_impl", choices=["dense_rank", "cell_list"],
-                   default="dense_rank")
+                   default="dense_rank",
+                   help="sparse-mode rebuild: the ranked contact map or "
+                        "the O(N) cell list for large systems")
     p.add_argument("--max_degree", type=int, default=32)
     p.add_argument("--cell_capacity", type=int, default=16)
     p.add_argument("--num_cells", type=int, default=4096)
@@ -100,7 +103,6 @@ def parse_args(argv=None):
     p.add_argument("--device", default=None,
                    help="cuda (default; a missing card is an error) or cpu")
     args = p.parse_args(argv)
-    refuse_unported(args)
     if args.kernel_quant != "none" and args.graph_mode != "sparse":
         raise SystemExit("--kernel_quant int8 requires --graph_mode sparse")
     return args

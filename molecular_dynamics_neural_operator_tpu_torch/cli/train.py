@@ -23,10 +23,18 @@ all-pairs graph without them. ``--edge_layout blocked`` packs the sparse
 edge lists in the block layout and aggregates them with
 ``scatter_mode="blocked"``.
 
-Flags whose module is not ported yet are refused by name with
-``SystemExit`` before any data is read: ``--operator fno`` (FNO) and
-``--data_parallel``. ``--compilation_cache`` has no counterpart and is
-accepted as a no-op.
+``--operator fno`` trains the FNO on distance matrices instead
+(``models/fno.py``; ``--fno_modes``, ``--fno_width``, ``--fno_depth``,
+``--fno_predict_delta``, ``--fno_predict_prior``; ``--window_size``
+input channels): the same run directory with the ``fno`` section in
+``config.json``, teacher-forced or ``--rollout_steps K`` steps,
+``--resume``, the checkpoints, and a movie of ``fno_rollout_scan``'s
+contact maps; the GKN's model flags, ``--profile`` and the latent sweep
+do not apply to it.
+
+``--data_parallel``, whose modules are not ported yet, is refused by
+name with ``SystemExit`` before any data is read. ``--compilation_cache``
+has no counterpart and is accepted as a no-op.
 
 ``main(argv)`` parses, loads the trajectory and calls
 ``train_from_trajectory(args, traj)``, which does everything after the
@@ -118,7 +126,8 @@ def parse_args(argv=None):
                    help="reject NaN/inf update steps (default: on when the "
                         "curriculum is on)")
     p.add_argument("--operator", choices=["gkn", "fno"], default="gkn",
-                   help="operator family (fno is not ported yet)")
+                   help="operator family: graph kernel network or FNO "
+                        "on distance matrices")
     p.add_argument("--fno_modes", type=int, default=12)
     p.add_argument("--fno_width", type=int, default=32)
     p.add_argument("--fno_depth", type=int, default=4)
@@ -250,11 +259,153 @@ def build_configs(args):
     return model, data, train
 
 
+def _train_fno(args, traj, data_cfg, train_cfg, device):
+    """The ``--operator fno`` run: the GKN run's data, split, checkpoint
+    and metrics machinery with the FNO's distance-matrix steps. Returns
+    the final ``TrainState``."""
+    import numpy as np
+    import torch
+
+    from molecular_dynamics_neural_operator_tpu_torch import configs
+    from molecular_dynamics_neural_operator_tpu_torch.data import (
+        WindowDataset,
+        batch_iterator,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.data.prefetch import (
+        prefetch_to_device,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.models.fno import (
+        distance_matrix_channels,
+        fno_init,
+        fno_rollout_scan,
+        make_fno_curriculum_train_step,
+        make_fno_window_eval_step,
+        make_fno_window_train_step,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.train import (
+        train_valid_split,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.train.loop import (
+        _read_metrics,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.train.optim import (
+        make_optimizer,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.train.state import (
+        TrainState,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.utils import (
+        BestCheckpointer,
+        MetricLogger,
+        restore_checkpoint,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.utils.movie import (
+        render_propagation_movie,
+    )
+
+    run_dir = Path(train_cfg.run_path)
+    run_dir.mkdir(parents=True, exist_ok=True)
+    cfg = configs.FNOConfig(
+        width=args.fno_width, modes1=args.fno_modes, modes2=args.fno_modes,
+        depth=args.fno_depth, in_channels=args.window_size,
+        num_residues=traj.num_residues,
+        predict_delta=args.fno_predict_delta,
+        predict_prior=args.fno_predict_prior,
+        prior_damping=args.prior_damping,
+        head_init=args.head_init,
+        head_scale=args.head_scale,
+    )
+    (run_dir / "config.json").write_text(configs.to_json(
+        configs.ExperimentConfig(fno=cfg, data=data_cfg, train=train_cfg)))
+    ds = WindowDataset(traj, window_size=args.window_size,
+                       horizon=data_cfg.horizon, graph_mode="none")
+    tr_idx, va_idx = train_valid_split(len(ds), data_cfg.split_pct,
+                                       data_cfg.split_method)
+    steps_per_epoch = max(1, len(tr_idx) // train_cfg.batch_size)
+    tx, _ = make_optimizer(
+        train_cfg.lr, train_cfg.weight_decay, train_cfg.scheduler_step,
+        train_cfg.scheduler_gamma, steps_per_epoch,
+        grad_clip_norm=train_cfg.grad_clip_norm,
+        skip_nonfinite_updates=train_cfg.skip_nonfinite_updates,
+        grad_accum=train_cfg.grad_accum,
+    )
+    params = fno_init(cfg, seed=train_cfg.seed, device=device)
+    state = TrainState(params, tx.init(params), 0, train_cfg.seed)
+    start_epoch = 0
+    if args.resume is not None:
+        state, meta = restore_checkpoint(args.resume, state)
+        start_epoch = int(meta.get("epoch", -1)) + 1
+        print(f"Resumed from {args.resume} at epoch {start_epoch}")
+    if train_cfg.rollout_steps > 0:
+        step = make_fno_curriculum_train_step(
+            cfg, tx, rollout_steps=train_cfg.rollout_steps)
+        print(f"FNO curriculum training: K={train_cfg.rollout_steps} "
+              "rollout steps in the loss")
+    else:
+        step = make_fno_window_train_step(cfg, tx)
+    eval_step = make_fno_window_eval_step(cfg)
+    logger = MetricLogger(run_dir, use_wandb=train_cfg.log_wandb,
+                          config=vars(args))
+    ckpt = BestCheckpointer(run_dir, resume=args.resume is not None)
+    print(f"FNO training: {len(ds)} windows, R={traj.num_residues}, "
+          f"on {device}")
+
+    def mean_loss(metrics, empty: float) -> float:
+        """Mean rel_l2 over the loop's steps, read from the device once."""
+        if not metrics:
+            return empty
+        return sum(m["rel_l2"] for m in _read_metrics(metrics)) / len(metrics)
+
+    for epoch in range(start_epoch, train_cfg.epochs):
+        t0 = time.time()
+        acc = []
+        for batch in prefetch_to_device(
+                batch_iterator(ds, tr_idx, train_cfg.batch_size,
+                               seed=train_cfg.seed, epoch=epoch,
+                               rollout_horizon=train_cfg.rollout_steps),
+                size=args.prefetch_factor, device=device):
+            state, m = step(state, batch)
+            acc.append(m)
+        tr_loss = mean_loss(acc, 0.0)
+        # the remainder batch is kept: with drop_last a validation split
+        # smaller than a batch would read as a loss of 0.0
+        acc = [eval_step(state.params, batch) for batch in prefetch_to_device(
+            batch_iterator(ds, va_idx, train_cfg.batch_size, shuffle=False,
+                           drop_last=False), size=2, device=device)]
+        va_loss = mean_loss(acc, float("nan"))
+
+        extra = {}
+        if (train_cfg.generate_movie and train_cfg.plot_per_epochs > 0
+                and epoch % train_cfg.plot_per_epochs == 0):
+            lo = int(va_idx[0])
+            ch0 = distance_matrix_channels(torch.as_tensor(
+                traj.positions[lo : lo + args.window_size], device=device))
+            with torch.no_grad():
+                preds, _ = fno_rollout_scan(state.params, cfg, ch0,
+                                            train_cfg.num_movie_frames)
+            fc = [(p < data_cfg.threshold).astype(np.float32)
+                  for p in preds.cpu().numpy()]
+            real = []
+            for i in range(train_cfg.num_movie_frames):
+                idx = min(lo + args.window_size + i, traj.num_frames - 1)
+                d = np.linalg.norm(traj.positions[idx][:, None]
+                                   - traj.positions[idx][None], axis=-1)
+                real.append((d < data_cfg.threshold).astype(np.float32))
+            extra["movie"] = str(
+                render_propagation_movie(run_dir, epoch, fc, real))
+
+        logger.log_epoch(epoch, time.time() - t0, tr_loss, va_loss, extra)
+        ckpt.update(epoch, va_loss, state)
+    logger.close()
+    return state
+
+
 def train_from_trajectory(args, traj):
     """Everything of ``main`` after the trajectory is loaded: the run
     directory, the dataset and split, the train state (or ``--resume``),
     the epoch loop with its movie, latents, metrics and checkpoints.
-    Returns the final ``TrainState``."""
+    Returns the final ``TrainState``; ``--operator fno`` trains the FNO
+    (``_train_fno``)."""
     import numpy as np
 
     from molecular_dynamics_neural_operator_tpu_torch import configs
@@ -299,6 +450,9 @@ def train_from_trajectory(args, traj):
                   "compatibility but is a no-op: host batches flow through "
                   "the in-process prefetch_to_device queue "
                   "(--prefetch_factor sets its depth)")
+
+    if args.operator == "fno":
+        return _train_fno(args, traj, data_cfg, train_cfg, device)
 
     run_dir = Path(train_cfg.run_path)
     run_dir.mkdir(parents=True, exist_ok=True)

@@ -6,8 +6,7 @@ dataclasses, fields and defaults, and the same ``to_json`` text, so a run
 directory's ``config.json`` reads into both packages
 (``experiment_from_json``). See the JAX package's file for the reasoning
 behind each field; the short notes here say what each one selects.
-``FNOConfig`` and ``MeshConfig`` are data only here: the FNO and the
-device mesh are not ported yet.
+``MeshConfig`` is data only here: the device mesh is not ported yet.
 """
 
 from __future__ import annotations

@@ -1,3 +1,8 @@
+from molecular_dynamics_neural_operator_tpu_torch.geometry.cells import (
+    CellListEdges,
+    build_cell_table,
+    cell_list_edges,
+)
 from molecular_dynamics_neural_operator_tpu_torch.geometry.contact import (
     contact_map,
     contact_map_from_edges,
@@ -11,6 +16,9 @@ from molecular_dynamics_neural_operator_tpu_torch.geometry.contact import (
 )
 
 __all__ = [
+    "CellListEdges",
+    "build_cell_table",
+    "cell_list_edges",
     "contact_map",
     "contact_map_from_edges",
     "degree_from_adjacency",

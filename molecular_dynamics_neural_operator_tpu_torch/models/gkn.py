@@ -30,9 +30,6 @@ from the window's last frame, is the eighth fc1 input
 (``preprocess/grid.py``). With ``conv_impl="pallas"`` (again the JAX
 package's name) the edge MLP and both conv stacks of a sparse graph run as
 the fused hand-written kernel of ``ops/cuda/fused_gkn.py``, forward only.
-
-Not ported yet (``NotImplementedError`` from ``check_supported``):
-``neighbor_impl="cell_list"``.
 """
 
 from __future__ import annotations
@@ -113,9 +110,7 @@ class GKNBatch(NamedTuple):
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for what the port does not cover yet: the cell list
-    (``neighbor_impl="cell_list"``, ``NotImplementedError``); and, as the
-    JAX package raises them, ``ValueError`` for an unknown
+    """Raise ``ValueError``, as the JAX package does, for an unknown
     ``train_conv_impl``, ``conv_impl``, ``electrostatics`` or
     ``kernel_quant`` and for ``legacy_no_lstm`` with the fused kernel."""
     if cfg.train_conv_impl not in ("xla", "pallas"):
@@ -131,9 +126,6 @@ def check_supported(cfg: ModelConfig) -> None:
         raise ValueError(
             "legacy_no_lstm (single conv stack) supports conv_impl='xla' "
             "only: the fused kernel bakes in both stacks")
-    if cfg.neighbor_impl != "dense_rank":
-        raise NotImplementedError(
-            f"neighbor_impl={cfg.neighbor_impl!r} is not ported yet")
 
 
 def _node_in_features(cfg: ModelConfig) -> int:

@@ -4,12 +4,13 @@ The same five ``ModelConfig``s as the JAX package: BBA (28 residues) in
 the dense and sparse graph modes, Trp-cage (20) and villin HP35 (35), and
 a ~10k-atom solvated system. Edge capacities are about twice the contact
 count expected at 8 Å for a compact fold. The port builds, trains and
-rolls out models from all four protein presets: BBA, Trp-cage and villin
-on the dense all-pairs graph, ``BBA_SPARSE`` on the padded edge list.
-``SOLVATED_10K`` builds too, aggregating with the segment scatter past 512
-nodes, but its rebuilds would rank a 10^8-pair contact map every step:
-it waits for the cell list (``neighbor_impl="cell_list"``, which
-``models/gkn.py::check_supported`` refuses with ``NotImplementedError``).
+rolls out models from all five: BBA, Trp-cage and villin on the dense
+all-pairs graph, ``BBA_SPARSE`` on the padded edge list, and
+``SOLVATED_10K``, which as in the JAX package names the ranked rebuild;
+a 10k-atom rollout sets ``neighbor_impl="cell_list"`` (with
+``max_degree``, ``cell_capacity`` and ``num_cells``) so that each step
+rebuilds its graph with the O(N) cell list of ``geometry/cells.py`` and
+aggregates it with the "blocked" reduction.
 """
 
 from __future__ import annotations

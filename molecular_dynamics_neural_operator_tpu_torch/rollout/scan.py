@@ -2,8 +2,10 @@
 
 Each step rebuilds the contact graph from the window's last (or first)
 frame (all pairs under ``graph_mode="dense"``, a padded edge list under
-``"sparse"``), runs the GKN forward, optionally clips the prediction and
-slides the window. The JAX ``lax.scan`` becomes a Python loop over plain tensor
+``"sparse"``: ranked from the contact map, or under
+``neighbor_impl="cell_list"`` from the O(N) cell list of
+``geometry/cells.py`` in the block layout), runs the GKN forward,
+optionally clips the prediction and slides the window. The JAX ``lax.scan`` becomes a Python loop over plain tensor
 ops; the edge-overflow flag stays a device tensor, so the loop never waits
 on the card. This is the plain counterpart of the CUDA rollout
 (``ops/cuda/persistent_rollout.py``) and its oracle on the card.
@@ -20,6 +22,9 @@ import torch
 
 from molecular_dynamics_neural_operator_tpu_torch.configs import ModelConfig
 from molecular_dynamics_neural_operator_tpu_torch.device import resolve_device
+from molecular_dynamics_neural_operator_tpu_torch.geometry.cells import (
+    cell_list_edges,
+)
 from molecular_dynamics_neural_operator_tpu_torch.geometry.contact import (
     contact_map,
     dense_edge_features,
@@ -42,8 +47,8 @@ COLLECT_MODES = ("coords", "contact_maps", "both")
 def rebuilt_scatter_hint(cfg: ModelConfig, num_nodes: int) -> str | None:
     """Aggregation of a graph REBUILT on the device in a rollout or
     curriculum step. A rebuild is never in the dataset's edge layout:
-    ``padded_edges_device`` packs it front to back (the cell list, not
-    ported yet, emits the block layout). ``cfg.scatter_mode`` describes
+    ``padded_edges_device`` packs it front to back, the cell list emits
+    the block layout. ``cfg.scatter_mode`` describes
     the dataset's graphs (``edge_layout="blocked"``) and must not reach a
     rebuild, where "blocked" would sum unrelated slots into each node.
     None in dense mode, which has no scatter."""
@@ -56,15 +61,24 @@ def rebuilt_scatter_hint(cfg: ModelConfig, num_nodes: int) -> str | None:
 
 
 def _build_graph(cfg: ModelConfig, frame, threshold: float):
-    """(graph, overflow): overflow is True where the true edge count
-    exceeds ``cfg.max_edges`` and edges were dropped (never, dense)."""
+    """(graph, overflow) of frame (..., R, 3); overflow (...) is True where
+    the rebuild lost edges to a static capacity: ``cfg.max_edges`` for the
+    ranked rebuild, the cell capacity or ``cfg.max_degree`` for the cell
+    list; never in dense mode."""
     check_supported(cfg)
-    adj = contact_map(frame, threshold)
     if cfg.graph_mode == "dense":
         overflow = torch.zeros(frame.shape[:-2], dtype=torch.bool,
                                device=frame.device)
-        return DenseGraph(adj=adj,
+        return DenseGraph(adj=contact_map(frame, threshold),
                           edge_feats=dense_edge_features(frame)), overflow
+    if cfg.neighbor_impl == "cell_list":
+        out = cell_list_edges(frame, threshold, cfg.max_degree,
+                              cfg.cell_capacity, cfg.num_cells)
+        graph = SparseGraph(edges=out.edges, mask=out.mask,
+                            edge_feats=edge_features_from_edges(frame,
+                                                                out.edges))
+        return graph, out.cell_overflow | out.degree_overflow
+    adj = contact_map(frame, threshold)
     edges, mask, count = padded_edges_device(adj, cfg.max_edges,
                                              return_count=True)
     graph = SparseGraph(edges=edges, mask=mask,

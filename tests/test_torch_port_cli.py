@@ -286,7 +286,7 @@ def test_rollout_cli_matches_jax(case, roll_runs):
 # (cli, flags, the queue A item that refuses them, or None where the flag
 # is ported now and the CLI goes on to read the data)
 REFUSALS = [
-    ("train", ["--graph_mode", "sparse", "--operator", "fno"], 6),
+    ("train", ["--graph_mode", "sparse", "--operator", "fno"], None),
     ("train", ["--graph_mode", "sparse", "--data_parallel"], 8),
     ("train", [], None),  # the JAX default --graph_mode dense
     ("train", ["--graph_mode", "sparse", "--edge_layout", "blocked"], None),
@@ -295,7 +295,7 @@ REFUSALS = [
     ("rollout", ["--graph_mode", "sparse", "--window_diff"], None),
     ("rollout", ["--graph_mode", "sparse", "--kernel_quant", "int8"], None),
     ("rollout", ["--graph_mode", "sparse", "--neighbor_impl", "cell_list"],
-     5),
+     None),
 ]
 
 

@@ -395,9 +395,10 @@ def test_presets_match_jax():
 
 def test_the_solvated_preset_still_refuses_to_build():
     """Past the one-hot scatter's 512 nodes, as the 10k preset, the
-    forward now aggregates with the segment scatter (it gives the forced
-    one-hot's sums); what the preset still waits for, the cell list, is
-    refused by name."""
+    forward aggregates with the segment scatter (it gives the forced
+    one-hot's sums), and the cell list the preset's rollouts take is
+    accepted: its rebuild, reduced by the "blocked" hint, gives the same
+    forward as the segment scatter on the same graph."""
     from molecular_dynamics_neural_operator_tpu_torch.geometry import (
         contact_map,
         edge_features_from_edges,
@@ -428,8 +429,24 @@ def test_the_solvated_preset_still_refuses_to_build():
                                   scatter_hint="onehot")
     assert auto.shape == (r, 3) and torch.isfinite(auto).all()
     np.testing.assert_allclose(auto.numpy(), onehot.numpy(), 1e-5, 1e-5)
-    with pytest.raises(NotImplementedError, match="cell_list"):
-        check_supported(dataclasses.replace(cfg, neighbor_impl="cell_list"))
+    cells = dataclasses.replace(cfg, neighbor_impl="cell_list",
+                                max_degree=48, cell_capacity=32,
+                                num_cells=1024)
+    check_supported(cells)
+    from molecular_dynamics_neural_operator_tpu_torch.rollout.scan import (
+        _build_graph,
+        rebuilt_scatter_hint,
+    )
+
+    graph, overflow = _build_graph(cells, window[-1], 8.0)
+    assert not bool(overflow)
+    assert rebuilt_scatter_hint(cells, r) == "blocked"
+    with torch.no_grad():
+        blocked = gkn_apply_single(params, cells, aa, window, graph,
+                                   scatter_hint="blocked")
+        segment = gkn_apply_single(params, cells, aa, window, graph,
+                                   scatter_hint="segment")
+    np.testing.assert_allclose(blocked.numpy(), segment.numpy(), 1e-5, 1e-5)
 
 
 # ---- TrainState checkpoints across packages --------------------------------

@@ -14,8 +14,10 @@ from molecular_dynamics_neural_operator_tpu.configs import (
     ModelConfig as JaxModelConfig,
 )
 from molecular_dynamics_neural_operator_tpu.models import gkn as jgkn
+from molecular_dynamics_neural_operator_tpu.rollout import scan as jscan
 from molecular_dynamics_neural_operator_tpu_torch.configs import ModelConfig
 from molecular_dynamics_neural_operator_tpu_torch.models import gkn
+from molecular_dynamics_neural_operator_tpu_torch.rollout import scan
 from molecular_dynamics_neural_operator_tpu_torch.utils.checkpoint import (
     params_from_jax,
 )
@@ -131,13 +133,10 @@ def test_gkn_init_matches_jax_structure():
                                   dict(neighbor_impl="cell_list"),
                                   dict(graph_mode="dense")])
 def test_unported_options_raise(opts):
-    """Only the cell list is still refused; every other option is ported
-    and its one-step forward matches the JAX package's."""
+    """Every option is ported now, the cell list too: each one-step
+    forward matches the JAX package's (the cell list's on its own
+    rebuild of the window's last frame)."""
     cfg = dataclasses.replace(ModelConfig(**BASE), **opts)
-    if cfg.neighbor_impl == "cell_list":
-        with pytest.raises(NotImplementedError, match="cell_list"):
-            gkn.check_supported(cfg)
-        return
     gkn.check_supported(cfg)
     jcfg = JaxModelConfig(**dataclasses.asdict(cfg))
     jparams = jax.tree.map(np.asarray,
@@ -149,6 +148,12 @@ def test_unported_options_raise(opts):
                                  jgeo.dense_edge_features(frame))
         graph = gkn.DenseGraph(*(torch.as_tensor(np.array(t))
                                  for t in jgraph))
+    elif cfg.neighbor_impl == "cell_list":
+        jgraph, _ = jscan._build_graph(jcfg, frame, 8.0)
+        graph, _ = scan._build_graph(cfg, torch.as_tensor(window[-1]), 8.0)
+        for name, t in zip(graph._fields, graph):
+            np.testing.assert_array_equal(t.numpy(), np.asarray(
+                getattr(jgraph, name)), err_msg=name)
     else:
         jgraph = _jax_graph(jcfg, window)
         graph = _port_graph(jgraph)

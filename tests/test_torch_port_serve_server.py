@@ -247,13 +247,13 @@ def test_constructor_refusals(setup):
                        "stream_chunk")):
         with pytest.raises(ValueError, match=match):
             _server(setup, **kw)
-    # a dense configuration is served now (tests/test_torch_port_dense.py
-    # holds its results); the cell list is still refused by name
+    # dense and cell-list configurations are served now
+    # (tests/test_torch_port_dense.py and tests/test_torch_port_cells.py
+    # hold their results)
     dense = dataclasses.replace(setup[0], graph_mode="dense")
     RolloutServer(setup[1], dense, device="cpu").close(timeout=WAIT)
     cells = dataclasses.replace(setup[0], neighbor_impl="cell_list")
-    with pytest.raises(NotImplementedError, match="cell_list"):
-        RolloutServer(setup[1], cells, device="cpu")
+    RolloutServer(setup[1], cells, device="cpu").close(timeout=WAIT)
 
 
 def test_submit_validation(setup):
