@@ -27,7 +27,10 @@ from ``synthetic_trajectory(num_frames=4000, seed=13)``):
 - large systems: the cell-list rebuild at 10,000 atoms, the
   ``SOLVATED_10K`` preset's rollout at full width and the config-5
   training shape;
-- the FNO at the training CLI's defaults on BBA.
+- the FNO at the training CLI's defaults on BBA;
+- serving bundles (``torch.export`` of one rollout step), the
+  Debye-Hückel preprocessing grids and the host input pipeline (producer
+  thread, native packer).
 
 Phases, each fatal:
 
@@ -185,19 +188,43 @@ Phases, each fatal:
    ``fno_rollout_scan`` of the trained weights, card against CPU; (e) a
    train step's samples/s, device time and busy share, rollout steps/s,
    the spectral conv's times.
+19. export, preprocessing and the host pipeline (none of the seven
+   kernels on the path; the launch counts stay 0): (a) serving bundles
+   (``serving/export.py``) of the flagship with ``tools/bench_ckpt.npz``,
+   exported on the card: 128 steps with ``collect="both"`` at one stream
+   and at S = 8 in chunks of 4, and with hot-swapped seeded live weights,
+   each bit-equal to the in-process ``make_rollout_fn`` (coordinates,
+   contact maps, final window, overflow); a bundle traced on the CPU and
+   moved to the card (bit-equal, or within TOL_ROLL with the same maps);
+   an FNO bundle at the CLI defaults, bit-equal to ``fno_rollout_scan``;
+   ``python -m ...cli.export`` with its self-test on the card; the export
+   seconds, the bundle's bytes by file, its steps/s beside the in-process
+   plain path's. (b) ``batched_debye_huckel_grids`` on the deck's
+   97 x 65 x 65 grid for 64 BBA frames and 2 frames of the 10,000-atom
+   config-5 grid, held against a float64 oracle and the port on the CPU
+   at a seeded sample of grid points (TOL_DH of max |phi|), and
+   ``sample_grid_trilinear`` at the atoms (TOL_TRILINEAR); ms a frame,
+   peak memory, the special-function bound; ``cli.preprocess --mode
+   apbs`` with stub programs. (c) the native packer's batches against the
+   numpy path's (bit for bit, with host ms a batch), then a CLI epoch on
+   the per-layer path with the producer thread and the packer against the
+   same epoch without them (loss within TOL_TRAIN_LOSS), each epoch's
+   time beyond its steps.
 
 The last lines are the ``kernels`` JSON (seven kernels), the card, and
 ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA card.
 ``--only rollout``, ``--only train``, ``--only serve``, ``--only cli``,
-``--only dense``, ``--only options``, ``--only large`` or ``--only fno``
-runs one path's phases (for development; the ``kernels`` line then lists
-that path's kernels, none for ``cli``, ``dense``, ``options``, ``large``
-and ``fno``, which time no kernel). Imports nothing of JAX.
+``--only dense``, ``--only options``, ``--only large``, ``--only fno`` or
+``--only export`` runs one path's phases (for development; the
+``kernels`` line then lists that path's kernels, none for ``cli``,
+``dense``, ``options``, ``large``, ``fno`` and ``export``, which time no
+kernel). Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import dataclasses
 import json
@@ -4161,6 +4188,461 @@ def fno_phase(traj) -> dict:
     return {}
 
 
+# ---- phase 19: serving bundles, preprocessing, the host pipeline --------
+
+EXPORT_STEPS = 128
+EXPORT_STREAMS = 8
+EXPORT_CHUNK = 4
+# the APBS deck's fine grid (templates/electrostatics.in.tmpl): fglen and
+# dime, the defaults of cli/preprocess.py --mode dh
+DECK_LENGTHS = (52.958, 44.009, 38.33)
+DECK_DIME = (97, 65, 65)
+DH_FRAMES = 64
+DH_LARGE_FRAMES = 2
+DH_SAMPLE = 256
+# H100 SXM special-function units: 16 results a clock on each of 132 SMs
+# at 1.98 GHz; a grid point's pair term takes about 3 of them (sqrt, exp,
+# the reciprocal)
+SFU_PER_S = 16 * 132 * 1.98e9
+DH_SFU_PER_PAIR = 3
+# The potential at a grid point is an f32 sum of up to 10,000 terms
+# exp(-kappa d)/d, taken in another order on the card, on the CPU and in
+# the float64 oracle: a few f32 units of the largest term each, about
+# 1e-6 of the grid's max |phi| at 10,000 atoms; held to 1e-4 of it. A
+# wrong kappa, clamp or charge moves phi by its own size.
+TOL_DH = 1e-4
+# Trilinear samples: f32 weights of f32 grid values, against a float64
+# interpolation of the same grid; ulps of the grid's max |phi|.
+TOL_TRILINEAR = 1e-5
+
+
+def timed_call(fn):
+    """(result, seconds) of one ``fn()`` with the card synchronised on
+    both sides."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def held_bundle(bundle, inputs, want, tag: str) -> None:
+    """The bundle's call against the in-process result, bit for bit."""
+    from molecular_dynamics_neural_operator_tpu_torch.cli.export import (
+        same_outputs,
+    )
+
+    got = bundle(*inputs)
+    require(same_outputs(got, want), f"{tag}: the bundle differs from the "
+            "in-process rollout")
+    coords = got[0][0] if isinstance(got[0], tuple) else got[0]
+    overflow = got[2]["edge_overflow"] if len(got) > 2 else None
+    log(f"{tag}: bit-equal to the in-process rollout (outputs "
+        f"{tuple(coords.shape)}, finite "
+        f"{bool(torch.isfinite(coords).all())}"
+        + ("" if overflow is None else
+           f", edge overflow {overflow.any().item()}") + ")")
+
+
+def export_bundles(traj, root: Path) -> None:
+    """Phase 19a: serving bundles of the flagship and of the FNO on the
+    card, each held bit for bit against the in-process rollout."""
+    from molecular_dynamics_neural_operator_tpu_torch.cli.export import (
+        same_outputs,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.models import (
+        fno,
+        gkn_init,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.rollout import (
+        make_rollout_fn,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.serving.export import (
+        bundle_bytes,
+        load_bundle,
+        save_bundle,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.utils.checkpoint import (
+        load_params_npz,
+    )
+
+    dev = torch.device("cuda")
+    cfg = bench_cfg("bfloat16")
+    require(cfg.conv_impl == "xla", f"bench config conv_impl {cfg.conv_impl}")
+    params = load_params_npz(CKPT, device=dev)
+    aa = torch.as_tensor(traj.aminoacids, device=dev)
+    t_len = cfg.window_size
+    window0 = torch.as_tensor(traj.positions[:t_len], device=dev)
+    windows = torch.as_tensor(np.stack(
+        [traj.positions[i * 500:i * 500 + t_len]
+         for i in range(EXPORT_STREAMS)]), device=dev)
+    kw = dict(threshold=THRESHOLD, collect="both", clip=CLIP)
+
+    def in_process(batched=False, chunk=None):
+        return make_rollout_fn(cfg, EXPORT_STEPS, THRESHOLD, collect="both",
+                               batched=batched, clip=CLIP,
+                               stream_chunk=chunk, device=dev)
+
+    path, export_s = timed_call(lambda: save_bundle(
+        root / "one", params, cfg, EXPORT_STEPS, **kw))
+    bundle, load_s = timed_call(lambda: load_bundle(path, device=dev))
+    with torch.no_grad():
+        want = in_process()(params, aa, window0)
+    held_bundle(bundle, (aa, window0), want,
+                f"bundle, one stream, {EXPORT_STEPS} steps, collect=both")
+    sizes = bundle_bytes(path)
+    log(f"bundle export (trace + save) {export_s:.2f} s, load {load_s:.2f} "
+        f"s; bytes {sizes}")
+    _, bundle_s = timed_call(lambda: bundle(aa, window0))
+    with torch.no_grad():
+        _, plain_s = timed_call(lambda: in_process()(params, aa, window0))
+    log(f"one stream, {EXPORT_STEPS} steps: bundle "
+        f"{EXPORT_STEPS / bundle_s:,.1f} steps/s, in-process plain path "
+        f"{EXPORT_STEPS / plain_s:,.1f} steps/s")
+
+    # hot swap: seeded weights whose conv layers are alive
+    live = gkn_init(live_cfg("bfloat16"), seed=1, device=dev)
+    with torch.no_grad():
+        want = in_process()(live, aa, window0)
+    got = bundle(aa, window0, params=live)
+    require(same_outputs(got, want), "hot-swapped weights: the bundle "
+            "differs from the in-process rollout")
+    require(not torch.equal(got[0][0], bundle(aa, window0)[0][0]),
+            "hot-swapped weights gave the bundled weights' rollout")
+    log("bundle with hot-swapped live weights: bit-equal to the in-process "
+        "rollout of those weights")
+
+    spath, s_export = timed_call(lambda: save_bundle(
+        root / "streams", params, cfg, EXPORT_STEPS, streams=EXPORT_STREAMS,
+        stream_chunk=EXPORT_CHUNK, **kw))
+    sbundle = load_bundle(spath, device=dev)
+    with torch.no_grad():
+        want = in_process(True, EXPORT_CHUNK)(params, aa, windows)
+    held_bundle(sbundle, (aa, windows), want,
+                f"bundle, S = {EXPORT_STREAMS} with stream_chunk "
+                f"{EXPORT_CHUNK}")
+    _, sb_s = timed_call(lambda: sbundle(aa, windows))
+    log(f"S = {EXPORT_STREAMS}: export {s_export:.2f} s; bundle "
+        f"{EXPORT_STREAMS * EXPORT_STEPS / sb_s:,.1f} served steps/s")
+
+    # traced on the CPU, moved to the card by load_bundle
+    cpath, c_export = timed_call(lambda: save_bundle(
+        root / "cpu", load_params_npz(CKPT, device="cpu"), cfg,
+        EXPORT_STEPS, platforms=["cpu", "cuda"], **kw))
+    cbundle = load_bundle(cpath, device=dev)
+    with torch.no_grad():
+        want = in_process()(params, aa, window0)
+    got = cbundle(aa, window0)
+    exact = same_outputs(got, want)
+    err = (got[0][0] - want[0][0]).abs().max().item()
+    log(f"bundle traced on the CPU ({c_export:.2f} s) and moved to the "
+        f"card: bit-equal {exact}, coordinates within {err:.3e} A (limit "
+        f"TOL_ROLL {TOL_ROLL}), contact maps equal "
+        f"{torch.equal(got[0][1], want[0][1])}")
+    # the trace records the same aten ops on either device; if the card
+    # ever took another kernel for one of them, f32 sums in another order
+    # are what TOL_ROLL allows for
+    require(exact or (err <= TOL_ROLL and torch.equal(got[0][1], want[0][1])
+                      and torch.equal(got[2]["edge_overflow"],
+                                      want[2]["edge_overflow"])),
+            f"CPU-traced bundle on the card: {err:.3e} A")
+
+    fcfg = fno_cfg()
+    fparams = fno.fno_init(fcfg, seed=0, device=dev)
+    ch0 = fno.distance_matrix_channels(
+        torch.as_tensor(traj.positions[:10], device=dev))
+    fpath, f_export = timed_call(lambda: save_bundle(
+        root / "fno", fparams, fcfg, EXPORT_STEPS))
+    fbundle = load_bundle(fpath, device=dev)
+    with torch.no_grad():
+        want = fno.fno_rollout_scan(fparams, fcfg, ch0, EXPORT_STEPS)
+    held_bundle(fbundle, (ch0,), want,
+                f"FNO bundle at the CLI defaults, {EXPORT_STEPS} steps "
+                f"(export {f_export:.2f} s)")
+
+    out = root / "cli"
+    cmd = [sys.executable, "-m", f"{PKG}.cli.export", "--checkpoint",
+           str(CKPT), "--max_edges", "224", "--predict_delta", "--clip",
+           str(CLIP), "--num_steps", str(EXPORT_STEPS), "--out", str(out)]
+    proc, cli_s = timed_call(lambda: subprocess.run(
+        cmd, cwd=ROOT, capture_output=True, text=True, timeout=600))
+    text = proc.stdout + proc.stderr
+    require(proc.returncode == 0 and "selftest ok" in proc.stdout,
+            f"cli.export exited {proc.returncode}:\n{text[-3000:]}")
+    log(f"python -m {PKG}.cli.export ... --num_steps {EXPORT_STEPS}: "
+        f"{cli_s:.1f} s in all; "
+        + "; ".join(line for line in proc.stdout.splitlines()
+                    if line.startswith(("bundle written", "selftest"))))
+    got = dict(tree_items(load_bundle(out, device=dev).params))
+    want = dict(tree_items(params))
+    require(got.keys() == want.keys()
+            and all(torch.equal(got[k], want[k]) for k in want),
+            "the CLI bundle's weights differ from the checkpoint's")
+
+
+def oracle_phi(points: np.ndarray, pos: np.ndarray, q: np.ndarray):
+    """float64 potential at points from the screened charges."""
+    from molecular_dynamics_neural_operator_tpu_torch.preprocess.grid import (
+        bjerrum_length,
+        debye_kappa,
+    )
+
+    p, x = points.astype(np.float64), pos.astype(np.float64)
+    d2 = sum((p[:, None, k] - x[None, :, k]) ** 2 for k in range(3))
+    d = np.sqrt(np.maximum(d2, 1.0))
+    return bjerrum_length() * (np.exp(-debye_kappa() * d) / d) @ q.astype(
+        np.float64)
+
+
+def oracle_trilinear(grid: np.ndarray, origin, spacing, pos: np.ndarray):
+    """float64 trilinear interpolation, positions clamped to the box."""
+    g = grid.astype(np.float64)
+    shape = np.asarray(grid.shape, np.float64)
+    f = np.clip((pos.astype(np.float64) - origin) / spacing, 0.0,
+                shape - 1.0)
+    f0 = np.floor(np.minimum(f, shape - 2.0))
+    t, i0 = f - f0, f0.astype(np.int64)
+    out = np.zeros(len(pos))
+    for c in np.ndindex(2, 2, 2):
+        idx = i0 + np.asarray(c)
+        w = np.prod(np.where(np.asarray(c) == 1, t, 1.0 - t), axis=-1)
+        out += w * g[idx[:, 0], idx[:, 1], idx[:, 2]]
+    return out
+
+
+def dh_grids(tag: str, pos: np.ndarray, q: np.ndarray, dev) -> None:
+    """Phase 19b for one system: ``batched_debye_huckel_grids`` of every
+    frame of pos (T, N, 3) on the deck's grid, held against a float64
+    oracle and the port on the CPU at a seeded sample of grid points, and
+    ``sample_grid_trilinear`` at the atoms the same way."""
+    from molecular_dynamics_neural_operator_tpu_torch.preprocess.grid import (
+        batched_debye_huckel_grids,
+        debye_huckel_grid,
+        make_grid,
+        sample_grid_trilinear,
+    )
+
+    frames, n = pos.shape[:2]
+    center = pos.mean(axis=(0, 1))
+    grid = make_grid(center, DECK_LENGTHS, DECK_DIME, device=dev)
+    g = grid.shape[0]
+    pos_t = torch.as_tensor(pos, device=dev)
+    q_t = torch.as_tensor(q, device=dev)
+    batched_debye_huckel_grids(pos_t[:1], q_t, grid)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    phis, secs = timed_call(lambda: batched_debye_huckel_grids(pos_t, q_t,
+                                                               grid))
+    peak = torch.cuda.max_memory_allocated() - base
+    ms = 1e3 * secs / frames
+    bound = 1e3 * g * n * DH_SFU_PER_PAIR / SFU_PER_S
+    require(phis.shape == (frames, g) and bool(torch.isfinite(phis).all()),
+            f"{tag}: grids {tuple(phis.shape)} not finite")
+    rng = np.random.default_rng(19)
+    sample = np.sort(rng.choice(g, DH_SAMPLE, replace=False))
+    grid_np = grid.cpu().numpy()
+    worst = {"oracle": 0.0, "cpu": 0.0}
+    for f in sorted({0, frames // 2, frames - 1}):
+        scale = phis[f].abs().max().item()
+        card = phis[f, torch.as_tensor(sample, device=dev)].cpu().numpy()
+        oracle = oracle_phi(grid_np[sample], pos[f], q)
+        cpu = debye_huckel_grid(torch.as_tensor(pos[f]), torch.as_tensor(q),
+                                torch.as_tensor(grid_np[sample])).numpy()
+        worst["oracle"] = max(worst["oracle"],
+                              np.abs(card - oracle).max() / scale)
+        worst["cpu"] = max(worst["cpu"], np.abs(card - cpu).max() / scale)
+    phi3 = phis[0].reshape(DECK_DIME)
+    origin = grid_np[0]
+    spacing = np.asarray(DECK_LENGTHS, np.float32) / (
+        np.asarray(DECK_DIME, np.float32) - 1.0)
+    at_atoms = sample_grid_trilinear(phi3, origin, spacing, pos_t[0])
+    cpu_atoms = sample_grid_trilinear(phi3.cpu(), origin, spacing,
+                                      torch.as_tensor(pos[0]))
+    oracle_atoms = oracle_trilinear(phi3.cpu().numpy(), origin, spacing,
+                                    pos[0])
+    scale = phi3.abs().max().item()
+    tri = {"oracle": np.abs(at_atoms.cpu().numpy() - oracle_atoms).max()
+           / scale,
+           "cpu": (at_atoms.cpu() - cpu_atoms).abs().max().item() / scale}
+    log(f"dh grids, {tag}: {frames} frames x {g:,} points x {n:,} atoms; "
+        f"{ms:.3f} ms a frame (bound {bound:.3f} ms, {DH_SFU_PER_PAIR} "
+        f"special-function results a pair at {SFU_PER_S:.3g}/s), peak "
+        f"{peak / 1e9:.3f} GB beyond the inputs; against float64 "
+        f"{worst['oracle']:.2e}, against the CPU {worst['cpu']:.2e} of max "
+        f"|phi| (limit {TOL_DH}); trilinear at the {n:,} atoms "
+        f"{tri['oracle']:.2e} and {tri['cpu']:.2e} (limit {TOL_TRILINEAR})")
+    require(max(worst.values()) <= TOL_DH, f"{tag}: dh grid off by {worst}")
+    require(max(tri.values()) <= TOL_TRILINEAR,
+            f"{tag}: trilinear samples off by {tri}")
+
+
+def apbs_stub_run(root: Path) -> None:
+    """Phase 19b: ``cli.preprocess --mode apbs`` with stub programs in
+    place of pdb2pqr30 and apbs, in a subprocess."""
+    import stat
+
+    bin_dir = root / "bin"
+    bin_dir.mkdir()
+    pdb2pqr, apbs = bin_dir / "stub_pdb2pqr", bin_dir / "stub_apbs"
+    pdb2pqr.write_text("#!/bin/bash\ncp \"$1\" \"$2\"\n")
+    apbs.write_text(
+        f"#!{sys.executable}\n"
+        "import sys\n"
+        "deck = open(sys.argv[1]).read()\n"
+        "stem = [l.split()[-1] for l in deck.splitlines()"
+        " if l.strip().startswith('write pot dx')][0]\n"
+        "lines = ['object 1 class gridpositions counts 2 2 2',\n"
+        "         'object 3 class array type double rank 0 items 8 data "
+        "follows', '1 2 3', '4 5 6', '7 8']\n"
+        "open(stem + '.dx', 'w').write('\\n'.join(lines) + '\\n')\n")
+    for f in (pdb2pqr, apbs):
+        f.chmod(f.stat().st_mode | stat.S_IEXEC)
+    pdb = root / "traj.pdb"
+    pdb.write_text("\n".join(
+        f"MODEL     {m + 1}\nATOM      1  CA  ALA A   1      {m:8.3f}   "
+        "0.000   0.000  1.00  0.00\nENDMDL" for m in range(3)) + "\nEND\n")
+    cmd = [sys.executable, "-m", f"{PKG}.cli.preprocess", "--mode", "apbs",
+           "--pdb_files", str(pdb), "--traj_files", str(pdb),
+           "--scratch_dir", str(root / "scratch"), "--results_dir",
+           str(root / "results"), "--num_workers", "1", "--pdb2pqr_exe",
+           str(pdb2pqr), "--apbs_exe", str(apbs)]
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=300)
+    require(proc.returncode == 0, f"cli.preprocess --mode apbs exited "
+            f"{proc.returncode}:\n{(proc.stdout + proc.stderr)[-3000:]}")
+    chunks = [np.load(p) for p in sorted((root / "results").glob("*.npy"))]
+    want = np.arange(1, 9, dtype=np.float64).reshape(2, 2, 2)
+    require(sum(c.shape[0] for c in chunks) == 3
+            and all(np.array_equal(g, want) for c in chunks for g in c)
+            and not list((root / "scratch").glob("*")),
+            f"apbs stub run: chunks {[c.shape for c in chunks]}")
+    log(f"cli.preprocess --mode apbs with stub programs: "
+        f"{proc.stdout.strip()}; {len(chunks)} chunks, 3 frames, scratch "
+        "left empty")
+
+
+@contextlib.contextmanager
+def plain_pipeline():
+    """The input pipeline without the producer thread and the packer (the
+    port's before both): numpy batches through the plain generator."""
+    import functools
+
+    from molecular_dynamics_neural_operator_tpu_torch.data import (
+        packing,
+        prefetch,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.train import (
+        loop,
+        recipe,
+    )
+
+    saved = (prefetch.prefetch_to_device, loop.prefetch_to_device,
+             recipe.prefetch_to_device, packing.available)
+    plain = functools.partial(saved[0], producer_thread=False)
+    prefetch.prefetch_to_device = loop.prefetch_to_device = plain
+    recipe.prefetch_to_device = plain
+    packing.available = lambda: False
+    try:
+        yield
+    finally:
+        (prefetch.prefetch_to_device, loop.prefetch_to_device,
+         recipe.prefetch_to_device, packing.available) = saved
+
+
+def host_pipeline(traj, root: Path) -> None:
+    """Phase 19c: the native packer's batches against the numpy path's,
+    and a CLI epoch with the producer thread and the packer against the
+    same epoch without them."""
+    from molecular_dynamics_neural_operator_tpu_torch.data import (
+        WindowDataset,
+        packing,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.train import (
+        train_valid_split,
+    )
+
+    require(packing.available(), "the native packer did not build: "
+            f"{packing.load_error()}")
+    rng = np.random.default_rng(19)
+    for mode in ("sparse", "dense"):
+        kw = dict(window_size=10, graph_mode=mode, max_edges=256)
+        native = WindowDataset(traj, **kw)
+        plain = WindowDataset(traj, use_native=False, **kw)
+        require(native.use_native, f"{mode}: the dataset took the numpy path")
+        batches = [rng.permutation(len(native))[:TRAIN_BATCH]
+                   for _ in range(4)]
+        for idx in batches:
+            a, b = native.get_batch(idx), plain.get_batch(idx)
+            require(a.keys() == b.keys() and all(
+                a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k])
+                for k in a), f"{mode}: native batch differs from numpy")
+        ms = {}
+        for name, ds in (("native", native), ("numpy", plain)):
+            t0 = time.perf_counter()
+            for idx in batches:
+                ds.get_batch(idx)
+            ms[name] = 1e3 * (time.perf_counter() - t0) / len(batches)
+        log(f"{mode} batches of {TRAIN_BATCH}: the native packer equals the "
+            f"numpy path bit for bit; host ms a batch: native "
+            f"{ms['native']:.3f}, numpy {ms['numpy']:.3f}")
+
+    tr_idx, _ = train_valid_split(len(traj.positions) - 10)
+    steps = len(tr_idx) // TRAIN_BATCH
+    extra = ["--train_conv_impl", "xla"]
+
+    def beyond(row) -> float:
+        return row["seconds"] - steps / row["steps_per_sec"]
+
+    cli_train_run(traj, root / "warm", extra)
+    with plain_pipeline():
+        _, _, prow, _ = cli_train_run(traj, root / "plain", extra)
+    _, _, trow, _ = cli_train_run(traj, root / "thread", extra)
+    rel = abs(trow["avg_train_loss"] - prow["avg_train_loss"]) / abs(
+        prow["avg_train_loss"])
+    log(f"cli.train epoch (per-layer path, B = {TRAIN_BATCH}, {steps} "
+        f"steps): with the producer thread and the packer "
+        f"{trow['seconds']:.3f} s, {beyond(trow):.3f} s beyond the steps, "
+        f"{trow['steps_per_sec']:.2f} steps/s; without them "
+        f"{prow['seconds']:.3f} s, {beyond(prow):.3f} s beyond, "
+        f"{prow['steps_per_sec']:.2f} steps/s (before the thread and the "
+        f"packer: 0.5 to 0.9 s beyond the steps); mean rel_l2 {trow['avg_train_loss']:.6g} and "
+        f"{prow['avg_train_loss']:.6g}, {rel:.2e} relative (limit "
+        f"{TOL_TRAIN_LOSS})")
+    require(rel <= TOL_TRAIN_LOSS, f"the epoch through the producer thread "
+            f"differs from the plain pipeline's by {rel:.2e}")
+
+
+def export_phase(traj) -> dict:
+    """Phase 19; none of the seven kernels lies on its path."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    reset_all_launches()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_export_") as tmp:
+        root = Path(tmp)
+        export_bundles(traj, root / "bundles")
+        from molecular_dynamics_neural_operator_tpu_torch.preprocess.grid import (  # noqa: E501
+            AMINO_ACID_CHARGES,
+        )
+
+        dh_grids("BBA (synthetic)", traj.positions[:DH_FRAMES],
+                 AMINO_ACID_CHARGES[traj.aminoacids % 20], dev)
+        large = breathing_trajectory(serpentine_grid(LARGE_N, 4.0),
+                                     DH_LARGE_FRAMES)
+        dh_grids("config 5 (10,000 atoms)", large,
+                 AMINO_ACID_CHARGES[np.arange(LARGE_N) % 20], dev)
+        (root / "apbs").mkdir()
+        apbs_stub_run(root / "apbs")
+        host_pipeline(traj, root / "runs")
+    counts = all_launches()
+    require(not any(counts.values()),
+            f"a kernel launched on the export path: {counts}")
+    log(f"export, preprocessing and host-pipeline path launches: none "
+        f"{counts}; the phase took {time.perf_counter() - t0:.1f} s")
+    return {}
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4238,7 +4720,7 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--only", choices=("rollout", "train", "serve",
                                            "cli", "dense", "options",
-                                           "large", "fno"),
+                                           "large", "fno", "export"),
                         help="run one path's phases (development)")
     args = parser.parse_args()
     only = args.only
@@ -4314,7 +4796,7 @@ def main() -> int:
     kernels += serve_kernels
     for path, phase in (("cli", cli_phases), ("dense", dense_phase),
                         ("options", options_phase), ("large", large_phase),
-                        ("fno", fno_phase)):
+                        ("fno", fno_phase), ("export", export_phase)):
         if only in (None, path):
             counts = phase(traj)
             for rec in kernels:

@@ -1,12 +1,15 @@
 """The port's command-line entry points, and the refusal of the flags
-whose module is not ported yet: ``train``'s ``--data_parallel`` alone,
-which waits for the parallel modules."""
+whose module is not ported yet: ``train``'s ``--data_parallel`` and
+``serve``'s ``--data_mesh``, which wait for the parallel modules."""
 
 # flag -> (refused value test, what brings it), checked before any data
 # is read; the items are those of the roadmap's queue A
 REFUSED = {
     "data_parallel": (bool, "--data_parallel: the parallel modules are not "
                             "ported yet (queue A item 8)"),
+    "data_mesh": (lambda n: n is not None and n > 0,
+                  "--data_mesh: the parallel modules are not ported yet "
+                  "(queue A item 8)"),
 }
 
 

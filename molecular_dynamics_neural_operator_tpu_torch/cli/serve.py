@@ -20,8 +20,10 @@ are answered in order):
 Errors come back as {"id": ..., "error": "..."} without killing the
 connection. An empty line closes the connection. ``{"op": "stats"}``
 returns the server's occupancy counters. Runs on the card unless
-``--device cpu`` is given. The JAX CLI's ``--data_mesh`` and
-``--compilation_cache`` have no counterpart yet.
+``--device cpu`` is given. Every flag of the JAX CLI parses:
+``--data_mesh`` > 0 is refused by name before the checkpoint is read
+(the parallel modules are not ported), and ``--compilation_cache`` is a
+no-op (the port has no compilation cache to point anywhere).
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from pathlib import Path
 
 import numpy as np
 
+from molecular_dynamics_neural_operator_tpu_torch.cli import refuse_unported
 from molecular_dynamics_neural_operator_tpu_torch.configs import (
     ModelConfig,
     _from_dict,
@@ -68,6 +71,9 @@ def parse_args(argv=None):
                         "send the same one")
     p.add_argument("--max_request_steps", type=int, default=100_000,
                    help="reject requests asking for more steps than this")
+    p.add_argument("--data_mesh", type=int, default=0,
+                   help="accepted for the JAX CLI's command lines; > 0 is "
+                        "refused (the parallel modules are not ported)")
     p.add_argument("--device", default=None,
                    help="cuda (default; a missing card is an error) or cpu")
     # model flags (ignored when --run_path provides config.json)
@@ -87,7 +93,11 @@ def parse_args(argv=None):
     p.add_argument("--prior_damping", type=float, default=1.0,
                    help="damping on the extrapolate prior "
                         "(must match training)")
-    return p.parse_args(argv)
+    p.add_argument("--compilation_cache", type=Path, default=None,
+                   help="accepted for the JAX CLI's command lines; no-op")
+    args = p.parse_args(argv)
+    refuse_unported(args)
+    return args
 
 
 def _load(args):
@@ -207,6 +217,9 @@ def serve(params, cfg, args, *, ready: dict | None = None):
 
 def main(argv=None):
     args = parse_args(argv)
+    if args.compilation_cache is not None:
+        print("NOTE: --compilation_cache has no counterpart in the PyTorch "
+              "port; ignoring it")
     params, cfg = _load(args)
     serve(params, cfg, args)
 

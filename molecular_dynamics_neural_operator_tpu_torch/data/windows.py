@@ -20,20 +20,29 @@ contact maps or recomputed from the coordinates:
   ``scatter_mode="blocked"`` conv reduces by slot position;
 - ``graph_mode="none"``: no graph.
 
-Edge features are built on the device from the window. The JAX package's
-native C++ packer (``data/packing.py``) is not ported: this is its numpy
-path, which gives the same arrays.
+Edge features are built on the device from the window. With
+``use_native=True`` (the default, as in JAX) the window gather, the
+stored contact maps and the CSR-packed edge lists come from the native
+packer (``data/packing.py``), which gives the same arrays as the numpy
+path; without its library the dataset takes the numpy path. Either way
+it logs which, at INFO (a warning when the packer was asked for and is
+missing). The blocked layout and recomputed graphs are numpy only, as in
+JAX.
 """
 
 from __future__ import annotations
 
+import logging
 from typing import Iterator, Sequence
 
 import numpy as np
 
+from molecular_dynamics_neural_operator_tpu_torch.data import packing
 from molecular_dynamics_neural_operator_tpu_torch.data.h5 import (
     TrajectoryData,
 )
+
+log = logging.getLogger(__name__)
 
 
 class WindowDataset:
@@ -46,6 +55,7 @@ class WindowDataset:
         graph_mode: str = "dense",  # "dense" | "sparse" | "none"
         max_edges: int = 384,
         use_stored_contact_maps: bool = True,
+        use_native: bool = True,
         edge_layout: str = "csr",  # "csr" | "blocked"
     ):
         if traj.num_frames - window_size - horizon + 1 < 0:
@@ -72,6 +82,17 @@ class WindowDataset:
         self.use_stored_contact_maps = use_stored_contact_maps
         self.num_residues = traj.num_residues
         self.edge_layout = edge_layout
+        self.use_native = use_native and packing.available()
+        if self.use_native:
+            # the packer reads f32 row-major frames: one copy, not one a batch
+            self._positions32 = np.ascontiguousarray(traj.positions,
+                                                     np.float32)
+            log.info("WindowDataset: native packer (%s)", packing.SOURCE.name)
+        elif use_native:
+            log.warning("WindowDataset: numpy path, the native packer is not "
+                        "available (%s)", packing.load_error())
+        else:
+            log.info("WindowDataset: numpy path (use_native=False)")
         if use_stored_contact_maps:
             self._edges_flat, self._offsets = traj.packed_edges()
             counts = np.diff(self._offsets)
@@ -136,8 +157,11 @@ class WindowDataset:
 
     def _windows(self, idx: np.ndarray):
         t = self.window_size
-        gather = idx[:, None] + np.arange(t)[None, :]
-        window = self.traj.positions[gather]  # (B, T, R, 3)
+        if self.use_native:
+            window = packing.gather_windows(self._positions32, idx, t)
+        else:
+            gather = idx[:, None] + np.arange(t)[None, :]
+            window = self.traj.positions[gather]  # (B, T, R, 3)
         y = self.traj.positions[idx + t + self.horizon - 1]
         return window.astype(np.float32, copy=False), y.astype(np.float32)
 
@@ -151,6 +175,9 @@ class WindowDataset:
         """The stored contact maps of frames ``idx`` densified with one
         scatter: (B, R, R) f32."""
         b, r = len(idx), self.num_residues
+        if self.use_native:
+            return packing.pack_dense_batch(self._edges_flat, self._offsets,
+                                            idx, r)
         starts = self._offsets[idx]
         ends = self._offsets[idx + 1]
         edge_slots = np.concatenate(
@@ -226,6 +253,9 @@ class WindowDataset:
         edges = np.zeros((b, 2, e_max), np.int32)
         mask = np.zeros((b, e_max), np.float32)
         if self.use_stored_contact_maps:
+            if self.use_native:
+                return packing.pack_padded_batch(self._edges_flat,
+                                                 self._offsets, idx, e_max)
             starts = self._offsets[idx]
             ends = self._offsets[idx + 1]
             for i, (s, e) in enumerate(zip(starts, ends)):

@@ -124,10 +124,22 @@ def _dft_mats(r1: int, r2: int, m1: int, m2: int):
 
 
 @functools.lru_cache(maxsize=16)
-def _dft_tensors(r1: int, r2: int, m1: int, m2: int, device: torch.device):
-    """``_dft_mats`` as tensors on ``device``, made once per shape."""
+def _cached_dft_tensors(r1: int, r2: int, m1: int, m2: int,
+                        device: torch.device):
     return tuple(torch.as_tensor(a, device=device)
                  for a in _dft_mats(r1, r2, m1, m2))
+
+
+def _dft_tensors(r1: int, r2: int, m1: int, m2: int, device: torch.device):
+    """``_dft_mats`` as tensors on ``device``, made once per shape in
+    eager calls. Under ``torch.export`` or ``torch.compile`` they are
+    made anew from the cached numpy arrays: a tensor made while a trace
+    runs is the trace's (a FakeTensor), and a cache that kept it would
+    hand it to every later eager call."""
+    if torch.compiler.is_compiling():
+        return tuple(torch.as_tensor(a, device=device)
+                     for a in _dft_mats(r1, r2, m1, m2))
+    return _cached_dft_tensors(r1, r2, m1, m2, device)
 
 
 def _mix(xf: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -245,6 +257,14 @@ def sym_zero_diag(p: torch.Tensor) -> torch.Tensor:
     return p * (1.0 - torch.eye(r, dtype=p.dtype, device=p.device))
 
 
+def fno_rollout_step(params, cfg: FNOConfig,
+                     channels: torch.Tensor) -> torch.Tensor:
+    """One rollout step on channels (..., R, R, C): the next matrix,
+    projected onto distance matrices, slid in as the last channel."""
+    p = sym_zero_diag(fno_apply(params, cfg, channels)[..., 0])
+    return torch.cat([channels[..., 1:], p[..., None]], dim=-1)
+
+
 def fno_rollout_scan(params, cfg: FNOConfig, channels0: torch.Tensor,
                      num_steps: int):
     """Autoregressive distance-matrix rollout from channels0
@@ -253,9 +273,8 @@ def fno_rollout_scan(params, cfg: FNOConfig, channels0: torch.Tensor,
     channels)."""
     channels, preds = channels0, []
     for _ in range(num_steps):
-        p = sym_zero_diag(fno_apply(params, cfg, channels)[..., 0])
-        channels = torch.cat([channels[..., 1:], p[..., None]], dim=-1)
-        preds.append(p)
+        channels = fno_rollout_step(params, cfg, channels)
+        preds.append(channels[..., -1])
     if not preds:
         return channels0.new_zeros(channels0.shape[:-3] + (0,)
                                    + channels0.shape[-3:-1]), channels

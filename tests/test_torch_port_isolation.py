@@ -67,6 +67,9 @@ def test_every_kernel_source_names_what_it_replaces_and_its_bound():
         assert replaced[p.stem] in text
         assert "Bound:" in text
         assert "cudaGetLastError" in text
+    # the native packer is a host helper beside them, not a kernel
+    assert (PORT / "csrc" / "packing.cpp").exists()
+    assert "packing" not in {p.stem for p in sources}
     # the headers two sources share say which; _build.py hashes them all
     for header in ("edge_mlp.cuh", "conv_stack.cuh"):
         assert "fused_gkn.cu" in (PORT / "csrc" / header).read_text()
@@ -80,7 +83,11 @@ def test_the_new_modules_are_among_the_checked_sources():
             "cli/train.py", "cli/rollout.py", "data/schema.py",
             "data/h5.py", "data/synthetic.py", "presets.py", "configs.py",
             "utils/checkpoint.py", "utils/metrics.py", "utils/profiling.py",
-            "utils/movie.py", "utils/latent.py", "utils/backbone.py"} <= checked
+            "utils/movie.py", "utils/latent.py", "utils/backbone.py",
+            "serving/export.py", "cli/export.py", "cli/preprocess.py",
+            "utils/torch_import.py", "utils/torch_export.py",
+            "preprocess/electrostatics.py", "data/packing.py",
+            "data/prefetch.py"} <= checked
 
 
 def test_an_edited_header_rebuilds_every_kernel(tmp_path, monkeypatch):
@@ -120,12 +127,19 @@ def test_entry_points_default_to_the_card(monkeypatch):
     )
 
     from molecular_dynamics_neural_operator_tpu_torch.cli import (
+        export as cli_export,
+        preprocess as cli_preprocess,
         rollout as cli_rollout,
         serve,
         train as cli_train,
     )
     from molecular_dynamics_neural_operator_tpu_torch.serving import (
         RolloutServer,
+        load_bundle,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.utils.torch_import import (  # noqa: E501
+        import_reference_checkpoint,
+        import_reference_state_dict,
     )
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -141,7 +155,15 @@ def test_entry_points_default_to_the_card(monkeypatch):
                  lambda: cli_rollout.main(["--data_path", "x.h5",
                                            "--out_path", "o",
                                            "--graph_mode", "sparse"]),
-                 lambda: load_params_npz(ROOT / "tools" / "bench_ckpt.npz")):
+                 lambda: load_params_npz(ROOT / "tools" / "bench_ckpt.npz"),
+                 lambda: cli_export.main(["--checkpoint", "x.npz", "--out",
+                                          "o"]),
+                 lambda: cli_preprocess.main(
+                     ["--mode", "dh", "--pdb_files", "x.pdb", "--traj_files",
+                      "x.h5", "--scratch_dir", "s", "--results_dir", "r"]),
+                 lambda: load_bundle("no_bundle"),
+                 lambda: import_reference_state_dict({}, cfg),
+                 lambda: import_reference_checkpoint("x.pt", cfg)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
     make_rollout_fn(cfg, 2, device="cpu")

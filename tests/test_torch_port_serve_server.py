@@ -598,6 +598,16 @@ def test_cli_flags_match_the_jax_cli():
     ours = vars(serve_cli.parse_args([]))
     theirs = vars(jax_cli.parse_args([]))
     assert ours.pop("device") is None
-    for flag in ("data_mesh", "compilation_cache"):
-        theirs.pop(flag)  # not ported yet
     assert ours == theirs
+
+
+def test_cli_refuses_data_mesh_before_reading_the_checkpoint(tmp_path,
+                                                             capsys):
+    missing = tmp_path / "nowhere.npz"
+    with pytest.raises(SystemExit, match="--data_mesh.*queue A item 8"):
+        serve_cli.main(["--checkpoint", str(missing), "--data_mesh", "2",
+                        "--device", "cpu"])
+    # 0 (the default) is the JAX CLI's single-device server
+    assert serve_cli.parse_args(["--data_mesh", "0"]).data_mesh == 0
+    args = serve_cli.parse_args(["--compilation_cache", str(tmp_path)])
+    assert args.compilation_cache == tmp_path
