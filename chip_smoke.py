@@ -30,7 +30,10 @@ from ``synthetic_trajectory(num_frames=4000, seed=13)``):
 - the FNO at the training CLI's defaults on BBA;
 - serving bundles (``torch.export`` of one rollout step), the
   Debye-Hückel preprocessing grids and the host input pipeline (producer
-  thread, native packer).
+  thread, native packer);
+- the parallel modules on several ranks (``torch.distributed``): the
+  data-parallel train steps, the stream- and edge-sharded rollouts and
+  the mesh server.
 
 Phases, each fatal:
 
@@ -211,14 +214,38 @@ Phases, each fatal:
    same epoch without them (loss within TOL_TRAIN_LOSS), each epoch's
    time beyond its steps.
 
+20. parallel (``parallel/``; no kernel of its own, the training kernels
+   and the fused kernel on every rank): two ranks share the card through
+   gloo (NCCL refuses two ranks on one GPU), spawned by
+   ``torch.multiprocessing``: (a) the data-parallel teacher step at
+   B = 128 (64 a rank) on the training kernels against the
+   single-process B = 128 step: the loss within TOL_TRAIN_LOSS, every
+   gradient leaf within TOL_TRAIN_MOVE of its norm, each leaf's Adam
+   movement as phase 6 holds it, the ranks' parameters bit-equal, 1 + 1
+   launches a rank; (b) the same for a K = 4 delta curriculum step (4 +
+   4); (c) one NCCL rank alone: an all-reduce on the card and the
+   teacher step bit-equal to the plain step; (d) the stream-sharded
+   rollout of 8 streams over the ranks, bench checkpoint, the fused
+   kernel, 128 steps, against the unsharded rollout (f32 within TOL_ROLL
+   with the same edge lists, bf16 within phase 9c's tolerance,
+   bit-equality reported); (e) the mesh server, eight requests of 7 to
+   300 steps, each against a dedicated rollout (``hold_result``,
+   TOL_ROLL); (f) ``SOLVATED_10K`` with phase 17's settings, its edges
+   over the ranks and the cell list rebuilt by atom slice, against the
+   single-process rollout (16 bf16 steps, 4 f32 steps within TOL_F32 of
+   scale); (g) the steps' wall and device ms beside the single-process
+   step, the part spent in the collectives, the edge-sharded step's ms.
+   ``--ranks N`` runs (a), (b), (d), (e), (f) on N ranks; with a card
+   each they take NCCL.
+
 The last lines are the ``kernels`` JSON (seven kernels), the card, and
 ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA card.
 ``--only rollout``, ``--only train``, ``--only serve``, ``--only cli``,
-``--only dense``, ``--only options``, ``--only large``, ``--only fno`` or
-``--only export`` runs one path's phases (for development; the
-``kernels`` line then lists that path's kernels, none for ``cli``,
-``dense``, ``options``, ``large``, ``fno`` and ``export``, which time no
-kernel). Imports nothing of JAX.
+``--only dense``, ``--only options``, ``--only large``, ``--only fno``,
+``--only export`` or ``--only parallel`` runs one path's phases (for
+development; the ``kernels`` line then lists that path's kernels, none
+for ``cli``, ``dense``, ``options``, ``large``, ``fno``, ``export`` and
+``parallel``, which time no kernel). Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -4643,6 +4670,682 @@ def export_phase(traj) -> dict:
     return {}
 
 
+# ---- phase 20: the parallel modules ---------------------------------------
+
+# By default two ranks share the one card through gloo (NCCL refuses two
+# ranks on one GPU), so every collective goes through the host; one more
+# rank runs alone on NCCL. ``--ranks N`` on a machine with N cards gives
+# every rank its own card, on NCCL. Each spawn is joined with its own
+# deadline.
+PAR_WORLD = 2
+PAR_STREAMS = 8
+PAR_TIMEOUT = 900  # seconds for the two-rank spawn, then every rank ends
+PAR_NCCL_TIMEOUT = 300
+PAR_HORIZONS = (7, 64, 100, 300)
+
+
+class _Recorder:
+    """An optimizer whose update is zero and whose state becomes the
+    gradients it was given: after one step ``state.opt_state`` holds the
+    step's reduced gradients."""
+
+    def init(self, params):
+        return None
+
+    def update(self, grads, state, params):
+        from molecular_dynamics_neural_operator_tpu_torch.train.optim import (
+            tree_map,
+        )
+
+        return tree_map(torch.zeros_like, params), grads
+
+
+class _CommClock:
+    """Within the block, the host seconds spent in the parallel modules'
+    collectives (``parallel/comm.py``), each timed from a synchronized
+    device to a synchronized device."""
+
+    def __enter__(self):
+        from molecular_dynamics_neural_operator_tpu_torch.parallel import comm
+
+        self.module, self.seconds, self.calls = comm, 0.0, 0
+        self.saved = {n: getattr(comm, n)
+                      for n in ("all_reduce", "all_gather", "broadcast")}
+
+        def timed(fn):
+            def run(*a, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                torch.cuda.synchronize()
+                self.seconds += time.perf_counter() - t0
+                self.calls += 1
+                return out
+            return run
+
+        for n, fn in self.saved.items():
+            setattr(comm, n, timed(fn))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(self.module, n, fn)
+
+
+def _par_state(cfg, tcfg, params, record: bool):
+    from molecular_dynamics_neural_operator_tpu_torch.train import (
+        create_train_state,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.train.state import (
+        TrainState,
+    )
+
+    state, adam, _ = create_train_state(tcfg.seed, cfg, tcfg, params=params,
+                                        device="cuda")
+    if not record:
+        return state, adam
+    tx = _Recorder()
+    return TrainState(state.params, tx.init(state.params), 0,
+                      state.rng), tx
+
+
+def _par_step_pair(tag, cfg, tcfg, params, host, mesh, make_sharded,
+                   make_single, want_launches) -> dict:
+    """Phase 20a/b: the sharded step on this rank's rows of ``host``
+    against the single-process step on all of it, from the same
+    parameters: the loss, every gradient leaf and each leaf's Adam
+    movement within the TOL_TRAIN_* tolerances, the ranks' parameters bit
+    equal, exact launch counts of the sharded step; then wall and device
+    ms of both steps."""
+    from molecular_dynamics_neural_operator_tpu_torch.data.prefetch import (
+        to_device,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.ops.cuda import (
+        train_conv as tc,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.parallel import (
+        replicas_equal,
+    )
+    import torch.distributed as dist
+
+    group = mesh.get_group("data")
+    full = to_device(host, "cuda")
+    res = {}
+    runs = {}
+    for kind in ("grads", "adam"):
+        for sharded in (True, False):
+            state, tx = _par_state(cfg, tcfg, params, kind == "grads")
+            step, put = make_sharded(tx) if sharded else (make_single(tx),
+                                                          None)
+            batch = put(host) if sharded else full
+            tc.reset_launch_counts()
+            new, m = step(state, batch)
+            torch.cuda.synchronize()
+            counts = tc.launch_counts()
+            if sharded:
+                require(replicas_equal(new.params, group)
+                        and (kind == "adam"
+                             or replicas_equal(new.opt_state, group)),
+                        f"{tag}: the ranks' {kind} differ after the step")
+                if kind == "adam":
+                    res["launches"] = counts
+                    require(counts == want_launches,
+                            f"{tag}: launches {counts}, expected "
+                            f"{want_launches} on each rank")
+            runs[kind, sharded] = (state, new, {k: float(v)
+                                                for k, v in m.items()})
+    (_, g_sh, m_sh), (_, g_1, m_1) = runs["grads", True], runs["grads", False]
+    worst_g = 0.0
+    for (name, a), (_, b) in zip(tree_items(g_sh.opt_state),
+                                 tree_items(g_1.opt_state)):
+        require(bool(torch.isfinite(a).all()), f"{tag}: grad {name} not "
+                "finite")
+        rel = (a - b).norm().item() / max(b.norm().item(), 1e-30)
+        worst_g = max(worst_g, rel)
+        require(rel <= TOL_TRAIN_MOVE, f"{tag}: gradient {name} differs by "
+                f"{rel:.3e} of its norm from the single-process step's")
+    state0, new_sh, ms = runs["adam", True]
+    _, new_1, m1 = runs["adam", False]
+    worst, worst_name, moved, max_abs = compare_training_runs(
+        state0, (new_sh, ms), (new_1, m1), tag)
+    res.update(loss=ms["rel_l2"], loss_single=m1["rel_l2"],
+               grad_gap=worst_g, move_gap=worst, move_leaf=worst_name)
+
+    # timing: the sharded step on every rank at once, the single-process
+    # step on rank 0 alone
+    state, tx = _par_state(cfg, tcfg, params, False)
+    step, put = make_sharded(tx)
+    batch = put(host)
+    with _CommClock() as clock:
+        res["wall_ms"] = wall_ms(step, state, batch)
+    res["comm_ms"] = clock.seconds / 7 * 1e3  # wall_ms runs 1 + 6 steps
+    if dist.get_rank() == 0:
+        res["device_ms"] = profile_step(step, state, batch, res["wall_ms"],
+                                        f"{tag} (sharded, rank 0)")
+    else:
+        for _ in range(4):  # profile_step's steps, for the collectives
+            state, _ = step(state, batch)
+        torch.cuda.synchronize()
+    dist.barrier()
+    if dist.get_rank() == 0:
+        state, tx = _par_state(cfg, tcfg, params, False)
+        single = make_single(tx)
+        res["single_wall_ms"] = wall_ms(single, state, full)
+        res["single_device_ms"] = profile_step(
+            single, state, full, res["single_wall_ms"],
+            f"{tag} (single process, rank 0 alone)")
+    dist.barrier()
+    return res
+
+
+def _par_training(mesh, traj) -> dict:
+    """Phase 20a and b at the flagship's training shapes (bf16, the
+    training kernels, B = 128 split over the ranks)."""
+    from molecular_dynamics_neural_operator_tpu_torch.data import (
+        WindowDataset,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.models import gkn_init
+    from molecular_dynamics_neural_operator_tpu_torch.parallel import (
+        make_sharded_curriculum_train_step,
+        make_sharded_train_step,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.train import (
+        make_train_step,
+        train_valid_split,
+    )
+
+    cfg, tcfg = training_cfgs()
+    ds = WindowDataset(traj, window_size=cfg.window_size,
+                       graph_mode="sparse", max_edges=cfg.max_edges)
+    idx = train_valid_split(len(ds))[0][:TRAIN_BATCH]
+    params = gkn_init(cfg, seed=0, device="cuda")
+    out = {"teacher": _par_step_pair(
+        "data-parallel teacher step", cfg, tcfg, params, ds.get_batch(idx),
+        mesh, lambda tx: make_sharded_train_step(cfg, tx, mesh),
+        lambda tx: make_train_step(cfg, tx),
+        {"train_conv_fwd": 1, "train_conv_bwd": 1})}
+    kw = dict(rollout_steps=CURRICULUM_K, coord_clip=CURRICULUM_CLIP,
+              loss_space="delta")
+    out["curriculum"] = _par_step_pair(
+        f"data-parallel K={CURRICULUM_K} delta curriculum step", cfg, tcfg,
+        params, ds.get_batch(idx, rollout_horizon=CURRICULUM_K), mesh,
+        lambda tx: make_sharded_curriculum_train_step(cfg, tx, mesh, **kw),
+        lambda tx: curriculum_step(cfg, tx, None),
+        {"train_conv_fwd": CURRICULUM_K, "train_conv_bwd": CURRICULUM_K})
+    return out
+
+
+def _par_windows(traj, cd):
+    t = bench_cfg(cd).window_size
+    return torch.as_tensor(np.stack([traj.positions[i * 400:i * 400 + t]
+                                     for i in range(PAR_STREAMS)]),
+                           device="cuda")
+
+
+def _par_rollout(mesh, traj) -> dict:
+    """Phase 20d: S = 8 streams over the ranks with the bench
+    checkpoint and the fused kernel, 128 steps, against the unsharded
+    rollout of all eight: f32 within TOL_ROLL with the same edge lists at
+    every step of every stream, bf16 within the tolerance of phase 9c
+    (another stream count may round a plain product otherwise: TOL_HEAD_BF16
+    of a step's largest movement, per step); bit-equality reported."""
+    import dataclasses as dc
+
+    import torch.distributed as dist
+
+    from molecular_dynamics_neural_operator_tpu_torch.ops.cuda import (
+        fused_gkn as fg,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.parallel import (
+        gather_streams,
+        make_sharded_rollout_fn,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.rollout import (
+        make_rollout_fn,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.utils.checkpoint import (
+        load_params_npz,
+    )
+
+    params = load_params_npz(CKPT, "cuda")
+    aa = torch.as_tensor(traj.aminoacids, device="cuda")
+    out = {}
+    for cd in ("float32", "bfloat16"):
+        cfg = dc.replace(bench_cfg(cd), conv_impl="pallas")
+        w0 = _par_windows(traj, cd)
+        roll = make_sharded_rollout_fn(cfg, mesh, STEPS, THRESHOLD, clip=CLIP)
+        with torch.no_grad():
+            fg.fused_edge_conv_stack.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            local, _, diags = roll(params, aa, w0)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = fg.fused_edge_conv_stack.launches
+            coords = gather_streams(mesh, local)
+        require(launches > 0, f"sharded rollout {cd}: the fused kernel "
+                "never launched")
+        require(bool(torch.isfinite(coords).all())
+                and not bool(diags["edge_overflow"]),
+                f"sharded rollout {cd}: not finite or overflowed")
+        rec = dict(launches=launches, steps_per_s=STEPS * PAR_STREAMS / wall,
+                   local_streams=int(local.shape[0]))
+        if dist.get_rank() == 0:  # the others wait: the reference runs alone
+            with torch.no_grad():
+                t0 = time.perf_counter()
+                ref, _, ref_diags = make_rollout_fn(
+                    cfg, STEPS, THRESHOLD, batched=True, clip=CLIP,
+                    device="cuda")(params, aa, w0)
+                torch.cuda.synchronize()
+                wall_1 = time.perf_counter() - t0
+            require(not bool(ref_diags["edge_overflow"].any()),
+                    f"unsharded rollout {cd} overflowed")
+            err = (coords - ref).abs().max().item()
+            differing = sum(same_edge_lists(w0[i], coords[i], ref[i])
+                            for i in range(PAR_STREAMS))
+            if cd == "float32":
+                require(differing == 0 and err <= TOL_ROLL,
+                        f"sharded rollout f32: {differing} steps with other "
+                        f"edge lists, error {err} A > {TOL_ROLL}")
+            else:
+                move = torch.cat([w0[:, -1:], ref], dim=1).diff(
+                    dim=1).abs().max().item()
+                tol = TOL_HEAD_BF16 * STEPS * move
+                require(err <= tol, f"sharded rollout bf16: error {err} A "
+                        f"> {tol}")
+            rec.update(err=err, bit_equal=bool(torch.equal(coords, ref)),
+                       differing_steps=differing,
+                       single_steps_per_s=STEPS * PAR_STREAMS / wall_1)
+        dist.barrier()
+        out[cd] = rec
+    return out
+
+
+def _par_server(mesh, traj) -> dict:
+    """Phase 20e: eight requests of mixed horizons, one sequence each,
+    through a ``RolloutServer`` whose streams spread over the ranks (f32,
+    the bench checkpoint, the fused kernel), each held against a
+    dedicated single-stream rollout: within TOL_ROLL with the same edge
+    lists (``hold_result``)."""
+    import dataclasses as dc
+
+    import torch.distributed as dist
+
+    from molecular_dynamics_neural_operator_tpu_torch.ops.cuda import (
+        fused_gkn as fg,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.rollout import (
+        make_rollout_fn,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.serving import (
+        RolloutServer,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.serving.server import (
+        serve_follower,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.utils.checkpoint import (
+        load_params_npz,
+    )
+
+    cfg = dc.replace(bench_cfg("float32"), conv_impl="pallas")
+    params = load_params_npz(CKPT, "cuda")
+    opts = dict(segment_steps=SEGMENT, threshold=THRESHOLD, clip=CLIP)
+    fg.fused_edge_conv_stack.launches = 0
+    if dist.get_rank() > 0:
+        serve_follower(params, cfg, mesh, device="cuda", **opts)
+        return {"launches": fg.fused_edge_conv_stack.launches}
+    t_len, aa_np = cfg.window_size, np.asarray(traj.aminoacids)
+    requests = [((aa_np + 3 * i) % 20, traj.positions[j:j + t_len], n)
+                for i, (j, n) in enumerate(
+                    (300 * k, PAR_HORIZONS[k % 4]) for k in range(8))]
+    with RolloutServer(params, cfg, max_streams=PAR_STREAMS, impl="scan",
+                       mesh=mesh, device="cuda", **opts) as srv:
+        t0 = time.perf_counter()
+        results = [f.result(timeout=600) for f in srv.submit_many(requests)]
+        wall = time.perf_counter() - t0
+        stats = srv.stats
+    launches = fg.fused_edge_conv_stack.launches
+    worst = 0.0
+    with torch.no_grad():
+        for i, ((a, w0, n), res) in enumerate(zip(requests, results)):
+            w0 = torch.as_tensor(w0, device="cuda")
+            ref, _, _ = make_rollout_fn(cfg, n, THRESHOLD, clip=CLIP,
+                                        device="cuda")(
+                params, torch.as_tensor(a, device="cuda"), w0)
+            worst = max(worst, hold_result(res, w0, ref, TOL_ROLL,
+                                           f"mesh server request {i}"))
+    served = sum(n for _, _, n in requests)
+    require(stats["requests_completed"] == 8
+            and stats["steps_served"] == served
+            and stats["steps_computed"] % dist.get_world_size() == 0,
+            f"mesh server stats {stats}")
+    return {"launches": launches, "err": worst, "stats": stats,
+            "served_steps_per_s": served / wall}
+
+
+def _par_edge(traj) -> dict:
+    """Phase 20f: SOLVATED_10K with phase 17's settings, its edges over
+    the ranks (the "model" axis) and the cell list rebuilt by atom
+    slice, against phase 17's single-process rollout of the same weights
+    and grid: 16 bf16 steps within phase 9c's per-step tolerance (the
+    shards' products round over other row counts) and 4 f32 steps within
+    TOL_F32 of the coordinates' scale; then a step's wall ms and the part
+    spent in the collectives, beside the single-process step."""
+    import torch.distributed as dist
+
+    from molecular_dynamics_neural_operator_tpu_torch.configs import (
+        MeshConfig,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.models import gkn
+    from molecular_dynamics_neural_operator_tpu_torch.parallel import (
+        make_edge_sharded_rollout_fn,
+        make_mesh,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.rollout import (
+        make_rollout_fn,
+    )
+
+    mesh = make_mesh(MeshConfig(data=1, model=dist.get_world_size()))
+    aa = torch.as_tensor(np.random.default_rng(1).integers(0, 20, LARGE_N),
+                         device="cuda")
+    out = {}
+    for cd, steps in (("bfloat16", LARGE_STEPS), ("float32",
+                                                   LARGE_F32_STEPS)):
+        cfg = solvated_cfg(cd)
+        params = gkn.gkn_init(cfg, seed=0, device="cuda")
+        grid = torch.as_tensor(breathing_trajectory(
+            serpentine_grid(LARGE_N, 4.0), cfg.window_size), device="cuda")
+        ref = None
+        if dist.get_rank() == 0:  # the others wait: it runs alone
+            with torch.no_grad():
+                ref, _, _ = make_rollout_fn(cfg, steps, THRESHOLD,
+                                            clip=CURRICULUM_CLIP,
+                                            device="cuda")(params, aa, grid)
+            torch.cuda.synchronize()
+        dist.barrier()
+        torch.cuda.reset_peak_memory_stats()
+        roll = make_edge_sharded_rollout_fn(cfg, mesh, steps, THRESHOLD,
+                                            clip=CURRICULUM_CLIP)
+        coords, _, diags = roll(params, aa, grid)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        require(bool(torch.isfinite(coords).all()),
+                f"edge-sharded 10k rollout {cd}: not finite")
+        rec = {"peak_gb": peak, "overflow": bool(diags["edge_overflow"])}
+        if ref is not None:
+            err = (coords - ref).abs().max().item()
+            if cd == "float32":
+                tol = TOL_F32 * ref.abs().max().item()
+            else:
+                move = torch.cat([grid[-1:], ref]).diff(
+                    dim=0).abs().max().item()
+                tol = TOL_HEAD_BF16 * steps * move
+            require(err <= tol, f"edge-sharded 10k rollout {cd}: error "
+                    f"{err} A > {tol} against the single-process rollout")
+            rec.update(err=err, tol=tol,
+                       bit_equal=bool(torch.equal(coords, ref)))
+            del ref
+        if cd == "bfloat16":
+            one = make_edge_sharded_rollout_fn(cfg, mesh, 1, THRESHOLD,
+                                               clip=CURRICULUM_CLIP)
+            one(params, aa, grid)
+            torch.cuda.synchronize()
+            with _CommClock() as clock:
+                t0 = time.perf_counter()
+                for _ in range(3):
+                    one(params, aa, grid)
+                torch.cuda.synchronize()
+                rec["step_ms"] = (time.perf_counter() - t0) / 3 * 1e3
+            rec["comm_ms"] = clock.seconds / 3 * 1e3
+            rec["collectives"] = clock.calls // 3
+            dist.barrier()
+            if dist.get_rank() == 0:
+                single = make_rollout_fn(cfg, 1, THRESHOLD,
+                                         clip=CURRICULUM_CLIP, device="cuda")
+                with torch.no_grad():
+                    rec["single_step_ms"] = event_ms(
+                        lambda: single(params, aa, grid))
+            dist.barrier()
+        del params, grid, coords
+        torch.cuda.empty_cache()
+        out[cd] = rec
+    return out
+
+
+def _par_rank(rank, world, rdzv, out_dir) -> dict:
+    """One of the ranks of phases 20a, b, d, e and f: gloo where ranks
+    outnumber the cards (the default: two on one), else NCCL."""
+    import torch.distributed as dist
+
+    from molecular_dynamics_neural_operator_tpu_torch.configs import (
+        MeshConfig,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.data import (
+        synthetic_trajectory,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.parallel import (
+        init_distributed,
+        make_mesh,
+    )
+
+    dev = init_distributed("cuda", init_method=f"file://{rdzv}", rank=rank,
+                           world_size=world)
+    cards = torch.cuda.device_count()
+    want = "gloo" if world > cards else "nccl"
+    require(dist.get_backend() == want
+            and dev == torch.device("cuda", rank % cards),
+            f"{world} ranks on {cards} cards: rank {rank} took "
+            f"{dist.get_backend()} on {dev}")
+    mesh = make_mesh(MeshConfig())
+    traj = synthetic_trajectory(num_frames=4000, num_residues=28, seed=13)
+    res = {"backend": dist.get_backend(), "device": str(dev)}
+    res.update(_par_training(mesh, traj))
+    res["rollout"] = _par_rollout(mesh, traj)
+    res["server"] = _par_server(mesh, traj)
+    res["edge"] = _par_edge(traj)
+    return res
+
+
+def _par_nccl_rank(rank, world, rdzv, out_dir) -> dict:
+    """Phase 20c: one rank alone on NCCL: an all-reduce on the card, and
+    the data-parallel teacher step at B = 128 against the plain step, bit
+    for bit."""
+    import torch.distributed as dist
+
+    from molecular_dynamics_neural_operator_tpu_torch.configs import (
+        MeshConfig,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.data import (
+        WindowDataset,
+        synthetic_trajectory,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.data.prefetch import (
+        to_device,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.models import gkn_init
+    from molecular_dynamics_neural_operator_tpu_torch.parallel import (
+        init_distributed,
+        make_mesh,
+        make_sharded_train_step,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.train import (
+        make_train_step,
+        train_valid_split,
+    )
+
+    dev = init_distributed("cuda", init_method=f"file://{rdzv}", rank=rank,
+                           world_size=world)
+    require(dist.get_backend() == "nccl", f"one rank on its own card took "
+            f"{dist.get_backend()}")
+    t = torch.arange(4.0, device=dev)
+    dist.all_reduce(t)
+    require(torch.equal(t, torch.arange(4.0, device=dev)),
+            "NCCL all-reduce of one rank changed its tensor")
+    mesh = make_mesh(MeshConfig())
+    traj = synthetic_trajectory(num_frames=4000, num_residues=28, seed=13)
+    cfg, tcfg = training_cfgs()
+    ds = WindowDataset(traj, window_size=cfg.window_size,
+                       graph_mode="sparse", max_edges=cfg.max_edges)
+    host = ds.get_batch(train_valid_split(len(ds))[0][:TRAIN_BATCH])
+    params = gkn_init(cfg, seed=0, device=dev)
+    runs = []
+    for sharded in (True, False):
+        state, tx = _par_state(cfg, tcfg, params, False)
+        if sharded:
+            step, put = make_sharded_train_step(cfg, tx, mesh)
+            batch = put(host)
+        else:
+            step, batch = make_train_step(cfg, tx), to_device(host, dev)
+        runs.append(step(state, batch))
+    (new_sh, m_sh), (new_1, m_1) = runs
+    for (name, a), (_, b) in zip(tree_items(new_sh.params),
+                                 tree_items(new_1.params)):
+        require(torch.equal(a, b), f"NCCL world-1 step: {name} differs "
+                "from the plain step's")
+    require(all(torch.equal(m_sh[k], m_1[k]) for k in ("rel_l2", "mse")),
+            "NCCL world-1 step: metrics differ from the plain step's")
+    return {"backend": dist.get_backend(), "bit_equal": True}
+
+
+def _par_worker(rank, world, rdzv, out_dir, which):
+    """A spawned rank: runs its part, writes ``rank<r>.json`` (or
+    ``rank<r>.err`` with the traceback) and leaves the process group."""
+    import os
+    import traceback
+
+    import torch.distributed as dist
+
+    out_dir = Path(out_dir)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        fn = _par_rank if which == "ranks" else _par_nccl_rank
+        res = fn(rank, world, rdzv, out_dir)
+        (out_dir / f"rank{rank}.json").write_text(json.dumps(res))
+    except BaseException:  # noqa: BLE001: the parent reports it
+        (out_dir / f"rank{rank}.err").write_text(traceback.format_exc())
+        os._exit(1)  # the other rank may wait on this one
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _par_spawn(which: str, world: int, timeout: float) -> list:
+    """Spawn ``world`` ranks of ``which`` and join them by a deadline;
+    returns each rank's results or raises with a failing rank's
+    traceback."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_par_") as tmp:
+        out = Path(tmp)
+        ctx = mp.start_processes(_par_worker,
+                                 args=(world, str(out / "rdzv"), str(out),
+                                       which),
+                                 nprocs=world, join=False,
+                                 start_method="spawn")
+        deadline = time.monotonic() + timeout
+        failed = None
+        try:
+            while True:
+                if time.monotonic() > deadline:
+                    failed = f"ranks still running after {timeout} s"
+                    break
+                try:
+                    if ctx.join(timeout=1.0):
+                        break
+                except (mp.ProcessExitedException,
+                        mp.ProcessRaisedException) as e:
+                    failed = str(e)
+                    break
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.terminate()
+            for p in ctx.processes:
+                p.join(10)
+        errs = [p.read_text() for p in sorted(out.glob("rank*.err"))]
+        require(not errs and failed is None,
+                f"phase 20's {which} failed: {failed}\n" + "\n".join(errs))
+        return [json.loads((out / f"rank{r}.json").read_text())
+                for r in range(world)]
+
+
+def parallel_phase(traj, world: int = PAR_WORLD) -> dict:
+    """Phase 20: the parallel modules on ``world`` ranks (two gloo ranks
+    sharing the card by default) and one NCCL rank alone. Returns the
+    launches of the ranks' main paths, summed."""
+    import gc
+
+    t0 = time.perf_counter()
+    # the earlier phases' cached blocks stay reserved by this process
+    # unless released: the ranks share this card's memory with it
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_reserved() / 1e9
+    log(f"parallel: this process keeps {held:.2f} GB reserved while its "
+        f"ranks run")
+    ranks = _par_spawn("ranks", world, PAR_TIMEOUT)
+    how = f"{world} {ranks[0]['backend']} ranks on " + (
+        "one card" if world > torch.cuda.device_count() else "their own cards")
+    nccl = _par_spawn("nccl", 1, PAR_NCCL_TIMEOUT)[0]
+    counts = {"train_conv_fwd": 0, "train_conv_bwd": 0,
+              "fused_edge_conv_stack": 0}
+    for r, res in enumerate(ranks):
+        for path in ("teacher", "curriculum"):
+            for name, n in res[path]["launches"].items():
+                counts[name] += n
+        n_fused = (res["rollout"]["bfloat16"]["launches"]
+                   + res["server"]["launches"])
+        require(n_fused > 0, f"rank {r}: the fused kernel never launched")
+        counts["fused_edge_conv_stack"] += n_fused
+        log(f"parallel rank {r} ({res['backend']} on {res['device']}): "
+            f"launches teacher {res['teacher']['launches']}, curriculum "
+            f"{res['curriculum']['launches']}, fused kernel (rollout "
+            f"{res['rollout']['bfloat16']['launches']}, server "
+            f"{res['server']['launches']})")
+    r0 = ranks[0]
+    for path in ("teacher", "curriculum"):
+        p = r0[path]
+        log(f"data-parallel {path} step, B={TRAIN_BATCH} as {world} x "
+            f"{TRAIN_BATCH // world} bf16 on the training kernels, {how}: "
+            f"loss {p['loss']:.6g} (single process "
+            f"{p['loss_single']:.6g}); gradient leaves within "
+            f"{p['grad_gap']:.3e} of their norms, Adam movement within "
+            f"{p['move_gap']:.3e} (at {p['move_leaf']}; tolerance "
+            f"{TOL_TRAIN_MOVE}); ranks bit-equal; step {p['wall_ms']:.2f} ms "
+            f"wall ({p['comm_ms']:.2f} ms of it in the reduction), "
+            f"{p['device_ms']:.2f} ms device on rank 0; single process "
+            f"{p['single_wall_ms']:.2f} ms wall, {p['single_device_ms']:.2f} "
+            f"ms device")
+    log(f"NCCL world-1 teacher step: backend {nccl['backend']}, bit-equal "
+        f"to the plain step: {nccl['bit_equal']}")
+    for cd, p in r0["rollout"].items():
+        log(f"stream-sharded rollout {cd}, {PAR_STREAMS} streams as {world} x "
+            f"{p['local_streams']}, {STEPS} steps, fused kernel: max error "
+            f"{p['err']:.3e} A against the unsharded rollout, bit-equal "
+            f"{p['bit_equal']}, steps with other edge lists "
+            f"{p['differing_steps']}; {p['steps_per_s']:,.0f} stream-steps/s "
+            f"(unsharded, rank 0 alone: {p['single_steps_per_s']:,.0f})")
+    s = r0["server"]
+    log(f"mesh server, 8 mixed requests over {how} (f32, fused kernel): "
+        f"max error {s['err']:.3e} A against dedicated rollouts, "
+        f"{s['served_steps_per_s']:,.0f} served steps/s, stats {s['stats']}")
+    for cd, p in r0["edge"].items():
+        extra = (f"; a step {p['step_ms']:.2f} ms wall, {p['comm_ms']:.2f} ms "
+                 f"of it in {p['collectives']} collectives "
+                 f"({p['comm_ms'] / p['step_ms']:.2f}); single process "
+                 f"{p['single_step_ms']:.2f} ms" if "step_ms" in p else "")
+        log(f"edge-sharded SOLVATED_10K {cd} over {how}: max error "
+            f"{p['err']:.3e} A (tolerance {p['tol']:.3e}), bit-equal "
+            f"{p['bit_equal']}, overflow {p['overflow']}, peak "
+            f"{p['peak_gb']:.2f} GB on rank 0{extra}")
+    log(f"parallel path launches (every rank's main path): {counts}; the "
+        f"phase took {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4718,9 +5421,13 @@ def rollout_phases(traj) -> list:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--ranks", type=int, default=PAR_WORLD,
+                        help="phase 20's ranks (default 2, sharing one "
+                             "card through gloo; with a card each, NCCL)")
     parser.add_argument("--only", choices=("rollout", "train", "serve",
                                            "cli", "dense", "options",
-                                           "large", "fno", "export"),
+                                           "large", "fno", "export",
+                                           "parallel"),
                         help="run one path's phases (development)")
     args = parser.parse_args()
     only = args.only
@@ -4796,7 +5503,9 @@ def main() -> int:
     kernels += serve_kernels
     for path, phase in (("cli", cli_phases), ("dense", dense_phase),
                         ("options", options_phase), ("large", large_phase),
-                        ("fno", fno_phase), ("export", export_phase)):
+                        ("fno", fno_phase), ("export", export_phase),
+                        ("parallel", lambda t: parallel_phase(t,
+                                                              args.ranks))):
         if only in (None, path):
             counts = phase(traj)
             for rec in kernels:

@@ -20,10 +20,22 @@ are answered in order):
 Errors come back as {"id": ..., "error": "..."} without killing the
 connection. An empty line closes the connection. ``{"op": "stats"}``
 returns the server's occupancy counters. Runs on the card unless
-``--device cpu`` is given. Every flag of the JAX CLI parses:
-``--data_mesh`` > 0 is refused by name before the checkpoint is read
-(the parallel modules are not ported), and ``--compilation_cache`` is a
-no-op (the port has no compilation cache to point anywhere).
+``--device cpu`` is given. Every flag of the JAX CLI parses;
+``--compilation_cache`` is a no-op (the port has no compilation cache to
+point anywhere).
+
+Several cards: ``--data_mesh N`` (N > 0) spreads each segment's streams
+over every rank of a ``torchrun`` launch, with the JAX CLI's auto-fill
+(all ranks on the data axis whatever N says):
+
+    torchrun --nproc_per_node 2 -m \
+        molecular_dynamics_neural_operator_tpu_torch.cli.serve \
+        --checkpoint tools/bench_ckpt.npz --max_edges 224 \
+        --predict_delta --data_mesh 2
+
+Rank 0 binds the socket and runs the ``RolloutServer``; the other ranks
+run ``serve_follower`` until it stops. Without ``torchrun`` (one process)
+the flag changes nothing, as one device does in the JAX CLI.
 """
 
 from __future__ import annotations
@@ -35,16 +47,23 @@ import threading
 from pathlib import Path
 
 import numpy as np
+import torch.distributed as dist
 
-from molecular_dynamics_neural_operator_tpu_torch.cli import refuse_unported
 from molecular_dynamics_neural_operator_tpu_torch.configs import (
+    MeshConfig,
     ModelConfig,
     _from_dict,
 )
 from molecular_dynamics_neural_operator_tpu_torch.device import resolve_device
 from molecular_dynamics_neural_operator_tpu_torch.models import gkn_init
+from molecular_dynamics_neural_operator_tpu_torch.parallel.mesh import (
+    init_distributed,
+    launched_world_size,
+    make_mesh,
+)
 from molecular_dynamics_neural_operator_tpu_torch.serving.server import (
     RolloutServer,
+    serve_follower,
 )
 from molecular_dynamics_neural_operator_tpu_torch.utils.checkpoint import (
     restore_subtree,
@@ -72,8 +91,8 @@ def parse_args(argv=None):
     p.add_argument("--max_request_steps", type=int, default=100_000,
                    help="reject requests asking for more steps than this")
     p.add_argument("--data_mesh", type=int, default=0,
-                   help="accepted for the JAX CLI's command lines; > 0 is "
-                        "refused (the parallel modules are not ported)")
+                   help="> 0 spreads the stream axis over every rank of a "
+                        "torchrun launch (0 = one device)")
     p.add_argument("--device", default=None,
                    help="cuda (default; a missing card is an error) or cpu")
     # model flags (ignored when --run_path provides config.json)
@@ -95,9 +114,7 @@ def parse_args(argv=None):
                         "(must match training)")
     p.add_argument("--compilation_cache", type=Path, default=None,
                    help="accepted for the JAX CLI's command lines; no-op")
-    args = p.parse_args(argv)
-    refuse_unported(args)
-    return args
+    return p.parse_args(argv)
 
 
 def _load(args):
@@ -185,24 +202,40 @@ def serve(params, cfg, args, *, ready: dict | None = None):
     """Build the batching server and its TCP front and run until
     interrupted. ``ready`` (tests, embedding): before blocking, the dict
     receives ``tcp`` (call ``.shutdown()`` to stop), ``port`` and
-    ``event`` (a threading.Event set once the socket is bound)."""
+    ``event`` (a threading.Event set once the socket is bound).
+
+    With ``--data_mesh`` > 0 in a process group of several ranks, rank 0
+    serves and every other rank runs ``serve_follower`` until rank 0's
+    server closes; a follower returns None."""
     aa = None
     if args.impl == "persistent":
         if args.aa_npy is None:
             raise SystemExit("--impl persistent requires --aa_npy")
         aa = np.load(args.aa_npy)
+    mesh = None
+    if args.data_mesh > 0 and launched_world_size() > 1:
+        mesh = make_mesh(MeshConfig(data=args.data_mesh, model=1),
+                         resolve_device(args.device).type)
+        if dist.get_rank() > 0:
+            serve_follower(params, cfg, mesh,
+                           segment_steps=args.segment_steps,
+                           threshold=args.threshold, clip=args.clip,
+                           device=args.device)
+            return None
     rollout_server = RolloutServer(
         params, cfg,
         segment_steps=args.segment_steps, max_streams=args.max_streams,
         threshold=args.threshold, clip=args.clip, impl=args.impl, aa=aa,
-        device=args.device,
+        mesh=mesh, device=args.device,
     )
     tcp = RolloutTCPServer((args.host, args.port), rollout_server,
                            args.max_request_steps)
     port = tcp.server_address[1]
+    shards = "" if mesh is None else f", data_mesh={mesh.size()}"
     print(f"serving on {args.host}:{port} "
           f"(segment_steps={args.segment_steps}, "
-          f"max_streams={args.max_streams}, impl={args.impl})", flush=True)
+          f"max_streams={args.max_streams}, impl={args.impl}{shards})",
+          flush=True)
     if ready is not None:
         ready["tcp"] = tcp
         ready["port"] = port
@@ -220,6 +253,9 @@ def main(argv=None):
     if args.compilation_cache is not None:
         print("NOTE: --compilation_cache has no counterpart in the PyTorch "
               "port; ignoring it")
+    if args.data_mesh > 0 and launched_world_size() > 1:
+        # before the checkpoint is read: _load puts it on this rank's card
+        args.device = str(init_distributed(args.device))
     params, cfg = _load(args)
     serve(params, cfg, args)
 

@@ -32,9 +32,20 @@ input channels): the same run directory with the ``fno`` section in
 contact maps; the GKN's model flags, ``--profile`` and the latent sweep
 do not apply to it.
 
-``--data_parallel``, whose modules are not ported yet, is refused by
-name with ``SystemExit`` before any data is read. ``--compilation_cache``
-has no counterpart and is accepted as a no-op.
+``--data_parallel`` trains on every rank of a ``torchrun`` launch, the
+batch's rows spread over the ranks and the gradients summed
+(``parallel/mesh.py``): the teacher-forced step, the curriculum and the
+FNO. One process (no ``torchrun``) trains as without it, as one device
+does in the JAX CLI. The batch size must divide by the world size. Only
+rank 0 evaluates, logs, renders and writes the run directory; after every
+epoch the ranks' parameters must be bit-equal, or the run stops.
+
+    torchrun --nproc_per_node 2 -m \
+        molecular_dynamics_neural_operator_tpu_torch.cli.train \
+        --data_path traj.h5 --run_path runs/bba --graph_mode sparse \
+        --data_parallel
+
+``--compilation_cache`` has no counterpart and is accepted as a no-op.
 
 ``main(argv)`` parses, loads the trajectory and calls
 ``train_from_trajectory(args, traj)``, which does everything after the
@@ -47,10 +58,6 @@ from __future__ import annotations
 import argparse
 import time
 from pathlib import Path
-
-from molecular_dynamics_neural_operator_tpu_torch.cli import (
-    refuse_unported,
-)
 
 
 def parse_args(argv=None):
@@ -172,9 +179,7 @@ def parse_args(argv=None):
                    help="accepted for the JAX CLI's command lines; no-op")
     p.add_argument("--device", default=None,
                    help="cuda (default; a missing card is an error) or cpu")
-    args = p.parse_args(argv)
-    refuse_unported(args)
-    return args
+    return p.parse_args(argv)
 
 
 def build_configs(args):
@@ -259,7 +264,50 @@ def build_configs(args):
     return model, data, train
 
 
-def _train_fno(args, traj, data_cfg, train_cfg, device):
+class _Ranks:
+    """Where this process stands in a ``--data_parallel`` run: ``mesh``
+    (None in one process) and whether it is rank 0, which alone
+    evaluates, logs and writes."""
+
+    def __init__(self, args, batch_size: int):
+        from molecular_dynamics_neural_operator_tpu_torch.device import (
+            resolve_device,
+        )
+        from molecular_dynamics_neural_operator_tpu_torch.parallel.mesh import (  # noqa: E501
+            data_parallel_put,
+            init_distributed,
+            launched_world_size,
+        )
+
+        self.mesh = self.put = None
+        self.rank0 = True
+        if not (args.data_parallel and launched_world_size() > 1):
+            self.device = resolve_device(args.device)
+            return
+        import torch.distributed as dist
+
+        self.device = init_distributed(args.device)
+        self.mesh, self.put = data_parallel_put(batch_size,
+                                                self.device.type)
+        self.rank0 = dist.get_rank() == 0
+
+    def say(self, *msg) -> None:
+        if self.rank0:
+            print(*msg, flush=True)
+
+    def check(self, params) -> None:
+        """Stop the run if the ranks' parameters differ by a bit."""
+        from molecular_dynamics_neural_operator_tpu_torch.parallel.mesh import (  # noqa: E501
+            replicas_equal,
+        )
+
+        if self.mesh is not None and not replicas_equal(
+                params, self.mesh.get_group("data")):
+            raise RuntimeError("data-parallel ranks hold different "
+                               "parameters after an epoch")
+
+
+def _train_fno(args, traj, data_cfg, train_cfg, ranks):
     """The ``--operator fno`` run: the GKN run's data, split, checkpoint
     and metrics machinery with the FNO's distance-matrix steps. Returns
     the final ``TrainState``."""
@@ -276,11 +324,16 @@ def _train_fno(args, traj, data_cfg, train_cfg, device):
     )
     from molecular_dynamics_neural_operator_tpu_torch.models.fno import (
         distance_matrix_channels,
+        fno_curriculum_loss,
         fno_init,
         fno_rollout_scan,
+        fno_window_loss,
         make_fno_curriculum_train_step,
         make_fno_window_eval_step,
         make_fno_window_train_step,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.parallel import (
+        make_data_parallel_step,
     )
     from molecular_dynamics_neural_operator_tpu_torch.train import (
         train_valid_split,
@@ -303,8 +356,8 @@ def _train_fno(args, traj, data_cfg, train_cfg, device):
         render_propagation_movie,
     )
 
+    device = ranks.device
     run_dir = Path(train_cfg.run_path)
-    run_dir.mkdir(parents=True, exist_ok=True)
     cfg = configs.FNOConfig(
         width=args.fno_width, modes1=args.fno_modes, modes2=args.fno_modes,
         depth=args.fno_depth, in_channels=args.window_size,
@@ -315,8 +368,11 @@ def _train_fno(args, traj, data_cfg, train_cfg, device):
         head_init=args.head_init,
         head_scale=args.head_scale,
     )
-    (run_dir / "config.json").write_text(configs.to_json(
-        configs.ExperimentConfig(fno=cfg, data=data_cfg, train=train_cfg)))
+    if ranks.rank0:
+        run_dir.mkdir(parents=True, exist_ok=True)
+        (run_dir / "config.json").write_text(configs.to_json(
+            configs.ExperimentConfig(fno=cfg, data=data_cfg,
+                                     train=train_cfg)))
     ds = WindowDataset(traj, window_size=args.window_size,
                        horizon=data_cfg.horizon, graph_mode="none")
     tr_idx, va_idx = train_valid_split(len(ds), data_cfg.split_pct,
@@ -335,20 +391,28 @@ def _train_fno(args, traj, data_cfg, train_cfg, device):
     if args.resume is not None:
         state, meta = restore_checkpoint(args.resume, state)
         start_epoch = int(meta.get("epoch", -1)) + 1
-        print(f"Resumed from {args.resume} at epoch {start_epoch}")
-    if train_cfg.rollout_steps > 0:
+        ranks.say(f"Resumed from {args.resume} at epoch {start_epoch}")
+    if ranks.mesh is not None:
+        loss = (fno_curriculum_loss(cfg, train_cfg.rollout_steps)
+                if train_cfg.rollout_steps > 0 else fno_window_loss(cfg))
+        step, _ = make_data_parallel_step(loss, tx, ranks.mesh)
+        ranks.say(f"FNO data parallelism: batch sharded over "
+                  f"{ranks.mesh.size()} devices")
+    elif train_cfg.rollout_steps > 0:
         step = make_fno_curriculum_train_step(
             cfg, tx, rollout_steps=train_cfg.rollout_steps)
-        print(f"FNO curriculum training: K={train_cfg.rollout_steps} "
-              "rollout steps in the loss")
     else:
         step = make_fno_window_train_step(cfg, tx)
+    if train_cfg.rollout_steps > 0:
+        ranks.say(f"FNO curriculum training: K={train_cfg.rollout_steps} "
+                  "rollout steps in the loss")
     eval_step = make_fno_window_eval_step(cfg)
-    logger = MetricLogger(run_dir, use_wandb=train_cfg.log_wandb,
-                          config=vars(args))
-    ckpt = BestCheckpointer(run_dir, resume=args.resume is not None)
-    print(f"FNO training: {len(ds)} windows, R={traj.num_residues}, "
-          f"on {device}")
+    if ranks.rank0:
+        logger = MetricLogger(run_dir, use_wandb=train_cfg.log_wandb,
+                              config=vars(args))
+        ckpt = BestCheckpointer(run_dir, resume=args.resume is not None)
+    ranks.say(f"FNO training: {len(ds)} windows, R={traj.num_residues}, "
+              f"on {device}")
 
     def mean_loss(metrics, empty: float) -> float:
         """Mean rel_l2 over the loop's steps, read from the device once."""
@@ -363,10 +427,13 @@ def _train_fno(args, traj, data_cfg, train_cfg, device):
                 batch_iterator(ds, tr_idx, train_cfg.batch_size,
                                seed=train_cfg.seed, epoch=epoch,
                                rollout_horizon=train_cfg.rollout_steps),
-                size=args.prefetch_factor, device=device):
+                size=args.prefetch_factor, put=ranks.put, device=device):
             state, m = step(state, batch)
             acc.append(m)
         tr_loss = mean_loss(acc, 0.0)
+        ranks.check(state.params)
+        if not ranks.rank0:
+            continue
         # the remainder batch is kept: with drop_last a validation split
         # smaller than a batch would read as a loss of 0.0
         acc = [eval_step(state.params, batch) for batch in prefetch_to_device(
@@ -396,7 +463,8 @@ def _train_fno(args, traj, data_cfg, train_cfg, device):
 
         logger.log_epoch(epoch, time.time() - t0, tr_loss, va_loss, extra)
         ckpt.update(epoch, va_loss, state)
-    logger.close()
+    if ranks.rank0:
+        logger.close()
     return state
 
 
@@ -412,8 +480,9 @@ def train_from_trajectory(args, traj):
     from molecular_dynamics_neural_operator_tpu_torch.data import (
         WindowDataset,
     )
-    from molecular_dynamics_neural_operator_tpu_torch.device import (
-        resolve_device,
+    from molecular_dynamics_neural_operator_tpu_torch.parallel import (
+        make_sharded_curriculum_train_step,
+        make_sharded_train_step,
     )
     from molecular_dynamics_neural_operator_tpu_torch.train import (
         create_train_state,
@@ -438,27 +507,29 @@ def train_from_trajectory(args, traj):
         select_starting_points,
     )
 
-    device = resolve_device(args.device)
     model_cfg, data_cfg, train_cfg = build_configs(args)
+    ranks = _Ranks(args, train_cfg.batch_size)
+    device, say = ranks.device, ranks.say
     if args.compilation_cache is not None:
-        print("NOTE: --compilation_cache has no counterpart in the PyTorch "
+        say("NOTE: --compilation_cache has no counterpart in the PyTorch "
               "port (the CUDA kernels are built once into the package's "
               "build/ directory); ignoring it")
     for name in ("num_data_workers", "persistent_workers", "non_blocking"):
         if getattr(args, name):
-            print(f"WARNING: --{name} accepted for reference CLI "
+            say(f"WARNING: --{name} accepted for reference CLI "
                   "compatibility but is a no-op: host batches flow through "
                   "the in-process prefetch_to_device queue "
                   "(--prefetch_factor sets its depth)")
 
     if args.operator == "fno":
-        return _train_fno(args, traj, data_cfg, train_cfg, device)
+        return _train_fno(args, traj, data_cfg, train_cfg, ranks)
 
     run_dir = Path(train_cfg.run_path)
-    run_dir.mkdir(parents=True, exist_ok=True)
-    (run_dir / "config.json").write_text(configs.to_json(
-        configs.ExperimentConfig(model=model_cfg, data=data_cfg,
-                                 train=train_cfg)))
+    if ranks.rank0:
+        run_dir.mkdir(parents=True, exist_ok=True)
+        (run_dir / "config.json").write_text(configs.to_json(
+            configs.ExperimentConfig(model=model_cfg, data=data_cfg,
+                                     train=train_cfg)))
 
     dataset = WindowDataset(
         traj,
@@ -469,8 +540,8 @@ def train_from_trajectory(args, traj):
         max_edges=model_cfg.max_edges,
         edge_layout=args.edge_layout,
     )
-    print(f"Created dataset: {len(dataset)} windows, "
-          f"{traj.num_residues} residues")
+    say(f"Created dataset: {len(dataset)} windows, "
+        f"{traj.num_residues} residues")
 
     tr_idx, va_idx = train_valid_split(
         len(dataset), data_cfg.split_pct, data_cfg.split_method,
@@ -486,7 +557,7 @@ def train_from_trajectory(args, traj):
     if args.resume is not None:
         state, meta = restore_checkpoint(args.resume, state)
         start_epoch = int(meta.get("epoch", -1)) + 1
-        print(f"Resumed from {args.resume} at epoch {start_epoch}")
+        say(f"Resumed from {args.resume} at epoch {start_epoch}")
 
     if train_cfg.loss_space != "absolute" and train_cfg.rollout_steps == 0:
         # the teacher-forced steps implement only the reference LpLoss
@@ -498,34 +569,45 @@ def train_from_trajectory(args, traj):
     if train_cfg.rollout_steps > 0:
         coord_clip = args.coord_clip if args.coord_clip > 0 else None
         grad_steps = args.grad_steps if args.grad_steps > 0 else None
-        train_step = make_curriculum_train_step(
-            model_cfg, tx, rollout_steps=train_cfg.rollout_steps,
-            threshold=data_cfg.threshold, coord_clip=coord_clip,
-            loss_space=train_cfg.loss_space, grad_steps=grad_steps,
-            noise_std=train_cfg.noise_std,
-            burnin_dtype=args.burnin_dtype,
-            unroll_scans=args.unroll_scans,
-        )
-        print(f"Curriculum training: K={train_cfg.rollout_steps} rollout "
+        opts = dict(rollout_steps=train_cfg.rollout_steps,
+                    threshold=data_cfg.threshold, coord_clip=coord_clip,
+                    loss_space=train_cfg.loss_space, grad_steps=grad_steps,
+                    noise_std=train_cfg.noise_std,
+                    burnin_dtype=args.burnin_dtype,
+                    unroll_scans=args.unroll_scans)
+        if ranks.mesh is not None:
+            train_step, _ = make_sharded_curriculum_train_step(
+                model_cfg, tx, ranks.mesh, **opts)
+            say(f"Data-parallel curriculum: batch sharded over "
+                f"{ranks.mesh.size()} devices")
+        else:
+            train_step = make_curriculum_train_step(model_cfg, tx, **opts)
+        say(f"Curriculum training: K={train_cfg.rollout_steps} rollout "
               f"steps in the loss (grad_clip={train_cfg.grad_clip_norm}, "
               f"skip_nonfinite={train_cfg.skip_nonfinite_updates}, "
               f"coord_clip={coord_clip}, grad_steps="
               f"{grad_steps or train_cfg.rollout_steps}, "
               f"noise_std={train_cfg.noise_std})")
+    elif ranks.mesh is not None:
+        train_step, _ = make_sharded_train_step(
+            model_cfg, tx, ranks.mesh, noise_std=train_cfg.noise_std)
+        say(f"Data parallelism: batch sharded over {ranks.mesh.size()} "
+            "devices")
     else:
         train_step = make_train_step(model_cfg, tx,
                                      noise_std=train_cfg.noise_std)
     eval_step = make_eval_step(model_cfg)
-    print(f"Initialized model on {device} "
-          f"(train_conv_impl={model_cfg.train_conv_impl})")
+    say(f"Initialized model on {device} "
+        f"(train_conv_impl={model_cfg.train_conv_impl})")
 
-    logger = MetricLogger(run_dir, use_wandb=train_cfg.log_wandb,
-                          config=vars(args))
-    ckpt = BestCheckpointer(run_dir, resume=args.resume is not None)
+    if ranks.rank0:
+        logger = MetricLogger(run_dir, use_wandb=train_cfg.log_wandb,
+                              config=vars(args))
+        ckpt = BestCheckpointer(run_dir, resume=args.resume is not None)
     starting_points = select_starting_points(
         len(va_idx), model_cfg.window_size
     )
-    if train_cfg.plot_latent and traj.rmsd is not None:
+    if ranks.rank0 and train_cfg.plot_latent and traj.rmsd is not None:
         import pickle
 
         n_lat = min(train_cfg.latent_frames, len(va_idx))
@@ -535,12 +617,12 @@ def train_from_trajectory(args, traj):
         (run_dir / "latent_color_dict.pkl").write_bytes(
             pickle.dumps(color_dict)
         )
-    print("Started training")
+    say("Started training")
 
     for epoch in range(start_epoch, train_cfg.epochs):
         t0 = time.time()
         profile_ctx = None
-        if args.profile and epoch == start_epoch:
+        if args.profile and epoch == start_epoch and ranks.rank0:
             from molecular_dynamics_neural_operator_tpu_torch.utils.profiling import (  # noqa: E501
                 trace,
             )
@@ -551,8 +633,11 @@ def train_from_trajectory(args, traj):
             state, train_step, dataset, tr_idx, train_cfg.batch_size,
             seed=train_cfg.seed, epoch=epoch,
             rollout_horizon=train_cfg.rollout_steps,
-            prefetch=args.prefetch_factor,
+            prefetch=args.prefetch_factor, put=ranks.put,
         )
+        ranks.check(state.params)
+        if not ranks.rank0:
+            continue
         if profile_ctx is not None:
             profile_ctx.__exit__(None, None, None)
             print(f"profiler trace written to {run_dir / 'trace'}")
@@ -596,7 +681,8 @@ def train_from_trajectory(args, traj):
         )
         ckpt.update(epoch, valid_m["rel_l2"], state)
 
-    logger.close()
+    if ranks.rank0:
+        logger.close()
     return state
 
 

@@ -6,7 +6,6 @@ dataclasses, fields and defaults, and the same ``to_json`` text, so a run
 directory's ``config.json`` reads into both packages
 (``experiment_from_json``). See the JAX package's file for the reasoning
 behind each field; the short notes here say what each one selects.
-``MeshConfig`` is data only here: the device mesh is not ported yet.
 """
 
 from __future__ import annotations
@@ -159,7 +158,8 @@ class RolloutConfig:
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """Device mesh layout (data only in the port)."""
+    """Device mesh layout: the ranks of the process group over
+    ``axis_names`` (``parallel/mesh.py::make_mesh``)."""
 
     data: int = 1   # batch-axis data parallelism
     model: int = 1  # edge/feature-axis model parallelism

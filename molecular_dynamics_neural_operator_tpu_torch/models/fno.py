@@ -318,12 +318,17 @@ def _train_step(loss_fn, tx):
     return step
 
 
+def fno_window_loss(cfg: FNOConfig):
+    """loss_fn(params, window batch) -> (batch-sum rel_l2, mse) of the
+    teacher-forced step, distance matrices made on the device."""
+    return lambda params, batch: _teacher_loss(params, cfg,
+                                               window_batch_to_fno(batch))
+
+
 def make_fno_window_train_step(cfg: FNOConfig, tx):
     """Train step on coordinate window batches, featurised to distance
     matrices on the device inside the step."""
-    return _train_step(
-        lambda params, batch: _teacher_loss(params, cfg,
-                                            window_batch_to_fno(batch)), tx)
+    return _train_step(fno_window_loss(cfg), tx)
 
 
 def make_fno_window_eval_step(cfg: FNOConfig):
@@ -345,6 +350,13 @@ def make_fno_train_step(cfg: FNOConfig, tx):
 
 def make_fno_curriculum_train_step(cfg: FNOConfig, tx, rollout_steps: int,
                                    step_weights=None):
+    """Train step of ``fno_curriculum_loss``."""
+    return _train_step(fno_curriculum_loss(cfg, rollout_steps, step_weights),
+                       tx)
+
+
+def fno_curriculum_loss(cfg: FNOConfig, rollout_steps: int,
+                        step_weights=None):
     """The K-step rollout curriculum on distance matrices: step 1 predicts
     from the true window, steps 2..K from the model's own predictions,
     each projected by ``sym_zero_diag`` before it is fed back (the loss
@@ -383,4 +395,4 @@ def make_fno_curriculum_train_step(cfg: FNOConfig, tx, rollout_steps: int,
         r = dm_seq.shape[-1]
         return torch.sum(loss_vec), torch.mean(sq / (k * r * r))
 
-    return _train_step(loss_fn, tx)
+    return loss_fn

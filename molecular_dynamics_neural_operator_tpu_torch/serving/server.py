@@ -43,8 +43,16 @@ are built and loaded in ``__init__``, before either thread starts, and a
 build failure is raised to the caller. A failing scheduler fails every
 waiting request, and later ``submit`` calls raise.
 
-Not ported yet: the ``mesh`` argument (sharding the stream axis over
-several cards) raises ``NotImplementedError``.
+Several cards: with ``mesh`` (``parallel/mesh.py::make_mesh``) the
+stream axis of every segment is spread over the mesh's "data" axis, one
+process per rank. Global rank 0 runs the server: its queue, scheduler,
+reader and this API. Each segment it broadcasts a header (the padded
+stream count, or stop) and the windows and sequences of the batch; every
+rank runs the segment on its own streams with no traffic between ranks,
+and the coordinates, final windows and per-stream overflow flags are
+gathered over "data". The other ranks run ``serve_follower`` until rank
+0's ``close`` stops them. Padded stream counts are multiples of the data
+axis size, and only ``impl="scan"`` takes a mesh.
 """
 
 from __future__ import annotations
@@ -71,11 +79,16 @@ from molecular_dynamics_neural_operator_tpu_torch.ops.cuda._build import (
 from molecular_dynamics_neural_operator_tpu_torch.ops.cuda.persistent_rollout import (  # noqa: E501
     make_persistent_rollout_fn,
 )
+from molecular_dynamics_neural_operator_tpu_torch.parallel import comm
+from molecular_dynamics_neural_operator_tpu_torch.parallel.mesh import (
+    axis_index,
+    axis_size,
+)
 from molecular_dynamics_neural_operator_tpu_torch.rollout.scan import (
     rollout_scan_chunked,
 )
 
-__all__ = ["RolloutResult", "RolloutServer"]
+__all__ = ["RolloutResult", "RolloutServer", "serve_follower"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,16 +133,100 @@ def _next_pow2(n: int) -> int:
     return p
 
 
-def _pad_size(n: int, max_streams: int) -> int:
-    """Padded stream count for n requests: a power of two, capped at
-    max_streams."""
-    return min(_next_pow2(n), max_streams)
+def _pad_size(n: int, max_streams: int, shards: int = 1) -> int:
+    """Padded stream count for n requests: ``shards`` times a power of
+    two (every rank gets as many streams), capped at max_streams."""
+    return min(shards * _next_pow2(-(-n // shards)), max_streams)
 
 
 def _params_to(tree, device):
     if isinstance(tree, dict):
         return {k: _params_to(v, device) for k, v in tree.items()}
     return torch.as_tensor(tree).to(device)
+
+
+def _scan_segment(params, cfg: ModelConfig, seg: int, threshold: float,
+                  clip, stream_chunk):
+    """The ``impl="scan"`` segment: run(aa_b (S, R), win_b (S, T, R, 3))
+    -> (coords (S, seg, R, 3), final windows, overflow (S,))."""
+
+    def run(aa_b, win_b):
+        chunk = stream_chunk
+        if chunk is not None and win_b.shape[0] % chunk:
+            chunk = None  # padded counts are powers of two
+        coords, final_w, diags = rollout_scan_chunked(
+            params, cfg, aa_b, win_b, seg, chunk, threshold, "last",
+            "coords", clip)
+        return coords, final_w, diags["edge_overflow"]
+
+    return run
+
+
+class _MeshSegment:
+    """A segment whose streams are spread over the mesh's data axis.
+    Called on global rank 0 with the whole padded batch; ``follow`` is the
+    other ranks' loop, ``stop`` ends it."""
+
+    def __init__(self, run_local, mesh, data_axis: str, cfg: ModelConfig,
+                 device):
+        self._run_local = run_local
+        self._n = axis_size(mesh, data_axis)
+        self._index = axis_index(mesh, data_axis)
+        self._group = mesh.get_group(data_axis)
+        self._shape = (cfg.window_size, cfg.num_residues)
+        self._device = device
+
+    def _header(self, streams: int = 0, stop: bool = False):
+        return comm.broadcast(torch.tensor(
+            [streams, int(stop)], dtype=torch.int64, device=self._device), 0)
+
+    def _run(self, aa_b, win_b):
+        aa_b = comm.broadcast(aa_b.to(torch.int32), 0)
+        win_b = comm.broadcast(win_b, 0)
+        local = win_b.shape[0] // self._n
+        rows = slice(self._index * local, (self._index + 1) * local)
+        coords, final_w, over = self._run_local(aa_b[rows], win_b[rows])
+        return (comm.all_gather(coords, self._group),
+                comm.all_gather(final_w, self._group),
+                comm.all_gather(over.to(torch.int32), self._group) > 0)
+
+    def __call__(self, aa_b, win_b):
+        self._header(win_b.shape[0])
+        return self._run(aa_b, win_b)
+
+    def follow(self) -> None:
+        t, r = self._shape
+        while True:
+            streams, stop = self._header().tolist()
+            if stop:
+                return
+            self._run(
+                torch.zeros(streams, r, dtype=torch.int32,
+                            device=self._device),
+                torch.zeros(streams, t, r, 3, device=self._device))
+
+    def stop(self) -> None:
+        self._header(stop=True)
+
+
+def serve_follower(params, cfg: ModelConfig, mesh, *,
+                   segment_steps: int = 64, threshold: float = 8.0,
+                   clip: Optional[float] = None,
+                   stream_chunk: Optional[int] = None,
+                   data_axis: str = "data", device=None) -> None:
+    """The loop of a rank other than global rank 0 under a mesh server:
+    run rank 0's segments on this rank's streams until rank 0 closes its
+    ``RolloutServer``. The options must be rank 0's."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        load_kernels()
+    params = _params_to(params, dev)
+    segment = _MeshSegment(
+        _scan_segment(params, cfg, int(segment_steps), float(threshold), clip,
+                      stream_chunk), mesh, data_axis, cfg, dev)
+    with torch.no_grad():
+        segment.follow()
 
 
 class RolloutServer:
@@ -149,6 +246,10 @@ class RolloutServer:
       passed as ``aa``).
     - ``stream_chunk``: (impl="scan") run a segment's streams in
       sequential chunks of this size where it divides the padded count.
+    - ``mesh``, ``data_axis``: spread each segment's streams over the
+      mesh's data axis (``impl="scan"`` only; ``max_streams`` must divide
+      by the axis size). Built on global rank 0, with every other rank in
+      ``serve_follower``.
     - ``device``: ``cuda`` unless the caller passes ``"cpu"``; a missing
       card is an error.
 
@@ -186,9 +287,16 @@ class RolloutServer:
         if stream_chunk is not None and impl != "scan":
             raise ValueError("stream_chunk applies to impl='scan' only")
         if mesh is not None:
-            raise NotImplementedError(
-                "mesh sharding of the stream axis is not ported yet; run "
-                "one server per card")
+            if impl != "scan":
+                raise ValueError(
+                    "mesh sharding applies to impl='scan' (the persistent "
+                    "kernels are a per-card program; run one server per "
+                    "card)")
+            n = axis_size(mesh, data_axis)
+            if max_streams % n:
+                raise ValueError(
+                    f"max_streams {max_streams} must be divisible by the "
+                    f"'{data_axis}' axis size {n}")
         check_supported(cfg)
         self._device = resolve_device(device)
         self._cuda = self._device.type == "cuda"
@@ -201,6 +309,8 @@ class RolloutServer:
         self._impl = impl
         self._stream_chunk = stream_chunk
         self._server_aa = None if aa is None else np.asarray(aa, np.int32)
+        self._mesh, self._data_axis = mesh, data_axis
+        self._shards = 1 if mesh is None else axis_size(mesh, data_axis)
 
         # items: a _Request, a list of them (submit_many) or None (close)
         self._queue: "queue.Queue" = queue.Queue()
@@ -255,16 +365,12 @@ class RolloutServer:
 
             return run
 
-        def run(aa_b, win_b):
-            chunk = self._stream_chunk
-            if chunk is not None and win_b.shape[0] % chunk:
-                chunk = None  # padded counts are powers of two
-            coords, final_w, diags = rollout_scan_chunked(
-                self._params, cfg, aa_b, win_b, seg, chunk, self._threshold,
-                "last", "coords", self._clip)
-            return coords, final_w, diags["edge_overflow"]
-
-        return run
+        run = _scan_segment(self._params, cfg, seg, self._threshold,
+                            self._clip, self._stream_chunk)
+        if self._mesh is None:
+            return run
+        return _MeshSegment(run, self._mesh, self._data_axis, cfg,
+                            self._device)
 
     def _on_compute_stream(self):
         if self._cuda:
@@ -325,7 +431,7 @@ class RolloutServer:
         for nothing in ``stats``."""
         cfg = self._cfg
         if batch_sizes is None:
-            batch_sizes, s = [], 1
+            batch_sizes, s = [], self._shards
             while s <= self._max_streams:
                 batch_sizes.append(s)
                 s *= 2
@@ -370,6 +476,10 @@ class RolloutServer:
         self._reader.join(timeout)
         if self._reader.is_alive():
             raise TimeoutError("the reader thread did not stop")
+        if isinstance(self._segment, _MeshSegment):
+            segment, self._segment = self._segment, None
+            with torch.no_grad():
+                segment.stop()  # the followers return
 
     def __enter__(self):
         return self
@@ -428,7 +538,7 @@ class RolloutServer:
         seg, t_len = self._segment_steps, self._cfg.window_size
         dev = self._device
         batch = self._active
-        s_pad = _pad_size(len(batch), self._max_streams)
+        s_pad = _pad_size(len(batch), self._max_streams, self._shards)
         for req in batch:
             if isinstance(req.window, np.ndarray):
                 req.window = torch.as_tensor(req.window).to(

@@ -28,6 +28,7 @@ from typing import Optional, Sequence
 import torch
 
 from molecular_dynamics_neural_operator_tpu_torch.configs import ModelConfig
+from molecular_dynamics_neural_operator_tpu_torch.parallel import comm
 from molecular_dynamics_neural_operator_tpu_torch.models.gkn import (
     GKNBatch,
     gkn_apply,
@@ -103,7 +104,8 @@ def curriculum_loss_batched(params, cfg: ModelConfig, gbatch: GKNBatch,
                             grad_steps: Optional[int] = None,
                             burnin_dtype: Optional[str] = None,
                             unroll_scans: bool = False,
-                            teacher_scatter_hint: Optional[str] = None):
+                            teacher_scatter_hint: Optional[str] = None,
+                            axis_name=None):
     """The whole batch's K-step loss, y_seq (B, K, R, 3): (loss summed over
     the batch, MSE averaged over every step and example) and, with
     ``return_overflow``, (loss, (mse, overflow)), overflow a 0-d bool
@@ -127,8 +129,13 @@ def curriculum_loss_batched(params, cfg: ModelConfig, gbatch: GKNBatch,
     - ``teacher_scatter_hint`` is the first step's aggregation
       (``gkn_apply``'s ``scatter_hint``): a first-step graph rebuilt on the
       device passes ``rebuilt_scatter_hint``; the free steps always do.
-      (The JAX package's ``axis_name``, the data-parallel delta floor, is
-      not ported.)
+    - ``axis_name``: the process group of the data axis
+      (``mesh.get_group("data")``) when this loss runs on one rank's rows
+      of a data-parallel batch. The delta floor then pools the
+      displacement mean over the GLOBAL batch (the mean of the ranks'
+      equal-sized means, the JAX package's ``pmean``), so every rank
+      trains the single-process objective; a per-rank mean would train
+      another loss.
     """
     del unroll_scans
     b, k = y_seq.shape[0], y_seq.shape[1]
@@ -146,7 +153,11 @@ def curriculum_loss_batched(params, cfg: ModelConfig, gbatch: GKNBatch,
         if loss_space == "delta":
             denom = torch.sqrt(torch.sum((truth - prev_true) ** 2,
                                          dim=(1, 2))).detach()
-            denom = torch.maximum(denom, 0.1 * torch.mean(denom))
+            pooled = torch.mean(denom)
+            if axis_name is not None:
+                pooled = comm.all_reduce(pooled, axis_name) / comm.size(
+                    axis_name)
+            denom = torch.maximum(denom, 0.1 * pooled)
             denom = torch.clamp(denom, min=1e-6)
         else:
             denom = torch.sqrt(torch.sum(truth ** 2, dim=(1, 2)))
@@ -204,6 +215,56 @@ def curriculum_loss_batched(params, cfg: ModelConfig, gbatch: GKNBatch,
     return loss, msem
 
 
+def make_curriculum_loss(cfg: ModelConfig, rollout_steps: int,
+                         threshold: float = 8.0,
+                         step_weights: Optional[Sequence[float]] = None,
+                         graph_frame: str = "first",
+                         coord_clip: Optional[float] = None,
+                         loss_space: str = "absolute",
+                         grad_steps: Optional[int] = None,
+                         burnin_dtype: Optional[str] = None,
+                         unroll_scans: bool = False, axis_name=None):
+    """loss_fn(params, batch) -> (loss, (mse, overflow)) of the K-step
+    curriculum on a batch dict, the loss of ``make_curriculum_train_step``
+    and of the data-parallel step (``parallel/mesh.py``, which passes the
+    data axis' group as ``axis_name``). A batch whose ``y_seq`` has
+    another K than ``rollout_steps`` raises ``ValueError``."""
+    if grad_steps is not None and not 1 <= grad_steps <= rollout_steps:
+        raise ValueError(
+            f"grad_steps must be in [1, rollout_steps={rollout_steps}], "
+            f"got {grad_steps}")
+    if graph_frame not in ("first", "last", "rebuild"):
+        raise ValueError(f"unknown graph_frame: {graph_frame!r} "
+                         "(expected 'first', 'last' or 'rebuild')")
+    opts = dict(threshold=threshold, step_weights=step_weights,
+                coord_clip=coord_clip, return_overflow=True,
+                loss_space=loss_space, grad_steps=grad_steps,
+                burnin_dtype=burnin_dtype, unroll_scans=unroll_scans,
+                axis_name=axis_name)
+
+    def loss_fn(params, batch):
+        k = batch["y_seq"].shape[1]
+        if k != rollout_steps:
+            raise ValueError(
+                f"batch carries y_seq with K={k} but the step was built "
+                f"with rollout_steps={rollout_steps}: assemble batches with "
+                f"batch_iterator(..., rollout_horizon={rollout_steps})")
+        if graph_frame != "rebuild":
+            return curriculum_loss_batched(
+                params, cfg, featurize_batch(cfg, batch, graph_frame),
+                batch["y_seq"], **opts)
+        graph, ov0 = _build_graph(cfg, batch["window"][:, -1], threshold)
+        gbatch = GKNBatch(aa=batch["aa"], window=batch["window"],
+                          graph=graph, y=batch["y"])
+        loss, (m, ovf) = curriculum_loss_batched(
+            params, cfg, gbatch, batch["y_seq"], **opts,
+            teacher_scatter_hint=rebuilt_scatter_hint(
+                cfg, batch["window"].shape[-2]))
+        return loss, (m, ovf | ov0.any())
+
+    return loss_fn
+
+
 def make_curriculum_train_step(cfg: ModelConfig, tx, rollout_steps: int,
                                threshold: float = 8.0,
                                step_weights: Optional[Sequence[float]] = None,
@@ -227,39 +288,13 @@ def make_curriculum_train_step(cfg: ModelConfig, tx, rollout_steps: int,
     the initial window with the random walk of ``train/noise.py``; the
     free steps feed back the model's own predictions. The other options
     are ``curriculum_loss_batched``'s."""
-    if grad_steps is not None and not 1 <= grad_steps <= rollout_steps:
-        raise ValueError(
-            f"grad_steps must be in [1, rollout_steps={rollout_steps}], "
-            f"got {grad_steps}")
-    if graph_frame not in ("first", "last", "rebuild"):
-        raise ValueError(f"unknown graph_frame: {graph_frame!r} "
-                         "(expected 'first', 'last' or 'rebuild')")
-    opts = dict(threshold=threshold, step_weights=step_weights,
-                coord_clip=coord_clip, return_overflow=True,
-                loss_space=loss_space, grad_steps=grad_steps,
-                burnin_dtype=burnin_dtype, unroll_scans=unroll_scans)
-
-    def loss_fn(params, batch):
-        if graph_frame != "rebuild":
-            return curriculum_loss_batched(
-                params, cfg, featurize_batch(cfg, batch, graph_frame),
-                batch["y_seq"], **opts)
-        graph, ov0 = _build_graph(cfg, batch["window"][:, -1], threshold)
-        gbatch = GKNBatch(aa=batch["aa"], window=batch["window"],
-                          graph=graph, y=batch["y"])
-        loss, (m, ovf) = curriculum_loss_batched(
-            params, cfg, gbatch, batch["y_seq"], **opts,
-            teacher_scatter_hint=rebuilt_scatter_hint(
-                cfg, batch["window"].shape[-2]))
-        return loss, (m, ovf | ov0.any())
+    loss_fn = make_curriculum_loss(
+        cfg, rollout_steps, threshold=threshold, step_weights=step_weights,
+        graph_frame=graph_frame, coord_clip=coord_clip,
+        loss_space=loss_space, grad_steps=grad_steps,
+        burnin_dtype=burnin_dtype, unroll_scans=unroll_scans)
 
     def step(state: TrainState, batch: dict):
-        k = batch["y_seq"].shape[1]
-        if k != rollout_steps:
-            raise ValueError(
-                f"batch carries y_seq with K={k} but the step was built "
-                f"with rollout_steps={rollout_steps}: assemble batches with "
-                f"batch_iterator(..., rollout_horizon={rollout_steps})")
         if noise_std > 0.0:
             batch = dict(batch, window=noised_window(
                 batch["window"], state.rng, state.step, noise_std))

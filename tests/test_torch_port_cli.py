@@ -287,7 +287,7 @@ def test_rollout_cli_matches_jax(case, roll_runs):
 # is ported now and the CLI goes on to read the data)
 REFUSALS = [
     ("train", ["--graph_mode", "sparse", "--operator", "fno"], None),
-    ("train", ["--graph_mode", "sparse", "--data_parallel"], 8),
+    ("train", ["--graph_mode", "sparse", "--data_parallel"], None),
     ("train", [], None),  # the JAX default --graph_mode dense
     ("train", ["--graph_mode", "sparse", "--edge_layout", "blocked"], None),
     ("train", ["--graph_mode", "sparse", "--window_diff"], None),

@@ -35,7 +35,11 @@ def _forbidden(module: str) -> bool:
     return top in ("jax", "jaxlib") or top == JAX_PACKAGE
 
 
-SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+# the rank workers of the parallel tests run in spawned processes that
+# import their module, so it must stand alone as the port does
+SOURCES = sorted(PORT.rglob("*.py")) + [
+    ROOT / "tests" / "test_torch_port_parallel_ranks.py",
+    ROOT / "chip_smoke.py"]
 
 
 @pytest.mark.parametrize("path", SOURCES,
@@ -76,7 +80,8 @@ def test_every_kernel_source_names_what_it_replaces_and_its_bound():
 
 
 def test_the_new_modules_are_among_the_checked_sources():
-    checked = {str(p.relative_to(PORT)) for p in SOURCES[:-1]}
+    checked = {str(p.relative_to(PORT)) for p in SOURCES
+               if p.is_relative_to(PORT)}
     assert {"serving/server.py", "serving/__init__.py", "cli/serve.py",
             "cli/__init__.py", "preprocess/grid.py", "preprocess/__init__.py",
             "ops/cuda/fused_gkn.py", "ops/cuda/_plain.py",
@@ -87,7 +92,11 @@ def test_the_new_modules_are_among_the_checked_sources():
             "serving/export.py", "cli/export.py", "cli/preprocess.py",
             "utils/torch_import.py", "utils/torch_export.py",
             "preprocess/electrostatics.py", "data/packing.py",
-            "data/prefetch.py"} <= checked
+            "data/prefetch.py", "parallel/__init__.py", "parallel/comm.py",
+            "parallel/mesh.py", "parallel/rollout_sharded.py",
+            "parallel/edge_sharded.py",
+            "parallel/rollout_edge_sharded.py"} <= checked
+    assert ROOT / "tests" / "test_torch_port_parallel_ranks.py" in SOURCES
 
 
 def test_an_edited_header_rebuilds_every_kernel(tmp_path, monkeypatch):
@@ -133,9 +142,15 @@ def test_entry_points_default_to_the_card(monkeypatch):
         serve,
         train as cli_train,
     )
+    from molecular_dynamics_neural_operator_tpu_torch.parallel import (
+        init_distributed,
+    )
     from molecular_dynamics_neural_operator_tpu_torch.serving import (
         RolloutServer,
         load_bundle,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.serving.server import (
+        serve_follower,
     )
     from molecular_dynamics_neural_operator_tpu_torch.utils.torch_import import (  # noqa: E501
         import_reference_checkpoint,
@@ -152,6 +167,12 @@ def test_entry_points_default_to_the_card(monkeypatch):
                  lambda: create_train_state(0, cfg, TrainConfig()),
                  lambda: cli_train.main(["--data_path", "x.h5", "--run_path",
                                          "r", "--graph_mode", "sparse"]),
+                 lambda: cli_train.main(["--data_path", "x.h5", "--run_path",
+                                         "r", "--graph_mode", "sparse",
+                                         "--data_parallel"]),
+                 lambda: serve.main(["--data_mesh", "2"]),
+                 lambda: init_distributed(),
+                 lambda: serve_follower({}, cfg, None),
                  lambda: cli_rollout.main(["--data_path", "x.h5",
                                            "--out_path", "o",
                                            "--graph_mode", "sparse"]),

@@ -1,7 +1,8 @@
 """The PyTorch port's continuous-batching rollout server and its TCP front,
-on the CPU: the cases of tests/test_serving_server.py (all but the mesh),
-the same trace of requests through the JAX ``RolloutServer`` and the
-port's, and segment chaining to the bit.
+on the CPU: the cases of tests/test_serving_server.py (the mesh server
+on several ranks is in tests/test_torch_port_parallel.py; here a mesh of
+one rank), the same trace of requests through the JAX ``RolloutServer``
+and the port's, and segment chaining to the bit.
 
 Every wait has its own time limit, so a hung scheduler fails a test and
 does not hang the run."""
@@ -233,9 +234,39 @@ def test_pad_sizes():
     assert _pad_size(5, 6) == 6 and _pad_size(3, 6) == 4
 
 
-def test_mesh_is_refused_until_it_is_ported(setup):
-    with pytest.raises(NotImplementedError, match="mesh"):
-        _server(setup, max_streams=8, mesh=object())
+def test_mesh_is_refused_until_it_is_ported(setup, tmp_path):
+    """The mesh server on a process group of this process alone: it serves
+    as the server without a mesh does, and refuses ``impl="persistent"``
+    and a ``max_streams`` that does not divide over the data axis (one
+    rank: every count divides)."""
+    import torch.distributed as dist
+
+    from molecular_dynamics_neural_operator_tpu_torch.configs import (
+        MeshConfig,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.parallel import (
+        make_mesh,
+    )
+
+    traj = setup[2]
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rdzv",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh(MeshConfig(), device_type="cpu")
+        with pytest.raises(ValueError, match="impl='scan'"):
+            _server(setup, mesh=mesh, impl="persistent",
+                    aa=np.zeros(10, np.int32))
+        with _serving(setup, segment_steps=4, max_streams=3,
+                      mesh=mesh) as srv:
+            res = srv.rollout(traj.aminoacids, traj.positions[:4], 6,
+                              timeout=WAIT)
+        want, want_final = _direct(setup, traj.aminoacids,
+                                   traj.positions[:4], 6,
+                                   one_stream_batch=True)
+        np.testing.assert_array_equal(res.coords, want)
+        np.testing.assert_array_equal(res.final_window, want_final)
+    finally:
+        dist.destroy_process_group()
 
 
 def test_constructor_refusals(setup):
@@ -603,8 +634,11 @@ def test_cli_flags_match_the_jax_cli():
 
 def test_cli_refuses_data_mesh_before_reading_the_checkpoint(tmp_path,
                                                              capsys):
+    """``--data_mesh`` is served now (tests/test_torch_port_parallel.py):
+    in one process, as on one JAX device, it changes nothing and the CLI
+    goes on to read the checkpoint."""
     missing = tmp_path / "nowhere.npz"
-    with pytest.raises(SystemExit, match="--data_mesh.*queue A item 8"):
+    with pytest.raises(FileNotFoundError, match="nowhere.npz"):
         serve_cli.main(["--checkpoint", str(missing), "--data_mesh", "2",
                         "--device", "cpu"])
     # 0 (the default) is the JAX CLI's single-device server
