@@ -103,7 +103,7 @@ Phases, each fatal:
    the switch to K after the warm-up and the launches changing with it.
 12. curriculum timing: samples/s, device time and busy share of both K = 4
    steps beside the teacher-forced step, and the cost of the optimizer's
-   per-step host read (``skip_nonfinite_updates``). Phases 11 and 12 run
+   finiteness guard (``skip_nonfinite_updates``). Phases 11 and 12 run
    with the training path, after phase 7.
 13. cli.train: ``train_from_trajectory`` at the flagship's width (bf16,
    B = 128, 256 edge slots, ``--predict_delta --kernel_init_scale 0.1
@@ -236,16 +236,47 @@ Phases, each fatal:
    scale); (g) the steps' wall and device ms beside the single-process
    step, the part spent in the collectives, the edge-sharded step's ms.
    ``--ranks N`` runs (a), (b), (d), (e), (f) on N ranks; with a card
-   each they take NCCL.
+   each they take NCCL. The single-process steps it is held against are
+   the steps issued op by op (``step.eager``).
+21. CUDA graphs (every step loop above replays them on the card; here
+   each is held against its loop issued op by op): (a) the graphed
+   ``PreparedRollout`` against its eager step loop, bit for bit, f32 and
+   bf16 at 1, 4 and 8 streams, 128 steps (two 64-step blocks) and 100 (a
+   block and a tail), the same launches, the second call of each under
+   ``torch.cuda.set_sync_debug_mode("error")``; (b) bench-slope steps/s
+   (64 and 576 steps) graphed and eager at 1 and 4 streams beside the
+   device-time ceiling and the busy share; (c) served results on graphed
+   segments, each equal to the bit to a dedicated eager rollout (the
+   checkpoint on ``impl="persistent"``: eight 256-step requests and a
+   mixed trace of twelve; dh in f32 and bf16; ``impl="scan"`` with the
+   fused kernel against the eager scan of the same streams), and the
+   8-stream served steps/s with graphed and with eager segments; (d) the
+   graphed teacher-forced step (with input noise), the K = 4 curriculum
+   step and the FNO step against their eager steps over ``TRAIN_STEPS``
+   batches from one state, one batch with a NaN under
+   ``skip_nonfinite_updates``: losses within TOL_TRAIN_LOSS and
+   movements within TOL_TRAIN_MOVE (bit-equality reported), over the NaN
+   batch parameters, moments and apply count bit-unchanged and the skip
+   counted, every graphed step after the first under the sync check,
+   each graphed and each eager teacher and K = 4 step launching exactly
+   its training kernels (the ``kernels`` line counts the graphed steps'
+   alone); wall ms graphed and eager beside the device busy ms, and the
+   device time of the copy into the graph's static state; (e) the FNO
+   step's per-step wall times with the allocator's device allocations
+   and the garbage collector's runs during each; (f) a kernel rollout
+   and a fused scan rollout kept across graphed train steps, each equal
+   to the bit to the eager rollout of the trained parameters.
 
 The last lines are the ``kernels`` JSON (seven kernels), the card, and
 ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA card.
 ``--only rollout``, ``--only train``, ``--only serve``, ``--only cli``,
 ``--only dense``, ``--only options``, ``--only large``, ``--only fno``,
-``--only export`` or ``--only parallel`` runs one path's phases (for
+``--only export``, ``--only parallel`` or ``--only graphs`` runs one
+path's phases (for
 development; the ``kernels`` line then lists that path's kernels, none
-for ``cli``, ``dense``, ``options``, ``large``, ``fno``, ``export`` and
-``parallel``, which time no kernel). Imports nothing of JAX.
+for ``cli``, ``dense``, ``options``, ``large``, ``fno``, ``export``,
+``parallel`` and ``graphs``, which time no kernel). Imports nothing of
+JAX.
 """
 
 from __future__ import annotations
@@ -255,6 +286,7 @@ import contextlib
 import ctypes
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -1340,9 +1372,13 @@ def profile_step(step, state, batch, wall: float, tag: str,
     """Where one step's time goes, from ``torch.profiler`` over ``steps``
     steps after a warm-up: device time by kernel name, the device's busy
     share of ``wall`` (a step's wall time with the profiler off), and the
-    device kernels a step launches. Returns the device busy ms a step."""
+    device kernels a step launches. Returns the device busy ms a step. A
+    step that replays a CUDA graph is profiled in its form issued op by
+    op (``step.eager``: the same kernels), so that every kernel has its
+    name."""
     from torch.profiler import ProfilerActivity, profile
 
+    step = getattr(step, "eager", step)
     state, _ = step(state, batch)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1738,7 +1774,7 @@ def time_curriculum(ds, train_idx, teacher_ms: float,
     """Phase 12: wall time, samples/s, device time and busy share of one
     K = 4 curriculum step on the kernel path, full BPTT and grad_steps=1,
     beside the teacher-forced step of this run; then the cost of the
-    optimizer's per-step host read (``skip_nonfinite_updates``) on the
+    optimizer's finiteness guard (``skip_nonfinite_updates``) on the
     grad_steps=1 step, off and on in turns."""
     from molecular_dynamics_neural_operator_tpu_torch.data.prefetch import (
         to_device,
@@ -1776,8 +1812,9 @@ def time_curriculum(ds, train_idx, teacher_ms: float,
     for skip in (False, True, True, False, False, True):
         times[skip].append(wall_ms(*fresh(1, skip), batch, n=20))
     off, on = np.median(times[False]), np.median(times[True])
-    log(f"skip_nonfinite_updates on the grad_steps=1 step (one host read "
-        f"of the gradients' finiteness a step), 20 steps each, in turns "
+    log(f"skip_nonfinite_updates on the grad_steps=1 step (an isfinite "
+        f"reduction and selects on the card, no host read), 20 steps each, "
+        f"in turns "
         f"off, on, on, off, off, on: off {times[False]} ms, on "
         f"{times[True]} ms; medians {off:.2f} and {on:.2f} ms, "
         f"{on - off:+.2f} ms a step")
@@ -4037,7 +4074,7 @@ def check_fno_step(ds) -> None:
         cfg = fno_cfg(spectral_impl=impl)
         res = {}
         for where in ("cuda", "cpu"):
-            step = fno.make_fno_window_train_step(cfg, GradRecorder())
+            step = fno.make_fno_window_train_step(cfg, GradRecorder()).eager
             state, m = step(TrainState(fno.fno_init(cfg, seed=0,
                                                     device=where),
                                        None, 0, 0), to_device(host, where))
@@ -4862,7 +4899,7 @@ def _par_training(mesh, traj) -> dict:
     out = {"teacher": _par_step_pair(
         "data-parallel teacher step", cfg, tcfg, params, ds.get_batch(idx),
         mesh, lambda tx: make_sharded_train_step(cfg, tx, mesh),
-        lambda tx: make_train_step(cfg, tx),
+        lambda tx: make_train_step(cfg, tx).eager,
         {"train_conv_fwd": 1, "train_conv_bwd": 1})}
     kw = dict(rollout_steps=CURRICULUM_K, coord_clip=CURRICULUM_CLIP,
               loss_space="delta")
@@ -4870,7 +4907,7 @@ def _par_training(mesh, traj) -> dict:
         f"data-parallel K={CURRICULUM_K} delta curriculum step", cfg, tcfg,
         params, ds.get_batch(idx, rollout_horizon=CURRICULUM_K), mesh,
         lambda tx: make_sharded_curriculum_train_step(cfg, tx, mesh, **kw),
-        lambda tx: curriculum_step(cfg, tx, None),
+        lambda tx: curriculum_step(cfg, tx, None).eager,
         {"train_conv_fwd": CURRICULUM_K, "train_conv_bwd": CURRICULUM_K})
     return out
 
@@ -5195,7 +5232,7 @@ def _par_nccl_rank(rank, world, rdzv, out_dir) -> dict:
             step, put = make_sharded_train_step(cfg, tx, mesh)
             batch = put(host)
         else:
-            step, batch = make_train_step(cfg, tx), to_device(host, dev)
+            step, batch = make_train_step(cfg, tx).eager, to_device(host, dev)
         runs.append(step(state, batch))
     (new_sh, m_sh), (new_1, m_1) = runs
     for (name, a), (_, b) in zip(tree_items(new_sh.params),
@@ -5346,6 +5383,682 @@ def parallel_phase(traj, world: int = PAR_WORLD) -> dict:
     return counts
 
 
+# ---- phase 21: the step loops as CUDA graphs ------------------------------
+
+GRAPH_STREAMS = (1, 4, 8)
+# a length that is not a multiple of the 64-step block: one block, a tail
+GRAPH_ODD_STEPS = 100
+FNO_SPREAD_STEPS = 40
+
+
+@contextlib.contextmanager
+def sync_errors():
+    """Within the block any call that waits for the card raises
+    (``torch.cuda.set_sync_debug_mode("error")``)."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+@contextlib.contextmanager
+def eager_segments():
+    """Within the block ``PreparedRollout`` issues its step loop from
+    Python: the yardstick of the graphed server."""
+    from molecular_dynamics_neural_operator_tpu_torch.ops.cuda import (
+        persistent_rollout as pr,
+    )
+
+    graphed = pr.PreparedRollout.__call__
+    pr.PreparedRollout.__call__ = pr.PreparedRollout.eager
+    try:
+        yield
+    finally:
+        pr.PreparedRollout.__call__ = graphed
+
+
+def same_result(a, b) -> bool:
+    """Coordinates, final window and overflow of two rollouts are equal to
+    the bit."""
+    return (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+            and torch.equal(a[2]["edge_overflow"], b[2]["edge_overflow"]))
+
+
+def graph_rollouts(params, aa_np, traj) -> dict:
+    """Phase 21a: the graphed ``PreparedRollout`` against its eager step
+    loop, bit for bit, f32 and bf16 at 1, 4 and 8 streams, 128 steps (two
+    blocks) and 100 (a block and a tail), the second call of each under
+    ``set_sync_debug_mode("error")``; returns the launch counts of the
+    bf16 single-stream 128-step replays."""
+    from molecular_dynamics_neural_operator_tpu_torch.ops.cuda import (
+        persistent_rollout as pr,
+    )
+
+    dev = torch.device("cuda")
+    t_len = bench_cfg("bfloat16").window_size
+    main = {}
+    for cd in ("float32", "bfloat16"):
+        cfg = bench_cfg(cd)
+        prepared = pr.PreparedRollout(params, cfg, aa_np, THRESHOLD, CLIP,
+                                      dev)
+        for s in GRAPH_STREAMS:
+            w0 = torch.as_tensor(np.stack(
+                [traj.positions[i * (4000 // s):i * (4000 // s) + t_len]
+                 for i in range(s)]), device=dev)
+            for n in (STEPS, GRAPH_ODD_STEPS):
+                pr.reset_launch_counts()
+                want = prepared.eager(w0, n)
+                eager_counts = pr.launch_counts()
+                first = prepared(w0, n)  # captures the graphs it replays
+                pr.reset_launch_counts()
+                with sync_errors():
+                    again = prepared(w0, n)
+                counts = pr.launch_counts()
+                tag = f"graphed rollout, {cd}, S={s}, {n} steps"
+                require(same_result(first, want) and same_result(again, want),
+                        f"{tag}: not bit-equal to the eager step loop")
+                require(counts == eager_counts == {
+                    "graph_encode": n, "edge_mlp": 3 * n, "conv_head": n},
+                    f"{tag}: launches {counts}, eager {eager_counts}")
+                require(not bool(want[2]["edge_overflow"]),
+                        f"{tag}: edge overflow")
+                if cd == "bfloat16" and s == 1 and n == STEPS:
+                    main = counts
+        log(f"graphed rollout {cd}: S = {GRAPH_STREAMS}, {STEPS} and "
+            f"{GRAPH_ODD_STEPS} steps, equal to the bit to the eager step "
+            f"loop (coordinates, final window, overflow), the same "
+            f"launches; no replay loop waited for the card")
+    return main
+
+
+def graph_rates(params, aa_np, traj) -> None:
+    """Phase 21b: single-stream bf16 steps/s by the bench slope (64 and
+    576 steps), graphed and eager, beside the device-time ceiling and the
+    busy share; 4 streams too; the plain (scan) rollout's rate graphed and
+    eager."""
+    from molecular_dynamics_neural_operator_tpu_torch.ops.cuda import (
+        persistent_rollout as pr,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.rollout import (
+        make_rollout_fn,
+    )
+
+    dev = torch.device("cuda")
+    cfg = bench_cfg("bfloat16")
+    t_len = cfg.window_size
+    prepared = pr.PreparedRollout(params, cfg, aa_np, THRESHOLD, CLIP, dev)
+    for s in (1, 4):
+        w0 = torch.as_tensor(np.stack(
+            [traj.positions[1000 * i:1000 * i + t_len] for i in range(s)]),
+            device=dev)
+        w0 = w0 if s > 1 else w0[0]
+        rates = {}
+        for form in ("graphed", "eager", "graphed ", "eager "):
+            run = prepared if form.strip() == "graphed" else prepared.eager
+            rates[form] = steps_per_s(
+                lambda n, run=run: (lambda p, a, w: run(w, n)),
+                params, aa_np, w0, 64, 576)
+        win = (w0 if s > 1 else w0[None]).clone().contiguous()
+        bufs = prepared.buffers(s, win.shape[-2])
+        coords = torch.empty(s, win.shape[-2], 3, device=dev)
+        step_ms = device_ms(lambda: pr.step(bufs, prepared.weights, cfg,
+                                            THRESHOLD, CLIP, win, coords))
+        ceiling = 1e3 / step_ms
+        g = max(rates["graphed"], rates["graphed "])
+        e = max(rates["eager"], rates["eager "])
+        if s == 1:
+            plain = {}
+            for form in ("graphed", "eager", "graphed ", "eager "):
+                fns = {n: make_rollout_fn(cfg, n, THRESHOLD, clip=CLIP,
+                                          device=dev) for n in (16, 80)}
+                if form.strip() == "eager":
+                    fns = {n: fn.eager for n, fn in fns.items()}
+                plain[form] = steps_per_s(lambda n, fns=fns: fns[n],
+                                          params, aa_np, w0, 16, 80)
+            log(f"plain (scan) rollout rate, bf16, one stream, slope of 16 "
+                f"and 80 steps: graphed {plain['graphed']:,.0f} and "
+                f"{plain['graphed ']:,.0f} steps/s, eager "
+                f"{plain['eager']:,.0f} and {plain['eager ']:,.0f}")
+        log(f"bench rollout rate, bf16, {s} stream(s), slope of 64 and 576 "
+            f"steps, two runs each: graphed {rates['graphed']:,.0f} and "
+            f"{rates['graphed ']:,.0f} steps/s, eager {rates['eager']:,.0f} "
+            f"and {rates['eager ']:,.0f}; a step is {step_ms * 1e3:.2f} us "
+            f"of device time, a ceiling of {ceiling:,.0f} steps/s; busy "
+            f"share graphed {g / ceiling:.3f}, eager {e / ceiling:.3f}; "
+            f"graphed / eager {g / e:.2f}")
+
+
+def graph_serving(params, aa_np, traj) -> None:
+    """Phase 21c: the served results on graphed segments against dedicated
+    rollouts issued op by op, bit for bit: the checkpoint on
+    ``impl="persistent"`` (eight 256-step requests and a mixed trace),
+    dh on seeded live weights, and ``impl="scan"`` with the fused kernel
+    (four 64-step requests of four sequences against the eager scan of
+    the same four streams); 8-stream served steps/s graphed and with the
+    segment loop issued op by op."""
+    from molecular_dynamics_neural_operator_tpu_torch.models import gkn_init
+    from molecular_dynamics_neural_operator_tpu_torch.ops.cuda import (
+        persistent_rollout as pr,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.rollout import (
+        make_rollout_fn,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.serving import (
+        RolloutServer,
+    )
+
+    dev = torch.device("cuda")
+    t_len = bench_cfg("bfloat16").window_size
+
+    def serve(cfg, p, requests, impl, max_streams=8):
+        opts = dict(aa=aa_np) if impl == "persistent" else {}
+        with RolloutServer(p, cfg, segment_steps=SEGMENT,
+                           max_streams=max_streams, threshold=THRESHOLD,
+                           clip=CLIP, impl=impl, **opts) as srv:
+            srv.warmup()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            results = [f.result(timeout=600)
+                       for f in srv.submit_many(requests)]
+            wall = time.perf_counter() - t0
+            return results, srv.stats["steps_served"] / wall
+
+    def hold_bits(results, requests, dedicated, tag):
+        for i, ((_, w0, n), res) in enumerate(zip(requests, results)):
+            coords, final, diags = dedicated(
+                torch.as_tensor(w0, device=dev), n)
+            require(np.array_equal(res.coords, coords.cpu().numpy())
+                    and np.array_equal(res.final_window,
+                                       final.cpu().numpy())
+                    and res.edge_overflow == bool(diags["edge_overflow"]),
+                    f"{tag} request {i} ({n} steps): not bit-equal to its "
+                    f"dedicated rollout")
+
+    cfg = bench_cfg("bfloat16")
+    prepared = pr.PreparedRollout(params, cfg, aa_np, THRESHOLD, CLIP, dev)
+    saturated = [(aa_np, traj.positions[500 * i:500 * i + t_len],
+                  SATURATED_STEPS) for i in range(8)]
+    mixed = [(aa_np, traj.positions[300 * i:300 * i + t_len],
+              MIXED_HORIZONS[i % 4]) for i in range(12)]
+    # the process's first server of this phase pays for its streams' and
+    # pinned buffers' first use: not timed; then in turns
+    rates = {}
+    for form in ("cold", "graphed", "eager", "eager ", "graphed "):
+        ctx = eager_segments() if form.strip() == "eager" \
+            else contextlib.nullcontext()
+        with ctx:
+            results, rates[form] = serve(cfg, params, saturated,
+                                         "persistent")
+        hold_bits(results, saturated, prepared.eager,
+                  f"saturated ({form.strip()} segments)")
+    results, _ = serve(cfg, params, mixed, "persistent")
+    hold_bits(results, mixed, prepared.eager, "mixed trace")
+    log(f"serve persistent, 8 x {SATURATED_STEPS} steps, bf16: graphed "
+        f"segments {rates['graphed']:,.0f} and {rates['graphed ']:,.0f} "
+        f"served steps/s, eager segments {rates['eager']:,.0f} and "
+        f"{rates['eager ']:,.0f}; every result of both and of a mixed trace "
+        f"of 12 requests equal to the bit to a dedicated eager rollout")
+
+    for cd in ("float32", "bfloat16"):
+        dh_cfg = live_cfg(cd, electrostatics="dh")
+        dh_params = gkn_init(dh_cfg, seed=0, device=dev)
+        requests = [(aa_np, traj.positions[i:i + t_len], DH_STEPS)
+                    for i in (0, 1000, 2000, 3000)]
+        results, rate = serve(dh_cfg, dh_params, requests, "persistent", 4)
+        hold_bits(results, requests, pr.PreparedRollout(
+            dh_params, dh_cfg, aa_np, THRESHOLD, CLIP, dev).eager,
+            f"dh {cd}")
+        log(f"serve persistent dh, {cd}, 4 x {DH_STEPS} steps: every "
+            f"result equal to the bit to a dedicated eager rollout; "
+            f"{rate:,.0f} served steps/s")
+
+    scan_cfg = live_cfg("bfloat16", conv_impl="pallas")
+    scan_params = gkn_init(scan_cfg, seed=0, device=dev)
+    requests = [((aa_np + 3 * i) % 20, traj.positions[j:j + t_len], SEGMENT)
+                for i, j in enumerate((0, 1000, 2000, 3000))]
+    results, rate = serve(scan_cfg, scan_params, requests, "scan", 4)
+    eager = make_rollout_fn(scan_cfg, SEGMENT, THRESHOLD, clip=CLIP,
+                            batched=True, device=dev).eager
+    aa_b = torch.as_tensor(np.stack([r[0] for r in requests]), device=dev)
+    w_b = torch.as_tensor(np.stack([r[1] for r in requests]), device=dev)
+    coords, final, diags = eager(scan_params, aa_b, w_b)
+    for i, res in enumerate(results):
+        require(np.array_equal(res.coords, coords[i].cpu().numpy())
+                and np.array_equal(res.final_window, final[i].cpu().numpy())
+                and res.edge_overflow == bool(diags["edge_overflow"][i]),
+                f"scan request {i}: not bit-equal to the eager scan of the "
+                f"same four streams")
+    log(f"serve scan with the fused kernel, 4 x {SEGMENT} steps, bf16: "
+        f"every result equal to the bit to the eager scan of the same four "
+        f"streams; {rate:,.0f} served steps/s")
+
+
+def train_states_equal(a, b) -> bool:
+    from molecular_dynamics_neural_operator_tpu_torch.train.optim import (
+        opt_state_leaves,
+        tree_leaves,
+    )
+
+    return all(torch.equal(x, y) for x, y in zip(
+        tree_leaves(a.params) + opt_state_leaves(a.opt_state),
+        tree_leaves(b.params) + opt_state_leaves(b.opt_state)))
+
+
+def hold_graphed_steps(tag, step, state0, batches, nan_at: int,
+                       expect: dict) -> dict:
+    """``step`` (graphed) against ``step.eager`` over ``batches`` from
+    ``state0``; batch ``nan_at`` carries a NaN. Each finite step's loss
+    within TOL_TRAIN_LOSS, every leaf's movement within TOL_TRAIN_MOVE of
+    its norm; over the NaN batch both states' parameters, moments and
+    apply count bit-unchanged and the skip counted. The graphed steps
+    after the first run under ``set_sync_debug_mode("error")``. Each
+    graphed step alone launches ``expect`` (kernel -> launches), counted
+    from 0 just before it, as each eager step does. Returns {"bitwise":
+    bool, "loss": worst relative loss gap, "move": worst movement gap,
+    "launches": the graphed steps' launches summed}."""
+    from molecular_dynamics_neural_operator_tpu_torch.ops.cuda.graphs import (
+        launch_counts,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.train.graphed import (
+        copy_state,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.train.optim import (
+        tree_leaves,
+    )
+
+    def launched(run, *args):
+        start = launch_counts()
+        out = run(*args)
+        return out, {k: n - start[k] for k, n in launch_counts().items()
+                     if n != start[k]}
+
+    eager, graphed = state0, state0
+    bitwise, worst_loss = True, 0.0
+    total = {}
+    for i, batch in enumerate(batches):
+        before = {"eager": copy_state(eager), "graphed": copy_state(graphed)}
+        (eager, m_e), n_e = launched(step.eager, eager, batch)
+        if i == 0:
+            (graphed, m_g), n_g = launched(step, graphed, batch)
+        else:
+            with sync_errors():
+                (graphed, m_g), n_g = launched(step, graphed, batch)
+        require(n_g == expect and n_e == expect, f"{tag}: step {i} launched "
+                f"{n_g} graphed and {n_e} eager, not {expect} each")
+        for k, n in n_g.items():
+            total[k] = total.get(k, 0) + n
+        for form, new in (("eager", eager), ("graphed", graphed)):
+            old = before[form]
+            opt, was = new.opt_state, old.opt_state
+            if i == nan_at:
+                require(not bool(torch.isfinite(m_g["rel_l2"]))
+                        and not bool(torch.isfinite(m_e["rel_l2"]))
+                        and all(torch.equal(a, b) for a, b in zip(
+                            tree_leaves(new.params) + tree_leaves(opt.mu)
+                            + tree_leaves(opt.nu),
+                            tree_leaves(old.params) + tree_leaves(was.mu)
+                            + tree_leaves(was.nu)))
+                        and torch.equal(opt.count, was.count)
+                        and not bool(opt.last_finite)
+                        and int(opt.total_notfinite)
+                        == int(was.total_notfinite) + 1,
+                        f"{tag}: the {form} step over the NaN batch changed "
+                        f"its state or did not count the skip")
+        bitwise = bitwise and train_states_equal(eager, graphed) and (
+            i == nan_at or all(torch.equal(m_e[k], m_g[k]) for k in m_e))
+        if i != nan_at:
+            gap = abs(float(m_g["rel_l2"]) - float(m_e["rel_l2"])) / abs(
+                float(m_e["rel_l2"]))
+            worst_loss = max(worst_loss, gap)
+            require(gap <= TOL_TRAIN_LOSS, f"{tag}: step {i} loss differs "
+                    f"by {gap:.2e} between the graphed and the eager step")
+    worst_move = 0.0
+    for (name, a), (_, b), (_, c) in zip(tree_items(graphed.params),
+                                         tree_items(eager.params),
+                                         tree_items(state0.params)):
+        move = (b - c).norm().item()
+        require(move > 0, f"{tag}: {name} did not move")
+        worst_move = max(worst_move, (a - b).norm().item() / move)
+    require(worst_move <= TOL_TRAIN_MOVE, f"{tag}: a leaf's movement "
+            f"differs by {worst_move:.2e} of its norm")
+    require(graphed.step == eager.step == len(batches)
+            and int(graphed.opt_state.count) == len(batches) - 1,
+            f"{tag}: step {graphed.step}, count {graphed.opt_state.count}")
+    log(f"{tag}: {len(batches)} steps from one state, batch {nan_at} with a "
+        f"NaN, each graphed and each eager step launching {expect}: graphed "
+        f"against eager "
+        + ("equal to the bit (parameters, moments, counters, metrics)"
+           if bitwise else f"losses within {worst_loss:.2e}, movements "
+           f"within {worst_move:.2e} of their norms (not bitwise)")
+        + "; over the NaN batch both left parameters, moments and the "
+        "apply count as they were and counted the skip; no graphed step "
+        "after the first waited for the card")
+    return {"bitwise": bitwise, "loss": worst_loss, "move": worst_move,
+            "launches": total}
+
+
+def state_copy_ms(tag, state) -> None:
+    """Device ms of the work a graphed step adds to the eager step's: the
+    copy of the new parameters, moments and counters into the graph's
+    static state (``train/graphed.py``), beside the copy of the optimizer
+    state that every step's ``apply_update`` makes."""
+    from molecular_dynamics_neural_operator_tpu_torch.train.graphed import (
+        _state_leaves,
+        copy_state,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.train.optim import (
+        clone_opt_state,
+    )
+
+    dst, src = copy_state(state), copy_state(state)
+    leaves = _state_leaves(src)
+    nbytes = sum(t.numel() * t.element_size() for t in leaves)
+    to_static = device_ms(lambda: torch._foreach_copy_(_state_leaves(dst),
+                                                      leaves), reps=5)
+    opt_copy = device_ms(lambda: clone_opt_state(src.opt_state), reps=5)
+    log(f"{tag}: the graphed step's copy into its static state, "
+        f"{nbytes / 1e6:.2f} MB of parameters, moments and counters: "
+        f"{to_static * 1e3:.2f} us device; the optimizer state's copy in "
+        f"apply_update: {opt_copy * 1e3:.2f} us device")
+
+
+def graph_step_times(tag, step, state, batch, samples: int) -> None:
+    """Wall ms of the graphed and the eager step (two runs each, in
+    turns), beside the device busy ms of the step issued op by op
+    (``torch.profiler``)."""
+    walls = {}
+    for form in ("graphed", "eager", "graphed ", "eager "):
+        run = step if form.strip() == "graphed" else step.eager
+        walls[form] = wall_ms(run, state, batch, n=10)
+    busy = profile_step(step.eager, state, batch, walls["eager"],
+                        f"{tag} (eager, for its device time)")
+    graphed_busy = profiled_busy(step, state, batch)
+    g = min(walls["graphed"], walls["graphed "])
+    e = min(walls["eager"], walls["eager "])
+    log(f"{tag}: wall graphed {walls['graphed']:.2f} and "
+        f"{walls['graphed ']:.2f} ms, eager {walls['eager']:.2f} and "
+        f"{walls['eager ']:.2f} ms; device busy {busy:.2f} ms a step; busy "
+        f"share graphed {busy / g:.2f}, eager {busy / e:.2f}; "
+        f"{samples / g * 1e3:,.0f} samples/s graphed; the profiler over "
+        f"graph replays: "
+        + ("no device time recorded" if graphed_busy is None
+           else f"{graphed_busy:.2f} ms device busy a step"))
+
+
+def profiled_busy(step, state, batch, steps: int = 3):
+    """Device busy ms a step that ``torch.profiler`` records over
+    ``steps`` steps after a warm-up, or None if it records none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            state, _ = step(state, batch)
+        torch.cuda.synchronize()
+    busy = sum(e.device_time_total for e in prof.key_averages()
+               if e.device_type.name == "CUDA") / 1e3 / steps
+    return busy or None
+
+
+HOST_OPS = 2000
+HOST_AT_START: dict = {}
+
+
+def host_op_us() -> float:
+    """The host's cost of one small eager PyTorch call on the card, in
+    µs: the best of five runs of ``HOST_OPS`` one-element adds, each
+    enqueued without waiting, divided by the count."""
+    x = torch.zeros(1, device="cuda")
+    best = float("inf")
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(HOST_OPS):
+            x.add_(1.0)
+        best = min(best, time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return best / HOST_OPS * 1e6
+
+
+def fno_spread(ds) -> None:
+    """Phase 21e: where the FNO step's wall time goes astray. Each of
+    ``FNO_SPREAD_STEPS`` eager steps is timed alone (the card idle before
+    and after), with the caching allocator's device allocations and the
+    garbage collector's runs during it; then the graphed step the same
+    way."""
+    import gc
+
+    from molecular_dynamics_neural_operator_tpu_torch.data.prefetch import (
+        to_device,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.models import fno
+    from molecular_dynamics_neural_operator_tpu_torch.train.optim import (
+        make_optimizer,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.train.state import (
+        TrainState,
+    )
+
+    batch = to_device(ds.get_batch(np.arange(FNO_BATCH)), "cuda")
+    log(f"host cost of one small eager call on the card: {host_op_us():.2f} "
+        f"us now, {HOST_AT_START.get('us', float('nan')):.2f} us when this "
+        f"process began its phases; load average "
+        f"{os.getloadavg()[0]:.2f} over the last minute")
+    runs = {"gc": 0}
+    gc.callbacks.append(lambda phase, info: runs.__setitem__(
+        "gc", runs["gc"] + (phase == "start")))
+    try:
+        for impl in ("auto", "fft"):
+            cfg = fno_cfg(spectral_impl=impl)
+            tx, _ = make_optimizer(lr=1e-3)
+            params = fno.fno_init(cfg, seed=0, device="cuda")
+            step = fno.make_fno_window_train_step(cfg, tx)
+            for form in ("eager", "graphed"):
+                run = step if form == "graphed" else step.eager
+                state = TrainState(params, tx.init(params), 0, 0)
+                rows = []
+                for i in range(FNO_SPREAD_STEPS + 1):
+                    torch.cuda.synchronize()
+                    before = torch.cuda.memory_stats()
+                    gcs = runs["gc"]
+                    t0, c0 = time.perf_counter(), time.process_time()
+                    state, _ = run(state, batch)
+                    t1 = time.perf_counter()
+                    torch.cuda.synchronize()
+                    ms = (time.perf_counter() - t0) * 1e3
+                    after = torch.cuda.memory_stats()
+                    rows.append((ms, after.get("num_device_alloc", 0)
+                                 - before.get("num_device_alloc", 0),
+                                 runs["gc"] - gcs,
+                                 (time.process_time() - c0) * 1e3,
+                                 (t1 - t0) * 1e3,
+                                 after.get("num_alloc_retries", 0)
+                                 - before.get("num_alloc_retries", 0)))
+                first, rest = rows[0], rows[1:]
+                ms = sorted(r[0] for r in rest)
+                slow = max(rest)
+                log(f"FNO step ({impl}, {form}) alone, {FNO_SPREAD_STEPS} "
+                    f"steps after the first ({first[0]:.2f} ms, "
+                    f"{first[1]} device allocations): min {ms[0]:.2f}, "
+                    f"median {ms[len(ms) // 2]:.2f}, max {ms[-1]:.2f} ms; "
+                    f"the slowest: {slow[4]:.2f} ms to enqueue, "
+                    f"{slow[3]:.2f} ms of the process's CPU time, "
+                    f"{slow[1]} device allocations, {slow[5]} allocator "
+                    f"retries, {slow[2]} garbage collections; steps with a "
+                    f"device allocation {sum(r[1] > 0 for r in rest)}, "
+                    f"with a collection {sum(r[2] > 0 for r in rest)}; "
+                    f"median enqueue {sorted(r[4] for r in rest)[len(rest) // 2]:.2f} ms")
+                if form == "eager":
+                    walls = [wall_ms(run, TrainState(params, tx.init(params),
+                                                     0, 0), batch)
+                             for _ in range(5)]
+                    log(f"FNO step ({impl}, eager) by wall_ms (one step's "
+                        f"warm-up, then 6 timed), five times: "
+                        + ", ".join(f"{w:.2f}" for w in walls) + " ms")
+    finally:
+        gc.callbacks.pop()
+
+
+def graph_training(ds, train_idx) -> dict:
+    """Phase 21d: the graphed teacher-forced, K = 4 curriculum and FNO
+    train steps against their eager steps over ``TRAIN_STEPS`` batches
+    with a NaN in one (``skip_nonfinite_updates``), their wall and device
+    ms; then phase 21e. Returns the training kernels' launches of the
+    graphed teacher and K = 4 steps alone, not of their eager oracles."""
+    from molecular_dynamics_neural_operator_tpu_torch.data.prefetch import (
+        to_device,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.models import fno
+    from molecular_dynamics_neural_operator_tpu_torch.train import (
+        create_train_state,
+        make_train_step,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.train.optim import (
+        make_optimizer,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.train.state import (
+        TrainState,
+    )
+
+    cfg, tcfg = training_cfgs()
+    tcfg = dataclasses.replace(tcfg, skip_nonfinite_updates=True)
+    nan_at = TRAIN_STEPS // 2
+
+    def batches(k=0):
+        out = [to_device(ds.get_batch(
+            train_idx[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH],
+            rollout_horizon=k), "cuda") for i in range(TRAIN_STEPS)]
+        out[nan_at]["window"][3, 2, 5, 1] = float("nan")
+        return out
+
+    state0, tx, _ = create_train_state(0, cfg, tcfg)
+    step = make_train_step(cfg, tx, noise_std=0.01)
+    teacher = batches()
+    held = hold_graphed_steps(
+        f"teacher-forced step, B={TRAIN_BATCH} bf16, noise 0.01", step,
+        state0, teacher, nan_at, {"train_conv_fwd": 1, "train_conv_bwd": 1})
+    counts = held["launches"]
+    graph_step_times(f"teacher-forced step, B={TRAIN_BATCH} bf16", step,
+                     state0, teacher[0], TRAIN_BATCH)
+    state_copy_ms(f"teacher-forced step, B={TRAIN_BATCH} bf16", state0)
+
+    state0, tx, _ = create_train_state(0, cfg, tcfg)
+    step = curriculum_step(cfg, tx, None)
+    k4 = batches(CURRICULUM_K)
+    held = hold_graphed_steps(
+        f"K={CURRICULUM_K} curriculum step, delta loss, B={TRAIN_BATCH} "
+        f"bf16", step, state0, k4, nan_at,
+        {"train_conv_fwd": CURRICULUM_K, "train_conv_bwd": CURRICULUM_K})
+    counts = {k: counts.get(k, 0) + held["launches"].get(k, 0)
+              for k in set(counts) | set(held["launches"])}
+    graph_step_times(f"K={CURRICULUM_K} curriculum step, B={TRAIN_BATCH} "
+                     f"bf16", step, state0, k4[0], TRAIN_BATCH)
+
+    fcfg = fno_cfg()
+    ftx, _ = make_optimizer(lr=1e-3, skip_nonfinite_updates=True)
+    params = fno.fno_init(fcfg, seed=0, device="cuda")
+    fstate = TrainState(params, ftx.init(params), 0, 0)
+    fstep = fno.make_fno_window_train_step(fcfg, ftx)
+    fb = batches()
+    hold_graphed_steps(f"FNO train step, B={TRAIN_BATCH} f32", fstep,
+                       fstate, fb, nan_at, {})
+    graph_step_times(f"FNO train step (auto), B={TRAIN_BATCH} f32", fstep,
+                     fstate, fb[0], TRAIN_BATCH)
+    fno_spread(ds)
+    return counts
+
+
+def graph_kept_rollouts(ds, train_idx) -> None:
+    """Phase 21f: rollouts kept across graphed train steps. Two rounds of
+    two graphed teacher steps; after each, the kept kernel rollout
+    (``make_persistent_rollout_fn``) and the kept fused scan rollout
+    (``make_rollout_fn``, ``conv_impl="pallas"``) of the trained state's
+    parameters, 70 steps of 2 streams, each bit-equal to the eager
+    rollout of a fresh copy of those parameters."""
+    from molecular_dynamics_neural_operator_tpu_torch.data.prefetch import (
+        to_device,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.ops.cuda import (
+        persistent_rollout as pr,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.rollout import (
+        make_rollout_fn,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.train import (
+        create_train_state,
+        make_train_step,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.train.optim import (
+        tree_leaves,
+        tree_map,
+    )
+
+    cfg, tcfg = training_cfgs()
+    state, tx, _ = create_train_state(0, cfg, tcfg)
+    step = make_train_step(cfg, tx)
+    n = 70
+    kernel_fn = pr.make_persistent_rollout_fn(cfg, n, clip=100.0)
+    fused = dataclasses.replace(cfg, conv_impl="pallas")
+    scan_fn = make_rollout_fn(fused, n, batched=True, clip=100.0)
+    first = to_device(ds.get_batch(train_idx[:TRAIN_BATCH]), "cuda")
+    aa, w0 = torch.as_tensor(first["aa"], device="cuda"), first["window"][:2]
+    previous = None
+    for r in range(2):
+        for i in range(2):
+            b = train_idx[(2 * r + i) * TRAIN_BATCH:
+                          (2 * r + i + 1) * TRAIN_BATCH]
+            state, _ = step(state, to_device(ds.get_batch(b), "cuda"))
+        fresh = tree_map(torch.clone, state.params)
+        require(previous is None or not all(
+            torch.equal(a, b) for a, b in zip(tree_leaves(fresh),
+                                              tree_leaves(previous))),
+            "the graphed steps did not move the parameters")
+        previous = fresh
+        want = pr.PreparedRollout(fresh, cfg, aa, clip=100.0).eager(w0, n)
+        require(torch.equal(kernel_fn(state.params, aa, w0)[0], want[0]),
+                f"round {r}: the kept kernel rollout differs from the eager "
+                f"rollout of the trained parameters")
+        require(torch.equal(scan_fn(state.params, aa, w0)[0],
+                            scan_fn.eager(fresh, aa, w0)[0]),
+                f"round {r}: the kept fused scan rollout differs from the "
+                f"eager scan of the trained parameters")
+    log("rollouts kept across graphed train steps: after each of two "
+        "rounds of two graphed teacher steps, the kept kernel rollout and "
+        "the kept fused scan rollout (70 steps, 2 streams) equal to the bit "
+        "the eager rollouts of a fresh copy of the trained parameters")
+
+
+def graph_phases(traj) -> dict:
+    """Phase 21; returns the launch counts of its graphed main-path runs
+    (the bf16 single-stream rollout, the teacher and K = 4 steps)."""
+    from molecular_dynamics_neural_operator_tpu_torch.data import (
+        WindowDataset,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.train import (
+        train_valid_split,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.utils.checkpoint import (
+        load_params_npz,
+    )
+
+    dev = torch.device("cuda")
+    ckpt = load_params_npz(CKPT, device=dev)
+    aa_np = np.asarray(traj.aminoacids)
+    counts = graph_rollouts(ckpt, aa_np, traj)
+    graph_rates(ckpt, aa_np, traj)
+    graph_serving(ckpt, aa_np, traj)
+    cfg, _ = training_cfgs()
+    ds = WindowDataset(traj, window_size=cfg.window_size,
+                       graph_mode="sparse", max_edges=cfg.max_edges)
+    train_idx, _ = train_valid_split(len(ds))
+    counts.update(graph_training(ds, train_idx))
+    graph_kept_rollouts(ds, train_idx)
+    return counts
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5427,7 +6140,7 @@ def main() -> int:
     parser.add_argument("--only", choices=("rollout", "train", "serve",
                                            "cli", "dense", "options",
                                            "large", "fno", "export",
-                                           "parallel"),
+                                           "parallel", "graphs"),
                         help="run one path's phases (development)")
     args = parser.parse_args()
     only = args.only
@@ -5456,6 +6169,7 @@ def main() -> int:
     t0 = time.perf_counter()
     load_kernels()
     log(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s")
+    HOST_AT_START["us"] = host_op_us()
     for name, text in build_logs().items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "error" in line:
@@ -5505,7 +6219,8 @@ def main() -> int:
                         ("options", options_phase), ("large", large_phase),
                         ("fno", fno_phase), ("export", export_phase),
                         ("parallel", lambda t: parallel_phase(t,
-                                                              args.ranks))):
+                                                              args.ranks)),
+                        ("graphs", graph_phases)):
         if only in (None, path):
             counts = phase(traj)
             for rec in kernels:

@@ -123,7 +123,7 @@ def _dft_mats(r1: int, r2: int, m1: int, m2: int):
     return f1.astype(c64), f2.astype(c64), b1.astype(c64), b2.astype(c64)
 
 
-@functools.lru_cache(maxsize=16)
+@functools.lru_cache(maxsize=None)
 def _cached_dft_tensors(r1: int, r2: int, m1: int, m2: int,
                         device: torch.device):
     return tuple(torch.as_tensor(a, device=device)
@@ -303,7 +303,11 @@ def _teacher_loss(params, cfg: FNOConfig, fb: FNOBatch):
 
 def _train_step(loss_fn, tx):
     """(state, batch) -> (state, {"rel_l2", "mse"}) for a loss_fn(params,
-    batch) -> (rel_l2, mse)."""
+    batch) -> (rel_l2, mse); on the card a CUDA graph per batch shape
+    (``train/graphed.py``), ``step.eager`` the step issued op by op."""
+    from molecular_dynamics_neural_operator_tpu_torch.train.graphed import (
+        graphed_step,
+    )
     from molecular_dynamics_neural_operator_tpu_torch.train.loop import (
         value_and_grad,
     )
@@ -311,11 +315,11 @@ def _train_step(loss_fn, tx):
         apply_update,
     )
 
-    def step(state, batch):
+    def body(state, batch):
         (l2, m), grads = value_and_grad(loss_fn, state.params, batch)
         return apply_update(state, grads, tx), {"rel_l2": l2, "mse": m}
 
-    return step
+    return graphed_step(body, name="FNO train step")
 
 
 def fno_window_loss(cfg: FNOConfig):
@@ -383,7 +387,8 @@ def fno_curriculum_loss(cfg: FNOConfig, rollout_steps: int,
         dm_seq = torch.movedim(distance_matrix_channels(y_seq), -1, 1)
         weights = (torch.ones(k) if step_weights is None
                    else torch.as_tensor(step_weights, dtype=torch.float32))
-        weights = (weights / weights.sum()).to(channels.device)
+        # host scalars: a step on the card copies nothing to it
+        weights = weights / weights.sum()
         loss_vec, sq = 0.0, 0.0
         for t in range(k):
             p = fno_apply(params, cfg, channels)[..., 0]

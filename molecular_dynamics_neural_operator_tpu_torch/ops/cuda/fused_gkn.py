@@ -48,6 +48,9 @@ from molecular_dynamics_neural_operator_tpu_torch.ops.cuda._plain import (
     conv_stack_plain,
     edge_mlp_plain,
 )
+from molecular_dynamics_neural_operator_tpu_torch.ops.cuda.graphs import (
+    per_capture,
+)
 from molecular_dynamics_neural_operator_tpu_torch.ops.edge_conv import (
     sparse_inv_degree,
 )
@@ -140,13 +143,21 @@ def fused_weights(params, cfg: ModelConfig):
     src = [mlp[f"layer_{i}"][k] for i in range(3) for k in ("w", "b")]
     src += [params[c][k] for c in ("conv1", "conv2") for k in ("root", "bias")]
     key = (cd,) + tuple((id(t), t._version) for t in src)
-    entry = _last_cast
-    if entry is None or entry[0] != key:
+
+    def cast():
         with torch.no_grad():
-            cast = tuple(
+            return tuple(
                 t.to(cd if i % 2 == 0 else torch.float32).contiguous()
                 for i, t in enumerate(src))
-        entry = _last_cast = (key, src, cast)
+
+    # inside a captured graph the cast is the graph's own: redone at every
+    # replay from the parameters as they are then, and held by the graph
+    held = per_capture(key, cast)
+    if held is not None:
+        return held
+    entry = _last_cast
+    if entry is None or entry[0] != key:
+        entry = _last_cast = (key, src, cast())
     return entry[2]
 
 

@@ -31,8 +31,14 @@ and feeds it to fc1 as the eighth input.
 ``PreparedRollout`` splits preparation from the step loop: the weights
 are cast once and the step buffers are kept per stream count, so a server
 that runs segment after segment allocates nothing but the coordinates.
-``rollout_kernels`` and ``make_persistent_rollout_fn`` are one-shot calls
-of it.
+On the card its loop is the counterpart of the TPU kernel's single launch:
+a block of steps captured once as a CUDA graph over a static window and a
+static block of coordinates (``ops/cuda/graphs.py``), replayed block after
+block with no Python between the launches. ``PreparedRollout.eager`` is
+the step loop issued from Python, the graph's oracle and the CPU's path.
+``rollout_kernels`` is a one-shot call of it; ``make_persistent_rollout_fn``
+keeps its prepared rollout, graphs included, across calls with the same
+parameters and sequence, as ``jax.jit`` keeps its program.
 """
 
 from __future__ import annotations
@@ -40,6 +46,7 @@ from __future__ import annotations
 import ctypes
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from molecular_dynamics_neural_operator_tpu_torch.configs import ModelConfig
@@ -65,6 +72,12 @@ from molecular_dynamics_neural_operator_tpu_torch.ops.cuda._launch import (
     on_cpu as _on_cpu,
     raise_on as _raise_on,
     register_kernel,
+)
+from molecular_dynamics_neural_operator_tpu_torch.ops.cuda.graphs import (
+    GRAPH_BLOCK,
+    BlockLoop,
+    KeepLast,
+    tree_identity,
 )
 from molecular_dynamics_neural_operator_tpu_torch.ops.cuda._plain import (
     conv_stack_plain,
@@ -502,13 +515,24 @@ def step(bufs: StepBuffers, weights, cfg: ModelConfig, threshold: float,
     conv_head(bufs, weights, cfg, clip, window, coords)
 
 
+class _Graphed(NamedTuple):
+    """The static window and coordinate block of one stream count's
+    graphs, and their loop."""
+
+    window: torch.Tensor
+    coords: torch.Tensor
+    loop: BlockLoop
+
+
 class PreparedRollout:
     """A rollout with its preparation done once: the configuration is
     checked and the weights are cast when the object is made, and the step
-    buffers are kept per stream count for its lifetime. A call runs the
-    step loop and allocates only the coordinates. Not re-entrant: two
-    calls at one stream count share their buffers, so a caller with
-    several threads serialises its calls and keeps them on one stream."""
+    buffers are kept per stream count for its lifetime. On the card a call
+    replays the captured block graphs of its stream count (captured on
+    first use, one graph memory pool per object) and allocates only the
+    coordinates and the final window. Not re-entrant: two calls at one
+    stream count share their buffers, so a caller with several threads
+    serialises its calls and keeps them on one stream."""
 
     def __init__(self, params, cfg: ModelConfig, aa, threshold: float = 8.0,
                  clip: float | None = None, device=None):
@@ -517,6 +541,8 @@ class PreparedRollout:
         self.device = resolve_device(device)
         self.weights = rollout_weights(params, cfg, aa, self.device)
         self._buffers: dict = {}
+        self._graphed: dict = {}
+        self._pool = None
 
     def buffers(self, streams: int, num_nodes: int) -> StepBuffers:
         key = (streams, num_nodes)
@@ -525,18 +551,75 @@ class PreparedRollout:
                                                self.device)
         return self._buffers[key]
 
-    def __call__(self, window0, num_steps: int):
-        """(coords, final_window, diags) of a ``num_steps`` rollout from
-        window0 (T, R, 3) or (S, T, R, 3); coords is stream-major. The
-        final window is the kernels' own window buffer: the last T frames
-        of [window0 ; coords], also when num_steps < T."""
+    def _window(self, window0):
+        """(window0 as an (S, T, R, 3) f32 tensor on the device, batched)."""
         window = torch.as_tensor(window0, dtype=torch.float32,
                                  device=self.device)
-        batched = window.dim() == 4
         if window.dim() not in (3, 4):
             raise ValueError(f"window0 must be (T, R, 3) or (S, T, R, 3), "
                              f"got {tuple(window.shape)}")
-        window = (window if batched else window[None]).clone().contiguous()
+        batched = window.dim() == 4
+        return (window if batched else window[None]), batched
+
+    def _result(self, coords, window, overflow, batched):
+        diags = {"edge_overflow": overflow[0] > 0}
+        if batched:
+            return coords.transpose(0, 1).contiguous(), window, diags
+        return coords[:, 0], window[0], diags
+
+    def graphs(self, streams: int, frames: int, num_nodes: int) -> _Graphed:
+        """The static buffers and block graphs of this stream count."""
+        key = (streams, frames, num_nodes)
+        if key not in self._graphed:
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            bufs = self.buffers(streams, num_nodes)
+            window = torch.zeros(streams, frames, num_nodes, 3,
+                                 device=self.device)
+            coords = torch.empty(GRAPH_BLOCK, streams, num_nodes, 3,
+                                 device=self.device)
+
+            # the closures hold no reference to self: the graphs are freed
+            # with the object, not by a later garbage collection
+            weights, cfg, threshold, clip = (self.weights, self.cfg,
+                                             self.threshold, self.clip)
+
+            def one_step(i):
+                step(bufs, weights, cfg, threshold, clip, window, coords[i])
+
+            def capture_block(n):
+                return lambda: [one_step(i) for i in range(n)]
+
+            self._graphed[key] = _Graphed(window, coords, BlockLoop(
+                capture_block, lambda: one_step(0),
+                f"rollout kernels, {streams} streams of {num_nodes} "
+                f"residues", self._pool))
+        return self._graphed[key]
+
+    def __call__(self, window0, num_steps: int):
+        """(coords, final_window, diags) of a ``num_steps`` rollout from
+        window0 (T, R, 3) or (S, T, R, 3); coords is stream-major. The
+        final window is the last T frames of [window0 ; coords], also when
+        num_steps < T. On the card the step loop replays CUDA graphs; on
+        the CPU it is ``eager``."""
+        if self.device.type != "cuda":
+            return self.eager(window0, num_steps)
+        window, batched = self._window(window0)
+        s, t, r, _ = window.shape
+        g = self.graphs(s, t, r)
+        g.loop.prepare(num_steps)
+        bufs = self.buffers(s, r)
+        g.window.copy_(window)
+        bufs.overflow.zero_()
+        coords = torch.empty(num_steps, s, r, 3, device=self.device)
+        g.loop.run(num_steps, [(g.coords, coords)])
+        return self._result(coords, g.window.clone(), bufs.overflow, batched)
+
+    def eager(self, window0, num_steps: int):
+        """The same rollout as ``__call__`` with the step loop issued from
+        Python, five launches a step: the graphs' oracle."""
+        window, batched = self._window(window0)
+        window = window.clone().contiguous()
         s, _, r, _ = window.shape
         bufs = self.buffers(s, r)
         bufs.overflow.zero_()
@@ -544,10 +627,7 @@ class PreparedRollout:
         for i in range(num_steps):
             step(bufs, self.weights, self.cfg, self.threshold, self.clip,
                  window, coords[i])
-        diags = {"edge_overflow": bufs.overflow[0] > 0}
-        if batched:
-            return coords.transpose(0, 1).contiguous(), window, diags
-        return coords[:, 0], window[0], diags
+        return self._result(coords, window, bufs.overflow, batched)
 
 
 def rollout_kernels(params, cfg: ModelConfig, aa, window0, num_steps: int,
@@ -577,19 +657,29 @@ def make_persistent_rollout_fn(cfg: ModelConfig, num_steps: int,
     buffer: the last T frames of [window0 ; coords], also when
     num_steps < T.
 
-    ``fn.prepare(params, aa)`` returns ``run(window0)`` with the same
-    result, the weights cast once and the step buffers kept per stream
-    count (``PreparedRollout``): the form for a caller that runs many
-    rollouts of one model, such as the server."""
+    ``fn`` keeps the prepared rollout of its last parameters and
+    sequence, with its buffers and CUDA graphs, so that repeated calls
+    capture nothing again. ``fn.prepare(params, aa)`` returns
+    ``run(window0)`` with the same result over a ``PreparedRollout`` of
+    its own: the form for a caller that runs many rollouts of one model,
+    such as the server."""
     _guard(cfg)
     dev = resolve_device(device)
+    kept = KeepLast()
+
+    def prepared_for(params, aa) -> PreparedRollout:
+        key = tree_identity(params) + tree_identity(aa)
+        if isinstance(aa, np.ndarray):
+            key += (aa.tobytes(),)
+        return kept.get(key, (params, aa), lambda: PreparedRollout(
+            params, cfg, aa, threshold, clip, dev))
 
     def prepare(params, aa):
         prepared = PreparedRollout(params, cfg, aa, threshold, clip, dev)
         return lambda window0: prepared(window0, num_steps)
 
     def fn(params, aa, window0):
-        return prepare(params, aa)(window0)
+        return prepared_for(params, aa)(window0, num_steps)
 
     fn.prepare = prepare
     return fn

@@ -62,10 +62,25 @@ def debye_kappa(ionic_strength_M: float = 0.15, eps_s: float = 78.0,
     return math.sqrt(8.0 * math.pi * lb * n)
 
 
+_charge_tables: dict = {}
+
+
+def _charge_table(device) -> torch.Tensor:
+    """``AMINO_ACID_CHARGES`` on ``device``, made once per device in eager
+    calls, so that a rollout step captured in a CUDA graph copies nothing
+    from the host. Under ``torch.export`` or ``torch.compile`` it is made
+    anew: a tensor made while a trace runs is the trace's."""
+    if torch.compiler.is_compiling():
+        return torch.as_tensor(AMINO_ACID_CHARGES, device=device)
+    if device not in _charge_tables:
+        _charge_tables[device] = torch.as_tensor(AMINO_ACID_CHARGES,
+                                                 device=device)
+    return _charge_tables[device]
+
+
 def residue_charges(aa: torch.Tensor) -> torch.Tensor:
     """Charges of the amino-acid labels ``aa`` (any shape, int), f32."""
-    table = torch.as_tensor(AMINO_ACID_CHARGES, device=aa.device)
-    return table[aa.long() % 20]
+    return _charge_table(aa.device)[aa.long() % 20]
 
 
 def debye_huckel_at_atoms(positions: torch.Tensor, charges: torch.Tensor,

@@ -10,12 +10,20 @@ ops; the edge-overflow flag stays a device tensor, so the loop never waits
 on the card. This is the plain counterpart of the CUDA rollout
 (``ops/cuda/persistent_rollout.py``) and its oracle on the card.
 
+On the card ``make_rollout_fn`` runs the loop as replays of a block of
+steps captured once as a CUDA graph (``ScanGraphs``, the counterpart of
+the JAX package's ``jax.jit`` of the whole scan), except for the
+configurations that stay eager (``ops/cuda/graphs.py::stays_eager``).
+``rollout_scan`` is the loop issued op by op, the graphs' oracle.
+
 ``rollout_with_mse`` tracks each step's coordinate MSE against a true
 continuation; ``rollout_python_loop`` reads every step back to the host,
 the reference's loop shape, as an oracle and a baseline, not a fast path.
 """
 
 from __future__ import annotations
+
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -36,6 +44,13 @@ from molecular_dynamics_neural_operator_tpu_torch.models.gkn import (
     SparseGraph,
     check_supported,
     gkn_apply_single,
+)
+from molecular_dynamics_neural_operator_tpu_torch.ops.cuda.graphs import (
+    GRAPH_BLOCK,
+    BlockLoop,
+    KeepLast,
+    stays_eager,
+    tree_identity,
 )
 from molecular_dynamics_neural_operator_tpu_torch.ops.edge_conv import (
     SCATTER_ONEHOT_MAX_NODES,
@@ -159,7 +174,108 @@ def rollout_scan_chunked(params, cfg: ModelConfig, aa, window0,
     parts = [run(aa[i:i + stream_chunk] if aa.dim() == 2 else aa,
                  window0[i:i + stream_chunk])
              for i in range(0, s, stream_chunk)]
+    return _cat_parts(parts)
 
+
+class ScanGraphs:
+    """``rollout_scan`` of one model on the card as CUDA graphs: for each
+    window and sequence shape, static inputs and outputs and a block of
+    ``_step`` captured over them (``ops/cuda/graphs.py::BlockLoop``), all
+    in one graph memory pool. The graphs read ``params`` where they are,
+    and the fused kernel's cast of them (``conv_impl="pallas"``) is one
+    of their operations, so an in-place change of the parameters reaches
+    them. Calls are serialised by the caller, on one stream."""
+
+    def __init__(self, params, cfg: ModelConfig, threshold: float = 8.0,
+                 graph_frame: str = "last", collect: str = "coords",
+                 clip: float | None = None):
+        if graph_frame not in ("last", "first"):
+            raise ValueError(f"unknown graph_frame: {graph_frame!r} "
+                             "(expected 'last' or 'first')")
+        if collect not in COLLECT_MODES:
+            raise ValueError(f"unknown collect mode: {collect}")
+        self.params, self.cfg, self.threshold = params, cfg, threshold
+        self.graph_frame, self.collect, self.clip = graph_frame, collect, clip
+        self._loops: dict = {}
+        self._pool = torch.cuda.graph_pool_handle()
+
+    def _loop(self, aa, window0):
+        key = (tuple(aa.shape), aa.dtype, tuple(window0.shape))
+        if key in self._loops:
+            return self._loops[key]
+        lead, r = tuple(window0.shape[:-3]), window0.shape[-2]
+        dev = window0.device
+        st = SimpleNamespace(
+            aa=aa.clone(), window=window0.clone(),
+            overflow=torch.zeros(lead, dtype=torch.bool, device=dev),
+            coords=(torch.empty((GRAPH_BLOCK,) + lead + (r, 3), device=dev)
+                    if self.collect in ("coords", "both") else None),
+            maps=(torch.empty((GRAPH_BLOCK,) + lead + (r, r), device=dev)
+                  if self.collect in ("contact_maps", "both") else None))
+
+        # the closures hold no reference to self: the graphs are freed with
+        # the object, not by a later garbage collection
+        params, cfg, threshold = self.params, self.cfg, self.threshold
+        graph_frame, clip = self.graph_frame, self.clip
+
+        def run_steps(n):
+            window, overflowed = st.window, st.overflow
+            for i in range(n):
+                window, out, overflow = _step(params, cfg, st.aa, window,
+                                              threshold, graph_frame, clip)
+                overflowed = overflowed | overflow
+                if st.coords is not None:
+                    st.coords[i].copy_(out)
+                if st.maps is not None:
+                    st.maps[i].copy_(contact_map(out, threshold))
+            st.window.copy_(window)
+            st.overflow.copy_(overflowed)
+
+        loop = BlockLoop(lambda n: (lambda: run_steps(n)),
+                         lambda: run_steps(1),
+                         f"rollout scan of {tuple(window0.shape)}",
+                         self._pool)
+        self._loops[key] = (loop, st)
+        return loop, st
+
+    def __call__(self, aa, window0, num_steps: int):
+        """``rollout_scan(params, cfg, aa, window0, num_steps, ...)``."""
+        loop, st = self._loop(aa, window0)
+        loop.prepare(num_steps)
+        st.aa.copy_(aa)
+        st.window.copy_(window0)
+        st.overflow.zero_()
+        lead = tuple(window0.shape[:-3])
+        outs = {name: (buf, torch.empty((num_steps,) + buf.shape[1:],
+                                        device=buf.device))
+                for name, buf in (("coords", st.coords),
+                                  ("contact_maps", st.maps))
+                if buf is not None}
+        loop.run(num_steps, list(outs.values()))
+        stacked = {name: torch.movedim(out, 0, len(lead)).contiguous()
+                   if lead else out for name, (_, out) in outs.items()}
+        collected = (stacked["coords"], stacked["contact_maps"]) \
+            if self.collect == "both" else stacked[self.collect]
+        return collected, st.window.clone(), {
+            "edge_overflow": st.overflow.clone()}
+
+    def chunked(self, aa, window0, num_steps: int,
+                stream_chunk: int | None):
+        """``rollout_scan_chunked``: the chunks in sequence through the
+        graphs of one chunk's shape."""
+        s = window0.shape[0]
+        if stream_chunk is None:
+            return self(aa, window0, num_steps)
+        if s % stream_chunk:
+            raise ValueError(f"stream count {s} not divisible by "
+                             f"stream_chunk {stream_chunk}")
+        parts = [self(aa[i:i + stream_chunk] if aa.dim() == 2 else aa,
+                      window0[i:i + stream_chunk], num_steps)
+                 for i in range(0, s, stream_chunk)]
+        return _cat_parts(parts)
+
+
+def _cat_parts(parts):
     def cat(xs):
         if isinstance(xs[0], tuple):
             return tuple(cat(list(group)) for group in zip(*xs))
@@ -178,19 +294,28 @@ def make_rollout_fn(cfg: ModelConfig, num_steps: int, threshold: float = 8.0,
     ``batched=True`` window0 is (S, T, R, 3): S independent streams,
     stream-major outputs, aa (R,) for one protein or (S, R) for one
     sequence per stream. ``stream_chunk=C`` (batched only, S % C == 0)
-    runs the streams in sequential chunks of C."""
+    runs the streams in sequential chunks of C.
+
+    On the card ``fn`` replays the CUDA graphs of a ``ScanGraphs`` that it
+    keeps while the parameters are the same tensors at the same versions,
+    so that repeated calls capture nothing again (configurations that
+    stay eager excepted). ``fn.eager`` is the loop issued op by op."""
     if stream_chunk is not None and not batched:
         raise ValueError("stream_chunk only applies to batched=True "
                          "rollouts (single-stream has no stream axis)")
     dev = resolve_device(device)
+    kept = KeepLast()
 
-    def fn(params, aa, window0):
+    def inputs(aa, window0):
         window0 = torch.as_tensor(window0, dtype=torch.float32, device=dev)
         if window0.dim() != (4 if batched else 3):
             raise ValueError(
                 f"window0 must be {'(S, T, R, 3)' if batched else '(T, R, 3)'}"
                 f", got {tuple(window0.shape)}")
-        aa = torch.as_tensor(aa, device=dev)
+        return torch.as_tensor(aa, device=dev), window0
+
+    def eager(params, aa, window0):
+        aa, window0 = inputs(aa, window0)
         if batched:
             return rollout_scan_chunked(params, cfg, aa, window0, num_steps,
                                         stream_chunk, threshold, graph_frame,
@@ -198,6 +323,17 @@ def make_rollout_fn(cfg: ModelConfig, num_steps: int, threshold: float = 8.0,
         return rollout_scan(params, cfg, aa, window0, num_steps, threshold,
                             graph_frame, collect, clip)
 
+    def fn(params, aa, window0):
+        if dev.type != "cuda" or stays_eager(cfg):
+            return eager(params, aa, window0)
+        aa, window0 = inputs(aa, window0)
+        graphs = kept.get(tree_identity(params), params,
+                          lambda: ScanGraphs(params, cfg, threshold,
+                                             graph_frame, collect, clip))
+        return graphs.chunked(aa, window0, num_steps,
+                                      stream_chunk if batched else None)
+
+    fn.eager = eager
     return fn
 
 

@@ -38,7 +38,14 @@ finished requests into host arrays: it waits on an event recorded after
 the request's last segment, gathers the chunks and copies them into
 pinned memory on a second stream, so transfers overlap the next segment.
 A bounded queue between the two, with a marker event every eighth
-segment, caps how far the scheduler runs ahead of the card. The kernels
+segment, caps how far the scheduler runs ahead of the card.
+
+On the card a segment replays CUDA graphs, one set per padded stream count
+(``PreparedRollout``'s for ``impl="persistent"``, ``ScanGraphs``' for
+``impl="scan"``), captured by ``warmup()`` or at a count's first segment.
+A segment's coordinates and final windows are copied out of the graphs'
+static buffers into tensors of its own before the next segment runs, so a
+request's slices stay valid until the reader has copied them. The kernels
 are built and loaded in ``__init__``, before either thread starts, and a
 build failure is raised to the caller. A failing scheduler fails every
 waiting request, and later ``submit`` calls raise.
@@ -84,7 +91,11 @@ from molecular_dynamics_neural_operator_tpu_torch.parallel.mesh import (
     axis_index,
     axis_size,
 )
+from molecular_dynamics_neural_operator_tpu_torch.ops.cuda.graphs import (
+    stays_eager,
+)
 from molecular_dynamics_neural_operator_tpu_torch.rollout.scan import (
+    ScanGraphs,
     rollout_scan_chunked,
 )
 
@@ -146,17 +157,26 @@ def _params_to(tree, device):
 
 
 def _scan_segment(params, cfg: ModelConfig, seg: int, threshold: float,
-                  clip, stream_chunk):
+                  clip, stream_chunk, device):
     """The ``impl="scan"`` segment: run(aa_b (S, R), win_b (S, T, R, 3))
-    -> (coords (S, seg, R, 3), final windows, overflow (S,))."""
+    -> (coords (S, seg, R, 3), final windows, overflow (S,)). On the card
+    it replays the CUDA graphs of one ``ScanGraphs`` kept for the server's
+    lifetime, one graph set per padded stream count (configurations that
+    stay eager excepted)."""
+    graphs = None
+    if device.type == "cuda" and not stays_eager(cfg):
+        graphs = ScanGraphs(params, cfg, threshold, "last", "coords", clip)
 
     def run(aa_b, win_b):
         chunk = stream_chunk
         if chunk is not None and win_b.shape[0] % chunk:
             chunk = None  # padded counts are powers of two
-        coords, final_w, diags = rollout_scan_chunked(
-            params, cfg, aa_b, win_b, seg, chunk, threshold, "last",
-            "coords", clip)
+        if graphs is not None:
+            coords, final_w, diags = graphs.chunked(aa_b, win_b, seg, chunk)
+        else:
+            coords, final_w, diags = rollout_scan_chunked(
+                params, cfg, aa_b, win_b, seg, chunk, threshold, "last",
+                "coords", clip)
         return coords, final_w, diags["edge_overflow"]
 
     return run
@@ -224,7 +244,7 @@ def serve_follower(params, cfg: ModelConfig, mesh, *,
     params = _params_to(params, dev)
     segment = _MeshSegment(
         _scan_segment(params, cfg, int(segment_steps), float(threshold), clip,
-                      stream_chunk), mesh, data_axis, cfg, dev)
+                      stream_chunk, dev), mesh, data_axis, cfg, dev)
     with torch.no_grad():
         segment.follow()
 
@@ -366,7 +386,7 @@ class RolloutServer:
             return run
 
         run = _scan_segment(self._params, cfg, seg, self._threshold,
-                            self._clip, self._stream_chunk)
+                            self._clip, self._stream_chunk, self._device)
         if self._mesh is None:
             return run
         return _MeshSegment(run, self._mesh, self._data_axis, cfg,
@@ -427,8 +447,8 @@ class RolloutServer:
     def warmup(self, batch_sizes=None) -> None:
         """Run one segment at each padded stream count (all of them up to
         ``max_streams`` unless given), so that the first requests find
-        their buffers allocated and the card's libraries loaded. Counts
-        for nothing in ``stats``."""
+        their buffers allocated, their CUDA graphs captured and the card's
+        libraries loaded. Counts for nothing in ``stats``."""
         cfg = self._cfg
         if batch_sizes is None:
             batch_sizes, s = [], self._shards

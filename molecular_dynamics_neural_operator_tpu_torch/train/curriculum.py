@@ -39,12 +39,16 @@ from molecular_dynamics_neural_operator_tpu_torch.rollout.scan import (
     _step,
     rebuilt_scatter_hint,
 )
+from molecular_dynamics_neural_operator_tpu_torch.ops.cuda.graphs import (
+    stays_eager,
+)
+from molecular_dynamics_neural_operator_tpu_torch.train.graphed import (
+    graphed_step,
+    with_noise,
+)
 from molecular_dynamics_neural_operator_tpu_torch.train.loop import (
     featurize_batch,
     value_and_grad,
-)
-from molecular_dynamics_neural_operator_tpu_torch.train.noise import (
-    noised_window,
 )
 from molecular_dynamics_neural_operator_tpu_torch.train.state import (
     TrainState,
@@ -57,16 +61,17 @@ def _example_rel(pred, truth):
             / torch.linalg.vector_norm(truth.reshape(-1)))
 
 
-def _weights(step_weights, n: int, device) -> torch.Tensor:
+def _weights(step_weights, n: int) -> torch.Tensor:
     """(n,) f32 weights of the supervised steps, normalised to sum 1;
-    ones by default."""
+    ones by default. They stay on the host: each enters the loss as a
+    scalar operand, so a step on the card copies nothing to it."""
     w = (torch.ones(n) if step_weights is None
          else torch.as_tensor(step_weights, dtype=torch.float32))
     if w.shape != (n,):
         raise ValueError(
             f"step_weights must have one weight per SUPERVISED step "
             f"(grad_steps={n}), got shape {tuple(w.shape)}")
-    return (w / w.sum()).to(device)
+    return w / w.sum()
 
 
 def curriculum_loss_single(params, cfg: ModelConfig, aa, window, graph0,
@@ -79,7 +84,7 @@ def curriculum_loss_single(params, cfg: ModelConfig, aa, window, graph0,
     the coordinates fed back through the unroll, as the rollout's clip
     does."""
     k = y_seq.shape[0]
-    weights = _weights(step_weights, k, window.device)
+    weights = _weights(step_weights, k)
     out = gkn_apply_single(params, cfg, aa, window, graph0)
     loss = weights[0] * _example_rel(out, y_seq[0])
     sq = torch.sum((out - y_seq[0]) ** 2)
@@ -143,7 +148,7 @@ def curriculum_loss_batched(params, cfg: ModelConfig, gbatch: GKNBatch,
     if not 1 <= j <= k:
         raise ValueError(f"grad_steps must be in [1, K={k}], got {grad_steps}")
     burn = k - j
-    weights = _weights(step_weights, j, y_seq.device)
+    weights = _weights(step_weights, j)
     if loss_space not in ("absolute", "delta"):
         raise ValueError(f"loss_space must be 'absolute' or 'delta', "
                          f"got {loss_space!r}")
@@ -287,20 +292,21 @@ def make_curriculum_train_step(cfg: ModelConfig, tx, rollout_steps: int,
     (``"rebuild"``), as the rollout builds it. ``noise_std > 0`` corrupts
     the initial window with the random walk of ``train/noise.py``; the
     free steps feed back the model's own predictions. The other options
-    are ``curriculum_loss_batched``'s."""
+    are ``curriculum_loss_batched``'s. On the card the step, its K
+    rebuilds included, replays a CUDA graph as ``make_train_step``'s
+    does; ``step.eager`` is the step issued op by op."""
     loss_fn = make_curriculum_loss(
         cfg, rollout_steps, threshold=threshold, step_weights=step_weights,
         graph_frame=graph_frame, coord_clip=coord_clip,
         loss_space=loss_space, grad_steps=grad_steps,
         burnin_dtype=burnin_dtype, unroll_scans=unroll_scans)
 
-    def step(state: TrainState, batch: dict):
-        if noise_std > 0.0:
-            batch = dict(batch, window=noised_window(
-                batch["window"], state.rng, state.step, noise_std))
+    def body(state: TrainState, batch: dict):
+        batch = with_noise(batch, noise_std)
         (l2, (m, overflow)), grads = value_and_grad(loss_fn, state.params,
                                                     batch)
         return apply_update(state, grads, tx), {
             "rel_l2": l2, "mse": m, "edge_overflow": overflow}
 
-    return step
+    return graphed_step(body, noise_std, eager_only=stays_eager(cfg),
+                        name=f"K={rollout_steps} curriculum train step")

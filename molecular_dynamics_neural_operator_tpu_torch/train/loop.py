@@ -36,8 +36,12 @@ from molecular_dynamics_neural_operator_tpu_torch.models.losses import (
     lp_rel,
     mse,
 )
-from molecular_dynamics_neural_operator_tpu_torch.train.noise import (
-    noised_window,
+from molecular_dynamics_neural_operator_tpu_torch.ops.cuda.graphs import (
+    stays_eager,
+)
+from molecular_dynamics_neural_operator_tpu_torch.train.graphed import (
+    graphed_step,
+    with_noise,
 )
 from molecular_dynamics_neural_operator_tpu_torch.train.optim import tree_map
 from molecular_dynamics_neural_operator_tpu_torch.train.state import (
@@ -108,17 +112,21 @@ def make_train_step(cfg: ModelConfig, tx, graph_frame: str = "first",
     host read). ``noise_std > 0`` corrupts the input window with
     random-walk noise (train/noise.py) while the target stays clean; edge
     features follow the noised coordinates, edge connectivity stays the
-    stored contact map."""
+    stored contact map.
 
-    def step(state: TrainState, batch: dict):
-        if noise_std > 0.0:
-            batch = dict(batch, window=noised_window(
-                batch["window"], state.rng, state.step, noise_std))
+    On the card the step replays a CUDA graph per batch shape over a
+    static state (``train/graphed.py``); the dense graph and the cell list
+    stay eager (``ops/cuda/graphs.py::stays_eager``). ``step.eager`` is
+    the step issued op by op, the oracle."""
+
+    def body(state: TrainState, batch: dict):
+        batch = with_noise(batch, noise_std)
         gbatch = featurize_batch(cfg, batch, graph_frame)
         (l2, (m, _)), grads = loss_and_grads(state.params, cfg, gbatch)
         return apply_update(state, grads, tx), {"rel_l2": l2, "mse": m}
 
-    return step
+    return graphed_step(body, noise_std, eager_only=stays_eager(cfg),
+                        name="teacher-forced train step")
 
 
 def make_eval_step(cfg: ModelConfig, graph_frame: str = "first"):

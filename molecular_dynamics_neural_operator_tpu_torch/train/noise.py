@@ -31,15 +31,34 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
     return gen
 
 
+def noise_increments(seed: int, step: int, shape, device,
+                     dtype=torch.float32,
+                     out: torch.Tensor | None = None) -> torch.Tensor:
+    """The walk's N(0, 1) increments of train step ``step``: ``shape``
+    draws from the generator of ``(seed, step)``, written into ``out``
+    when given. One launch on the card; a step that replays a CUDA graph
+    draws them into the graph's input buffer before the replay."""
+    gen = step_generator(seed, step, device)
+    if out is None:
+        out = torch.empty(tuple(shape), dtype=dtype, device=device)
+    return out.normal_(generator=gen)
+
+
+def random_walk(eps: torch.Tensor, noise_std: float) -> torch.Tensor:
+    """Accumulated noise from the increments eps (..., T, R, 3): the walk
+    runs over axis -3, the frame axis."""
+    t = eps.shape[-3]
+    return torch.cumsum(eps * (noise_std / math.sqrt(t)), dim=-3)
+
+
 def window_random_walk_noise(gen: torch.Generator, shape, noise_std: float,
                              dtype=None, device=None):
     """Accumulated coordinate noise of ``shape`` (..., T, R, 3): the walk
     runs over axis -3, the frame axis."""
-    t = shape[-3]
     eps = torch.randn(tuple(shape), generator=gen,
                       dtype=dtype or torch.float32,
                       device=device if device is not None else gen.device)
-    return torch.cumsum(eps * (noise_std / math.sqrt(t)), dim=-3)
+    return random_walk(eps, noise_std)
 
 
 def noised_window(window: torch.Tensor, seed: int, step: int,
@@ -48,6 +67,6 @@ def noised_window(window: torch.Tensor, seed: int, step: int,
     ``noise_std <= 0`` returns the window untouched."""
     if noise_std <= 0.0:
         return window
-    gen = step_generator(seed, step, window.device)
-    return window + window_random_walk_noise(gen, window.shape, noise_std,
-                                             dtype=window.dtype)
+    return window + random_walk(
+        noise_increments(seed, step, window.shape, window.device,
+                         window.dtype), noise_std)

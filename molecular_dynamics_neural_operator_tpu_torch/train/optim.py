@@ -7,26 +7,45 @@ train step. The update is written out rather than taken from
 square root of the bias-corrected second moment, multiplies by the
 learning rate of the current apply count, and wraps the chain in a
 gradient accumulator and a finiteness guard whose states this module keeps
-in one ``OptState``, so a train step is a pure function of (state, grads).
+in one ``OptState``.
+
+Everything the update decides, it decides on the device, as a jitted optax
+chain does: the counters are 0-d int32 tensors, the schedule and the bias
+corrections are f32 tensors of the apply count, the finiteness guard is one
+``isfinite`` reduction, and both the guard and the accumulator select with
+``torch.where`` (``optax.apply_if_finite``, ``optax.MultiSteps``). No value
+is read back to the host, so an update can be captured in a CUDA graph.
+``update`` writes the moments, the accumulation window and the counters
+into the state it is given, so that a skipped apply leaves the state's
+moments the very tensors they were; ``train/state.py::apply_update``
+updates a copy and keeps the caller's state intact.
 """
 
 from __future__ import annotations
 
 from typing import Any, NamedTuple
 
-import numpy as np
 import torch
 
 B1, B2, EPS = 0.9, 0.999, 1e-8
+# optax.apply_if_finite gives up and applies after this many consecutive
+# non-finite gradients; the JAX package sets it this high
+MAX_CONSECUTIVE_ERRORS = 100_000
 
 
 def step_lr_schedule(lr: float, step_size_epochs: int, gamma: float,
                      steps_per_epoch: int):
-    """StepLR: lr * gamma^(step // (step_size_epochs * steps_per_epoch))."""
+    """StepLR: lr * gamma^(step // (step_size_epochs * steps_per_epoch)),
+    as optax's staircase ``exponential_decay``: the count (an int or an
+    integer tensor) divided by the boundary in f32, floored, and the
+    power in f32. Returns a 0-d f32 tensor on the count's device."""
     boundary = max(1, step_size_epochs * steps_per_epoch)
 
-    def schedule(count: int) -> float:
-        return lr * gamma ** (int(count) // boundary)
+    def schedule(count) -> torch.Tensor:
+        count = torch.as_tensor(count)
+        p = torch.floor(count.to(torch.float32) / boundary)
+        decayed = lr * torch.pow(gamma, p)
+        return torch.where(count <= 0, torch.full_like(decayed, lr), decayed)
 
     return schedule
 
@@ -48,18 +67,28 @@ class OptState(NamedTuple):
     made by the accumulator; notfinite_count, last_finite and
     total_notfinite: the finiteness guard's consecutive and total skips
     and whether the last gradient was finite; chain: the optimizer's
-    wrappers."""
+    wrappers. Every counter is a 0-d tensor on the parameters' device
+    (int32, ``last_finite`` bool)."""
 
-    count: int
+    count: Any
     mu: Any
     nu: Any
-    mini_step: int
+    mini_step: Any
     acc: Any
-    gradient_step: int = 0
-    notfinite_count: int = 0
-    last_finite: bool = True
-    total_notfinite: int = 0
+    gradient_step: Any
+    notfinite_count: Any
+    last_finite: Any
+    total_notfinite: Any
     chain: Chain = Chain()
+
+
+COUNTERS = ("count", "mini_step", "gradient_step", "notfinite_count",
+            "last_finite", "total_notfinite")
+
+
+def counter(value, device, dtype=torch.int32) -> torch.Tensor:
+    """A 0-d counter tensor on ``device``, made without a host copy."""
+    return torch.full((), value, dtype=dtype, device=device)
 
 
 def tree_map(fn, *trees):
@@ -82,10 +111,43 @@ def tree_unflatten(like, leaves):
     return tree_map(lambda _: next(it), like)
 
 
+def opt_state_leaves(state: OptState) -> list:
+    """Every tensor of ``state``: the counters, then mu, nu and acc."""
+    out = [getattr(state, k) for k in COUNTERS]
+    out += tree_leaves(state.mu) + tree_leaves(state.nu)
+    if state.acc is not None:
+        out += tree_leaves(state.acc)
+    return out
+
+
+def clone_opt_state(state):
+    """A copy of an optimizer state (an ``OptState``, or any nesting of
+    dicts, tuples and tensors) with tensors of its own."""
+    if isinstance(state, torch.Tensor):
+        return state.clone()
+    if isinstance(state, dict):
+        return {k: clone_opt_state(v) for k, v in state.items()}
+    if isinstance(state, Chain):
+        return state
+    if isinstance(state, tuple) and hasattr(state, "_fields"):
+        return type(state)(*(clone_opt_state(v) for v in state))
+    if isinstance(state, (tuple, list)):
+        return type(state)(clone_opt_state(v) for v in state)
+    return state
+
+
+def _select_(cond: torch.Tensor, new: list, old: list) -> None:
+    """old[i] <- where(cond, new[i], old[i]), in place."""
+    for n, o in zip(new, old):
+        torch.where(cond, n, o, out=o)
+
+
 class Optimizer:
     """``init(params) -> OptState``; ``update(grads, state, params) ->
-    (updates, new_state)`` with ``new_params = params + updates``, as the
-    JAX package's ``tx``. Nothing is modified in place."""
+    (updates, state)`` with ``new_params = params + updates``, as the JAX
+    package's ``tx``. ``update`` writes the new moments, window and
+    counters into ``state``'s own tensors and returns a state holding
+    them; it reads nothing back from the device."""
 
     def __init__(self, schedule, weight_decay: float, grad_clip_norm: float,
                  skip_nonfinite_updates: bool, grad_accum: int):
@@ -96,19 +158,21 @@ class Optimizer:
         self.grad_accum = max(1, int(grad_accum or 1))
 
     def init(self, params) -> OptState:
-        zeros = tree_map(torch.zeros_like, params)
+        dev = tree_leaves(params)[0].device
         acc = tree_map(torch.zeros_like, params) if self.grad_accum > 1 \
             else None
-        return OptState(0, zeros, tree_map(torch.zeros_like, params), 0, acc,
-                        chain=Chain(bool(self.grad_clip_norm
-                                         and self.grad_clip_norm > 0),
-                                    bool(self.skip_nonfinite_updates),
-                                    self.grad_accum))
+        return OptState(
+            counter(0, dev), tree_map(torch.zeros_like, params),
+            tree_map(torch.zeros_like, params), counter(0, dev), acc,
+            counter(0, dev), counter(0, dev), counter(True, dev, torch.bool),
+            counter(0, dev),
+            chain=Chain(bool(self.grad_clip_norm and self.grad_clip_norm > 0),
+                        bool(self.skip_nonfinite_updates), self.grad_accum))
 
-    def _adam(self, grads, state: OptState, params):
-        """One apply of clip -> L2 decay -> Adam -> learning rate, each
-        operation as one ``torch._foreach`` call over all leaves."""
-        g, p = tree_leaves(grads), tree_leaves(params)
+    def _adam(self, g: list, state: OptState, params: list):
+        """One apply of clip -> L2 decay -> Adam -> learning rate on the
+        gradient leaves ``g``, each operation one ``torch._foreach`` call
+        over all leaves. Returns (updates, mu, nu) as new leaf lists."""
         if self.grad_clip_norm and self.grad_clip_norm > 0:
             norm = torch.linalg.vector_norm(
                 torch.stack(torch._foreach_norm(g)))
@@ -116,16 +180,17 @@ class Optimizer:
             g = torch._foreach_mul(g, torch.where(
                 norm < self.grad_clip_norm, torch.ones_like(norm),
                 self.grad_clip_norm / norm))
-        g = torch._foreach_add(g, p, alpha=self.weight_decay)
-        count = state.count + 1
+        g = torch._foreach_add(g, params, alpha=self.weight_decay)
         mu = torch._foreach_mul(tree_leaves(state.mu), B1)
         torch._foreach_add_(mu, g, alpha=1 - B1)
         nu = torch._foreach_mul(tree_leaves(state.nu), B2)
         torch._foreach_addcmul_(nu, g, g, value=1 - B2)
-        # the bias corrections in f32, as the JAX package's chain takes
-        # them: 1 - 0.999^count loses five digits to the rounding of 0.999
-        c1 = float(1 - np.float32(B1) ** np.float32(count))
-        c2 = float(1 - np.float32(B2) ** np.float32(count))
+        # the bias corrections in f32 of the incremented count, as the JAX
+        # package's chain takes them: 1 - 0.999^count loses five digits to
+        # the rounding of 0.999
+        count = (state.count + 1).to(torch.float32)
+        c1 = 1 - torch.pow(B1, count)
+        c2 = 1 - torch.pow(B2, count)
         denom = torch._foreach_div(nu, c2)
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, EPS)
@@ -133,37 +198,61 @@ class Optimizer:
         torch._foreach_div_(updates, denom)
         # the learning rate of the apply count before this apply
         torch._foreach_mul_(updates, -self.schedule(state.count))
-        return (tree_unflatten(params, updates), state._replace(
-            count=count, mu=tree_unflatten(params, mu),
-            nu=tree_unflatten(params, nu)))
+        return updates, mu, nu
 
-    def _accumulated(self, grads, state: OptState, params):
-        """Average ``grad_accum`` micro-batch gradients, then apply."""
+    def _inner(self, g: list, state: OptState, params: list, apply):
+        """The accumulator around Adam (``optax.MultiSteps``), written into
+        ``state`` where the 0-d bool ``apply`` holds (None: always).
+        Returns the update leaves."""
+        mu_old, nu_old = tree_leaves(state.mu), tree_leaves(state.nu)
         if self.grad_accum == 1:
-            return self._adam(grads, state, params)
+            updates, mu, nu = self._adam(g, state, params)
+            if apply is None:
+                for n, o in ((mu, mu_old), (nu, nu_old)):
+                    torch._foreach_copy_(o, n)
+                state.count.add_(1)
+                return updates
+            _select_(apply, mu + nu, mu_old + nu_old)
+            state.count.add_(apply.to(torch.int32))
+            return updates
         k = state.mini_step
-        acc = tree_map(lambda a, g: a + (g - a) / (k + 1), state.acc, grads)
-        if k + 1 < self.grad_accum:
-            return (tree_map(torch.zeros_like, params),
-                    state._replace(mini_step=k + 1, acc=acc))
-        updates, new = self._adam(acc, state, params)
-        return updates, new._replace(
-            mini_step=0, acc=tree_map(torch.zeros_like, acc),
-            gradient_step=state.gradient_step + 1)
+        acc_old = tree_leaves(state.acc)
+        # acc + (g - acc) / (k + 1), the running mean of the window
+        acc = torch._foreach_sub(g, acc_old)
+        torch._foreach_div_(acc, (k + 1).to(torch.float32))
+        torch._foreach_add_(acc, acc_old)
+        updates, mu, nu = self._adam(acc, state, params)
+        emit = k == self.grad_accum - 1
+        take = emit if apply is None else emit & apply
+        _select_(take, mu + nu, mu_old + nu_old)
+        state.count.add_(take.to(torch.int32))
+        keep = torch.ones((), dtype=torch.bool, device=k.device) \
+            if apply is None else apply
+        # the window restarts after an apply: (1 - emit) * acc
+        acc = torch._foreach_mul(acc, (~emit).to(torch.float32))
+        _select_(keep, acc, acc_old)
+        state.gradient_step.add_(take.to(torch.int32))
+        torch.where(keep, (k + 1) % self.grad_accum, k, out=k)
+        return torch._foreach_mul(updates, emit.to(torch.float32))
 
     def update(self, grads, state: OptState, params):
-        if self.skip_nonfinite_updates:
-            finite = all(bool(torch.isfinite(g).all())
-                         for g in tree_leaves(grads))
-            if not finite:
-                # the apply is skipped: moments, counts and the
-                # accumulation window stay as they were
-                return tree_map(torch.zeros_like, params), state._replace(
-                    notfinite_count=state.notfinite_count + 1,
-                    last_finite=False,
-                    total_notfinite=state.total_notfinite + 1)
-            state = state._replace(notfinite_count=0, last_finite=True)
-        return self._accumulated(grads, state, params)
+        g, p = tree_leaves(grads), tree_leaves(params)
+        if not self.skip_nonfinite_updates:
+            updates = self._inner(g, state, p, None)
+            return tree_unflatten(params, updates), state
+        finite = torch.stack([torch.isfinite(x).all() for x in g]).all()
+        bad = state.notfinite_count + 1
+        torch.where(finite, torch.zeros_like(bad), bad,
+                    out=state.notfinite_count)
+        # a skipped apply leaves moments, counts and the accumulation
+        # window as they were
+        apply = finite | (state.notfinite_count > MAX_CONSECUTIVE_ERRORS)
+        updates = self._inner(g, state, p, apply)
+        updates = [torch.where(apply, u, torch.zeros_like(u))
+                   for u in updates]
+        state.last_finite.copy_(finite)
+        state.total_notfinite.add_((~finite).to(torch.int32))
+        return tree_unflatten(params, updates), state
 
 
 def make_optimizer(

@@ -12,6 +12,8 @@ import dataclasses
 import math
 import time
 
+import torch
+
 from molecular_dynamics_neural_operator_tpu_torch.data.prefetch import (
     prefetch_to_device,
 )
@@ -22,6 +24,7 @@ from molecular_dynamics_neural_operator_tpu_torch.device import resolve_device
 from molecular_dynamics_neural_operator_tpu_torch.train.curriculum import (
     make_curriculum_train_step,
 )
+from molecular_dynamics_neural_operator_tpu_torch.train.optim import tree_map
 from molecular_dynamics_neural_operator_tpu_torch.train.state import (
     create_train_state,
 )
@@ -85,9 +88,9 @@ def train_curriculum_recipe(cfg, tcfg, dataset, train_indices, *,
 
     state, step_k1, step_k = build(tcfg)
     dev = resolve_device(device)
-    # The optimizer's update is functional (apply_update builds new
-    # tensors), so holding on to state.params keeps these values; an
-    # in-place optimizer would have to copy them here.
+    # On the card a step copies the state it is given into its CUDA
+    # graph's own and writes each later step's parameters there, into the
+    # tensors it returned: a good state from a step is kept as a copy.
     good_params = state.params
     warmup = max(min_warmup, int(steps * warmup_frac))
 
@@ -111,7 +114,8 @@ def train_curriculum_recipe(cfg, tcfg, dataset, train_indices, *,
                                 > explosion_factor * max(best_loss, 1e-30))
                     if math.isfinite(last_loss) and not exploded:
                         bad_logs, first_bad = 0, None
-                        good_params = state.params
+                        good_params = tree_map(torch.clone,
+                                               state.params)
                         best_loss = (last_loss if best_loss is None
                                      else min(best_loss, last_loss))
                     else:

@@ -19,6 +19,7 @@ from molecular_dynamics_neural_operator_tpu_torch.configs import (
 from molecular_dynamics_neural_operator_tpu_torch.device import resolve_device
 from molecular_dynamics_neural_operator_tpu_torch.models.gkn import gkn_init
 from molecular_dynamics_neural_operator_tpu_torch.train.optim import (
+    clone_opt_state,
     make_optimizer,
     tree_leaves,
     tree_map,
@@ -35,8 +36,10 @@ class TrainState(NamedTuple):
 
 def apply_update(state: TrainState, grads, tx) -> TrainState:
     """One optimizer application: tx.update -> params + updates ->
-    step + 1."""
-    updates, opt_state = tx.update(grads, state.opt_state, state.params)
+    step + 1, with no value read back from the device. ``state`` is left
+    as it was: the update writes into a copy of its optimizer state."""
+    updates, opt_state = tx.update(grads, clone_opt_state(state.opt_state),
+                                   state.params)
     params = tree_unflatten(state.params, torch._foreach_add(
         tree_leaves(state.params), tree_leaves(updates)))
     return TrainState(params, opt_state, state.step + 1, state.rng)

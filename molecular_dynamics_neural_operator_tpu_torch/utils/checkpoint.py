@@ -50,7 +50,11 @@ import numpy as np
 import torch
 
 from molecular_dynamics_neural_operator_tpu_torch.device import resolve_device
-from molecular_dynamics_neural_operator_tpu_torch.train.optim import OptState
+from molecular_dynamics_neural_operator_tpu_torch.train.optim import (
+    COUNTERS,
+    OptState,
+    counter,
+)
 from molecular_dynamics_neural_operator_tpu_torch.train.state import (
     TrainState,
 )
@@ -129,6 +133,11 @@ def _flatten(tree, prefix: str = "") -> dict:
     return out
 
 
+def _int32(t) -> np.int32:
+    """A 0-d counter tensor (or int) as the JAX layout's int32 scalar."""
+    return np.int32(int(t))
+
+
 def _opt_prefixes(opt: OptState):
     """(finiteness guard's prefix or None, accumulator's prefix or None,
     Adam's prefix, the schedule's prefix) of the JAX layout of
@@ -148,16 +157,16 @@ def _train_state_flat(state: TrainState) -> dict:
     guard, accum, adam, sched = _opt_prefixes(opt)
     flat = _flatten(state.params, ".params")
     if guard is not None:
-        flat[f"{guard}/.notfinite_count"] = np.int32(opt.notfinite_count)
-        flat[f"{guard}/.last_finite"] = np.bool_(opt.last_finite)
-        flat[f"{guard}/.total_notfinite"] = np.int32(opt.total_notfinite)
+        flat[f"{guard}/.notfinite_count"] = _int32(opt.notfinite_count)
+        flat[f"{guard}/.last_finite"] = np.bool_(bool(opt.last_finite))
+        flat[f"{guard}/.total_notfinite"] = _int32(opt.total_notfinite)
     if accum is not None:
-        flat[f"{accum}/.mini_step"] = np.int32(opt.mini_step)
-        flat[f"{accum}/.gradient_step"] = np.int32(opt.gradient_step)
-    flat[f"{adam}/.count"] = np.int32(opt.count)
+        flat[f"{accum}/.mini_step"] = _int32(opt.mini_step)
+        flat[f"{accum}/.gradient_step"] = _int32(opt.gradient_step)
+    flat[f"{adam}/.count"] = _int32(opt.count)
     flat.update(_flatten(opt.mu, f"{adam}/.mu"))
     flat.update(_flatten(opt.nu, f"{adam}/.nu"))
-    flat[f"{sched}/.count"] = np.int32(opt.count)
+    flat[f"{sched}/.count"] = _int32(opt.count)
     if accum is not None:
         flat.update(_flatten(opt.acc, f"{accum}/.acc_grads"))
     seed = int(state.rng)
@@ -217,20 +226,28 @@ def restore_checkpoint(path, like: TrainState):
                                    device=node.device)
 
         params = tree(like.params, ".params")
+        dev = opt.count.device
+
+        def count_of(key, dtype=torch.int32):
+            return counter(get(key).item(), dev, dtype)
+
         count = int(get(f"{adam}/.count"))
         if int(get(f"{sched}/.count")) != count:
             raise ValueError(f"{sched}/.count differs from {adam}/.count")
-        new = opt._replace(count=count, mu=tree(opt.mu, f"{adam}/.mu"),
-                           nu=tree(opt.nu, f"{adam}/.nu"))
+        # counters of its own: an update writes into them
+        new = opt._replace(**{k: getattr(opt, k).clone() for k in COUNTERS})
+        new = new._replace(
+            count=count_of(f"{adam}/.count"), mu=tree(opt.mu, f"{adam}/.mu"),
+            nu=tree(opt.nu, f"{adam}/.nu"))
         if guard is not None:
             new = new._replace(
-                notfinite_count=int(get(f"{guard}/.notfinite_count")),
-                last_finite=bool(get(f"{guard}/.last_finite")),
-                total_notfinite=int(get(f"{guard}/.total_notfinite")))
+                notfinite_count=count_of(f"{guard}/.notfinite_count"),
+                last_finite=count_of(f"{guard}/.last_finite", torch.bool),
+                total_notfinite=count_of(f"{guard}/.total_notfinite"))
         if accum is not None:
             new = new._replace(
-                mini_step=int(get(f"{accum}/.mini_step")),
-                gradient_step=int(get(f"{accum}/.gradient_step")),
+                mini_step=count_of(f"{accum}/.mini_step"),
+                gradient_step=count_of(f"{accum}/.gradient_step"),
                 acc=tree(opt.acc, f"{accum}/.acc_grads"))
         step = int(get(".step"))
         key = np.asarray(get(".rng")).astype(np.uint64).reshape(-1)
