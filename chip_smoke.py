@@ -202,7 +202,11 @@ Phases, each fatal:
    an FNO bundle at the CLI defaults, bit-equal to ``fno_rollout_scan``;
    ``python -m ...cli.export`` with its self-test on the card; the export
    seconds, the bundle's bytes by file, its steps/s beside the in-process
-   plain path's. (b) ``batched_debye_huckel_grids`` on the deck's
+   plain path's. Each bundle call replays CUDA graphs of its step and is
+   held also against ``ServingBundle.eager`` (the step loop issued from
+   Python), bit for bit, the FNO's with hot-swapped weights too; the
+   rates are graphed and eager, at one stream, at S = 8 and for the FNO.
+   (b) ``batched_debye_huckel_grids`` on the deck's
    97 x 65 x 65 grid for 64 BBA frames and 2 frames of the 10,000-atom
    config-5 grid, held against a float64 oracle and the port on the CPU
    at a seeded sample of grid points (TOL_DH of max |phi|), and
@@ -266,13 +270,29 @@ Phases, each fatal:
    and the garbage collector's runs during each; (f) a kernel rollout
    and a fused scan rollout kept across graphed train steps, each equal
    to the bit to the eager rollout of the trained parameters.
+22. the dense graph's loops as CUDA graphs (no kernel on these paths;
+   the launch counts stay 0): (a) the dense scan rollout (BBA preset,
+   the bench checkpoint) graphed against its loop issued op by op, bit
+   for bit, f32 and bf16, one stream and eight in chunks of four, 100
+   steps collecting coordinates and contact maps, the second call under
+   the sync check; (b) its steps/s graphed and eager at 1 and 4 streams,
+   bf16 and f32, beside a step's device time and the busy share; (c) a
+   dense bf16 ``RolloutServer(impl="scan")`` serving eight two-segment
+   requests on graphed and on eager segments, every result equal to the
+   bit to the eager scan of the same streams, and the served steps/s of
+   both; (d) the dense teacher-forced step and K = 4 curriculum step at
+   B = 128 bf16 against their eager steps over ``TRAIN_STEPS`` batches
+   with a NaN in one, equal to the bit, the NaN batch leaving the state
+   as it was, wall ms graphed and eager beside the device busy ms; (e)
+   the ``SOLVATED_10K`` step issued op by op, its device busy ms over its
+   wall ms (the figure ``ops/cuda/graphs.py::stays_eager`` cites).
 
 The last lines are the ``kernels`` JSON (seven kernels), the card, and
 ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA card.
 ``--only rollout``, ``--only train``, ``--only serve``, ``--only cli``,
 ``--only dense``, ``--only options``, ``--only large``, ``--only fno``,
-``--only export``, ``--only parallel`` or ``--only graphs`` runs one
-path's phases (for
+``--only export``, ``--only parallel`` or ``--only graphs`` (phases
+21 and 22 and the bundles of 19a) runs one path's phases (for
 development; the ``kernels`` line then lists that path's kernels, none
 for ``cli``, ``dense``, ``options``, ``large``, ``fno``, ``export``,
 ``parallel`` and ``graphs``, which time no kernel). Imports nothing of
@@ -4290,22 +4310,46 @@ def timed_call(fn):
     return out, time.perf_counter() - t0
 
 
-def held_bundle(bundle, inputs, want, tag: str) -> None:
-    """The bundle's call against the in-process result, bit for bit."""
+def held_bundle(bundle, inputs, want, tag: str, **kw) -> None:
+    """The bundle's call (CUDA graphs of its step) against the in-process
+    result and against ``bundle.eager`` (its step loop issued from
+    Python), bit for bit; the second graphed call under
+    ``set_sync_debug_mode("error")``. ``kw`` goes to every call."""
     from molecular_dynamics_neural_operator_tpu_torch.cli.export import (
         same_outputs,
     )
 
-    got = bundle(*inputs)
-    require(same_outputs(got, want), f"{tag}: the bundle differs from the "
-            "in-process rollout")
+    got = bundle(*inputs, **kw)
+    with sync_errors():
+        again = bundle(*inputs, **kw)
+    eager = bundle.eager(*inputs, **kw)
+    require(same_outputs(got, want) and same_outputs(again, want),
+            f"{tag}: the bundle differs from the in-process rollout")
+    require(same_outputs(eager, got), f"{tag}: the bundle's graphs differ "
+            "from its eager step loop")
     coords = got[0][0] if isinstance(got[0], tuple) else got[0]
     overflow = got[2]["edge_overflow"] if len(got) > 2 else None
-    log(f"{tag}: bit-equal to the in-process rollout (outputs "
-        f"{tuple(coords.shape)}, finite "
+    log(f"{tag}: graphed bit-equal to the in-process rollout and to the "
+        f"bundle's eager loop (outputs {tuple(coords.shape)}, finite "
         f"{bool(torch.isfinite(coords).all())}"
         + ("" if overflow is None else
            f", edge overflow {overflow.any().item()}") + ")")
+
+
+def bundle_rates(tag: str, runs: dict, steps: int) -> None:
+    """Steps/s of each ``runs`` entry (name -> a call of ``steps`` steps
+    a stream), two timed calls each, in turns, after a warm call of each
+    graphed entry (which captures its graphs)."""
+    for name, run in runs.items():
+        if "graphed" in name:
+            run()
+    seconds = {name: [] for name in runs}
+    for _ in range(2):
+        for name, run in runs.items():
+            seconds[name].append(timed_call(run)[1])
+    log(f"{tag}: " + ", ".join(
+        f"{name} " + " and ".join(f"{steps / t:,.1f}" for t in ts)
+        for name, ts in seconds.items()) + " steps/s")
 
 
 def export_bundles(traj, root: Path) -> None:
@@ -4357,24 +4401,27 @@ def export_bundles(traj, root: Path) -> None:
     sizes = bundle_bytes(path)
     log(f"bundle export (trace + save) {export_s:.2f} s, load {load_s:.2f} "
         f"s; bytes {sizes}")
-    _, bundle_s = timed_call(lambda: bundle(aa, window0))
+    plain = in_process()
     with torch.no_grad():
-        _, plain_s = timed_call(lambda: in_process()(params, aa, window0))
-    log(f"one stream, {EXPORT_STEPS} steps: bundle "
-        f"{EXPORT_STEPS / bundle_s:,.1f} steps/s, in-process plain path "
-        f"{EXPORT_STEPS / plain_s:,.1f} steps/s")
+        bundle_rates(
+            f"one stream, {EXPORT_STEPS} steps, one call each", {
+                "bundle graphed": lambda: bundle(aa, window0),
+                "bundle eager": lambda: bundle.eager(aa, window0),
+                "in-process plain path graphed": lambda: plain(
+                    params, aa, window0),
+                "eager": lambda: plain.eager(params, aa, window0)},
+            EXPORT_STEPS)
 
     # hot swap: seeded weights whose conv layers are alive
     live = gkn_init(live_cfg("bfloat16"), seed=1, device=dev)
     with torch.no_grad():
         want = in_process()(live, aa, window0)
-    got = bundle(aa, window0, params=live)
-    require(same_outputs(got, want), "hot-swapped weights: the bundle "
-            "differs from the in-process rollout")
-    require(not torch.equal(got[0][0], bundle(aa, window0)[0][0]),
+    held_bundle(bundle, (aa, window0), want, "bundle with hot-swapped live "
+                "weights", params=live)
+    require(not torch.equal(want[0][0], bundle(aa, window0)[0][0]),
             "hot-swapped weights gave the bundled weights' rollout")
-    log("bundle with hot-swapped live weights: bit-equal to the in-process "
-        "rollout of those weights")
+    held_bundle(bundle, (aa, window0), in_process()(params, aa, window0),
+                "the same bundle with its own weights again")
 
     spath, s_export = timed_call(lambda: save_bundle(
         root / "streams", params, cfg, EXPORT_STEPS, streams=EXPORT_STREAMS,
@@ -4385,9 +4432,18 @@ def export_bundles(traj, root: Path) -> None:
     held_bundle(sbundle, (aa, windows), want,
                 f"bundle, S = {EXPORT_STREAMS} with stream_chunk "
                 f"{EXPORT_CHUNK}")
-    _, sb_s = timed_call(lambda: sbundle(aa, windows))
-    log(f"S = {EXPORT_STREAMS}: export {s_export:.2f} s; bundle "
-        f"{EXPORT_STREAMS * EXPORT_STEPS / sb_s:,.1f} served steps/s")
+    log(f"S = {EXPORT_STREAMS}: export {s_export:.2f} s")
+    splain = in_process(True, EXPORT_CHUNK)
+    with torch.no_grad():
+        bundle_rates(
+            f"S = {EXPORT_STREAMS} with stream_chunk {EXPORT_CHUNK}, "
+            f"{EXPORT_STEPS} steps a stream, one call each, served", {
+                "bundle graphed": lambda: sbundle(aa, windows),
+                "bundle eager": lambda: sbundle.eager(aa, windows),
+                "in-process plain path graphed": lambda: splain(
+                    params, aa, windows),
+                "eager": lambda: splain.eager(params, aa, windows)},
+            EXPORT_STREAMS * EXPORT_STEPS)
 
     # traced on the CPU, moved to the card by load_bundle
     cpath, c_export = timed_call(lambda: save_bundle(
@@ -4397,10 +4453,14 @@ def export_bundles(traj, root: Path) -> None:
     with torch.no_grad():
         want = in_process()(params, aa, window0)
     got = cbundle(aa, window0)
+    require(same_outputs(cbundle.eager(aa, window0), got),
+            "CPU-traced bundle on the card: its graphs differ from its "
+            "eager step loop")
     exact = same_outputs(got, want)
     err = (got[0][0] - want[0][0]).abs().max().item()
     log(f"bundle traced on the CPU ({c_export:.2f} s) and moved to the "
-        f"card: bit-equal {exact}, coordinates within {err:.3e} A (limit "
+        f"card: graphed bit-equal to its eager loop; against the in-process "
+        f"rollout bit-equal {exact}, coordinates within {err:.3e} A (limit "
         f"TOL_ROLL {TOL_ROLL}), contact maps equal "
         f"{torch.equal(got[0][1], want[0][1])}")
     # the trace records the same aten ops on either device; if the card
@@ -4423,6 +4483,15 @@ def export_bundles(traj, root: Path) -> None:
     held_bundle(fbundle, (ch0,), want,
                 f"FNO bundle at the CLI defaults, {EXPORT_STEPS} steps "
                 f"(export {f_export:.2f} s)")
+    fother = fno.fno_init(fcfg, seed=1, device=dev)
+    with torch.no_grad():
+        want = fno.fno_rollout_scan(fother, fcfg, ch0, EXPORT_STEPS)
+    held_bundle(fbundle, (ch0,), want, "FNO bundle with hot-swapped "
+                "weights", params=fother)
+    with torch.no_grad():
+        bundle_rates(f"FNO bundle, {EXPORT_STEPS} steps, one call each", {
+            "graphed": lambda: fbundle(ch0),
+            "eager": lambda: fbundle.eager(ch0)}, EXPORT_STEPS)
 
     out = root / "cli"
     cmd = [sys.executable, "-m", f"{PKG}.cli.export", "--checkpoint",
@@ -5763,14 +5832,15 @@ def state_copy_ms(tag, state) -> None:
         f"apply_update: {opt_copy * 1e3:.2f} us device")
 
 
-def graph_step_times(tag, step, state, batch, samples: int) -> None:
-    """Wall ms of the graphed and the eager step (two runs each, in
-    turns), beside the device busy ms of the step issued op by op
-    (``torch.profiler``)."""
+def graph_step_times(tag, step, state, batch, samples: int,
+                     n: int = 10) -> None:
+    """Wall ms of the graphed and the eager step (two runs of ``n`` steps
+    each, in turns), beside the device busy ms of the step issued op by
+    op (``torch.profiler``)."""
     walls = {}
     for form in ("graphed", "eager", "graphed ", "eager "):
         run = step if form.strip() == "graphed" else step.eager
-        walls[form] = wall_ms(run, state, batch, n=10)
+        walls[form] = wall_ms(run, state, batch, n=n)
     busy = profile_step(step.eager, state, batch, walls["eager"],
                         f"{tag} (eager, for its device time)")
     graphed_busy = profiled_busy(step, state, batch)
@@ -6031,9 +6101,295 @@ def graph_kept_rollouts(ds, train_idx) -> None:
         "the eager rollouts of a fresh copy of the trained parameters")
 
 
-def graph_phases(traj) -> dict:
-    """Phase 21; returns the launch counts of its graphed main-path runs
-    (the bf16 single-stream rollout, the teacher and K = 4 steps)."""
+# ---- phase 22: the dense graph's loops as CUDA graphs ---------------------
+
+DENSE_GRAPH_STREAMS = (1, 8)
+DENSE_GRAPH_CHUNK = 4
+DENSE_SERVED_STEPS = 2 * SEGMENT  # a request spans two segments
+LARGE_BUSY_STEPS = 4
+
+
+@contextlib.contextmanager
+def eager_scan_segments():
+    """Within the block a new ``RolloutServer(impl="scan")`` issues its
+    segment loop from Python: the yardstick of the graphed server."""
+    from molecular_dynamics_neural_operator_tpu_torch.serving import server
+
+    graphed = server.stays_eager
+    server.stays_eager = lambda cfg: True
+    try:
+        yield
+    finally:
+        server.stays_eager = graphed
+
+
+def dense_windows(traj, streams: int, dev):
+    t_len = dense_cfg("bfloat16").window_size
+    return torch.as_tensor(np.stack(
+        [traj.positions[i * (4000 // streams):i * (4000 // streams) + t_len]
+         for i in range(streams)]), device=dev)
+
+
+def dense_graph_rollouts(params, aa, traj) -> None:
+    """Phase 22a: the dense scan rollout (the BBA preset, the bench
+    checkpoint) replayed as CUDA graphs against its loop issued op by op,
+    bit for bit: f32 and bf16, one stream and eight in chunks of four,
+    GRAPH_ODD_STEPS steps (a block and a tail) collecting coordinates and
+    contact maps, the second graphed call under the sync check."""
+    from molecular_dynamics_neural_operator_tpu_torch.cli.export import (
+        same_outputs,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.rollout import (
+        make_rollout_fn,
+    )
+
+    dev = torch.device("cuda")
+    for cd in ("float32", "bfloat16"):
+        cfg = dense_cfg(cd)
+        for s in DENSE_GRAPH_STREAMS:
+            batched = s > 1
+            fn = make_rollout_fn(
+                cfg, GRAPH_ODD_STEPS, THRESHOLD, collect="both",
+                batched=batched, clip=CLIP,
+                stream_chunk=DENSE_GRAPH_CHUNK if batched else None)
+            w0 = dense_windows(traj, s, dev)
+            w0 = w0 if batched else w0[0]
+            with torch.no_grad():
+                want = fn.eager(params, aa, w0)
+                first = fn(params, aa, w0)
+                with sync_errors():
+                    again = fn(params, aa, w0)
+            require(same_outputs(first, want) and same_outputs(again, want),
+                    f"graphed dense rollout, {cd}, S={s}: not bit-equal to "
+                    f"the loop issued op by op")
+            require(bool(torch.isfinite(want[0][0]).all()),
+                    f"dense rollout, {cd}, S={s}: not finite")
+    log(f"graphed dense rollout (BBA preset, the bench checkpoint), f32 and "
+        f"bf16, S = {DENSE_GRAPH_STREAMS} (8 in chunks of "
+        f"{DENSE_GRAPH_CHUNK}), {GRAPH_ODD_STEPS} steps collecting both: "
+        f"coordinates, contact maps, final window and overflow equal to the "
+        f"bit to the loop issued op by op; no second call waited for the "
+        f"card")
+
+
+def dense_graph_rates(params, aa, traj) -> None:
+    """Phase 22b: the dense scan rollout's steps/s by the slope of 16 and
+    80 steps, graphed and eager in turns (two runs each at bf16 and one
+    stream, one run each elsewhere), bf16 and f32 at 1 and 4 streams,
+    beside a step's device time (``device_ms``: a captured step, no host
+    in it) and the busy share it implies."""
+    from molecular_dynamics_neural_operator_tpu_torch.rollout import (
+        make_rollout_fn,
+        scan,
+    )
+
+    dev = torch.device("cuda")
+    for cd in ("bfloat16", "float32"):
+        cfg = dense_cfg(cd)
+        for s in (1, 4):
+            w0 = dense_windows(traj, s, dev)
+            w0 = w0 if s > 1 else w0[0]
+            rates = {}
+            forms = ("graphed", "eager", "graphed ", "eager ") \
+                if (cd, s) == ("bfloat16", 1) else ("graphed", "eager")
+            with torch.no_grad():
+                for form in forms:
+                    fns = {n: make_rollout_fn(cfg, n, THRESHOLD, clip=CLIP,
+                                              batched=s > 1, device=dev)
+                           for n in (16, 80)}
+                    if form.strip() == "eager":
+                        fns = {n: fn.eager for n, fn in fns.items()}
+                    rates[form] = steps_per_s(lambda n, fns=fns: fns[n],
+                                              params, aa, w0, 16, 80)
+                step_ms = device_ms(lambda: scan._step(
+                    params, cfg, aa, w0, THRESHOLD, "last", CLIP), reps=5)
+            g = max(v for k, v in rates.items() if "graphed" in k)
+            e = max(v for k, v in rates.items() if "eager" in k)
+            runs = {form: " and ".join(f"{v:,.1f}" for k, v in rates.items()
+                                       if k.strip() == form)
+                    for form in ("graphed", "eager")}
+            log(f"dense scan rollout rate, {cd}, {s} stream(s), slope of 16 "
+                f"and 80 steps: graphed {runs['graphed']} steps/s, eager "
+                f"{runs['eager']}; a step "
+                f"is {step_ms * 1e3:.1f} us of device time, a ceiling of "
+                f"{1e3 / step_ms:,.0f} steps/s; busy share graphed "
+                f"{g * step_ms / 1e3:.3f}, eager {e * step_ms / 1e3:.3f}; "
+                f"graphed / eager {g / e:.2f}")
+
+
+def dense_graph_serving(params, aa_np, traj) -> None:
+    """Phase 22c: eight requests of DENSE_SERVED_STEPS steps (two
+    segments) through a dense bf16 ``RolloutServer(impl="scan")``, its
+    segments graphed and, in turns, issued op by op; every result equal
+    to the bit to the eager scan of the same eight streams; served
+    steps/s of both."""
+    from molecular_dynamics_neural_operator_tpu_torch.rollout import (
+        make_rollout_fn,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.serving import (
+        RolloutServer,
+    )
+
+    dev = torch.device("cuda")
+    cfg = dense_cfg("bfloat16")
+    w8 = dense_windows(traj, 8, dev)
+    requests = [(aa_np, w8[i].cpu().numpy(), DENSE_SERVED_STEPS)
+                for i in range(8)]
+    aa_b = torch.as_tensor(np.stack([aa_np] * 8), device=dev)
+    with torch.no_grad():
+        coords, final, diags = make_rollout_fn(
+            cfg, DENSE_SERVED_STEPS, THRESHOLD, clip=CLIP, batched=True,
+            device=dev).eager(params, aa_b, w8)
+    rates = {}
+    for form in ("graphed", "eager", "graphed ", "eager "):
+        ctx = eager_scan_segments() if form.strip() == "eager" \
+            else contextlib.nullcontext()
+        with ctx, RolloutServer(params, cfg, segment_steps=SEGMENT,
+                                max_streams=8, threshold=THRESHOLD,
+                                clip=CLIP, impl="scan") as srv:
+            srv.warmup([8])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            results = [f.result(timeout=600)
+                       for f in srv.submit_many(requests)]
+            rates[form] = srv.stats["steps_served"] / (
+                time.perf_counter() - t0)
+        for i, res in enumerate(results):
+            require(np.array_equal(res.coords, coords[i].cpu().numpy())
+                    and np.array_equal(res.final_window,
+                                       final[i].cpu().numpy())
+                    and res.edge_overflow == bool(diags["edge_overflow"][i]),
+                    f"dense served request {i} ({form.strip()} segments): "
+                    f"not bit-equal to the eager scan of the same streams")
+    log(f"dense RolloutServer(impl='scan'), bf16, 8 x {DENSE_SERVED_STEPS} "
+        f"steps (two segments): graphed segments {rates['graphed']:,.0f} "
+        f"and {rates['graphed ']:,.0f} served steps/s, eager segments "
+        f"{rates['eager']:,.0f} and {rates['eager ']:,.0f}; every result of "
+        f"both equal to the bit to the eager scan of the same eight streams")
+
+
+def dense_graph_training(traj) -> None:
+    """Phase 22d: the dense graph's graphed teacher-forced step (with
+    input noise) and K = 4 curriculum step (delta loss, full BPTT) at
+    B = 128 bf16 against their eager steps over ``TRAIN_STEPS`` batches
+    with a NaN in one: equal to the bit, the NaN batch leaving the state
+    as it was; wall ms graphed and eager beside the device busy ms."""
+    from molecular_dynamics_neural_operator_tpu_torch.data import (
+        WindowDataset,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.data.prefetch import (
+        to_device,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.train import (
+        create_train_state,
+        make_train_step,
+        train_valid_split,
+    )
+
+    cfg = dense_cfg("bfloat16", kernel_init_scale=0.1)
+    _, tcfg = training_cfgs()
+    tcfg = dataclasses.replace(tcfg, skip_nonfinite_updates=True)
+    ds = WindowDataset(traj, window_size=cfg.window_size, graph_mode="dense")
+    train_idx, _ = train_valid_split(len(ds))
+    nan_at = TRAIN_STEPS // 2
+
+    def batches(k=0):
+        out = [to_device(ds.get_batch(
+            train_idx[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH],
+            rollout_horizon=k), "cuda") for i in range(TRAIN_STEPS)]
+        out[nan_at]["window"][3, 2, 5, 1] = float("nan")
+        return out
+
+    for tag, make, k in (
+            (f"dense teacher-forced step, B={TRAIN_BATCH} bf16, noise 0.01",
+             lambda tx: make_train_step(cfg, tx, noise_std=0.01), 0),
+            (f"dense K={CURRICULUM_K} curriculum step, delta loss, "
+             f"B={TRAIN_BATCH} bf16", lambda tx: curriculum_step(
+                 cfg, tx, None), CURRICULUM_K)):
+        state0, tx, _ = create_train_state(0, cfg, tcfg)
+        step = make(tx)
+        data = batches(k)
+        held = hold_graphed_steps(tag, step, state0, data, nan_at, {})
+        require(held["bitwise"], f"{tag}: the graphed steps are not equal "
+                "to the bit to the eager steps")
+        graph_step_times(tag, step, state0, data[0], TRAIN_BATCH,
+                         n=4 if k else 10)
+
+
+def large_busy_share(dev) -> None:
+    """Phase 22e: the ``SOLVATED_10K`` rollout step issued op by op (the
+    configuration ``stays_eager`` keeps eager): its device busy ms a step
+    (``torch.profiler`` over one ``LARGE_BUSY_STEPS``-step call) over its
+    wall ms a step (a timed call after a warm one)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from molecular_dynamics_neural_operator_tpu_torch.models import gkn
+    from molecular_dynamics_neural_operator_tpu_torch.ops.cuda.graphs import (
+        stays_eager,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.rollout import (
+        make_rollout_fn,
+    )
+
+    cfg = solvated_cfg("bfloat16")
+    require(stays_eager(cfg), "the 10k configuration does not stay eager")
+    params = gkn.gkn_init(cfg, seed=0, device=dev)
+    aa = torch.as_tensor(np.random.default_rng(1).integers(0, 20, LARGE_N),
+                         device=dev)
+    grid = torch.as_tensor(breathing_trajectory(
+        serpentine_grid(LARGE_N, 4.0), cfg.window_size), device=dev)
+    roll = make_rollout_fn(cfg, LARGE_BUSY_STEPS, THRESHOLD,
+                           clip=CURRICULUM_CLIP)
+    with torch.no_grad():
+        roll(params, aa, grid)
+        (coords, _, _), seconds = timed_call(lambda: roll(params, aa, grid))
+        require(bool(torch.isfinite(coords).all()),
+                "10k rollout: not finite")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            roll(params, aa, grid)
+            torch.cuda.synchronize()
+    busy = sum(e.device_time_total for e in prof.key_averages()
+               if e.device_type.name == "CUDA") / 1e3 / LARGE_BUSY_STEPS
+    require(busy > 0, "torch.profiler recorded no device time")
+    wall = seconds * 1e3 / LARGE_BUSY_STEPS
+    log(f"SOLVATED_10K bf16 rollout step issued op by op (stays eager): "
+        f"{busy:.2f} ms of device time (torch.profiler) in {wall:.2f} ms of "
+        f"wall time a step ({LARGE_BUSY_STEPS}-step call after a warm one): "
+        f"busy share {busy / wall:.3f}")
+
+
+def dense_graph_phases(traj) -> None:
+    """Phase 22: the dense graph's loops replayed as graphs against their
+    loops issued op by op (a to d), and the 10k step's busy share (e). No
+    kernel lies on these paths."""
+    from molecular_dynamics_neural_operator_tpu_torch.utils.checkpoint import (
+        load_params_npz,
+    )
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    reset_all_launches()
+    ckpt = load_params_npz(CKPT, device=dev)
+    aa_np = np.asarray(traj.aminoacids)
+    aa = torch.as_tensor(aa_np, device=dev)
+    dense_graph_rollouts(ckpt, aa, traj)
+    dense_graph_rates(ckpt, aa, traj)
+    dense_graph_serving(ckpt, aa_np, traj)
+    dense_graph_training(traj)
+    counts = all_launches()
+    require(not any(counts.values()),
+            f"a kernel launched on the dense path: {counts}")
+    large_busy_share(dev)
+    log(f"phase 22 (the dense graph's loops as graphs) took "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def graph_phases(traj, bundles: bool = False) -> dict:
+    """Phases 21 and 22, and with ``bundles`` phase 19a (the serving
+    bundles, graphed against eager); returns the launch counts of phase
+    21's graphed main-path runs (the bf16 single-stream rollout, the
+    teacher and K = 4 steps)."""
     from molecular_dynamics_neural_operator_tpu_torch.data import (
         WindowDataset,
     )
@@ -6056,6 +6412,12 @@ def graph_phases(traj) -> dict:
     train_idx, _ = train_valid_split(len(ds))
     counts.update(graph_training(ds, train_idx))
     graph_kept_rollouts(ds, train_idx)
+    dense_graph_phases(traj)
+    if bundles:
+        import tempfile
+
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_graphs_") as tmp:
+            export_bundles(traj, Path(tmp))
     return counts
 
 
@@ -6220,7 +6582,8 @@ def main() -> int:
                         ("fno", fno_phase), ("export", export_phase),
                         ("parallel", lambda t: parallel_phase(t,
                                                               args.ranks)),
-                        ("graphs", graph_phases)):
+                        ("graphs", lambda t: graph_phases(
+                            t, bundles=only == "graphs"))):
         if only in (None, path):
             counts = phase(traj)
             for rec in kernels:

@@ -18,14 +18,18 @@ falls back to an eager loop: a capture or a replay that fails raises.
 ``BlockLoop`` is the rollouts' form: a block of ``GRAPH_BLOCK`` steps
 captured over a static window and a static block of outputs, replayed
 ``num_steps // GRAPH_BLOCK`` times, and a tail graph of its own length
-for the rest, each cached. ``KeepLast`` keeps a rollout function's
-prepared graphs across calls with the same parameters.
+for the rest, each cached. ``StepGraphs`` keeps, for any step function,
+the static inputs, carry and output blocks of each input shape with their
+``BlockLoop`` (the scan rollout's and the serving bundle's loops).
+``KeepLast`` keeps a rollout function's prepared graphs across calls with
+the same parameters.
 """
 
 from __future__ import annotations
 
 import gc
 import threading
+from types import SimpleNamespace
 from typing import Callable
 
 import torch
@@ -38,10 +42,15 @@ _capturing = threading.local()
 
 
 def stays_eager(cfg) -> bool:
-    """Configurations whose loops run op by op on the card too: the dense
-    graph and the cell-list rebuild of the large systems, whose steps keep
-    the card busy (busy share 0.95 and more), so a graph saves nothing."""
-    return cfg.graph_mode == "dense" or cfg.neighbor_impl == "cell_list"
+    """Configurations whose loops run op by op on the card too: the
+    cell-list rebuild of the large systems. Issued op by op, a
+    ``SOLVATED_10K`` rollout step keeps the card busy all of its wall
+    time (251.15 ms of device time by ``torch.profiler`` in 250.24 ms of
+    wall time a step, busy share 1.004; ``chip_smoke.py`` phase 22e on
+    an NVIDIA H100 80GB HBM3 at 700 W), so a graph saves nothing there.
+    The dense graph's loops replay graphs: issued op by op, its BBA
+    rollout step kept the same card busy 0.18 of the time."""
+    return cfg.neighbor_impl == "cell_list"
 
 
 def tree_identity(tree) -> tuple:
@@ -157,47 +166,144 @@ def capture(body: Callable, name: str, warmup: Callable | None = None,
     return Captured(graph, captured, name), out
 
 
+def _blocks(num_steps: int) -> list:
+    """(first step, steps) of each block of a ``num_steps`` loop."""
+    return [(start, min(GRAPH_BLOCK, num_steps - start))
+            for start in range(0, num_steps, GRAPH_BLOCK)]
+
+
 class BlockLoop:
     """A rollout loop on the card as replays of captured blocks of steps.
 
     ``capture_block(n)`` returns a body that runs ``n`` steps from the
     loop's static inputs into its static output blocks (rows ``:n``);
-    ``warmup()`` runs one step eagerly. ``run(num_steps, outputs)``
-    replays whole blocks and then the tail, and after each replay copies
-    its rows of each static block into its rows of the caller's
-    ``(num_steps, ...)`` tensor, before the next replay overwrites them."""
+    ``warmup()`` runs one step eagerly. ``capture_first(n)``, if given,
+    is the body of the loop's first block, which starts from other static
+    inputs than the later blocks. ``run(num_steps, outputs)`` replays
+    whole blocks and then the tail, and after each replay copies its rows
+    of each static block into its rows of the caller's ``(num_steps,
+    ...)`` tensor, before the next replay overwrites them."""
 
     def __init__(self, capture_block: Callable, warmup: Callable, name: str,
-                 pool=None):
+                 pool=None, capture_first: Callable | None = None):
         self._capture_block, self._warmup = capture_block, warmup
+        self._capture_first = capture_first
         self._name, self._pool = name, pool
         self._graphs: dict = {}
 
-    def graph(self, n: int) -> Captured:
-        if n not in self._graphs:
-            self._graphs[n], _ = capture(
-                self._capture_block(n), f"{self._name} ({n} steps)",
+    def graph(self, n: int, first: bool = False) -> Captured:
+        first = first and self._capture_first is not None
+        if (n, first) not in self._graphs:
+            make = self._capture_first if first else self._capture_block
+            self._graphs[n, first], _ = capture(
+                make(n), f"{self._name} ({n} steps"
+                + (", the first block)" if first else ")"),
                 warmup=self._warmup, pool=self._pool)
-        return self._graphs[n]
+        return self._graphs[n, first]
 
     def prepare(self, num_steps: int) -> None:
         """Capture the graphs a ``num_steps`` run replays, before any
         input is copied in (a capture's warm-up writes the buffers)."""
-        full, tail = divmod(num_steps, GRAPH_BLOCK)
-        if full:
-            self.graph(GRAPH_BLOCK)
-        if tail:
-            self.graph(tail)
+        for start, n in _blocks(num_steps):
+            self.graph(n, first=start == 0)
 
     def run(self, num_steps: int, outputs: list) -> None:
         """``outputs``: (static block, result) pairs."""
-        start = 0
-        while start < num_steps:
-            n = min(GRAPH_BLOCK, num_steps - start)
-            self.graph(n).replay()
+        for start, n in _blocks(num_steps):
+            self.graph(n, first=start == 0).replay()
             for block, out in outputs:
                 out[start:start + n].copy_(block[:n])
-            start += n
+
+
+class StepGraphs:
+    """A step loop on the card as replays of captured blocks of steps.
+
+    ``step(inputs, carry) -> (carry', outputs, flag)``: ``inputs`` a tuple
+    of tensors that stay as they are through the loop, ``carry`` the
+    tensor each step advances (a window (..., T, R, 3), or an FNO's
+    channels (R, R, T)), ``outputs`` a tuple of the tensors the loop
+    collects from each step, ``flag`` a bool tensor OR-ed over the steps,
+    or None. For each shape of inputs and carry the object keeps static
+    inputs, a static carry and flag, static blocks of ``GRAPH_BLOCK`` of
+    each output (shaped by one eager step when the shape is first seen,
+    whose launches count nothing)
+    and their ``BlockLoop``, all in one graph memory pool. ``step`` must
+    hold no reference to the owner of this object: the graphs are freed
+    with it, not by a later garbage collection. Calls are serialised by
+    the caller, on one stream.
+
+    A step's arithmetic may depend on its carry's memory layout (a
+    product over a permuted tensor takes another kernel). The loop's
+    first step reads a carry laid out as the caller's, the later ones a
+    carry laid out as a step's own result, as the loop issued op by op
+    does; where the two layouts differ the first block has graphs of its
+    own."""
+
+    def __init__(self, step: Callable, name: str):
+        self._step, self._name = step, name
+        self._loops: dict = {}
+        self._pool = torch.cuda.graph_pool_handle()
+
+    def _loop(self, inputs: tuple, carry0: torch.Tensor):
+        key = tuple((tuple(t.shape), t.stride(), t.dtype)
+                    for t in (*inputs, carry0))
+        if key in self._loops:
+            return self._loops[key]
+        step = self._step
+        st = SimpleNamespace(inputs=tuple(t.clone() for t in inputs),
+                             first=carry0.clone())
+        # a warm-up step, counted as none as a capture's warm-up is
+        before = launch_counts()
+        carry1, outs, flag = step(st.inputs, st.first)
+        _set_counts(before)
+        st.carry = st.first if carry1.stride() == st.first.stride() \
+            else torch.empty_like(carry1)
+        st.blocks = [torch.empty((GRAPH_BLOCK,) + tuple(o.shape),
+                                 dtype=o.dtype, device=o.device)
+                     for o in outs]
+        st.flag = None if flag is None else torch.zeros_like(flag)
+
+        def run_steps(n, first=False):
+            carry, flag = (st.first if first else st.carry), st.flag
+            for i in range(n):
+                carry, outs, f = step(st.inputs, carry)
+                if flag is not None:
+                    flag = flag | f
+                for block, out in zip(st.blocks, outs):
+                    block[i].copy_(out)
+            st.carry.copy_(carry)
+            if flag is not None:
+                st.flag.copy_(flag)
+
+        loop = BlockLoop(
+            lambda n: (lambda: run_steps(n)), lambda: run_steps(1),
+            f"{self._name} of {tuple(carry0.shape)}", self._pool,
+            None if st.carry is st.first
+            else (lambda n: (lambda: run_steps(n, first=True))))
+        self._loops[key] = (loop, st)
+        return loop, st
+
+    def __call__(self, inputs: tuple, carry0: torch.Tensor, num_steps: int):
+        """(outputs, each stacked on a step axis after the carry's
+        leading axes ``carry0.shape[:-3]``; the final carry; the flags
+        OR-ed, or None)."""
+        loop, st = self._loop(inputs, carry0)
+        loop.prepare(num_steps)
+        for static, given in zip(st.inputs, inputs):
+            static.copy_(given)
+        st.first.copy_(carry0)
+        if st.flag is not None:
+            st.flag.zero_()
+        outs = [(block, torch.empty((num_steps,) + block.shape[1:],
+                                    dtype=block.dtype, device=block.device))
+                for block in st.blocks]
+        loop.run(num_steps, outs)
+        lead = carry0.dim() - 3
+        stacked = tuple(torch.movedim(out, 0, lead).contiguous() if lead
+                        else out for _, out in outs)
+        final = st.carry if num_steps else st.first
+        return (stacked, final.clone(),
+                None if st.flag is None else st.flag.clone())
 
 
 class KeepLast:

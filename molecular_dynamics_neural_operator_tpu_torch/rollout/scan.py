@@ -12,8 +12,9 @@ on the card. This is the plain counterpart of the CUDA rollout
 
 On the card ``make_rollout_fn`` runs the loop as replays of a block of
 steps captured once as a CUDA graph (``ScanGraphs``, the counterpart of
-the JAX package's ``jax.jit`` of the whole scan), except for the
-configurations that stay eager (``ops/cuda/graphs.py::stays_eager``).
+the JAX package's ``jax.jit`` of the whole scan), on the dense and the
+sparse graph alike; the cell list stays eager
+(``ops/cuda/graphs.py::stays_eager``).
 ``rollout_scan`` is the loop issued op by op, the graphs' oracle.
 
 ``rollout_with_mse`` tracks each step's coordinate MSE against a true
@@ -22,8 +23,6 @@ the reference's loop shape, as an oracle and a baseline, not a fast path.
 """
 
 from __future__ import annotations
-
-from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -46,9 +45,8 @@ from molecular_dynamics_neural_operator_tpu_torch.models.gkn import (
     gkn_apply_single,
 )
 from molecular_dynamics_neural_operator_tpu_torch.ops.cuda.graphs import (
-    GRAPH_BLOCK,
-    BlockLoop,
     KeepLast,
+    StepGraphs,
     stays_eager,
     tree_identity,
 )
@@ -134,22 +132,14 @@ def rollout_scan(params, cfg: ModelConfig, aa, window0, num_steps: int,
     window = window0
     overflowed = torch.zeros(window0.shape[:-3], dtype=torch.bool,
                              device=window0.device)
-    coords, maps = [], []
+    ys = []
     for _ in range(num_steps):
         window, out, overflow = _step(params, cfg, aa, window, threshold,
                                       graph_frame, clip)
         overflowed = overflowed | overflow
-        if collect in ("coords", "both"):
-            coords.append(out)
-        if collect in ("contact_maps", "both"):
-            maps.append(contact_map(out, threshold))
-    step_axis = window0.dim() - 3
-    stacked = {name: torch.stack(ys, dim=step_axis)
-               for name, ys in (("coords", coords), ("contact_maps", maps))
-               if ys}
-    collected = (stacked["coords"], stacked["contact_maps"]) \
-        if collect == "both" else stacked[collect]
-    return collected, window, {"edge_overflow": overflowed}
+        ys.append(collected_outputs(out, collect, threshold))
+    return stacked_outputs(ys, collect, window0.dim() - 3), window, {
+        "edge_overflow": overflowed}
 
 
 def rollout_scan_chunked(params, cfg: ModelConfig, aa, window0,
@@ -177,10 +167,32 @@ def rollout_scan_chunked(params, cfg: ModelConfig, aa, window0,
     return _cat_parts(parts)
 
 
+def collected_outputs(out, collect: str, threshold: float) -> tuple:
+    """What ``collect`` keeps of a step's coordinates ``out``, as a tuple
+    (coordinates, contact map or both)."""
+    if collect == "coords":
+        return (out,)
+    maps = contact_map(out, threshold)
+    return (maps,) if collect == "contact_maps" else (out, maps)
+
+
+def collected(outputs: tuple, collect: str):
+    """The collected result of stacked ``collected_outputs``: the tuple
+    under ``collect="both"``, else its one tensor."""
+    return tuple(outputs) if collect == "both" else outputs[0]
+
+
+def stacked_outputs(ys: list, collect: str, step_axis: int):
+    """``collected`` of each step's ``collected_outputs`` in ``ys``,
+    stacked on ``step_axis``."""
+    return collected(tuple(torch.stack(group, dim=step_axis)
+                           for group in zip(*ys)), collect)
+
+
 class ScanGraphs:
     """``rollout_scan`` of one model on the card as CUDA graphs: for each
     window and sequence shape, static inputs and outputs and a block of
-    ``_step`` captured over them (``ops/cuda/graphs.py::BlockLoop``), all
+    ``_step`` captured over them (``ops/cuda/graphs.py::StepGraphs``), all
     in one graph memory pool. The graphs read ``params`` where they are,
     and the fused kernel's cast of them (``conv_impl="pallas"``) is one
     of their operations, so an in-place change of the parameters reaches
@@ -194,70 +206,21 @@ class ScanGraphs:
                              "(expected 'last' or 'first')")
         if collect not in COLLECT_MODES:
             raise ValueError(f"unknown collect mode: {collect}")
-        self.params, self.cfg, self.threshold = params, cfg, threshold
-        self.graph_frame, self.collect, self.clip = graph_frame, collect, clip
-        self._loops: dict = {}
-        self._pool = torch.cuda.graph_pool_handle()
+        self.collect = collect
 
-    def _loop(self, aa, window0):
-        key = (tuple(aa.shape), aa.dtype, tuple(window0.shape))
-        if key in self._loops:
-            return self._loops[key]
-        lead, r = tuple(window0.shape[:-3]), window0.shape[-2]
-        dev = window0.device
-        st = SimpleNamespace(
-            aa=aa.clone(), window=window0.clone(),
-            overflow=torch.zeros(lead, dtype=torch.bool, device=dev),
-            coords=(torch.empty((GRAPH_BLOCK,) + lead + (r, 3), device=dev)
-                    if self.collect in ("coords", "both") else None),
-            maps=(torch.empty((GRAPH_BLOCK,) + lead + (r, r), device=dev)
-                  if self.collect in ("contact_maps", "both") else None))
+        def step(inputs, window):
+            window, out, overflow = _step(params, cfg, inputs[0], window,
+                                          threshold, graph_frame, clip)
+            return window, collected_outputs(out, collect, threshold), \
+                overflow
 
-        # the closures hold no reference to self: the graphs are freed with
-        # the object, not by a later garbage collection
-        params, cfg, threshold = self.params, self.cfg, self.threshold
-        graph_frame, clip = self.graph_frame, self.clip
-
-        def run_steps(n):
-            window, overflowed = st.window, st.overflow
-            for i in range(n):
-                window, out, overflow = _step(params, cfg, st.aa, window,
-                                              threshold, graph_frame, clip)
-                overflowed = overflowed | overflow
-                if st.coords is not None:
-                    st.coords[i].copy_(out)
-                if st.maps is not None:
-                    st.maps[i].copy_(contact_map(out, threshold))
-            st.window.copy_(window)
-            st.overflow.copy_(overflowed)
-
-        loop = BlockLoop(lambda n: (lambda: run_steps(n)),
-                         lambda: run_steps(1),
-                         f"rollout scan of {tuple(window0.shape)}",
-                         self._pool)
-        self._loops[key] = (loop, st)
-        return loop, st
+        self._graphs = StepGraphs(step, "rollout scan")
 
     def __call__(self, aa, window0, num_steps: int):
         """``rollout_scan(params, cfg, aa, window0, num_steps, ...)``."""
-        loop, st = self._loop(aa, window0)
-        loop.prepare(num_steps)
-        st.aa.copy_(aa)
-        st.window.copy_(window0)
-        st.overflow.zero_()
-        lead = tuple(window0.shape[:-3])
-        outs = {name: (buf, torch.empty((num_steps,) + buf.shape[1:],
-                                        device=buf.device))
-                for name, buf in (("coords", st.coords),
-                                  ("contact_maps", st.maps))
-                if buf is not None}
-        loop.run(num_steps, list(outs.values()))
-        stacked = {name: torch.movedim(out, 0, len(lead)).contiguous()
-                   if lead else out for name, (_, out) in outs.items()}
-        collected = (stacked["coords"], stacked["contact_maps"]) \
-            if self.collect == "both" else stacked[self.collect]
-        return collected, st.window.clone(), {
-            "edge_overflow": st.overflow.clone()}
+        outs, window, overflow = self._graphs((aa,), window0, num_steps)
+        return collected(outs, self.collect), window, {
+            "edge_overflow": overflow}
 
     def chunked(self, aa, window0, num_steps: int,
                 stream_chunk: int | None):
@@ -298,8 +261,8 @@ def make_rollout_fn(cfg: ModelConfig, num_steps: int, threshold: float = 8.0,
 
     On the card ``fn`` replays the CUDA graphs of a ``ScanGraphs`` that it
     keeps while the parameters are the same tensors at the same versions,
-    so that repeated calls capture nothing again (configurations that
-    stay eager excepted). ``fn.eager`` is the loop issued op by op."""
+    so that repeated calls capture nothing again (the cell list, which
+    stays eager, excepted). ``fn.eager`` is the loop issued op by op."""
     if stream_chunk is not None and not batched:
         raise ValueError("stream_chunk only applies to batched=True "
                          "rollouts (single-stream has no stream axis)")

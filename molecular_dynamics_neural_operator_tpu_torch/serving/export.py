@@ -20,7 +20,10 @@ what ``rollout/scan.py::make_rollout_fn`` returns (``fno_rollout_scan``
 for the FNO): the collected outputs stacked on the step axis, the final
 window, and ``{"edge_overflow": ...}``, the steps' flags OR-ed. With
 ``stream_chunk=C`` the program is exported at C streams and the bundle
-runs the chunks in sequence, as ``rollout_scan_chunked`` does.
+runs the chunks in sequence, as ``rollout_scan_chunked`` does. On the
+card the loop replays CUDA graphs of the step, so the whole rollout runs
+as the JAX bundle's one program does, without Python between the steps;
+``ServingBundle.eager`` calls the step from Python, the graphs' oracle.
 
 The parameters are inputs of the program, not constants baked into it:
 ``bundle(aa, window, params=other)`` serves another checkpoint of the
@@ -35,7 +38,8 @@ the device the program was traced on (``traced_on``); the JAX package's
 runs on any device type it names (by default the one it was traced on)
 and ``load_bundle`` refuses any other. A program traced on one device is
 moved to another by ``torch.export.passes.move_to_device_pass``, which
-rewrites the devices the trace baked into the graph.
+rewrites the devices the trace baked into the graph; so is a program
+whose tensor constants lie on another device than the bundle's.
 
 The two packages' programs do not cross: the port cannot read a JAX
 ``rollout.jaxexport`` (serialized StableHLO), and the JAX package cannot
@@ -51,6 +55,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import threading
 from pathlib import Path
 from typing import Any, Optional, Sequence
 
@@ -62,17 +67,25 @@ from molecular_dynamics_neural_operator_tpu_torch.configs import (
     _from_dict,
 )
 from molecular_dynamics_neural_operator_tpu_torch.device import resolve_device
-from molecular_dynamics_neural_operator_tpu_torch.geometry.contact import (
-    contact_map,
-)
 from molecular_dynamics_neural_operator_tpu_torch.models import gkn_init
 from molecular_dynamics_neural_operator_tpu_torch.models.fno import (
     fno_init,
     fno_rollout_step,
 )
+from molecular_dynamics_neural_operator_tpu_torch.ops.cuda.graphs import (
+    StepGraphs,
+)
 from molecular_dynamics_neural_operator_tpu_torch.rollout.scan import (
     COLLECT_MODES,
+    _cat_parts,
     _step,
+    collected,
+    collected_outputs,
+    stacked_outputs,
+)
+from molecular_dynamics_neural_operator_tpu_torch.train.optim import (
+    tree_leaves,
+    tree_map,
 )
 from molecular_dynamics_neural_operator_tpu_torch.utils.checkpoint import (
     restore_subtree,
@@ -127,13 +140,9 @@ class _GKNStep(torch.nn.Module):
         window, out, overflow = _step(params, self.cfg, aa, window,
                                       kw["threshold"], kw["graph_frame"],
                                       kw["clip"])
-        if kw["collect"] == "coords":
-            collected = out
-        elif kw["collect"] == "contact_maps":
-            collected = contact_map(out, kw["threshold"])
-        else:
-            collected = (out, contact_map(out, kw["threshold"]))
-        return window, collected, overflow
+        return window, collected(
+            collected_outputs(out, kw["collect"], kw["threshold"]),
+            kw["collect"]), overflow
 
 
 class _FNOStep(torch.nn.Module):
@@ -270,17 +279,42 @@ def save_bundle(
     return path
 
 
-def _cat(parts):
-    if isinstance(parts[0], tuple):
-        return tuple(_cat(list(group)) for group in zip(*parts))
-    return torch.cat(parts, dim=0)
+def _graphed_step(module, operator: str, params):
+    """``ops/cuda/graphs.py::StepGraphs``' step of the exported step
+    ``module`` reading the weights ``params``: ``((aa,), window) ->
+    (window', collected as a tuple, overflow)`` for a GKN,
+    ``((), channels) -> (channels', (its last channel,), None)`` for an
+    FNO."""
+    if operator == "fno":
+        def step(inputs, channels):
+            channels = module(params, channels)
+            return channels, (channels[..., -1],), None
+        return step
+
+    def step(inputs, window):
+        window, out, overflow = module(params, inputs[0], window)
+        return window, out if isinstance(out, tuple) else (out,), overflow
+    return step
 
 
 @dataclasses.dataclass(frozen=True)
 class ServingBundle:
     """A loaded bundle on ``device``: ``bundle(aa, window)`` for GKN
     bundles, ``bundle(channels0)`` for FNO ones (``bundle.operator`` says
-    which). ``params=`` serves other weights of the same shapes."""
+    which). ``params=`` serves other weights of the same shapes.
+
+    On the card a call replays CUDA graphs of the exported step, the
+    counterpart of the JAX bundle's one program for the whole rollout:
+    blocks of ``GRAPH_BLOCK`` steps over static weights, a static window
+    and static blocks of outputs, and a tail graph (``ops/cuda/graphs.py
+    ::StepGraphs``), one graph set per window shape, captured at its
+    first call and kept for the bundle's lifetime. Each call first copies
+    the weights it serves (the bundle's own or ``params=``) into the
+    static weights. Calls from several threads take turns: a lock holds
+    each from its copy of the weights to its copy of the outputs, and
+    each call's work on the card waits for the last call's, whatever
+    stream issued it. ``eager`` is the step loop issued from Python, the
+    graphs' oracle and the loop on the CPU."""
 
     program: Any
     step: Any  # program.module(): the exported step as a callable
@@ -288,6 +322,11 @@ class ServingBundle:
     cfg: Any
     meta: dict
     device: torch.device
+    # the card's graphs and their static weights, made at the first call
+    graphed: dict = dataclasses.field(default_factory=dict, init=False,
+                                      repr=False, compare=False)
+    lock: Any = dataclasses.field(default_factory=threading.Lock,
+                                  init=False, repr=False, compare=False)
 
     @property
     def operator(self) -> str:
@@ -301,18 +340,73 @@ class ServingBundle:
     def rollout(self) -> dict:
         return dict(self.meta["rollout"])
 
-    def __call__(self, *args, params=None):
-        params = self.params if params is None \
+    def _params(self, params):
+        return self.params if params is None \
             else _canonical(params, self.device)
+
+    def __call__(self, *args, params=None):
+        if self.device.type != "cuda":
+            return self.eager(*args, params=params)
+        params = self._params(params)
+        with self.lock:
+            return self._replay(args, params)
+
+    def _replay(self, args, params):
+        if not self.graphed:
+            static = tree_map(torch.clone, self.params)
+            graphs = StepGraphs(
+                _graphed_step(self.step, self.operator, static),
+                f"serving bundle ({self.operator})")
+            self.graphed.update(params=static, graphs=graphs,
+                                done=torch.cuda.Event())
+        static = self.graphed["params"]
+        if tree_map(lambda t: t.shape, params) != \
+                tree_map(lambda t: t.shape, static):
+            raise ValueError("params= must have the bundle's keys and "
+                             "shapes")
+        done = self.graphed["done"]
+        # the last call's replay and copies, on whatever stream, come first
+        torch.cuda.current_stream(self.device).wait_event(done)
+        # both trees are key-sorted (_canonical): their leaves pair up
+        torch._foreach_copy_(tree_leaves(static), tree_leaves(params))
+        result = self._replay_graphs(args)
+        done.record(torch.cuda.current_stream(self.device))
+        return result
+
+    def _replay_graphs(self, args):
+        graphs = self.graphed["graphs"]
+        n = self.rollout["num_steps"]
+        with torch.no_grad():
+            if self.operator == "fno":
+                outs, channels, _ = graphs((), self._channels(args[0]), n)
+                return outs[0], channels
+            collect = self.rollout["collect"]
+
+            def run(aa, window0):
+                outs, window, overflow = graphs((aa,), window0, n)
+                return collected(outs, collect), window, {
+                    "edge_overflow": overflow}
+
+            return self._gkn(run, args[0], args[1])
+
+    def eager(self, *args, params=None):
+        """The rollout ``__call__`` returns, with the exported step called
+        ``num_steps`` times from Python: the graphs' oracle, and the loop
+        off the card."""
+        params = self._params(params)
         n = self.rollout["num_steps"]
         with torch.no_grad():
             if self.operator == "fno":
                 return self._fno(params, args[0], n)
-            return self._gkn(params, args[0], args[1], n)
+            return self._gkn(lambda aa, w: self._run(params, aa, w, n),
+                             args[0], args[1])
+
+    def _channels(self, channels0):
+        return torch.as_tensor(channels0, dtype=torch.float32,
+                               device=self.device)
 
     def _fno(self, params, channels0, n: int):
-        channels = torch.as_tensor(channels0, dtype=torch.float32,
-                                   device=self.device)
+        channels = self._channels(channels0)
         first, preds = channels, []
         for _ in range(n):
             channels = self.step(params, channels)
@@ -322,7 +416,9 @@ class ServingBundle:
                                    + first.shape[-3:-1]), channels
         return torch.stack(preds, dim=first.dim() - 3), channels
 
-    def _gkn(self, params, aa, window0, n: int):
+    def _gkn(self, run, aa, window0):
+        """``run(aa, window0)`` of each ``stream_chunk`` of the streams,
+        joined."""
         kw = self.rollout
         window0 = torch.as_tensor(window0, dtype=torch.float32,
                                   device=self.device)
@@ -334,30 +430,22 @@ class ServingBundle:
                 f", got {tuple(window0.shape)}")
         chunk = kw["stream_chunk"]
         if chunk is None:
-            return self._run(params, aa, window0, n)
-        parts = [self._run(params, aa, window0[i:i + chunk], n)
-                 for i in range(0, window0.shape[0], chunk)]
-        return (_cat([p[0] for p in parts]), _cat([p[1] for p in parts]),
-                {"edge_overflow": _cat([p[2]["edge_overflow"]
-                                        for p in parts])})
+            return run(aa, window0)
+        return _cat_parts([run(aa, window0[i:i + chunk])
+                           for i in range(0, window0.shape[0], chunk)])
 
     def _run(self, params, aa, window0, n: int):
-        collect = self.rollout["collect"]
         window = window0
         overflowed = torch.zeros(window0.shape[:-3], dtype=torch.bool,
                                  device=window0.device)
         ys = []
         for _ in range(n):
-            window, collected, overflow = self.step(params, aa, window)
+            window, out, overflow = self.step(params, aa, window)
             overflowed = overflowed | overflow
-            ys.append(collected)
-        axis = window0.dim() - 3
-        if collect == "both":
-            collected = tuple(torch.stack(group, dim=axis)
-                              for group in zip(*ys))
-        else:
-            collected = torch.stack(ys, dim=axis)
-        return collected, window, {"edge_overflow": overflowed}
+            ys.append(out if isinstance(out, tuple) else (out,))
+        return stacked_outputs(ys, self.rollout["collect"],
+                               window0.dim() - 3), window, {
+            "edge_overflow": overflowed}
 
 
 def load_bundle(path, device=None) -> ServingBundle:
@@ -389,7 +477,13 @@ def load_bundle(path, device=None) -> ServingBundle:
     params = _canonical(params, dev)
     program = torch.export.load(path / _MODULE_FILE)
     traced = torch.device(meta.get("traced_on", "cpu"))
-    if (traced.type, traced.index or 0) != (dev.type, dev.index or 0):
+    # a trace keeps the tensor constants it made (the FNO's DFT matrices)
+    # on the host, and the program copies them to the card at every step:
+    # a copy that a CUDA graph cannot capture
+    astray = [t for t in program.constants.values()
+              if isinstance(t, torch.Tensor) and t.device.type != dev.type]
+    if (traced.type, traced.index or 0) != (dev.type, dev.index or 0) \
+            or astray:
         from torch.export.passes import move_to_device_pass
 
         program = move_to_device_pass(program, str(dev))

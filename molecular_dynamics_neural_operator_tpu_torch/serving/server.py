@@ -161,8 +161,8 @@ def _scan_segment(params, cfg: ModelConfig, seg: int, threshold: float,
     """The ``impl="scan"`` segment: run(aa_b (S, R), win_b (S, T, R, 3))
     -> (coords (S, seg, R, 3), final windows, overflow (S,)). On the card
     it replays the CUDA graphs of one ``ScanGraphs`` kept for the server's
-    lifetime, one graph set per padded stream count (configurations that
-    stay eager excepted)."""
+    lifetime, one graph set per padded stream count, on the dense and the
+    sparse graph alike (the cell list, which stays eager, excepted)."""
     graphs = None
     if device.type == "cuda" and not stays_eager(cfg):
         graphs = ScanGraphs(params, cfg, threshold, "last", "coords", clip)

@@ -115,9 +115,10 @@ def make_train_step(cfg: ModelConfig, tx, graph_frame: str = "first",
     stored contact map.
 
     On the card the step replays a CUDA graph per batch shape over a
-    static state (``train/graphed.py``); the dense graph and the cell list
-    stay eager (``ops/cuda/graphs.py::stays_eager``). ``step.eager`` is
-    the step issued op by op, the oracle."""
+    static state (``train/graphed.py``), on the dense and the sparse
+    graph alike; the cell list stays eager
+    (``ops/cuda/graphs.py::stays_eager``). ``step.eager`` is the step
+    issued op by op, the oracle."""
 
     def body(state: TrainState, batch: dict):
         batch = with_noise(batch, noise_std)

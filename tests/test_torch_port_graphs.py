@@ -1,6 +1,7 @@
 """The port's step loops as CUDA graphs (ops/cuda/graphs.py,
-train/graphed.py): the kernel rollout, the scan rollout, the server's
-segments and the train steps against the same loops issued op by op.
+train/graphed.py): the kernel rollout, the scan rollout on the sparse
+and the dense graph, the server's segments, the serving bundle and the
+train steps against the same loops issued op by op.
 
 The tests marked ``gpu`` capture and replay graphs on the card and skip
 without one (a CUDA graph has no CPU mode); ``python3 chip_smoke.py``
@@ -16,6 +17,7 @@ import pytest
 import torch
 
 from molecular_dynamics_neural_operator_tpu_torch.configs import (
+    FNOConfig,
     ModelConfig,
     TrainConfig,
 )
@@ -26,7 +28,7 @@ from molecular_dynamics_neural_operator_tpu_torch.data import (
 from molecular_dynamics_neural_operator_tpu_torch.data.prefetch import (
     to_device,
 )
-from molecular_dynamics_neural_operator_tpu_torch.models import gkn_init
+from molecular_dynamics_neural_operator_tpu_torch.models import fno, gkn_init
 from molecular_dynamics_neural_operator_tpu_torch.ops.cuda import (
     graphs,
     persistent_rollout as pr,
@@ -39,6 +41,10 @@ from molecular_dynamics_neural_operator_tpu_torch.rollout.scan import (
 )
 from molecular_dynamics_neural_operator_tpu_torch.serving import (
     RolloutServer,
+)
+from molecular_dynamics_neural_operator_tpu_torch.serving.export import (
+    load_bundle,
+    save_bundle,
 )
 from molecular_dynamics_neural_operator_tpu_torch.train import (
     apply_update,
@@ -85,9 +91,23 @@ def _windows(streams, device):
                            device=device)
 
 
+def _leaves(out) -> list:
+    if isinstance(out, torch.Tensor):
+        return [out]
+    if isinstance(out, dict):
+        return [x for v in out.values() for x in _leaves(v)]
+    return [x for v in out for x in _leaves(v)]
+
+
+def _same(a, b) -> bool:
+    """Two rollouts' results (tensors in tuples and dicts) equal to the
+    bit."""
+    return all(torch.equal(x, y) for x, y in zip(_leaves(a), _leaves(b)))
+
+
 def _train_setup(device, **cfg_kw):
     cfg = ModelConfig(**{**SMALL, **cfg_kw})
-    ds = WindowDataset(_traj(), window_size=4, graph_mode="sparse",
+    ds = WindowDataset(_traj(), window_size=4, graph_mode=cfg.graph_mode,
                        max_edges=128)
     state, tx, _ = create_train_state(0, cfg, TrainConfig(**TRAIN),
                                       device=device)
@@ -154,8 +174,10 @@ def test_steps_on_the_cpu_are_their_eager_form():
 
 
 def test_configurations_that_stay_eager():
-    assert graphs.stays_eager(ModelConfig(**{**SMALL,
-                                             "graph_mode": "dense"}))
+    """Only the cell list's loops stay op by op; the dense graph's replay
+    graphs as the sparse graph's do."""
+    assert not graphs.stays_eager(ModelConfig(**{**SMALL,
+                                                 "graph_mode": "dense"}))
     assert graphs.stays_eager(ModelConfig(**{**SMALL,
                                              "neighbor_impl": "cell_list"}))
     assert not graphs.stays_eager(ModelConfig(**SMALL))
@@ -207,6 +229,117 @@ def test_graphed_scan_rollout_is_the_eager_loop_to_the_bit(cuda, conv_impl):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("cd", ["float32", "bfloat16"])
+@pytest.mark.parametrize("streams", [1, 8])
+def test_graphed_dense_rollout_is_the_eager_loop_to_the_bit(cuda, cd,
+                                                            streams):
+    """The dense graph's scan, 100 steps (a block and a tail) collecting
+    both outputs, twice: bit-equal to the loop issued op by op; eight
+    streams in chunks of four."""
+    cfg = ModelConfig(**{**SMALL, "graph_mode": "dense"}, compute_dtype=cd)
+    params = gkn_init(cfg, seed=0, device=cuda)
+    batched = streams > 1
+    fn = make_rollout_fn(cfg, 100, batched=batched, clip=100.0,
+                         collect="both", stream_chunk=4 if batched else None,
+                         device=cuda)
+    aa = torch.as_tensor(_traj().aminoacids, device=cuda)
+    w0 = _windows(streams, cuda) if batched else _windows(1, cuda)[0]
+    want = fn.eager(params, aa, w0)
+    for _ in range(2):
+        assert _same(fn(params, aa, w0), want)
+
+
+@pytest.mark.gpu
+def test_graphed_scan_from_a_window_of_another_layout(cuda):
+    """A window laid out otherwise than a step's result (the FNO's
+    distance channels are such a carry): the loop's first block reads it
+    as given, the later blocks a step's result, as the eager loop does;
+    bit-equal over a block and a tail."""
+    cfg = ModelConfig(**{**SMALL, "graph_mode": "dense"})
+    params = gkn_init(cfg, seed=0, device=cuda)
+    fn = make_rollout_fn(cfg, 70, batched=True, clip=100.0, device=cuda)
+    aa = torch.as_tensor(_traj().aminoacids, device=cuda)
+    w0 = _windows(4, cuda).transpose(-1, -2).contiguous().transpose(-1, -2)
+    assert not w0.is_contiguous()
+    want = fn.eager(params, aa, w0)
+    for _ in range(2):
+        assert _same(fn(params, aa, w0), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("operator", ["gkn", "gkn-dense", "fno"])
+def test_graphed_bundle_is_its_eager_loop_to_the_bit(cuda, tmp_path,
+                                                     operator):
+    """A bundle's graphs against its step loop issued from Python, 70
+    steps (a block and a tail), twice, then with hot-swapped weights and
+    with its own again: every result bit-equal, the swapped one
+    different."""
+    traj = _traj()
+    if operator == "fno":
+        cfg = FNOConfig(num_residues=12, in_channels=4, width=8, modes1=4,
+                        modes2=4, depth=2, predict_delta=True)
+        params = fno.fno_init(cfg, seed=0, device=cuda)
+        other = fno.fno_init(cfg, seed=1, device=cuda)
+        args = (fno.distance_matrix_channels(
+            torch.as_tensor(traj.positions[:4], device=cuda)),)
+        kw = {}
+    else:
+        mode = "dense" if operator == "gkn-dense" else "sparse"
+        cfg = ModelConfig(**{**SMALL, "graph_mode": mode})
+        params = gkn_init(cfg, seed=0, device=cuda)
+        other = gkn_init(cfg, seed=1, device=cuda)
+        args = (torch.as_tensor(traj.aminoacids, device=cuda),
+                _windows(4, cuda))
+        kw = dict(streams=4, stream_chunk=2, collect="both", clip=100.0)
+    bundle = load_bundle(save_bundle(tmp_path / operator, params, cfg, 70,
+                                     **kw), device=cuda)
+    want = bundle.eager(*args)
+    swapped = bundle.eager(*args, params=other)
+    assert not _same(swapped, want)
+    for _ in range(2):
+        assert _same(bundle(*args), want)
+    assert _same(bundle(*args, params=other), swapped)
+    assert _same(bundle(*args), want)
+
+
+@pytest.mark.gpu
+def test_a_bundle_called_from_two_threads_serves_each_its_weights(
+        cuda, tmp_path):
+    """Two threads call one bundle at once, five times each, with
+    different weights (one on a stream of its own): every result is its
+    own checkpoint's eager rollout to the bit."""
+    import threading
+
+    cfg = ModelConfig(**SMALL)
+    weights = [gkn_init(cfg, seed=s, device=cuda) for s in (0, 1)]
+    bundle = load_bundle(save_bundle(tmp_path / "b", weights[0], cfg, 70,
+                                     streams=4, collect="both", clip=100.0),
+                         device=cuda)
+    aa = torch.as_tensor(_traj().aminoacids, device=cuda)
+    w0 = _windows(4, cuda)
+    wants = [bundle.eager(aa, w0, params=p) for p in weights]
+    assert not _same(wants[0], wants[1])
+    start, results = threading.Barrier(2), [[], []]
+    torch.cuda.synchronize()
+
+    def serve(i):
+        with torch.cuda.stream(torch.cuda.Stream() if i else
+                               torch.cuda.current_stream()):
+            start.wait()
+            for _ in range(5):
+                results[i].append(bundle(aa, w0, params=weights[i]))
+            torch.cuda.current_stream().synchronize()
+
+    threads = [threading.Thread(target=serve, args=(i,)) for i in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for want, got in zip(wants, results):
+        assert len(got) == 5 and all(_same(g, want) for g in got)
+
+
+@pytest.mark.gpu
 def test_a_served_request_after_the_graph_buffers_were_reused(cuda):
     """A request that spans three segments, served beside others that
     come and go, equals its dedicated rollout to the bit although every
@@ -232,13 +365,15 @@ def test_a_served_request_after_the_graph_buffers_were_reused(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("impl", ["pallas", "xla"])
+@pytest.mark.parametrize("impl", ["pallas", "xla", "dense"])
 def test_graphed_teacher_steps_agree_with_the_eager_steps(cuda, impl):
     """Four steps with noise, the third on a batch with a NaN: the graphed
     state within the training limits of the eager one, and over the NaN
     batch the graphed parameters, moments and apply count bit-unchanged
-    with the skip counted."""
-    cfg, ds, state0, tx = _train_setup(cuda, train_conv_impl=impl)
+    with the skip counted. "dense" is the dense graph's step."""
+    opts = dict(graph_mode="dense") if impl == "dense" \
+        else dict(train_conv_impl=impl)
+    cfg, ds, state0, tx = _train_setup(cuda, **opts)
     step = make_train_step(cfg, tx, noise_std=0.05)
     batches = [to_device(ds.get_batch(np.arange(4) + 4 * i), cuda)
                for i in range(4)]

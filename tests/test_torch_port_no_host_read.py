@@ -1,7 +1,8 @@
 """The port's step bodies read nothing back from the device, so each can
 be captured whole in a CUDA graph: the optimizer's update (every chain,
 with a non-finite gradient too), the teacher-forced, K-step curriculum
-and FNO train steps, and the rollout step of the graphed configurations.
+and FNO train steps, the rollout step of the graphed configurations
+(the dense graph's included) and a serving bundle's exported step.
 They run here on CPU tensors with every Python-level way of reading a
 tensor's value (``__bool__``, ``item``, ``tolist`` and their kin) made to
 raise."""
@@ -32,6 +33,7 @@ from molecular_dynamics_neural_operator_tpu_torch.ops.cuda import (
 from molecular_dynamics_neural_operator_tpu_torch.rollout import (
     make_rollout_fn,
 )
+from molecular_dynamics_neural_operator_tpu_torch.serving import export
 from molecular_dynamics_neural_operator_tpu_torch.train import (
     create_train_state,
     make_curriculum_train_step,
@@ -113,10 +115,15 @@ def test_optimizer_update_reads_nothing_back(kw):
 
 
 def _window_batch(cfg, b=4, k=0, layout="csr"):
+    """A batch of ``b`` windows (with ``y_seq`` of K = ``k`` when k > 0);
+    ``layout`` is the sparse edge layout, or "dense" for an adjacency."""
+    dense = layout == "dense"
     ds = WindowDataset(synthetic_trajectory(num_frames=24, num_residues=12,
                                             seed=4),
-                       window_size=cfg.window_size, graph_mode="sparse",
-                       max_edges=cfg.max_edges, edge_layout=layout)
+                       window_size=cfg.window_size,
+                       graph_mode="dense" if dense else "sparse",
+                       max_edges=cfg.max_edges,
+                       edge_layout="csr" if dense else layout)
     idx = np.arange(b)
     batch = ds.get_batch(idx) if k == 0 else ds.get_batch(
         idx, rollout_horizon=k)
@@ -137,7 +144,10 @@ def _state(cfg, **train):
     ("pallas", {"scatter_mode": "blocked", "max_edges": 144}, "blocked"),
     ("xla", {"scatter_mode": "blocked", "max_edges": 144,
              "compute_dtype": "bfloat16"}, "blocked"),
-], ids=["pallas", "xla", "window-diff", "blocked", "blocked-bf16-xla"])
+    ("xla", {"graph_mode": "dense"}, "dense"),
+    ("xla", {"graph_mode": "dense", "compute_dtype": "bfloat16"}, "dense"),
+], ids=["pallas", "xla", "window-diff", "blocked", "blocked-bf16-xla",
+        "dense", "dense-bf16"])
 def test_teacher_step_reads_nothing_back(impl, opts, layout):
     cfg = ModelConfig(**{**CFG, **opts}, train_conv_impl=impl)
     state, tx = _state(cfg)
@@ -151,12 +161,23 @@ def test_teacher_step_reads_nothing_back(impl, opts, layout):
 @pytest.mark.parametrize("opts", [
     dict(graph_frame="rebuild", loss_space="delta", coord_clip=100.0),
     dict(graph_frame="first", grad_steps=1, noise_std=0.1),
-], ids=["rebuild-delta", "burn-in-noise"])
+    dict(graph_mode="dense", graph_frame="rebuild", loss_space="delta",
+         coord_clip=100.0),
+    dict(graph_mode="dense", compute_dtype="bfloat16", graph_frame="first",
+         grad_steps=1, noise_std=0.1),
+], ids=["rebuild-delta", "burn-in-noise", "dense-rebuild-delta",
+        "dense-bf16-burn-in-noise"])
 def test_curriculum_step_reads_nothing_back(opts):
-    cfg = ModelConfig(**CFG, train_conv_impl="pallas")
+    """The K free steps rebuild each graph on the device, the dense
+    adjacency too."""
+    opts = dict(opts)
+    model = {k: opts.pop(k) for k in ("graph_mode", "compute_dtype")
+             if k in opts}
+    cfg = ModelConfig(**{**CFG, **model}, train_conv_impl="pallas")
     state, tx = _state(cfg, grad_accum=2)
     step = make_curriculum_train_step(cfg, tx, rollout_steps=3, **opts)
-    batch = _window_batch(cfg, k=3)
+    batch = _window_batch(cfg, k=3, layout="dense"
+                          if cfg.graph_mode == "dense" else "csr")
     with no_host_reads():
         for _ in range(2):
             state, _ = step(state, batch)
@@ -185,7 +206,9 @@ def test_fno_step_reads_nothing_back(which):
     dict(conv_impl="pallas", electrostatics="dh"),
     dict(compute_dtype="bfloat16", scatter_mode="segment"),
     dict(kernel_quant="int8"),
-], ids=["sparse", "fused-dh", "bf16-segment", "int8"])
+    dict(graph_mode="dense"),
+    dict(graph_mode="dense", compute_dtype="bfloat16"),
+], ids=["sparse", "fused-dh", "bf16-segment", "int8", "dense", "dense-bf16"])
 def test_rollout_step_reads_nothing_back(opts):
     """The configurations whose rollouts the card runs as CUDA graphs."""
     cfg = ModelConfig(**{**CFG, **opts})
@@ -207,3 +230,44 @@ def test_kernel_rollout_step_reads_nothing_back():
                                   device="cpu")
     with no_host_reads():
         prepared(torch.as_tensor(traj.positions[:4]), 3)
+
+
+# ops in an exported program that read a value back to the host
+HOST_READ_OPS = ("_local_scalar_dense", "_assert_async", "_assert_scalar",
+                 "nonzero", "item")
+
+
+@pytest.mark.parametrize("operator", ["gkn", "gkn-dense", "fno"])
+def test_bundle_step_reads_nothing_back(tmp_path, operator):
+    """The serving bundle's exported step, which the card replays as CUDA
+    graphs: no node of the program reads a value back, and a few calls
+    of the loaded step read nothing back either."""
+    traj = synthetic_trajectory(num_frames=24, num_residues=12, seed=4)
+    if operator == "fno":
+        cfg = FNOConfig(num_residues=12, in_channels=4, width=8, modes1=4,
+                        modes2=4, depth=2, predict_delta=True)
+        params = fno.fno_init(cfg, seed=0, device="cpu")
+        inputs = (fno.distance_matrix_channels(
+            torch.as_tensor(traj.positions[:4])),)
+    else:
+        mode = "dense" if operator == "gkn-dense" else "sparse"
+        cfg = ModelConfig(**{**CFG, "graph_mode": mode})
+        params = gkn.gkn_init(cfg, seed=0, device="cpu")
+        inputs = (torch.as_tensor(traj.aminoacids, dtype=torch.int32),
+                  torch.as_tensor(np.stack([traj.positions[:4],
+                                            traj.positions[8:12]])))
+    kw = {} if operator == "fno" else dict(streams=2, collect="both",
+                                           clip=100.0)
+    bundle = export.load_bundle(export.save_bundle(
+        tmp_path / operator, params, cfg, 3, **kw), device="cpu")
+    ops = [str(node.target) for node in bundle.program.graph.nodes
+           if node.op == "call_function"]
+    assert not [op for op in ops if any(f"aten.{r}." in op
+                                        for r in HOST_READ_OPS)]
+    with no_host_reads(), torch.no_grad():
+        for _ in range(3):
+            if operator == "fno":
+                inputs = (bundle.step(bundle.params, *inputs),)
+            else:
+                window, _, _ = bundle.step(bundle.params, *inputs)
+                inputs = (inputs[0], window)
