@@ -227,8 +227,16 @@ Phases, each fatal:
    gradient leaf within TOL_TRAIN_MOVE of its norm, each leaf's Adam
    movement as phase 6 holds it, the ranks' parameters bit-equal, 1 + 1
    launches a rank; (b) the same for a K = 4 delta curriculum step (4 +
-   4); (c) one NCCL rank alone: an all-reduce on the card and the
-   teacher step bit-equal to the plain step; (d) the stream-sharded
+   4); both steps run op by op on the gloo group
+   (``ops/cuda/graphs.py::step_stays_eager``); (c) one NCCL rank alone:
+   an all-reduce on the card, a CUDA graph holding one raw
+   ``dist.all_reduce`` replayed on new inputs against the same ops issued
+   eagerly, the teacher step bit-equal to the plain step, then the
+   graphed data-parallel teacher (with input noise) and K = 4 steps at
+   B = 128 on the training kernels against their bodies issued op by op
+   (``step.eager``) over ``TRAIN_STEPS`` batches with a NaN in one, equal
+   to the bit, the NaN batch leaving the state as it was, and the
+   training kernels' launches from the replays; (d) the stream-sharded
    rollout of 8 streams over the ranks, bench checkpoint, the fused
    kernel, 128 steps, against the unsharded rollout (f32 within TOL_ROLL
    with the same edge lists, bf16 within phase 9c's tolerance,
@@ -237,11 +245,21 @@ Phases, each fatal:
    TOL_ROLL); (f) ``SOLVATED_10K`` with phase 17's settings, its edges
    over the ranks and the cell list rebuilt by atom slice, against the
    single-process rollout (16 bf16 steps, 4 f32 steps within TOL_F32 of
-   scale); (g) the steps' wall and device ms beside the single-process
-   step, the part spent in the collectives, the edge-sharded step's ms.
-   ``--ranks N`` runs (a), (b), (d), (e), (f) on N ranks; with a card
-   each they take NCCL. The single-process steps it is held against are
-   the steps issued op by op (``step.eager``).
+   scale), a step's wall ms, the part spent in the collectives and rank
+   0's device busy share (it stays eager by the cell list); the steps'
+   wall and device ms issued op by op beside the single-process step,
+   the part spent in the collectives. ``--ranks N`` runs (a), (b), (d),
+   (e), (f) on N ranks; with a card each they take NCCL, the sharded
+   steps of (a) and (b) replay CUDA graphs, and (g) runs: the graphed
+   data-parallel teacher (input noise), K = 4 and FNO steps at the
+   flagship's width (B = 128 over the ranks) and the edge-sharded train
+   step over a ("data", "model") mesh, each against its body issued op
+   by op over ``TRAIN_STEPS`` batches with a NaN in rank 0's rows of
+   one, equal to the bit, the ranks' states bit-equal after, then wall
+   ms graphed and eager and rank 0's device busy share. The
+   single-process steps it is held against are the steps issued op by
+   op (``step.eager``). A failing or hung rank ends every rank by the
+   spawn's deadline, and the failure names the rank.
 21. CUDA graphs (every step loop above replays them on the card; here
    each is held against its loop issued op by op): (a) the graphed
    ``PreparedRollout`` against its eager step loop, bit for bit, f32 and
@@ -378,8 +396,13 @@ TOL_TRAIN_MOVE = 5e-2
 TOL_ROLL = 1e-5
 
 
+# set in the spawned ranks of phase 20 but rank 0, whose lines alone print
+QUIET = {"on": False}
+
+
 def log(msg: str) -> None:
-    print(f"[chip_smoke] {msg}", flush=True)
+    if not QUIET["on"]:
+        print(f"[chip_smoke] {msg}", flush=True)
 
 
 class SmokeFailure(RuntimeError):
@@ -4788,6 +4811,7 @@ PAR_STREAMS = 8
 PAR_TIMEOUT = 900  # seconds for the two-rank spawn, then every rank ends
 PAR_NCCL_TIMEOUT = 300
 PAR_HORIZONS = (7, 64, 100, 300)
+PAR_NOISE = 0.01  # the graphed data-parallel teacher step's input noise
 
 
 class _Recorder:
@@ -4862,7 +4886,10 @@ def _par_step_pair(tag, cfg, tcfg, params, host, mesh, make_sharded,
     parameters: the loss, every gradient leaf and each leaf's Adam
     movement within the TOL_TRAIN_* tolerances, the ranks' parameters bit
     equal, exact launch counts of the sharded step; then wall and device
-    ms of both steps."""
+    ms of both steps issued op by op. The sharded step runs eagerly on a
+    gloo group and replays graphs on NCCL (``step_stays_eager``); the
+    gradients are read through its body (``step.eager``), whose recorder
+    state is no optimizer state a graph holds."""
     from molecular_dynamics_neural_operator_tpu_torch.data.prefetch import (
         to_device,
     )
@@ -4875,6 +4902,7 @@ def _par_step_pair(tag, cfg, tcfg, params, host, mesh, make_sharded,
     import torch.distributed as dist
 
     group = mesh.get_group("data")
+    backend = dist.get_backend(group)
     full = to_device(host, "cuda")
     res = {}
     runs = {}
@@ -4883,6 +4911,14 @@ def _par_step_pair(tag, cfg, tcfg, params, host, mesh, make_sharded,
             state, tx = _par_state(cfg, tcfg, params, kind == "grads")
             step, put = make_sharded(tx) if sharded else (make_single(tx),
                                                           None)
+            if sharded:
+                res["graphed"] = step.graphed is not None
+                require(res["graphed"] == (backend == "nccl"),
+                        f"{tag}: on {backend} the step "
+                        + ("replays graphs" if res["graphed"]
+                           else "runs eagerly"))
+                if kind == "grads":
+                    step = step.eager
             batch = put(host) if sharded else full
             tc.reset_launch_counts()
             new, m = step(state, batch)
@@ -4921,6 +4957,7 @@ def _par_step_pair(tag, cfg, tcfg, params, host, mesh, make_sharded,
     # step on rank 0 alone
     state, tx = _par_state(cfg, tcfg, params, False)
     step, put = make_sharded(tx)
+    step = step.eager  # the collectives timed one by one
     batch = put(host)
     with _CommClock() as clock:
         res["wall_ms"] = wall_ms(step, state, batch)
@@ -4978,6 +5015,186 @@ def _par_training(mesh, traj) -> dict:
         lambda tx: make_sharded_curriculum_train_step(cfg, tx, mesh, **kw),
         lambda tx: curriculum_step(cfg, tx, None).eager,
         {"train_conv_fwd": CURRICULUM_K, "train_conv_bwd": CURRICULUM_K})
+    return out
+
+
+def _par_busy_ms(call, calls: int = 3):
+    """Rank 0's device busy ms a ``call()`` (``torch.profiler`` over
+    ``calls`` calls after one more), while every other rank makes the
+    same calls, so that their collectives meet; None on the other
+    ranks. An NCCL kernel's time includes its wait for the other ranks."""
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    if dist.get_rank() != 0:
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+        return None
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+    return sum(e.device_time_total for e in prof.key_averages()
+               if e.device_type.name == "CUDA") / 1e3 / calls
+
+
+def _par_graph_times(step, state, batch) -> dict:
+    """Wall ms of a multi-rank step graphed and issued op by op
+    (``step.eager``), on every rank at once, two runs of 10 steps each in
+    turns; rank 0's device busy ms a step issued op by op (the kernels a
+    replay launches) and over graph replays (None where the profiler
+    records none)."""
+    walls = {}
+    for form in ("graphed", "eager", "graphed ", "eager "):
+        run = step if form.strip() == "graphed" else step.eager
+        walls[form] = wall_ms(run, state, batch, n=10)
+
+    def stepping(run):
+        box = [state]
+
+        def call():
+            box[0], _ = run(box[0], batch)
+        return call
+
+    return {"graphed_ms": [walls["graphed"], walls["graphed "]],
+            "eager_ms": [walls["eager"], walls["eager "]],
+            "busy_ms": _par_busy_ms(stepping(step.eager)),
+            "replay_busy_ms": _par_busy_ms(stepping(step)) or None}
+
+
+def _par_graphed(traj) -> dict:
+    """Phase 20g, on ranks with a card each (NCCL): at the flagship's
+    width (bf16, B = 128 over the ranks) the data-parallel teacher step
+    (input noise PAR_NOISE), the K = 4 delta curriculum step and the FNO
+    step over the "data" axis, and the edge-sharded step over a ("data",
+    "model") mesh, each graphed (its collectives inside the graph)
+    against its body issued op by op over TRAIN_STEPS batches from one
+    state, a NaN in rank 0's rows of one (``hold_graphed_steps``): the
+    data-parallel steps equal to the bit; the edge-sharded step, whose
+    segment sums add by atomics (``scatter_add``) and so differ between
+    two eager runs as well, within the training limits, with bitwise
+    equality and the two eager runs' reported; the NaN batch leaving
+    every rank's state as it was; the ranks' states bit-equal after; then
+    ``_par_graph_times``. Returns each step's record with the graphed
+    steps' launches."""
+    import torch.distributed as dist
+
+    from molecular_dynamics_neural_operator_tpu_torch.configs import (
+        MeshConfig,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.data import (
+        WindowDataset,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.data.prefetch import (
+        to_device,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.geometry.contact import (
+        edge_features_from_edges,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.models import fno
+    from molecular_dynamics_neural_operator_tpu_torch.parallel import (
+        make_data_parallel_step,
+        make_edge_sharded_train_step,
+        make_mesh,
+        make_sharded_curriculum_train_step,
+        make_sharded_train_step,
+        replicas_equal,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.train import (
+        create_train_state,
+        train_valid_split,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.train.optim import (
+        make_optimizer,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.train.state import (
+        TrainState,
+    )
+
+    world = dist.get_world_size()
+    cfg, tcfg = training_cfgs()
+    tcfg = dataclasses.replace(tcfg, skip_nonfinite_updates=True)
+    ds = WindowDataset(traj, window_size=cfg.window_size,
+                       graph_mode="sparse", max_edges=cfg.max_edges)
+    idx = train_valid_split(len(ds))[0]
+    nan_at = TRAIN_STEPS // 2
+
+    def hosts(k=0):
+        out = [ds.get_batch(idx[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH],
+                            rollout_horizon=k) for i in range(TRAIN_STEPS)]
+        window = out[nan_at]["window"].copy()
+        window[3, 2, 5, 1] = np.nan  # a row of rank 0's
+        out[nan_at]["window"] = window
+        return out
+
+    out = {}
+
+    def hold(name, step, state0, batches, expect, bitwise=True):
+        tag = f"{name} over {world} NCCL ranks"
+        require(step.graphed is not None, f"{tag}: the step stays eager")
+        held = hold_graphed_steps(tag, step, state0, batches, nan_at, expect)
+        require(held["bitwise"] or not bitwise,
+                f"{tag}: graphed and eager steps differ")
+        final = held["state"]
+        require(all(replicas_equal(t, dist.group.WORLD) for t in (
+            final.params, final.opt_state.mu, final.opt_state.nu)),
+                f"{tag}: the ranks' parameters or moments differ")
+        require(len(step.graphed.graphs) == 1,
+                f"{tag}: {len(step.graphed.graphs)} graphs captured")
+        rec = {"launches": held["launches"], "bitwise": held["bitwise"],
+               "loss_gap": held["loss"], "move_gap": held["move"]}
+        if not bitwise:
+            (a, _), (b, _) = (step.eager(state0, batches[0]) for _ in "ab")
+            rec["eager_repeats"] = train_states_equal(a, b)
+        rec.update(_par_graph_times(step, state0, batches[0]))
+        out[name] = rec
+
+    data = make_mesh(MeshConfig())
+    state0, tx, _ = create_train_state(0, cfg, tcfg)
+    step, put = make_sharded_train_step(cfg, tx, data, noise_std=PAR_NOISE)
+    hold("data-parallel teacher step", step, state0,
+         [put(h) for h in hosts()],
+         {"train_conv_fwd": 1, "train_conv_bwd": 1})
+
+    state0, tx, _ = create_train_state(0, cfg, tcfg)
+    step, put = make_sharded_curriculum_train_step(
+        cfg, tx, data, rollout_steps=CURRICULUM_K,
+        coord_clip=CURRICULUM_CLIP, loss_space="delta")
+    hold(f"data-parallel K={CURRICULUM_K} curriculum step", step, state0,
+         [put(h) for h in hosts(CURRICULUM_K)],
+         {"train_conv_fwd": CURRICULUM_K, "train_conv_bwd": CURRICULUM_K})
+
+    fcfg = fno_cfg()
+    ftx, _ = make_optimizer(lr=1e-3, skip_nonfinite_updates=True)
+    params = fno.fno_init(fcfg, seed=0, device="cuda")
+    step, put = make_data_parallel_step(fno.fno_window_loss(fcfg), ftx,
+                                        data, name="FNO step")
+    hold("data-parallel FNO step", step,
+         TrainState(params, ftx.init(params), 0, 0),
+         [put(h) for h in hosts()], {})
+
+    model = 2 if world % 2 == 0 else 1
+    mesh = make_mesh(MeshConfig(data=world // model, model=model))
+    state0, tx, _ = create_train_state(0, cfg, tcfg)
+    edge_step = make_edge_sharded_train_step(cfg, tx, mesh)
+
+    def arrays(host):
+        t = to_device(host, "cuda")  # the global arrays, on every rank
+        return (t["aa"], t["window"], t["edges"], t["mask"],
+                edge_features_from_edges(t["window"][:, 0], t["edges"]),
+                t["y"])
+
+    def step(state, batch):
+        return edge_step(state, *batch)
+
+    step.eager = lambda state, batch: edge_step.eager(state, *batch)
+    step.graphed = edge_step.graphed
+    hold(f"edge-sharded step ({world // model} x {model})", step, state0,
+         [arrays(h) for h in hosts()], {}, bitwise=False)
     return out
 
 
@@ -5204,6 +5421,14 @@ def _par_edge(traj) -> dict:
                 rec["step_ms"] = (time.perf_counter() - t0) / 3 * 1e3
             rec["comm_ms"] = clock.seconds / 3 * 1e3
             rec["collectives"] = clock.calls // 3
+            # the cell list stays eager (step_stays_eager): how busy it
+            # keeps rank 0's card, against a step's wall time unclocked
+            t0 = time.perf_counter()
+            for _ in range(3):
+                one(params, aa, grid)
+            torch.cuda.synchronize()
+            rec["wall_ms"] = (time.perf_counter() - t0) / 3 * 1e3
+            rec["busy_ms"] = _par_busy_ms(lambda: one(params, aa, grid))
             dist.barrier()
             if dist.get_rank() == 0:
                 single = make_rollout_fn(cfg, 1, THRESHOLD,
@@ -5220,7 +5445,8 @@ def _par_edge(traj) -> dict:
 
 def _par_rank(rank, world, rdzv, out_dir) -> dict:
     """One of the ranks of phases 20a, b, d, e and f: gloo where ranks
-    outnumber the cards (the default: two on one), else NCCL."""
+    outnumber the cards (the default: two on one), else NCCL, which also
+    runs phase 20g."""
     import torch.distributed as dist
 
     from molecular_dynamics_neural_operator_tpu_torch.configs import (
@@ -5246,6 +5472,8 @@ def _par_rank(rank, world, rdzv, out_dir) -> dict:
     traj = synthetic_trajectory(num_frames=4000, num_residues=28, seed=13)
     res = {"backend": dist.get_backend(), "device": str(dev)}
     res.update(_par_training(mesh, traj))
+    if res["backend"] == "nccl":
+        res["graphed"] = _par_graphed(traj)
     res["rollout"] = _par_rollout(mesh, traj)
     res["server"] = _par_server(mesh, traj)
     res["edge"] = _par_edge(traj)
@@ -5253,10 +5481,21 @@ def _par_rank(rank, world, rdzv, out_dir) -> dict:
 
 
 def _par_nccl_rank(rank, world, rdzv, out_dir) -> dict:
-    """Phase 20c: one rank alone on NCCL: an all-reduce on the card, and
-    the data-parallel teacher step at B = 128 against the plain step, bit
-    for bit."""
+    """Phase 20c: one rank alone on NCCL: an all-reduce on the card; a
+    CUDA graph holding one raw ``dist.all_reduce`` (``parallel/comm.py``
+    sends nothing on a group of one, so this is the check that the card's
+    torch captures NCCL) replayed on new inputs against the same ops
+    issued eagerly; the data-parallel teacher step at B = 128 against the
+    plain step, bit for bit; then the graphed data-parallel teacher
+    (input noise PAR_NOISE) and K = 4 steps against their bodies issued
+    op by op, over TRAIN_STEPS batches with a NaN in one
+    (``hold_graphed_steps``), equal to the bit. Returns the training
+    kernels' launches of the graphed steps' replays."""
     import torch.distributed as dist
+
+    from molecular_dynamics_neural_operator_tpu_torch.ops.cuda.graphs import (
+        capture,
+    )
 
     from molecular_dynamics_neural_operator_tpu_torch.configs import (
         MeshConfig,
@@ -5272,9 +5511,11 @@ def _par_nccl_rank(rank, world, rdzv, out_dir) -> dict:
     from molecular_dynamics_neural_operator_tpu_torch.parallel import (
         init_distributed,
         make_mesh,
+        make_sharded_curriculum_train_step,
         make_sharded_train_step,
     )
     from molecular_dynamics_neural_operator_tpu_torch.train import (
+        create_train_state,
         make_train_step,
         train_valid_split,
     )
@@ -5287,6 +5528,20 @@ def _par_nccl_rank(rank, world, rdzv, out_dir) -> dict:
     dist.all_reduce(t)
     require(torch.equal(t, torch.arange(4.0, device=dev)),
             "NCCL all-reduce of one rank changed its tensor")
+    x = torch.arange(8.0, device=dev)
+
+    def reduced():
+        y = x * 2.0
+        dist.all_reduce(y)
+        return y + 1.0
+
+    captured, out = capture(reduced, "one NCCL all-reduce", warmup=reduced)
+    x.copy_(torch.linspace(-3.0, 5.0, 8, device=dev))
+    captured.replay()
+    require(torch.equal(out, reduced()) and not torch.equal(
+        out, torch.arange(8.0, device=dev) * 2.0 + 1.0),
+            "a captured NCCL all-reduce replayed on new inputs differs from "
+            "the same ops issued eagerly")
     mesh = make_mesh(MeshConfig())
     traj = synthetic_trajectory(num_frames=4000, num_residues=28, seed=13)
     cfg, tcfg = training_cfgs()
@@ -5310,7 +5565,39 @@ def _par_nccl_rank(rank, world, rdzv, out_dir) -> dict:
                 "from the plain step's")
     require(all(torch.equal(m_sh[k], m_1[k]) for k in ("rel_l2", "mse")),
             "NCCL world-1 step: metrics differ from the plain step's")
-    return {"backend": dist.get_backend(), "bit_equal": True}
+
+    tcfg = dataclasses.replace(tcfg, skip_nonfinite_updates=True)
+    nan_at = TRAIN_STEPS // 2
+    idx = train_valid_split(len(ds))[0]
+    launches = {}
+    for name, k, noise in (("teacher", 0, PAR_NOISE),
+                           (f"K={CURRICULUM_K}", CURRICULUM_K, 0.0)):
+        state0, tx, _ = create_train_state(0, cfg, tcfg)
+        if k:
+            step, put = make_sharded_curriculum_train_step(
+                cfg, tx, mesh, rollout_steps=k, coord_clip=CURRICULUM_CLIP,
+                loss_space="delta")
+        else:
+            step, put = make_sharded_train_step(cfg, tx, mesh,
+                                                noise_std=noise)
+        require(step.graphed is not None, f"NCCL world-1 {name} step runs "
+                "eagerly")
+        batches = [put(ds.get_batch(idx[i * TRAIN_BATCH:
+                                        (i + 1) * TRAIN_BATCH],
+                                    rollout_horizon=k))
+                   for i in range(TRAIN_STEPS)]
+        batches[nan_at]["window"][3, 2, 5, 1] = float("nan")
+        per = max(k, 1)
+        held = hold_graphed_steps(
+            f"NCCL world-1 data-parallel {name} step, B={TRAIN_BATCH} bf16"
+            + (f", noise {noise}" if noise else ""), step, state0, batches,
+            nan_at, {"train_conv_fwd": per, "train_conv_bwd": per})
+        require(held["bitwise"], f"NCCL world-1 {name} step: graphed and "
+                "eager steps differ")
+        for kname, n in held["launches"].items():
+            launches[kname] = launches.get(kname, 0) + n
+    return {"backend": dist.get_backend(), "bit_equal": True,
+            "captured_all_reduce": True, "graphed_launches": launches}
 
 
 def _par_worker(rank, world, rdzv, out_dir, which):
@@ -5324,6 +5611,7 @@ def _par_worker(rank, world, rdzv, out_dir, which):
     out_dir = Path(out_dir)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    QUIET["on"] = rank > 0
     try:
         fn = _par_rank if which == "ranks" else _par_nccl_rank
         res = fn(rank, world, rdzv, out_dir)
@@ -5356,7 +5644,10 @@ def _par_spawn(which: str, world: int, timeout: float) -> list:
         try:
             while True:
                 if time.monotonic() > deadline:
-                    failed = f"ranks still running after {timeout} s"
+                    alive = [r for r, p in enumerate(ctx.processes)
+                             if p.is_alive()]
+                    failed = (f"ranks {alive} still running after "
+                              f"{timeout} s")
                     break
                 try:
                     if ctx.join(timeout=1.0):
@@ -5371,7 +5662,8 @@ def _par_spawn(which: str, world: int, timeout: float) -> list:
                     p.terminate()
             for p in ctx.processes:
                 p.join(10)
-        errs = [p.read_text() for p in sorted(out.glob("rank*.err"))]
+        errs = [f"{p.stem.replace('rank', 'rank ')} failed:\n"
+                + p.read_text() for p in sorted(out.glob("rank*.err"))]
         require(not errs and failed is None,
                 f"phase 20's {which} failed: {failed}\n" + "\n".join(errs))
         return [json.loads((out / f"rank{r}.json").read_text())
@@ -5398,9 +5690,14 @@ def parallel_phase(traj, world: int = PAR_WORLD) -> dict:
     nccl = _par_spawn("nccl", 1, PAR_NCCL_TIMEOUT)[0]
     counts = {"train_conv_fwd": 0, "train_conv_bwd": 0,
               "fused_edge_conv_stack": 0}
+    for name, n in nccl["graphed_launches"].items():
+        counts[name] += n
     for r, res in enumerate(ranks):
         for path in ("teacher", "curriculum"):
             for name, n in res[path]["launches"].items():
+                counts[name] += n
+        for rec in res.get("graphed", {}).values():
+            for name, n in rec["launches"].items():
                 counts[name] += n
         n_fused = (res["rollout"]["bfloat16"]["launches"]
                    + res["server"]["launches"])
@@ -5416,17 +5713,42 @@ def parallel_phase(traj, world: int = PAR_WORLD) -> dict:
         p = r0[path]
         log(f"data-parallel {path} step, B={TRAIN_BATCH} as {world} x "
             f"{TRAIN_BATCH // world} bf16 on the training kernels, {how}: "
-            f"loss {p['loss']:.6g} (single process "
+            + ("replays CUDA graphs (NCCL)" if p["graphed"] else
+               "runs op by op by ops/cuda/graphs.py::step_stays_eager (a "
+               "gloo group)")
+            + f"; loss {p['loss']:.6g} (single process "
             f"{p['loss_single']:.6g}); gradient leaves within "
             f"{p['grad_gap']:.3e} of their norms, Adam movement within "
             f"{p['move_gap']:.3e} (at {p['move_leaf']}; tolerance "
-            f"{TOL_TRAIN_MOVE}); ranks bit-equal; step {p['wall_ms']:.2f} ms "
-            f"wall ({p['comm_ms']:.2f} ms of it in the reduction), "
-            f"{p['device_ms']:.2f} ms device on rank 0; single process "
-            f"{p['single_wall_ms']:.2f} ms wall, {p['single_device_ms']:.2f} "
-            f"ms device")
+            f"{TOL_TRAIN_MOVE}); ranks bit-equal; issued op by op a step "
+            f"{p['wall_ms']:.2f} ms wall ({p['comm_ms']:.2f} ms of it in the "
+            f"reduction), {p['device_ms']:.2f} ms device on rank 0; single "
+            f"process {p['single_wall_ms']:.2f} ms wall, "
+            f"{p['single_device_ms']:.2f} ms device")
     log(f"NCCL world-1 teacher step: backend {nccl['backend']}, bit-equal "
-        f"to the plain step: {nccl['bit_equal']}")
+        f"to the plain step: {nccl['bit_equal']}; a captured raw NCCL "
+        f"all-reduce replayed equal to its eager ops: "
+        f"{nccl['captured_all_reduce']}; the graphed teacher and "
+        f"K={CURRICULUM_K} steps' replays launched "
+        f"{nccl['graphed_launches']}")
+    for name, g in r0.get("graphed", {}).items():
+        best, eager = min(g["graphed_ms"]), min(g["eager_ms"])
+        busy = g["busy_ms"]
+        replay = ("none recorded" if g["replay_busy_ms"] is None
+                  else f"{g['replay_busy_ms']:.2f} ms")
+        held = ("equal to the bit to its eager body" if g["bitwise"] else
+                f"losses within {g['loss_gap']:.2e} and movements within "
+                f"{g['move_gap']:.2e} of their norms of its eager body "
+                f"(two eager runs equal to the bit: "
+                f"{g.get('eager_repeats')})")
+        log(f"{name} over {how}, graphed: {held}, NaN batch included, ranks "
+            f"bit-equal; launches "
+            f"{g['launches']}; wall graphed {g['graphed_ms'][0]:.2f} and "
+            f"{g['graphed_ms'][1]:.2f} ms, eager {g['eager_ms'][0]:.2f} and "
+            f"{g['eager_ms'][1]:.2f} ms ({eager / best:.2f}x); rank 0's "
+            f"device busy {busy:.2f} ms a step issued op by op, busy share "
+            f"graphed {busy / best:.2f}, eager {busy / eager:.2f}; the "
+            f"profiler over replays: {replay}")
     for cd, p in r0["rollout"].items():
         log(f"stream-sharded rollout {cd}, {PAR_STREAMS} streams as {world} x "
             f"{p['local_streams']}, {STEPS} steps, fused kernel: max error "
@@ -5441,7 +5763,11 @@ def parallel_phase(traj, world: int = PAR_WORLD) -> dict:
     for cd, p in r0["edge"].items():
         extra = (f"; a step {p['step_ms']:.2f} ms wall, {p['comm_ms']:.2f} ms "
                  f"of it in {p['collectives']} collectives "
-                 f"({p['comm_ms'] / p['step_ms']:.2f}); single process "
+                 f"({p['comm_ms'] / p['step_ms']:.2f}); unclocked "
+                 f"{p['wall_ms']:.2f} ms wall, rank 0's device busy "
+                 f"{p['busy_ms']:.2f} ms of it (busy share "
+                 f"{p['busy_ms'] / p['wall_ms']:.3f}; the cell list stays "
+                 f"eager); single process "
                  f"{p['single_step_ms']:.2f} ms" if "step_ms" in p else "")
         log(f"edge-sharded SOLVATED_10K {cd} over {how}: max error "
             f"{p['err']:.3e} A (tolerance {p['tol']:.3e}), bit-equal "
@@ -5725,7 +6051,8 @@ def hold_graphed_steps(tag, step, state0, batches, nan_at: int,
     graphed step alone launches ``expect`` (kernel -> launches), counted
     from 0 just before it, as each eager step does. Returns {"bitwise":
     bool, "loss": worst relative loss gap, "move": worst movement gap,
-    "launches": the graphed steps' launches summed}."""
+    "launches": the graphed steps' launches summed, "state": the graphed
+    steps' last state}."""
     from molecular_dynamics_neural_operator_tpu_torch.ops.cuda.graphs import (
         launch_counts,
     )
@@ -5804,7 +6131,7 @@ def hold_graphed_steps(tag, step, state0, batches, nan_at: int,
         "apply count as they were and counted the skip; no graphed step "
         "after the first waited for the card")
     return {"bitwise": bitwise, "loss": worst_loss, "move": worst_move,
-            "launches": total}
+            "launches": total, "state": graphed}
 
 
 def state_copy_ms(tag, state) -> None:

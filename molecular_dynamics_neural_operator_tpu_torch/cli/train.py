@@ -395,7 +395,8 @@ def _train_fno(args, traj, data_cfg, train_cfg, ranks):
     if ranks.mesh is not None:
         loss = (fno_curriculum_loss(cfg, train_cfg.rollout_steps)
                 if train_cfg.rollout_steps > 0 else fno_window_loss(cfg))
-        step, _ = make_data_parallel_step(loss, tx, ranks.mesh)
+        step, _ = make_data_parallel_step(
+            loss, tx, ranks.mesh, name="data-parallel FNO train step")
         ranks.say(f"FNO data parallelism: batch sharded over "
                   f"{ranks.mesh.size()} devices")
     elif train_cfg.rollout_steps > 0:

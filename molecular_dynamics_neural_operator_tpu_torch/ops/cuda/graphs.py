@@ -22,7 +22,9 @@ for the rest, each cached. ``StepGraphs`` keeps, for any step function,
 the static inputs, carry and output blocks of each input shape with their
 ``BlockLoop`` (the scan rollout's and the serving bundle's loops).
 ``KeepLast`` keeps a rollout function's prepared graphs across calls with
-the same parameters.
+the same parameters. ``stays_eager`` names the configurations whose loops
+run op by op, and ``step_stays_eager`` the train steps, multi-rank ones
+included.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from types import SimpleNamespace
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 
 # steps in one captured rollout block
 GRAPH_BLOCK = 64
@@ -51,6 +54,20 @@ def stays_eager(cfg) -> bool:
     The dense graph's loops replay graphs: issued op by op, its BBA
     rollout step kept the same card busy 0.18 of the time."""
     return cfg.neighbor_impl == "cell_list"
+
+
+def step_stays_eager(cfg=None, groups=()) -> bool:
+    """The rule for a train step on the card: op by op where its model
+    configuration ``stays_eager`` (``cfg`` None for the FNO), or where a
+    process group it reduces over is not NCCL; else CUDA graphs. Gloo
+    stages card tensors through the host (``parallel/comm.py``), a copy
+    that a capture refuses, so ranks that share a card (gloo) run
+    eagerly, and ranks with a card each (NCCL) replay graphs with their
+    collectives inside. Decided from the configuration and the backends
+    alone: no path tries a capture and falls back."""
+    if cfg is not None and stays_eager(cfg):
+        return True
+    return any(dist.get_backend(g) != "nccl" for g in groups)
 
 
 def tree_identity(tree) -> tuple:

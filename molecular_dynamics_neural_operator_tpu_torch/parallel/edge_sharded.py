@@ -27,6 +27,13 @@ one with no backward would leave each rank with its own edges' share.
 
 This path is plain PyTorch, as the JAX package's is plain XLA. The cast
 points are the ``"segment"`` scatter's: messages summed in f32.
+
+The train step is one program, as the JAX package's ``@jax.jit`` step:
+on ranks with a card each (NCCL) it replays a CUDA graph of the forward,
+the backward with the conjugate collectives, the data-axis reduction and
+the update; each rank's part of the global arrays is sliced and placed
+outside the graph. Over gloo groups it runs eagerly
+(``ops/cuda/graphs.py::step_stays_eager``).
 """
 
 from __future__ import annotations
@@ -45,6 +52,9 @@ from molecular_dynamics_neural_operator_tpu_torch.models.losses import (
     lp_rel,
     mse,
 )
+from molecular_dynamics_neural_operator_tpu_torch.ops.cuda.graphs import (
+    step_stays_eager,
+)
 from molecular_dynamics_neural_operator_tpu_torch.ops.edge_conv import (
     _segment_sum,
     edge_kernel_matrices,
@@ -57,6 +67,9 @@ from molecular_dynamics_neural_operator_tpu_torch.parallel.mesh import (
     axis_size,
     mesh_device,
     sum_over_data,
+)
+from molecular_dynamics_neural_operator_tpu_torch.train.graphed import (
+    graphed_step,
 )
 from molecular_dynamics_neural_operator_tpu_torch.train.loop import (
     value_and_grad,
@@ -225,27 +238,45 @@ def make_edge_sharded_train_step(cfg: ModelConfig, tx, mesh,
     collectives, then one reduction over ``data_axis`` alone (gradients
     and ``rel_l2`` summed, ``mse`` averaged) and the update, the same on
     every rank. ``step(state, aa, window, edges, mask, edge_feats, y)``
-    takes the GLOBAL arrays and returns (state, {"rel_l2", "mse"})."""
+    takes the GLOBAL arrays and returns (state, {"rel_l2", "mse"}). On
+    NCCL ranks with a card each it replays CUDA graphs
+    (``train/graphed.py``: the returned state is the graph's own);
+    ``step.eager`` takes the same arguments and issues the step op by
+    op."""
     group = mesh.get_group(model_axis)
     data_group = mesh.get_group(data_axis)
     n_data = axis_size(mesh, data_axis)
     dev = mesh_device(mesh)
 
-    def loss_fn(params, aa, window, edges, mask, edge_feats, y):
-        out = _forward_edge_shard(params, cfg, aa, window, edges, mask,
-                                  edge_feats, group)
-        b = out.shape[0]
-        return lp_rel(out.reshape(b, -1), y.reshape(b, -1),
-                      size_average=False), mse(out, y)
+    def body(state: TrainState, local: dict):
+        def loss_fn(params):
+            out = _forward_edge_shard(params, cfg, local["aa"],
+                                      local["window"], local["edges"],
+                                      local["mask"], local["edge_feats"],
+                                      group)
+            b = out.shape[0]
+            y = local["y"]
+            return lp_rel(out.reshape(b, -1), y.reshape(b, -1),
+                          size_average=False), mse(out, y)
 
-    def step(state: TrainState, aa, window, edges, mask, edge_feats, y):
-        local = _local_inputs(mesh, data_axis, model_axis, dev, window,
-                              edges, mask, edge_feats, y)
-        (l2, m), grads = value_and_grad(loss_fn, state.params,
-                                        torch.as_tensor(aa, device=dev),
-                                        *local)
+        (l2, m), grads = value_and_grad(loss_fn, state.params)
         grads, l2, m, _ = sum_over_data(grads, l2, m, None, data_group,
                                         n_data)
         return apply_update(state, grads, tx), {"rel_l2": l2, "mse": m}
 
+    def put(aa, window, edges, mask, edge_feats, y) -> dict:
+        w, e, m, f, y = _local_inputs(mesh, data_axis, model_axis, dev,
+                                      window, edges, mask, edge_feats, y)
+        return {"aa": torch.as_tensor(aa, device=dev), "window": w,
+                "edges": e, "mask": m, "edge_feats": f, "y": y}
+
+    graphed = graphed_step(
+        body, eager_only=step_stays_eager(cfg, (group, data_group)),
+        name="edge-sharded train step")
+
+    def step(state: TrainState, *arrays):
+        return graphed(state, put(*arrays))
+
+    step.eager = lambda state, *arrays: graphed.eager(state, put(*arrays))
+    step.graphed = graphed.graphed
     return step

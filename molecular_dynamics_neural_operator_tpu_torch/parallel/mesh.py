@@ -27,6 +27,17 @@ own rows, as the JAX package's explicit ``shard_map`` step does.
 Input noise is drawn for the GLOBAL batch from ``train/noise.py``'s
 generator of (seed, step) and each rank adds its rows of it, so the
 noised window is the single-process step's, bit for bit.
+
+One program per step: on ranks with a card each (NCCL) every
+data-parallel step replays a CUDA graph that holds its forward, backward,
+the all-reduce and the update (``train/graphed.py``), the counterpart of
+the JAX package's ``jax.jit`` around its ``shard_map`` step. Every rank
+captures the same graphs in the same order (a graph per batch shape, at
+the first step of that shape, after one eager step that also creates the
+NCCL communicator) and replays them in lockstep. Steps over gloo groups
+and cell-list configurations run eagerly
+(``ops/cuda/graphs.py::step_stays_eager``). ``step.eager`` is the step
+issued op by op, the oracle.
 """
 
 from __future__ import annotations
@@ -44,15 +55,18 @@ from molecular_dynamics_neural_operator_tpu_torch.configs import (
 from molecular_dynamics_neural_operator_tpu_torch.data.prefetch import (
     to_device,
 )
+from molecular_dynamics_neural_operator_tpu_torch.ops.cuda.graphs import (
+    step_stays_eager,
+)
 from molecular_dynamics_neural_operator_tpu_torch.parallel import comm
+from molecular_dynamics_neural_operator_tpu_torch.train.graphed import (
+    graphed_step,
+    with_noise,
+)
 from molecular_dynamics_neural_operator_tpu_torch.train.loop import (
     _loss_fn,
     featurize_batch,
     value_and_grad,
-)
-from molecular_dynamics_neural_operator_tpu_torch.train.noise import (
-    step_generator,
-    window_random_walk_noise,
 )
 from molecular_dynamics_neural_operator_tpu_torch.train.optim import (
     tree_leaves,
@@ -106,6 +120,11 @@ def init_distributed(device=None, init_method: str = "env://",
                 f"on {dev} need {backend!r}")
         return dev
     kw = {} if rank is None else {"rank": rank, "world_size": world_size}
+    # Captured NCCL collectives need no environment setting here: NCCL
+    # work issued during a capture never enters the process group's
+    # watchdog, and ``ops/cuda/graphs.py::capture``'s thread-local mode
+    # leaves the watchdog thread's event queries free (torch 2.11, NCCL
+    # 2.28 on four H100s, ``chip_smoke.py`` phase 20g).
     dist.init_process_group(backend, init_method=init_method, **kw)
     return dev
 
@@ -235,26 +254,25 @@ def sum_over_data(grads, l2, m, overflow, group, n: int):
 
 def make_data_parallel_step(loss_fn: Callable, tx, mesh,
                             noise_std: float = 0.0,
-                            data_axis: str = "data"):
+                            data_axis: str = "data", cfg=None,
+                            name: str = "data-parallel train step"):
     """A data-parallel train step around ``loss_fn(params, batch) ->
     (batch-sum loss, aux)``, aux the batch-mean MSE or (mse, overflow).
     Returns (step, put): ``put(global host batch)`` gives this rank's
     rows on its device, ``step(state, local batch) -> (state, metrics)``
     with ``rel_l2`` and ``mse`` (and ``edge_overflow``) of the global
-    batch, the same on every rank."""
+    batch, the same on every rank. On NCCL ranks with a card each the
+    step replays CUDA graphs unless ``cfg`` (the model's configuration,
+    None for the FNO) stays eager; ``step.eager`` is the body issued op by
+    op."""
     group = mesh.get_group(data_axis)
     n = axis_size(mesh, data_axis)
     index = axis_index(mesh, data_axis)
     dev = mesh_device(mesh)
 
-    def step(state: TrainState, batch: dict):
-        if noise_std > 0.0:
-            w = batch["window"]
-            b = w.shape[0]
-            gen = step_generator(state.rng, state.step, w.device)
-            noise = window_random_walk_noise(
-                gen, (b * n,) + tuple(w.shape[1:]), noise_std, dtype=w.dtype)
-            batch = dict(batch, window=w + noise[index * b:(index + 1) * b])
+    def body(state: TrainState, batch: dict):
+        # the increments of the GLOBAL batch, drawn outside the body
+        batch = with_noise(batch, noise_std, part=index)
         (l2, aux), grads = value_and_grad(loss_fn, state.params, batch)
         m, overflow = aux if isinstance(aux, tuple) else (aux, None)
         grads, l2, m, overflow = sum_over_data(grads, l2, m, overflow, group,
@@ -267,6 +285,9 @@ def make_data_parallel_step(loss_fn: Callable, tx, mesh,
     def put(host_batch: dict) -> dict:
         return to_device(shard_batch(mesh, host_batch), dev)
 
+    step = graphed_step(body, noise_std,
+                        eager_only=step_stays_eager(cfg, (group,)),
+                        name=name, noise_rows=n)
     return step, put
 
 
@@ -282,7 +303,9 @@ def make_sharded_train_step(cfg: ModelConfig, tx, mesh,
                                                             graph_frame))
         return l2, m
 
-    return make_data_parallel_step(loss, tx, mesh, noise_std)
+    return make_data_parallel_step(
+        loss, tx, mesh, noise_std, cfg=cfg,
+        name="data-parallel teacher-forced train step")
 
 
 def make_sharded_curriculum_train_step(
@@ -316,7 +339,9 @@ def make_sharded_curriculum_train_step(
         loss_space=loss_space, grad_steps=grad_steps,
         burnin_dtype=burnin_dtype, unroll_scans=unroll_scans,
         axis_name=mesh.get_group("data"))
-    return make_data_parallel_step(loss, tx, mesh, noise_std)
+    return make_data_parallel_step(
+        loss, tx, mesh, noise_std, cfg=cfg,
+        name=f"data-parallel K={rollout_steps} curriculum train step")
 
 
 def replicas_equal(tree, group) -> bool:

@@ -16,6 +16,9 @@ caller uses, ``step(state, batch)``:
   unless it is the static state the last call returned), draws the step's
   noise into its buffer outside the graph (one launch), replays and
   returns the static state with ``step + 1`` and a copy of the metrics.
+  A data-parallel step's noise buffer holds the GLOBAL batch's
+  increments (``noise_rows`` times the rank's rows), of which the body
+  adds its own rows (``with_noise``'s ``part``), as its eager form does.
 
 The returned state is the graph's own: the next call overwrites it, as a
 donated JAX state is consumed. A caller that keeps a state across steps
@@ -23,7 +26,9 @@ copies it (``copy_state``). A replay writes the static state without
 passing through PyTorch's dispatcher, so each replay advances the version
 counters of its tensors: a cache keyed on them (``ops/cuda/graphs.py::
 tree_identity``) sees the new values. ``step.eager`` is the body run
-eagerly on any device, the graph's oracle on the card.
+eagerly on any device, the graph's oracle on the card; ``step.graphed``
+is the ``GraphedStep`` (None for a step that stays eager), whose
+``graphs`` are those captured so far.
 """
 
 from __future__ import annotations
@@ -80,29 +85,42 @@ def _signature(batch) -> tuple:
                  for k, v in zip(keys, _batch_leaves(batch)))
 
 
-def with_noise(batch: dict, noise_std: float) -> dict:
+def with_noise(batch: dict, noise_std: float, part: int = 0) -> dict:
     """The batch with its window noised by the increments the step drew
-    into ``batch["noise"]`` (``train/noise.py``), and without them."""
+    into ``batch["noise"]`` (``train/noise.py``), and without them. The
+    window's b rows take rows ``part * b`` on of the increments: a
+    data-parallel rank's rows of the global batch's noise."""
     if noise_std <= 0.0:
         return batch
     batch = dict(batch)
     eps = batch.pop("noise")
-    return dict(batch, window=batch["window"] + random_walk(eps, noise_std))
+    b = batch["window"].shape[0]
+    return dict(batch, window=batch["window"] + random_walk(
+        eps[part * b:(part + 1) * b], noise_std))
+
+
+def _noise_shape(window: torch.Tensor, rows: int) -> tuple:
+    return (rows * window.shape[0],) + tuple(window.shape[1:])
 
 
 class _Graph:
-    def __init__(self, captured, batch, metrics):
-        self.captured, self.batch, self.metrics = captured, batch, metrics
+    """A captured step, its input buffers, and ``box["metrics"]``, the
+    metrics its capture returned (the graph's outputs)."""
+
+    def __init__(self, captured, batch, box):
+        self.captured, self.batch, self.box = captured, batch, box
 
 
 class GraphedStep:
     """``step(state, batch) -> (state, metrics)`` on the card through CUDA
     graphs; see the module docstring."""
 
-    def __init__(self, body: Callable, noise_std: float, name: str):
+    def __init__(self, body: Callable, noise_std: float, name: str,
+                 noise_rows: int = 1):
         self.body, self.noise_std, self.name = body, float(noise_std), name
+        self.noise_rows = noise_rows
         self._state: TrainState | None = None
-        self._graphs: dict = {}
+        self.graphs: dict = {}
         # replays are serialised, so the graphs of all signatures share
         # one pool
         self._pool = None
@@ -131,7 +149,9 @@ class GraphedStep:
                  batch) -> _Graph:
         inputs = _like(batch, [t.clone() for t in _batch_leaves(batch)])
         if self.noise_std > 0.0:
-            inputs["noise"] = torch.empty_like(batch["window"])
+            window = batch["window"]
+            inputs["noise"] = window.new_empty(_noise_shape(window,
+                                                            self.noise_rows))
             self._draw_noise(state, inputs)
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
@@ -149,21 +169,21 @@ class GraphedStep:
         captured, _ = capture(body, self.name,
                               warmup=lambda: self.body(static, inputs),
                               pool=self._pool)
-        return _Graph(captured, inputs, box["metrics"])
+        return _Graph(captured, inputs, box)
 
     def __call__(self, state: TrainState, batch):
         static = self._static_state(state)
         key = _signature(batch)
-        if key not in self._graphs:
-            self._graphs[key] = self._capture(state, static, batch)
-        graph = self._graphs[key]
+        if key not in self.graphs:
+            self.graphs[key] = self._capture(state, static, batch)
+        graph = self.graphs[key]
         given = _batch_leaves(batch)
         torch._foreach_copy_(_batch_leaves(graph.batch)[:len(given)], given)
         self._draw_noise(state, graph.batch)
         graph.captured.replay()
         for t in _state_leaves(static):
             torch.autograd.graph.increment_version(t)
-        metrics = {k: v.clone() for k, v in graph.metrics.items()}
+        metrics = {k: v.clone() for k, v in graph.box["metrics"].items()}
         return static._replace(step=state.step + 1, rng=state.rng), metrics
 
 
@@ -172,27 +192,30 @@ def _device_of(state: TrainState) -> torch.device:
 
 
 def graphed_step(body: Callable, noise_std: float = 0.0,
-                 eager_only: bool = False, name: str = "train step"):
+                 eager_only: bool = False, name: str = "train step",
+                 noise_rows: int = 1):
     """``step(state, batch)`` of a body ``body(state, batch)``
     whose batch carries the noise increments as ``batch["noise"]`` when
-    ``noise_std > 0``: CUDA graphs on the card unless ``eager_only``, the
-    eager body elsewhere. ``step.eager`` runs the body eagerly."""
-    graphs: dict = {}
+    ``noise_std > 0`` (``noise_rows`` times the batch's rows): CUDA graphs
+    on the card unless ``eager_only`` (``ops/cuda/graphs.py::
+    step_stays_eager``), the eager body elsewhere. ``step.eager`` runs the
+    body eagerly; ``step.graphed`` is the ``GraphedStep``, None when
+    ``eager_only``."""
+    graphed = None if eager_only else GraphedStep(body, noise_std, name,
+                                                  noise_rows)
 
     def eager(state: TrainState, batch):
         if noise_std > 0.0:
             window = batch["window"]
             batch = dict(batch, noise=noise_increments(
-                state.rng, state.step, window.shape, window.device,
-                window.dtype))
+                state.rng, state.step, _noise_shape(window, noise_rows),
+                window.device, window.dtype))
         return body(state, batch)
 
     def step(state: TrainState, batch):
-        if eager_only or _device_of(state).type != "cuda":
+        if graphed is None or _device_of(state).type != "cuda":
             return eager(state, batch)
-        if "graphed" not in graphs:
-            graphs["graphed"] = GraphedStep(body, noise_std, name)
-        return graphs["graphed"](state, batch)
+        return graphed(state, batch)
 
-    step.eager = eager
+    step.eager, step.graphed = eager, graphed
     return step

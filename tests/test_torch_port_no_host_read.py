@@ -5,7 +5,9 @@ and FNO train steps, the rollout step of the graphed configurations
 (the dense graph's included) and a serving bundle's exported step.
 They run here on CPU tensors with every Python-level way of reading a
 tensor's value (``__bool__``, ``item``, ``tolist`` and their kin) made to
-raise."""
+raise. The multi-rank steps' bodies are held the same way, with this
+module's ``no_host_reads``, on the gloo ranks of
+``tests/test_torch_port_parallel.py``."""
 
 import contextlib
 import threading

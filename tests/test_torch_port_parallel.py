@@ -214,7 +214,8 @@ def workdir(tmp_path_factory):
 @pytest.fixture(scope="module")
 def train_ranks(workdir):
     ranks.run_ranks(workdir, ["mesh", "teacher", "curriculum",
-                              "edge_sharded"], timeout=TRAIN_TIMEOUT)
+                              "edge_sharded", "no_host_read", "eager_rule",
+                              "noise_outside"], timeout=TRAIN_TIMEOUT)
     return workdir
 
 
@@ -400,6 +401,46 @@ def test_edge_sharded_train_step(train_ranks):
     np.testing.assert_allclose(out["train/metric/mse"], float(m["mse"]),
                                RTOL, ATOL)
     _close(_part(out, "train/params/"), _flat(new.params), "params vs jax")
+
+
+# ---- one program per step: what a graph holds, and when there is one ------
+
+@pytest.mark.parametrize("case", sorted(ranks.BODY_CASES))
+def test_multi_rank_step_body_reads_nothing_back(case, train_ranks):
+    """Each multi-rank step's body (data-parallel teacher, curriculum and
+    FNO steps, the edge-sharded step) on the gloo ranks with every
+    Python-level read of a tensor refused (``no_host_reads`` of
+    ``tests/test_torch_port_no_host_read.py``): on the card the body is
+    captured whole with its collectives, and a host read would break the
+    capture."""
+    out = ranks.outputs(train_ranks, "no_host_read")
+    assert str(out[case]) == ""
+
+
+@pytest.mark.parametrize("case", sorted(ranks.RULE_CASES))
+def test_multi_rank_step_is_eager_or_graphed_by_one_rule(case, train_ranks):
+    """``ops/cuda/graphs.py::step_stays_eager`` as the multi-rank steps
+    apply it: eager over gloo groups (they stage card tensors through the
+    host) and for the cell list, a ``GraphedStep`` over NCCL groups."""
+    out = ranks.outputs(train_ranks, "eager_rule")
+    assert not bool(out[f"gloo/{case}"])
+    assert bool(out[f"nccl/{case}"]) == ("cell_list" not in case)
+    assert bool(out["gloo/rule"]) and not bool(out["nccl/rule"])
+
+
+@pytest.mark.parametrize("kind", ["teacher", "curriculum"])
+def test_graphed_noise_of_the_global_batch_is_the_eager_steps(kind,
+                                                              train_ranks):
+    """A data-parallel step with input noise through its ``GraphedStep``
+    (the capture stood in for on the CPU): the increments drawn outside
+    the body into a buffer of the GLOBAL batch's rows, each rank adding
+    its own, give the eager data-parallel step's state and metrics to the
+    bit over two steps, and the ranks stay bit-equal."""
+    out = ranks.outputs(train_ranks, "noise_outside")
+    assert int(out[f"{kind}/noise_rows"]) == TRAIN["batch_size"]
+    assert bool(out[f"{kind}/bit_equal"])
+    assert list(out[f"{kind}/steps"]) == [2, 2]
+    assert bool(out[f"{kind}/replicas_equal"])
 
 
 # ---- rollouts ---------------------------------------------------------------

@@ -16,6 +16,7 @@ This module holds no test of its own.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import socket
@@ -93,6 +94,30 @@ CURRICULUM_CASES = [
 EDGE_FORWARD_CASES = {"predict_delta": dict(predict_delta=True),
                       "dh": dict(electrostatics="dh"),
                       "head_scale": dict(predict_delta=True, head_scale=0.5)}
+FNO = dict(num_residues=12, in_channels=4, width=8, modes1=4, modes2=4,
+           depth=2, predict_delta=True)
+# the multi-rank steps whose bodies must read nothing back (a capture on
+# the card refuses a host read): name -> (step kind, model options)
+BODY_CASES = {
+    "teacher_pallas_noise": ("teacher", dict(train_conv_impl="pallas")),
+    "teacher_xla": ("teacher", {}),
+    "curriculum_rebuild_delta": ("curriculum", dict(
+        predict_delta=True, train_conv_impl="pallas")),
+    "curriculum_dense": ("curriculum", dict(graph_mode="dense",
+                                            predict_delta=True)),
+    "fno": ("fno", {}),
+    "edge_sharded": ("edge", dict(predict_delta=True)),
+}
+# the steps the eager-or-graphed rule decides: name -> (kind, options)
+RULE_CASES = {
+    "teacher": ("teacher", {}),
+    "teacher_cell_list": ("teacher", CELLS),
+    "curriculum": ("curriculum", dict(predict_delta=True)),
+    "curriculum_cell_list": ("curriculum", CELLS),
+    "fno": ("fno", {}),
+    "edge_sharded": ("edge", {}),
+    "edge_sharded_cell_list": ("edge", CELLS),
+}
 
 
 class Recorder:
@@ -111,6 +136,48 @@ def _zeros(tree):
     if isinstance(tree, dict):
         return {k: _zeros(v) for k, v in tree.items()}
     return torch.zeros_like(tree)
+
+
+@contextlib.contextmanager
+def backend_named(name: str):
+    """Within the block every process group reads as ``name`` to
+    ``torch.distributed.get_backend``: the CPU has no NCCL, and the rule
+    that picks eager or graphed steps reads the backend."""
+    saved = dist.get_backend
+    dist.get_backend = lambda group=None: name
+    try:
+        yield
+    finally:
+        dist.get_backend = saved
+
+
+class _Replayer:
+    """A captured graph's stand-in on the CPU: a replay runs the body."""
+
+    def __init__(self, body):
+        self.replay = body
+
+
+@contextlib.contextmanager
+def cpu_graphs():
+    """Within the block ``train/graphed.py``'s ``GraphedStep`` runs on
+    the CPU: its capture runs the warm-up and keeps the body, and each
+    replay runs the body again, eagerly. Its input buffers, static state
+    and noise drawn outside the body are the card's."""
+    from molecular_dynamics_neural_operator_tpu_torch.train import graphed
+
+    saved = graphed.capture, torch.cuda.graph_pool_handle
+
+    def capture(body, name, warmup=None, pool=None):
+        if warmup is not None:
+            warmup()
+        return _Replayer(body), None
+
+    graphed.capture, torch.cuda.graph_pool_handle = capture, lambda: None
+    try:
+        yield
+    finally:
+        graphed.capture, torch.cuda.graph_pool_handle = saved
 
 
 # ---- the harness ------------------------------------------------------------
@@ -363,6 +430,159 @@ def case_edge_sharded(rank, workdir):
     _, grads = loss_and_grads(params, cfg, gkn.GKNBatch(
         t["aa"], t["window"], graph, t["y"]))
     out.update(_flat("single_grad/", grads))
+    return out
+
+
+def _edge_arrays(workdir) -> tuple:
+    inp = _inputs(workdir, "edge")
+    return (inp["aa"], inp["window"], inp["edges"], inp["mask"],
+            inp["edge_feats"], inp["y"])
+
+
+def _meshes() -> dict:
+    """The data mesh of every rank and the 2 x 2 (data, model) mesh."""
+    return {"data": make_mesh(MeshConfig(data=WORLD, model=1)),
+            "edge": make_mesh(MeshConfig(data=2, model=2))}
+
+
+def _multi_rank_step(kind, opts, workdir, meshes, noise=0.0):
+    """(step, state, call) of a multi-rank step on the training ranks'
+    inputs: ``call(run, state)`` takes one step of ``run`` (the step or
+    one of its forms) from ``state``."""
+    from molecular_dynamics_neural_operator_tpu_torch.models import fno
+    from molecular_dynamics_neural_operator_tpu_torch.configs import (
+        FNOConfig,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.parallel import (
+        make_data_parallel_step,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.train.optim import (
+        make_optimizer,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.train.state import (
+        TrainState,
+    )
+
+    tcfg = TrainConfig(**TRAIN, grad_clip_norm=1.0,
+                       skip_nonfinite_updates=True)
+    cfg = ModelConfig(**{**SPARSE, **opts})
+    if kind == "edge":
+        state, tx = _state(cfg, tcfg, _params(workdir, "edge_predict_delta"))
+        step = make_edge_sharded_train_step(cfg, tx, meshes["edge"])
+        arrays = _edge_arrays(workdir)
+        return step, state, lambda run, st: run(st, *arrays)
+    mesh = meshes["data"]
+    if kind == "fno":
+        fcfg = FNOConfig(**FNO)
+        params = fno.fno_init(fcfg, seed=0, device="cpu")
+        tx, _ = make_optimizer(skip_nonfinite_updates=True)
+        state = TrainState(params, tx.init(params), 0, 0)
+        step, put = make_data_parallel_step(fno.fno_window_loss(fcfg), tx,
+                                            mesh)
+        host = _inputs(workdir, "teacher")
+    else:
+        state, tx = _state(cfg, tcfg, _params(workdir, "sparse"))
+        if kind == "teacher":
+            step, put = make_sharded_train_step(cfg, tx, mesh,
+                                                noise_std=noise)
+            host = _inputs(workdir, "teacher")
+        else:
+            dense = cfg.graph_mode == "dense"
+            step, put = make_sharded_curriculum_train_step(
+                cfg, tx, mesh, rollout_steps=3 if dense else 2,
+                noise_std=noise, coord_clip=100.0,
+                **({} if dense else dict(graph_frame="rebuild",
+                                         loss_space="delta")))
+            host = _inputs(workdir, "curriculum_dense" if dense
+                           else "curriculum_delta_noise")
+    batch = put(host)
+    return step, state, lambda run, st: run(st, batch)
+
+
+def case_no_host_read(rank, workdir):
+    """Each multi-rank step's body, issued op by op on the gloo ranks,
+    with every Python-level read of a tensor refused: "" when two steps
+    read nothing back, else the refusal."""
+    from test_torch_port_no_host_read import no_host_reads
+
+    out, meshes = {}, _meshes()
+    for name, (kind, opts) in BODY_CASES.items():
+        step, state, call = _multi_rank_step(
+            kind, opts, workdir, meshes,
+            noise=NOISE if "noise" in name else 0.0)
+        try:
+            with no_host_reads():
+                for _ in range(2):
+                    state, _ = call(step.eager, state)
+            out[name] = np.asarray("")
+        except AssertionError as e:
+            out[name] = np.asarray(str(e))
+        dist.barrier()  # a refused read leaves a collective unmatched
+    return out
+
+
+def case_eager_rule(rank, workdir):
+    """The eager-or-graphed rule (``ops/cuda/graphs.py::
+    step_stays_eager``) as each multi-rank step applies it, with the
+    groups read as gloo and as NCCL: ``<backend>/<case>`` is True where
+    the step holds a ``GraphedStep``."""
+    from molecular_dynamics_neural_operator_tpu_torch.ops.cuda.graphs import (  # noqa: E501
+        step_stays_eager,
+    )
+
+    # the meshes' groups are made with the real backend, gloo
+    out, meshes = {}, _meshes()
+    group = meshes["data"].get_group("data")
+    for backend in ("gloo", "nccl"):
+        with backend_named(backend):
+            for name, (kind, opts) in RULE_CASES.items():
+                step, _, _ = _multi_rank_step(kind, opts, workdir, meshes)
+                out[f"{backend}/{name}"] = np.asarray(
+                    step.graphed is not None)
+            out[f"{backend}/rule"] = np.asarray(
+                step_stays_eager(ModelConfig(**SPARSE), (group,)))
+    return out
+
+
+def case_noise_outside(rank, workdir):
+    """A data-parallel step with input noise through its ``GraphedStep``
+    (the rule given NCCL groups, the capture stood in for on the CPU):
+    the increments drawn outside the body into the graph's buffer of the
+    GLOBAL batch's shape, then two steps; against the same two steps
+    issued op by op (``step.eager``)."""
+    from molecular_dynamics_neural_operator_tpu_torch.train.optim import (
+        opt_state_leaves,
+        tree_leaves,
+    )
+
+    out, meshes = {}, _meshes()
+    for kind in ("teacher", "curriculum"):
+        opts = BODY_CASES[f"{kind}_pallas_noise" if kind == "teacher"
+                          else "curriculum_rebuild_delta"][1]
+        with backend_named("nccl"):
+            step, state0, call = _multi_rank_step(kind, opts, workdir,
+                                                  meshes, noise=NOISE)
+        runs = {}
+        with cpu_graphs():
+            for form, run in (("graphed", step.graphed),
+                              ("eager", step.eager)):
+                state, metrics = state0, []
+                for _ in range(2):
+                    state, m = call(run, state)
+                    metrics.append(m)
+                runs[form] = (state, metrics)
+        (graph,) = step.graphed.graphs.values()
+        out[f"{kind}/noise_rows"] = np.asarray(graph.batch["noise"].shape[0])
+        (sg, mg), (se, me) = runs["graphed"], runs["eager"]
+        leaves = [torch.equal(a, b) for a, b in zip(
+            tree_leaves(sg.params) + opt_state_leaves(sg.opt_state),
+            tree_leaves(se.params) + opt_state_leaves(se.opt_state))]
+        leaves += [torch.equal(a[k], b[k]) for a, b in zip(mg, me)
+                   for k in b]
+        out[f"{kind}/bit_equal"] = np.asarray(all(leaves))
+        out[f"{kind}/steps"] = np.asarray([sg.step, se.step])
+        out[f"{kind}/replicas_equal"] = np.asarray(
+            replicas_equal(sg.params, dist.group.WORLD))
     return out
 
 
