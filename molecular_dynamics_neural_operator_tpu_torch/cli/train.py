@@ -173,7 +173,8 @@ def parse_args(argv=None):
     p.add_argument("--wandb", action="store_true")
     p.add_argument("--profile", action="store_true",
                    help="write a torch.profiler trace of the first "
-                        "training epoch to <run_path>/trace")
+                        "training epoch, with the program's spans, to "
+                        "<run_path>/trace")
     p.add_argument("--data_parallel", action="store_true")
     p.add_argument("--compilation_cache", type=Path, default=None,
                    help="accepted for the JAX CLI's command lines; no-op")

@@ -16,6 +16,11 @@ not hand it out again before the copy is done. A batch is about a
 megabyte at the flagship's shapes, so what the thread takes off the
 consumer is the host work (assembly and pinning), not the transfer.
 
+Spans (``utils/profiling.py``): ``train.produce`` on the producer thread,
+a batch assembled and pinned; ``train.wait_batch``, the consumer's wait
+for a staged batch (not for the end of the batches); ``train.put``, its
+copy to the device.
+
 The producer's exception is re-raised at the consumer. A consumer that
 stops early (``break``, an exception, closing the generator) stops the
 producer and joins it: the producer finishes the batch it is assembling
@@ -31,6 +36,8 @@ import threading
 from typing import Callable, Iterable, Iterator, Optional
 
 import torch
+
+from molecular_dynamics_neural_operator_tpu_torch.utils.profiling import span
 
 _DONE = object()
 _POLL_S = 0.05
@@ -76,7 +83,8 @@ def prefetch_to_device(batches: Iterable[dict], size: int = 2,
     if not producer_thread:
         staged: collections.deque = collections.deque()
         for batch in batches:
-            staged.append(put(batch))
+            with span("train.put"):
+                staged.append(put(batch))
             if len(staged) > size:
                 yield staged.popleft()
         while staged:
@@ -99,8 +107,13 @@ def prefetch_to_device(batches: Iterable[dict], size: int = 2,
     def producer():
         source = iter(batches)
         try:
-            for batch in source:
-                if not offer(pin(batch, device)):
+            while True:
+                with span("train.produce"):
+                    batch = next(source, _DONE)
+                    staged = batch if batch is _DONE else pin(batch, device)
+                if staged is _DONE:
+                    break
+                if not offer(staged):
                     return
         except BaseException as exc:  # noqa: BLE001: re-raised by the consumer
             offer(_Failure(exc))
@@ -116,12 +129,17 @@ def prefetch_to_device(batches: Iterable[dict], size: int = 2,
     thread.start()
     try:
         while True:
-            item = q.get()
+            with span("train.wait_batch") as waiting:
+                item = q.get()
+                if item is _DONE:
+                    waiting.discard()
             if item is _DONE:
                 break
             if isinstance(item, _Failure):
                 raise item.exc
-            yield put(item)
+            with span("train.put"):
+                batch = put(item)
+            yield batch
     finally:
         stop.set()
         thread.join()

@@ -37,6 +37,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from molecular_dynamics_neural_operator_tpu_torch.utils.profiling import span
+
 _P1, _P2, _P3 = 73856093, 19349663, 83492791  # spatial-hash primes
 
 
@@ -103,7 +105,15 @@ def cell_list_edges(pos: torch.Tensor, cutoff: float = 8.0,
     ``atom_slice=(lo, n_local)`` runs the per-atom phase for atoms
     [lo, lo + n_local) only: the result is slots [lo * max_degree,
     (lo + n_local) * max_degree) of the full edge list (dst indices stay
-    global), and ``degree_overflow`` covers those atoms alone."""
+    global), and ``degree_overflow`` covers those atoms alone. The span
+    ``geometry.cell_list``."""
+    with span("geometry.cell_list"):
+        return _cell_list_edges(pos, cutoff, max_degree, cell_capacity,
+                                num_cells, atom_slice)
+
+
+def _cell_list_edges(pos, cutoff, max_degree, cell_capacity, num_cells,
+                     atom_slice) -> CellListEdges:
     lead, n = pos.shape[:-2], pos.shape[-2]
     b = math.prod(lead)
     cap = cell_capacity

@@ -11,6 +11,10 @@ card's libraries and the kernels' launch plans are set up outside the
 capture). A graph replays its launches without passing through the kernel
 wrappers, so ``Captured.replay`` adds to each wrapper's ``launches`` what
 one replay launches; the warm-up and the capture itself count nothing.
+``capture_count()`` counts the captures made: one inside a timed window
+is a graph built again. Under ``utils/profiling.py::tracing()`` a replay
+is the span ``graph.replay`` and a capture ``graph.capture``, each with
+the graph's name; the capture records no span of what it captures.
 The first replay of a graph waits for the card once, so that a kernel
 that fails inside the graph raises there with the graph's name. Nothing
 falls back to an eager loop: a capture or a replay that fails raises.
@@ -37,8 +41,16 @@ from typing import Callable
 import torch
 import torch.distributed as dist
 
+from molecular_dynamics_neural_operator_tpu_torch.utils.profiling import (
+    paused,
+    span,
+)
+
 # steps in one captured rollout block
 GRAPH_BLOCK = 64
+
+# graphs captured in this process (capture_count)
+_captures = 0
 
 # the values made once for the capture in progress on this thread
 _capturing = threading.local()
@@ -116,6 +128,11 @@ def launch_counts() -> dict:
     return {k: read() for k, (read, _) in _counters().items()}
 
 
+def capture_count() -> int:
+    """The CUDA graphs ``capture`` has made in this process."""
+    return _captures
+
+
 def _set_counts(counts: dict) -> None:
     for k, (_, write) in _counters().items():
         write(counts[k])
@@ -129,12 +146,13 @@ class Captured:
                  name: str):
         self.graph, self.launches, self.name = graph, launches, name
         self._checked = False
+        counters = _counters()
+        self._counts = [(counters[k], n) for k, n in launches.items()]
 
     def replay(self) -> None:
-        self.graph.replay()
-        counters = _counters()
-        for k, n in self.launches.items():
-            read, write = counters[k]
+        with span("graph.replay", self.name):
+            self.graph.replay()
+        for (read, write), n in self._counts:
             write(read() + n)
         if not self._checked:
             try:
@@ -153,6 +171,12 @@ def capture(body: Callable, name: str, warmup: Callable | None = None,
     (another thread of the process, such as a server's reader, may go on
     allocating pinned memory meanwhile). What the body returns are the
     graph's static outputs. The launch counts are left as they were."""
+    with span("graph.capture", name):
+        return _capture(body, name, warmup, pool)
+
+
+def _capture(body: Callable, name: str, warmup, pool):
+    global _captures
     before = launch_counts()
     graph = torch.cuda.CUDAGraph()
     collecting = gc.isenabled()
@@ -166,8 +190,8 @@ def capture(body: Callable, name: str, warmup: Callable | None = None,
         gc.disable()
         _capturing.cache = {}
         try:
-            with torch.cuda.graph(graph, pool=pool,
-                                  capture_error_mode="thread_local"):
+            with paused(), torch.cuda.graph(
+                    graph, pool=pool, capture_error_mode="thread_local"):
                 out = body()
         except RuntimeError as exc:
             raise RuntimeError(f"{name}: CUDA graph capture failed: "
@@ -176,6 +200,7 @@ def capture(body: Callable, name: str, warmup: Callable | None = None,
             _capturing.cache = None
         captured = {k: n - start[k] for k, n in launch_counts().items()
                     if n != start[k]}
+        _captures += 1
     finally:
         if collecting:
             gc.enable()

@@ -93,6 +93,7 @@ from molecular_dynamics_neural_operator_tpu_torch.preprocess.grid import (
     debye_kappa,
     residue_charges,
 )
+from molecular_dynamics_neural_operator_tpu_torch.utils.profiling import span
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 register_kernel("graph_encode", "mdno_graph_encode",
@@ -601,7 +602,11 @@ class PreparedRollout:
         window0 (T, R, 3) or (S, T, R, 3); coords is stream-major. The
         final window is the last T frames of [window0 ; coords], also when
         num_steps < T. On the card the step loop replays CUDA graphs; on
-        the CPU it is ``eager``."""
+        the CPU it is ``eager``. The span ``rollout.call``."""
+        with span("rollout.call"):
+            return self._call(window0, num_steps)
+
+    def _call(self, window0, num_steps: int):
         if self.device.type != "cuda":
             return self.eager(window0, num_steps)
         window, batched = self._window(window0)

@@ -53,6 +53,7 @@ from molecular_dynamics_neural_operator_tpu_torch.ops.cuda.graphs import (
 from molecular_dynamics_neural_operator_tpu_torch.ops.edge_conv import (
     SCATTER_ONEHOT_MAX_NODES,
 )
+from molecular_dynamics_neural_operator_tpu_torch.utils.profiling import span
 
 COLLECT_MODES = ("coords", "contact_maps", "both")
 
@@ -262,7 +263,8 @@ def make_rollout_fn(cfg: ModelConfig, num_steps: int, threshold: float = 8.0,
     On the card ``fn`` replays the CUDA graphs of a ``ScanGraphs`` that it
     keeps while the parameters are the same tensors at the same versions,
     so that repeated calls capture nothing again (the cell list, which
-    stays eager, excepted). ``fn.eager`` is the loop issued op by op."""
+    stays eager, excepted). ``fn.eager`` is the loop issued op by op. A
+    call of ``fn`` is the span ``rollout.call``."""
     if stream_chunk is not None and not batched:
         raise ValueError("stream_chunk only applies to batched=True "
                          "rollouts (single-stream has no stream axis)")
@@ -286,7 +288,7 @@ def make_rollout_fn(cfg: ModelConfig, num_steps: int, threshold: float = 8.0,
         return rollout_scan(params, cfg, aa, window0, num_steps, threshold,
                             graph_frame, collect, clip)
 
-    def fn(params, aa, window0):
+    def call(params, aa, window0):
         if dev.type != "cuda" or stays_eager(cfg):
             return eager(params, aa, window0)
         aa, window0 = inputs(aa, window0)
@@ -295,6 +297,10 @@ def make_rollout_fn(cfg: ModelConfig, num_steps: int, threshold: float = 8.0,
                                              graph_frame, collect, clip))
         return graphs.chunked(aa, window0, num_steps,
                                       stream_chunk if batched else None)
+
+    def fn(params, aa, window0):
+        with span("rollout.call"):
+            return call(params, aa, window0)
 
     fn.eager = eager
     return fn

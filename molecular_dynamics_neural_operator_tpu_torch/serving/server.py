@@ -40,6 +40,15 @@ pinned memory on a second stream, so transfers overlap the next segment.
 A bounded queue between the two, with a marker event every eighth
 segment, caps how far the scheduler runs ahead of the card.
 
+Spans (``utils/profiling.py``, under ``tracing()``): ``serve.queued``, a
+request's wait from ``submit`` to its admission into a segment;
+``serve.admit``, the scheduler's admission, with ``serve.idle`` its
+blocking wait while nothing is active; ``serve.segment``, a segment's
+host work, with ``serve.replay`` the call of the segment itself;
+``serve.read``, the reader's work for one request. A request's spans
+carry its id. ``stats`` counts, always, the requests admitted and the
+sum of their queue waits (``requests_admitted``, ``queue_wait_s``).
+
 On the card a segment replays CUDA graphs, one set per padded stream count
 (``PreparedRollout``'s for ``impl="persistent"``, ``ScanGraphs``' for
 ``impl="scan"``), captured by ``warmup()`` or at a count's first segment.
@@ -67,8 +76,10 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import itertools
 import queue
 import threading
+import time
 from concurrent.futures import Future
 from typing import Optional
 
@@ -98,6 +109,10 @@ from molecular_dynamics_neural_operator_tpu_torch.rollout.scan import (
     ScanGraphs,
     rollout_scan_chunked,
 )
+from molecular_dynamics_neural_operator_tpu_torch.utils.profiling import (
+    record,
+    span,
+)
 
 __all__ = ["RolloutResult", "RolloutServer", "serve_follower"]
 
@@ -125,6 +140,8 @@ class _Request:
     chunks: list  # device tensors (take_i, R, 3), gathered at completion
     overflow: object  # None, then a device bool scalar OR-ed per segment
     future: Future
+    rid: int  # the server's count of requests, the id of its spans
+    submitted_ns: int  # time.time_ns() when it was checked and queued
     done: object = None  # CUDA event after the last segment (None on CPU)
 
 
@@ -342,7 +359,10 @@ class RolloutServer:
             "steps_computed": 0,  # segment_steps x padded stream count
             "steps_served": 0,  # steps that landed in a request's output
             "requests_completed": 0,
+            "requests_admitted": 0,  # taken from the queue into a segment
+            "queue_wait_s": 0.0,  # their time from submit to admission
         }
+        self._ids = itertools.count()
         self._stopping = False
         self._cancel = False
         self._fatal: Optional[BaseException] = None
@@ -437,7 +457,8 @@ class RolloutServer:
                 "impl='persistent' serves one amino-acid sequence; the "
                 "request's aa differs from the server's")
         return _Request(aa=aa, window=window, remaining=int(num_steps),
-                        chunks=[], overflow=None, future=Future())
+                        chunks=[], overflow=None, future=Future(),
+                        rid=next(self._ids), submitted_ns=time.time_ns())
 
     def rollout(self, aa, window, num_steps: int,
                 timeout: Optional[float] = None) -> RolloutResult:
@@ -523,17 +544,33 @@ class RolloutServer:
                 if req is not None:
                     req.future.set_exception(err)
 
+    def _activate(self, req: _Request) -> None:
+        now = time.time_ns()
+        record("serve.queued", req.submitted_ns, now, req.rid)
+        with self._stats_lock:
+            self._stats["requests_admitted"] += 1
+            self._stats["queue_wait_s"] += (now - req.submitted_ns) / 1e9
+        self._active.append(req)
+
     def _admit(self) -> bool:
         """Move queued requests into the active set. Blocks when idle.
         Returns False when the server should exit."""
+        with span("serve.admit"):
+            return self._admit_requests()
+
+    def _admit_requests(self) -> bool:
         block = not self._active
         while len(self._active) < self._max_streams:
             if self._backlog:
-                self._active.append(self._backlog.popleft())
+                self._activate(self._backlog.popleft())
                 block = False
                 continue
             try:
-                req = self._queue.get(timeout=0.05 if block else 0)
+                if block:
+                    with span("serve.idle"):
+                        req = self._queue.get(timeout=0.05)
+                else:
+                    req = self._queue.get(timeout=0)
             except queue.Empty:
                 if not block:
                     return True
@@ -548,13 +585,17 @@ class RolloutServer:
             if isinstance(req, list):
                 self._backlog.extend(req)
                 continue
-            self._active.append(req)
+            self._activate(req)
             block = False
         return True
 
     def _run_segment(self) -> None:
         """Enqueue one segment for the active requests and hand each its
         part. Reads no device value."""
+        with span("serve.segment"):
+            self._enqueue_segment()
+
+    def _enqueue_segment(self) -> None:
         seg, t_len = self._segment_steps, self._cfg.window_size
         dev = self._device
         batch = self._active
@@ -567,7 +608,7 @@ class RolloutServer:
         aa_b = torch.as_tensor(np.stack([q.aa for q in slots])).to(
             dev, non_blocking=True)
         win_b = torch.stack([q.window for q in slots])
-        with self._segment_lock:
+        with self._segment_lock, span("serve.replay"):
             coords, final_w, over = self._segment(aa_b, win_b)
         served = 0
         still_active, completed = [], []
@@ -661,13 +702,14 @@ class RolloutServer:
                 continue
             req = item
             try:
-                coords, window, over = self._to_host(req)
-                with self._stats_lock:
-                    self._stats["requests_completed"] += 1
-                req.future.set_result(RolloutResult(
-                    coords=np.asarray(coords, np.float32),
-                    final_window=np.asarray(window, np.float32),
-                    edge_overflow=over))
+                with span("serve.read", req.rid):
+                    coords, window, over = self._to_host(req)
+                    with self._stats_lock:
+                        self._stats["requests_completed"] += 1
+                    req.future.set_result(RolloutResult(
+                        coords=np.asarray(coords, np.float32),
+                        final_window=np.asarray(window, np.float32),
+                        edge_overflow=over))
             except Exception as e:  # noqa: BLE001: the waiter gets it
                 if not req.future.done():
                     req.future.set_exception(e)

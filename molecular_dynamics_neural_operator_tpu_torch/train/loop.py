@@ -48,6 +48,7 @@ from molecular_dynamics_neural_operator_tpu_torch.train.state import (
     TrainState,
     apply_update,
 )
+from molecular_dynamics_neural_operator_tpu_torch.utils.profiling import span
 
 
 def featurize_batch(cfg: ModelConfig, batch: dict,
@@ -177,30 +178,48 @@ def train_epoch(state, train_step, dataset, indices, batch_size, *,
     """Host loop over one epoch. Batches flow through
     ``prefetch_to_device`` to the parameters' device, and per-step metrics
     are read from the device once, at the end of the epoch, so the device
-    queue runs ahead of the host. The returned metrics include
-    ``steps_per_sec`` and ``examples_per_sec``, timed from the end of the
-    first step."""
-    batches = batch_iterator(
-        dataset, indices, batch_size, shuffle=shuffle, drop_last=drop_last,
-        seed=seed, epoch=epoch, rollout_horizon=rollout_horizon)
-    dev = _device_of(state.params)
-    acc = []
-    t0 = None
-    for batch in prefetch_to_device(batches, size=prefetch, put=put,
-                                    device=dev):
-        state, metrics = train_step(state, batch)
-        acc.append(metrics)
-        if t0 is None:
-            # the first step (warm-up: kernel build, allocator) is not timed
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-            t0 = time.perf_counter()
-    if not acc:
-        return state, {"rel_l2": 0.0, "mse": 0.0,
-                       "steps_per_sec": 0.0, "examples_per_sec": 0.0}
-    n = len(acc)
-    acc = _read_metrics(acc)
-    elapsed = time.perf_counter() - t0
+    queue runs ahead of the host: that read is the epoch's one wait for
+    the device. The returned metrics include ``steps_per_sec`` and
+    ``examples_per_sec``, timed from the end of the first step (warm-up:
+    kernel build, allocator) to the end of the last, on the card by two
+    CUDA events read after that wait.
+
+    Spans (``utils/profiling.py``): ``train.epoch`` around it all,
+    ``train.step`` each step's call, ``train.read_metrics`` the read;
+    ``prefetch_to_device`` adds the input's."""
+    with span("train.epoch"):
+        batches = batch_iterator(
+            dataset, indices, batch_size, shuffle=shuffle,
+            drop_last=drop_last, seed=seed, epoch=epoch,
+            rollout_horizon=rollout_horizon)
+        dev = _device_of(state.params)
+        cuda = dev.type == "cuda"
+        acc = []
+        t0 = first = None
+        for batch in prefetch_to_device(batches, size=prefetch, put=put,
+                                        device=dev):
+            with span("train.step"):
+                state, metrics = train_step(state, batch)
+            acc.append(metrics)
+            if t0 is None:
+                if cuda:
+                    first = torch.cuda.Event(enable_timing=True)
+                    first.record()
+                t0 = time.perf_counter()
+        if not acc:
+            return state, {"rel_l2": 0.0, "mse": 0.0,
+                           "steps_per_sec": 0.0, "examples_per_sec": 0.0}
+        n = len(acc)
+        if cuda:
+            last = torch.cuda.Event(enable_timing=True)
+            last.record()
+        with span("train.read_metrics"):
+            acc = _read_metrics(acc)
+        if cuda:
+            last.synchronize()
+            elapsed = first.elapsed_time(last) / 1e3
+        else:
+            elapsed = time.perf_counter() - t0
     total = {k: sum(m[k] for m in acc) / n for k in ("rel_l2", "mse")}
     rate = (n - 1) / elapsed if elapsed > 0 and n > 1 else 0.0
     total["steps_per_sec"] = rate

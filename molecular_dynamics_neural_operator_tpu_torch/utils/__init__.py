@@ -1,17 +1,27 @@
-from molecular_dynamics_neural_operator_tpu_torch.utils.checkpoint import (
-    BestCheckpointer,
-    load_params_npz,
-    params_from_jax,
-    restore_checkpoint,
-    restore_subtree,
-    save_checkpoint,
-)
-from molecular_dynamics_neural_operator_tpu_torch.utils.metrics import (
-    MetricLogger,
-    format_epoch_line,
-    parse_loss_log,
-)
+"""Checkpoints, metric logs and tracing.
 
-__all__ = ["BestCheckpointer", "MetricLogger", "format_epoch_line",
-           "load_params_npz", "params_from_jax", "parse_loss_log",
-           "restore_checkpoint", "restore_subtree", "save_checkpoint"]
+The checkpoint and metric names below are imported on first use, so that
+the modules of the hot path import ``utils.profiling`` without pulling in
+``utils.checkpoint`` (which imports the trainer, which imports them)."""
+
+import importlib
+
+_FROM = {
+    "BestCheckpointer": "checkpoint",
+    "load_params_npz": "checkpoint",
+    "params_from_jax": "checkpoint",
+    "restore_checkpoint": "checkpoint",
+    "restore_subtree": "checkpoint",
+    "save_checkpoint": "checkpoint",
+    "MetricLogger": "metrics",
+    "format_epoch_line": "metrics",
+    "parse_loss_log": "metrics",
+}
+
+__all__ = sorted(_FROM)
+
+
+def __getattr__(name):
+    if name not in _FROM:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    return getattr(importlib.import_module(f"{__name__}.{_FROM[name]}"), name)

@@ -380,6 +380,9 @@ def test_loss_space_guard_compilation_cache_and_profile(h5, tmp_path,
     assert not (tmp_path / "cc").exists()
     trace = json.loads((run / "trace" / "trace.json").read_text())
     assert trace["traceEvents"]
+    # the program's spans ride along on threads of their own
+    spans = {e["name"] for e in trace["traceEvents"] if e.get("cat") == "span"}
+    assert {"train.epoch", "train.step", "train.produce"} <= spans
     rows = _metrics(run)
     assert [r["epoch"] for r in rows] == [0]
     assert np.isfinite(rows[0]["avg_train_loss"])

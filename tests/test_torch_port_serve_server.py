@@ -207,9 +207,11 @@ def test_submit_many_shares_the_first_segment_and_pads_to_powers_of_two(
         futs = srv.submit_many([(aa, traj.positions[i:i + 4], 4)
                                 for i in range(3)])
         results = [f.result(timeout=WAIT) for f in futs]
-        assert srv.stats == {"segments_run": 1, "steps_computed": 16,
-                             "steps_served": 12, "requests_completed": 3,
-                             "occupancy": 0.75}
+        stats = srv.stats
+        assert stats.pop("queue_wait_s") >= 0
+        assert stats == {"segments_run": 1, "steps_computed": 16,
+                         "steps_served": 12, "requests_completed": 3,
+                         "requests_admitted": 3, "occupancy": 0.75}
         futs = srv.submit_many([(aa, traj.positions[i:i + 4], 6)
                                 for i in range(5)])
         results += [f.result(timeout=WAIT) for f in futs]
@@ -370,6 +372,7 @@ def test_warmup_and_stats(setup):
         srv.warmup()  # 1, 2, 4 and the full load of 6
         assert srv.stats == {"segments_run": 0, "steps_computed": 0,
                              "steps_served": 0, "requests_completed": 0,
+                             "requests_admitted": 0, "queue_wait_s": 0.0,
                              "occupancy": 0.0}
 
 
@@ -514,8 +517,11 @@ def test_same_trace_through_the_jax_server_and_the_port(setup):
                     (queued, dict(segment_steps=4, max_streams=1))):
         got, stats = run(_serving(setup, **kw))
         want, jstats = run(JaxRolloutServer(jparams, jcfg, **kw))
-        assert stats == jstats
+        # the port's stats add the queue's counters to the JAX server's
+        assert {k: stats[k] for k in jstats} == jstats
         assert stats["requests_completed"] == len(got)
+        assert stats["requests_admitted"] == len(got)
+        assert stats["queue_wait_s"] >= 0
         for res, jres in zip(got, want):
             assert res.coords.shape == jres.coords.shape
             # f32 sums in another order than XLA's, fed back for <= 12 steps
