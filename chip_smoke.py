@@ -324,6 +324,7 @@ import contextlib
 import ctypes
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -497,10 +498,41 @@ def check_conv_head(weights, cfg, clip, windows, edges, mask, inv_deg, x0,
     require(err <= tol, f"conv_head coords error {err} > {tol} ({tag})")
     require(torch.equal(win_k[:, :-1], win_p[:, :-1]) and win_err <= tol,
             f"conv_head window slide differs ({tag})")
-    log(f"conv_head {tag} (one 8-block cluster per stream): coords max abs "
+    plan = pr.conv_head_plan(s, pr.wide_clusters(
+        r, cfg.width, cfg.max_edges, kmat.dtype, windows.device))
+    log(f"conv_head {tag} ({plan} plan: "
+        f"{16 if plan == 'wide' else 8}-block clusters): coords max abs "
         f"err {err:.3e} A = {err / head_out:.2e} of the head output's max "
         f"{head_out:.3e} A (tolerance {tol:.3e} A)")
     return err
+
+
+def exact_stats(stats: dict, tag: str, queued: bool = False) -> dict:
+    """A server's ``stats`` but ``queue_wait_s``, the counts a run must
+    repeat exactly, after requiring that time to be finite and at least 0
+    (above 0 where ``queued``: requests waited for a stream)."""
+    wait = stats["queue_wait_s"]
+    require(math.isfinite(wait) and (wait > 0.0 if queued else wait >= 0.0),
+            f"{tag}: queue_wait_s {wait}")
+    return {k: v for k, v in stats.items() if k != "queue_wait_s"}
+
+
+def rollout_launches(n: int, cfg, streams: int, r: int = 28) -> dict:
+    """The rollout kernels' launch counts of n steps of ``cfg`` at
+    ``streams`` streams of r residues: ``conv_head_wide`` counts the steps
+    whose conv_head took the wide plan, by the wrapper's rule."""
+    from molecular_dynamics_neural_operator_tpu_torch.device import (
+        compute_dtype,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.ops.cuda import (
+        persistent_rollout as pr,
+    )
+
+    wide = pr.wide_clusters(r, cfg.width, cfg.max_edges, compute_dtype(cfg),
+                            torch.device("cuda", torch.cuda.current_device()))
+    return {"graph_encode": n, "edge_mlp": 3 * n, "conv_head": n,
+            "conv_head_wide": n if pr.conv_head_plan(streams, wide) == "wide"
+            else 0}
 
 
 HUB_DEGREE = 60  # above the K rows a block stages and holds in registers (23 + 12)
@@ -835,7 +867,7 @@ def conv_head_fits(r: int, e: int) -> bool:
 
     n = ctypes.c_int(0)
     rc = pr._kernel("conv_head_clusters")(r, bench_cfg("bfloat16").width, e,
-                                          1, ctypes.byref(n))
+                                          1, 0, ctypes.byref(n))
     return rc == 0 and n.value >= 1
 
 
@@ -967,9 +999,11 @@ def time_kernels(params, aa, window0, counts: dict, errs: dict) -> list:
         + ", ".join(f"layer {i} {ms * 1e3:.2f} us (torch.addmm alone "
                     f"{lib * 1e3:.2f} us)" for i, (ms, lib) in enumerate(layers)))
     clusters = pr.conv_head_clusters(r, w, e, cd)
-    log(f"conv_head: the card holds {clusters} of its 8-block clusters at "
-        f"once (cudaOccupancyMaxActiveClusters), so {min(clusters, 8)} of 8 "
-        f"streams run in the first wave")
+    wide = pr.conv_head_clusters(r, w, e, cd, wide=True)
+    log(f"conv_head: the card holds {clusters} of its 8-block clusters and "
+        f"{wide} of its 16-block ones at once "
+        f"(cudaOccupancyMaxActiveClusters): up to {wide} streams take the "
+        f"wide plan, more the narrow one")
     win_k = windows.clone()
     coords = torch.empty(s, r, 3, device=dev)
 
@@ -2153,10 +2187,10 @@ def serve_persistent(params, aa_np, traj) -> dict:
     results, wall, stats, counts = serve(requests, staggered=False)
     want = {"segments_run": n_sat // SEGMENT, "steps_computed": 8 * n_sat,
             "steps_served": 8 * n_sat, "requests_completed": 8,
-            "occupancy": 1.0}
-    require(stats == want, f"saturated stats {stats}, expected {want}")
-    require(counts == {"graph_encode": n_sat, "edge_mlp": 3 * n_sat,
-                       "conv_head": n_sat},
+            "requests_admitted": 8, "occupancy": 1.0}
+    require(exact_stats(stats, "saturated") == want,
+            f"saturated stats {stats}, expected {want}")
+    require(counts == rollout_launches(n_sat, cfg, 8),
             f"saturated run launched {counts}")
     worst, exact = hold_all(requests, results, "saturated")
     windows8 = torch.as_tensor(np.stack([r[1] for r in requests]), device=dev)
@@ -2189,6 +2223,7 @@ def serve_persistent(params, aa_np, traj) -> dict:
               horizons[i % 4]) for i in range(12)]
     results, wall, stats, mcounts = serve(mixed, staggered=True)
     total = sum(r[2] for r in mixed)
+    exact_stats(stats, "mixed", queued=True)
     require(stats["steps_served"] == total
             and stats["requests_completed"] == 12
             and stats["steps_computed"] >= total
@@ -2240,12 +2275,12 @@ def serve_dh(aa_np, traj) -> tuple[dict, float]:
                        for f in srv.submit_many(requests)]
             stats, counts = srv.stats, pr.launch_counts()
         segs = steps // SEGMENT
-        require(stats == {"segments_run": segs,
-                          "steps_computed": 4 * steps,
-                          "steps_served": 4 * steps, "requests_completed": 4,
-                          "occupancy": 1.0}, f"dh stats {stats}")
-        require(counts == {"graph_encode": steps, "edge_mlp": 3 * steps,
-                           "conv_head": steps}, f"dh run launched {counts}")
+        require(exact_stats(stats, "dh") == {
+            "segments_run": segs, "steps_computed": 4 * steps,
+            "steps_served": 4 * steps, "requests_completed": 4,
+            "requests_admitted": 4, "occupancy": 1.0}, f"dh stats {stats}")
+        require(counts == rollout_launches(steps, cfg, 4),
+                f"dh run launched {counts}")
         prepared = pr.PreparedRollout(params, cfg, aa_np, THRESHOLD, CLIP,
                                       dev)
         plain = make_rollout_fn(cfg, steps, THRESHOLD, clip=CLIP, device=dev)
@@ -2316,7 +2351,8 @@ def serve_scan_fused(aa_np, traj, **opts) -> tuple[int, float]:
 
     got, wall_k, stats, launches = serve(cfg_k)
     ref, wall_x, stats_x, launches_x = serve(cfg_x)
-    require(stats == stats_x and stats["segments_run"] == 1
+    require(exact_stats(stats, "scan") == exact_stats(stats_x, "scan xla")
+            and stats["segments_run"] == 1
             and stats["steps_computed"] == 4 * steps
             and stats["occupancy"] == 1.0, f"scan stats {stats} / {stats_x}")
     require(launches == stats["segments_run"] * SEGMENT and launches_x == 0,
@@ -2466,7 +2502,10 @@ def serve_phases(traj) -> list:
 
     counts = serve_persistent(ckpt, aa_np, traj)
     for name, n in counts.items():
-        require(n > 0, f"kernel {name} was not launched on the serving path")
+        # conv_head_wide counts a plan, not a kernel: segments of 8 streams
+        # take the narrow one
+        require(n > 0 or name == "conv_head_wide",
+                f"kernel {name} was not launched on the serving path")
     dh_counts, _ = serve_dh(aa_np, traj)
     fused_launches, _ = serve_scan_fused(aa_np, traj)
     require(dh_counts["graph_encode"] > 0 and fused_launches > 0,
@@ -2736,7 +2775,7 @@ def cli_rollout_phase(traj, root, trained) -> dict:
         ps, pc, _ = cli_roll_run(traj, root / f"p_{cd}_{streams}",
                                  flags + ["--impl", "scan"])
         n = CLI_ROLL_STEPS
-        want = {"graph_encode": n, "edge_mlp": 3 * n, "conv_head": n}
+        want = rollout_launches(n, bench_cfg(cd), streams)
         require(counts == want, f"{tag}: launches {counts}, expected {want}")
         for name, v in counts.items():
             total[name] = total.get(name, 0) + v
@@ -2996,7 +3035,7 @@ def dense_cli_phase(traj, root) -> dict:
         ks, kc, kn = cli_roll_run(traj, root / f"kernel_{cd}",
                                   flags + ["--impl", "persistent"],
                                   dense=True)
-        want = {"graph_encode": n, "edge_mlp": 3 * n, "conv_head": n}
+        want = rollout_launches(n, bench_cfg(cd), 1)
         require(sum(dn.values()) == 0 and kn == want,
                 f"dense rollout {cd}: launches {dn} on the scan, {kn} under "
                 f"--impl persistent, expected {want}")
@@ -5853,9 +5892,8 @@ def graph_rollouts(params, aa_np, traj) -> dict:
                 tag = f"graphed rollout, {cd}, S={s}, {n} steps"
                 require(same_result(first, want) and same_result(again, want),
                         f"{tag}: not bit-equal to the eager step loop")
-                require(counts == eager_counts == {
-                    "graph_encode": n, "edge_mlp": 3 * n, "conv_head": n},
-                    f"{tag}: launches {counts}, eager {eager_counts}")
+                require(counts == eager_counts == rollout_launches(n, cfg, s),
+                        f"{tag}: launches {counts}, eager {eager_counts}")
                 require(not bool(want[2]["edge_overflow"]),
                         f"{tag}: edge overflow")
                 if cd == "bfloat16" and s == 1 and n == STEPS:

@@ -101,6 +101,33 @@ __device__ __forceinline__ void mbar_wait(unsigned long long* bar,
   } while (!done);
 }
 
+// The same by test_wait: the thread polls and is never suspended, so it
+// sees the phase complete at once, at the cost of issue slots while it
+// waits.
+__device__ __forceinline__ void mbar_wait_spin(unsigned long long* bar,
+                                               unsigned parity) {
+  const unsigned addr = smem_u32(bar);
+  unsigned done, polls = 0;
+  unsigned long long since = 0;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (!done && (++polls & 0xffffu) == 0) {
+      unsigned long long now;
+      asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(now));
+      if (since == 0) since = now;
+      else if (now - since > 20000000000ull) __trap();
+    }
+  } while (!done);
+}
+
 // ``bytes`` contiguous bytes (a multiple of 16, both addresses 16-byte
 // aligned) from global to shared memory by the copy engine; completion is
 // counted on ``bar``.

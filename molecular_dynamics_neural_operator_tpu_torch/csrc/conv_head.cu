@@ -17,50 +17,67 @@
 // a layer costs one pass over K wherever it lives, and the 12 layers are
 // dependent, so each also costs an exchange of x across the stream's SMs.
 // On the TPU K sat in VMEM across the layers. Here one SM's shared memory
-// cannot hold it, so each stream is one thread-block cluster of 8 blocks
-// (the card holds 15 such clusters at once, so 8 streams run in one wave;
-// of the 16-block clusters this kernel used at first it holds 7, and 8
-// streams took two waves, 1.9 times one stream's time). Edges are dealt to
-// blocks by target node, so a block owns the whole sum of each node it
-// owns. In bf16 (conv_stack.cuh, run_mma) the products run on the tensor
-// cores with K_e^T as the mma's A operand, a warp per (node, 32 columns);
-// a block's ~26 K rows live in its registers (the first 4 edges of each
-// node, about 14 rows) and in shared memory (the rest, swizzled for
-// ldmatrix), so a layer reads about half of the slice from shared memory,
-// 128 bytes a clock; and x' crosses the cluster as counted stores against
-// an mbarrier per x buffer, with no cluster barrier between the layers.
-// Rank 0 then runs the head and slides the window in place.
+// cannot hold it, so each stream is one thread-block cluster, of 8 blocks
+// (the narrow plan) or of 16 (the wide plan). Edges are dealt to blocks by
+// target node, so a block owns the whole sum of each node it owns. In bf16
+// (conv_stack.cuh, run_mma) the products run on the tensor cores with K_e^T
+// as the mma's A operand, a warp per (node, 32 columns); a block's ~26 K
+// rows live in its registers (the first 4 edges of each node, about 14
+// rows) and in shared memory (the rest, swizzled for ldmatrix), so a layer
+// reads about half of the slice from shared memory, 128 bytes a clock; and
+// x' crosses the cluster as counted stores against an mbarrier per x
+// buffer, with no cluster barrier between the layers. Rank 0 then runs the
+// head and slides the window in place.
 //
-// Measured on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py;
-// tools/port_conv_stack_profile.py for the SM clocks): 39.4 us at one
-// stream and 44.8 at eight; 40.2 at one stream timed, as the figures before
-// it were, together with a copy that restores the window (the CUDA-core
-// body before it 60.0 and 59.7, the first port's 16-block clusters 74.6 and
-// 139.8). Of the 68,700 SM clocks of a call the prologue takes 14,900
-// (degrees 2,800, deal 3,200, edge lists 1,700, the K rows from L2 7,100:
-// 28 bytes a clock an SM) and a layer 4,480: 500 from the last x' sent to
-// the warps released, 1,350 for the root product and the edges in
-// registers, up to 1,900 for the other edges of the largest node, 450 to
-// form and send x'.
-// What the 12 layers still wait for is the longest item: a node of
-// in-degree 13 is one warp's 9 reads of 4 KB from shared memory while the
-// warps of small nodes are done, and all start the next layer together.
-// Tried and dropped, none faster on the card: the block's edges dealt round
-// four warps whatever their node, with partial sums joined after a
-// 128-thread barrier (balanced, and 48 us: each warp's messages then run
-// one after the other); a spare pair of warps taking half of the largest
-// node's edges; two staged edges in flight a warp; 2 or 3 edges a warp in
-// registers instead of 4 (1.7 and 0.7 us slower at one stream; 5 spill);
-// 512 threads with a warp per (node, 16 columns) (46 us); the cluster
-// barrier between layers (52 us); and on CUDA cores (the body f32 still
-// runs, 60 us): 1,024 threads, K rows in registers, the per-node sum by
-// the last finisher.
+// The narrow plan at one stream leaves 124 of the card's 132 SMs idle, and
+// its 12 dependent layers wait on their longest item. The wide plan halves
+// both the slice a block loads and the longest item: 16 blocks a stream, a
+// warp per (node, 16 columns), four a node, each keeping 8 edges in
+// registers (conv_stack.cuh, run_mma<kWideNCL>). Both plans deal the nodes
+// by in-degree back and forth over the blocks (conv_stack.cuh, deal()). The
+// wide plan's sums are the narrow plan's, term for term, in the same order:
+// the bits are the same. It runs while the card holds every stream's
+// 16-block cluster at once (ops/cuda/persistent_rollout.py::conv_head_plan,
+// from cudaOccupancyMaxActiveClusters of the wide launch, asked once a
+// shape): an H100 holds 15 clusters of 8 and 7 of 16 at the bench shapes,
+// so 1, 2 and 4 streams go wide and 8 stay narrow, where 16-block clusters
+// would take two waves (50.6 us against 38.2). run_fma (f32, other widths)
+// has only the narrow plan.
+//
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (tools/
+// port_conv_stack_profile.py for the SM clocks): at one stream 28.2 us wide
+// against 39.1 narrow (the CUDA-core body before them 60.0, the first
+// port's 16-block clusters 74.6), 28.0 and 28.1 at 2 and 4 streams (narrow
+// 39.0, 38.7), 38.2 narrow at 8; at 80 residues and 1,024 slots 133.8
+// against 330.9 (at 8 streams the wide plan's two waves, 283.8, beat the
+// narrow 378.6 there: the rule does not see that). Of a wide call's 46,500
+// SM clocks (profiled; narrow in brackets, 67,200) the prologue takes
+// 11,900 (13,700): degrees 2,900 (2,850), the deal 1,650 (1,600), edge
+// lists 2,300 (2,050), the K rows from L2 and x0 5,100 (7,200); and a layer
+// 2,830 (4,400), of which block 0's first warp waits for x' 820 (1,150);
+// layer 3's longest item ends 2,610 clocks after its first warp is ready
+// (4,900), the median 2,260 (3,840).
+// Tried in the narrow plan and dropped, none faster on the card: the
+// block's edges dealt round four warps whatever their node, with partial
+// sums joined after a 128-thread barrier (balanced, and 48 us: each warp's
+// messages then run one after the other); a spare pair of warps taking
+// half of the largest node's edges; two staged edges in flight a warp (and
+// again with the deal by in-degree: conv_stack.cuh's note above run_mma);
+// 2 or 3 edges a warp in registers instead of 4 (1.7 and 0.7 us slower at
+// one stream; 5 spill); 512 threads with a warp per (node, 16 columns) (46
+// us); the cluster barrier between layers (52 us); and on CUDA cores (the
+// body f32 still runs, 60 us): 1,024 threads, K rows in registers, the
+// per-node sum by the last finisher. In the wide plan: 4 or 6 edges a warp
+// in registers (0.5 to 0.7 and 0.4 to 0.6 us slower than 8), and the greedy
+// deal the frame had before, even with each step's least key taken across
+// lanes (2.5 us slower than the deal by in-degree; at 8 narrow streams 8.2
+// us slower: conv_stack.cuh, deal()).
 
 #include "conv_stack.cuh"
 
 namespace {
 
-template <typename CD, bool MMA>
+template <typename CD, bool MMA, int NB = conv_stack::NCL>
 __global__ void __launch_bounds__(
     MMA ? conv_stack::kMmaThreads : conv_stack::kThreads, 1) conv_head_kernel(
     const float* __restrict__ x0,       // (S, R, W)
@@ -78,9 +95,9 @@ __global__ void __launch_bounds__(
     int predict_delta, float head_scale, int extrapolate, float gamma,
     int has_clip, float clip) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  const float* xc = conv_stack::run<CD, MMA>(smem_raw, x0, K, edges, mask,
-                                             inv_deg, root1, bias1, root2,
-                                             bias2, R, W, E, depth, cap);
+  const float* xc = conv_stack::run<CD, MMA, NB>(
+      smem_raw, x0, K, edges, mask, inv_deg, root1, bias1, root2, bias2, R, W,
+      E, depth, cap);
   const auto cluster = cooperative_groups::this_cluster();
   if (cluster.block_rank() != 0) return;
   const int s = blockIdx.x / (int)cluster.num_blocks();
@@ -109,6 +126,23 @@ __global__ void __launch_bounds__(
   }
 }
 
+// fn(the kernel of the plan, narrow or wide), with *p that plan;
+// cudaErrorInvalidValue for the wide plan of a shape that runs run_fma.
+template <typename CD, typename Fn>
+int with_kernel(int R, int W, int E, bool wide, conv_stack::Plan* p, Fn&& fn) {
+  const int rc = conv_stack::plan(R, W, E, sizeof(CD), p);
+  if (rc != 0) return rc;
+  if (wide && !p->mma) return (int)cudaErrorInvalidValue;
+  if constexpr (sizeof(CD) == 2) {
+    if (wide) {
+      p->ncl = conv_stack::kWideNCL;
+      return fn(conv_head_kernel<CD, true, conv_stack::kWideNCL>);
+    }
+    if (p->mma) return fn(conv_head_kernel<CD, true>);
+  }
+  return fn(conv_head_kernel<CD, false>);
+}
+
 // Returns a CUDA error code; cudaErrorInvalidConfiguration when the slice
 // does not fit shared memory or the card cannot co-schedule the cluster.
 template <typename CD>
@@ -117,41 +151,38 @@ int launch(const float* x0, const void* K, const int* edges, const float* mask,
            const void* root2, const float* bias2, const float* fc2_w,
            const float* fc2_b, float* window, float* coords, int S, int R,
            int W, int E, int T, int depth, int predict_delta, float head_scale,
-           int extrapolate, float gamma, int has_clip, float clip,
+           int extrapolate, float gamma, int has_clip, float clip, bool wide,
            cudaStream_t st) {
   conv_stack::Plan p;
-  const int rc = conv_stack::plan(R, W, E, sizeof(CD), &p);
-  if (rc != 0) return rc;
-  auto go = [&](auto kernel) {
+  return with_kernel<CD>(R, W, E, wide, &p, [&](auto kernel) {
     return conv_stack::launch_clusters(
         kernel, S, p, st, x0, static_cast<const CD*>(K), edges, mask, inv_deg,
         static_cast<const CD*>(root1), bias1, static_cast<const CD*>(root2),
         bias2, fc2_w, fc2_b, window, coords, R, W, E, T, depth, p.cap,
         predict_delta, head_scale, extrapolate, gamma, has_clip, clip);
-  };
-  if constexpr (sizeof(CD) == 2) {
-    if (p.mma) return go(conv_head_kernel<CD, true>);
-  }
-  return go(conv_head_kernel<CD, false>);
+  });
 }
 
 }  // namespace
 
 // How many of the conv stack's clusters (one a stream) the card holds at
 // once, at these shapes: what cudaOccupancyMaxActiveClusters says of the
-// launch mdno_conv_head makes.
+// launch mdno_conv_head makes with the same ``wide``; 0 for the wide plan
+// of a shape that runs run_fma, which has none.
 extern "C" int mdno_conv_head_clusters(int R, int W, int E, int cd_bf16,
-                                       int* out) {
+                                       int wide, int* out) {
   conv_stack::Plan p;
   const int rc = conv_stack::plan(R, W, E, cd_bf16 ? 2 : 4, &p);
   if (rc != 0) return rc;
-  if (!cd_bf16)
-    return conv_stack::max_active_clusters(conv_head_kernel<float, false>, p,
-                                           out);
-  return p.mma ? conv_stack::max_active_clusters(
-                     conv_head_kernel<__nv_bfloat16, true>, p, out)
-               : conv_stack::max_active_clusters(
-                     conv_head_kernel<__nv_bfloat16, false>, p, out);
+  if (wide && !p.mma) {
+    *out = 0;
+    return 0;
+  }
+  auto count = [&](auto kernel) {
+    return conv_stack::max_active_clusters(kernel, p, out);
+  };
+  return cd_bf16 ? with_kernel<__nv_bfloat16>(R, W, E, wide, &p, count)
+                 : with_kernel<float>(R, W, E, wide, &p, count);
 }
 
 #ifdef MDNO_CONV_PROFILE
@@ -162,11 +193,12 @@ extern "C" int mdno_conv_profile(long long* out) {
 }
 
 // Layer 3 of the last launch's stream 0 by block and warp (conv_stack.cuh),
-// NCL * 32 * 8 values.
+// kWideNCL * 32 * 8 values, of which a narrow launch fills the first
+// NCL * 32 * 8.
 extern "C" int mdno_conv_warp_profile(long long* out) {
   return (int)cudaMemcpyFromSymbol(
       out, conv_stack::conv_warp_profile,
-      sizeof(long long) * conv_stack::NCL * 32 * 8);
+      sizeof(long long) * conv_stack::kWideNCL * 32 * 8);
 }
 #endif
 
@@ -177,7 +209,7 @@ extern "C" int mdno_conv_head(
     const float* fc2_b, float* window, float* coords, int S, int R, int W,
     int E, int T, int depth, int predict_delta, float head_scale,
     int extrapolate, float gamma, int has_clip, float clip, int cd_bf16,
-    void* stream) {
+    int wide, void* stream) {
   if (S < 1 || R < 1 || T < 1 || W % 8 != 0 ||
       (predict_delta && extrapolate && T < 2))
     return (int)cudaErrorInvalidValue;
@@ -188,10 +220,10 @@ extern "C" int mdno_conv_head(
                                   root2, bias2, fc2_w, fc2_b, window, coords,
                                   S, R, W, E, T, depth, predict_delta,
                                   head_scale, extrapolate, gamma, has_clip,
-                                  clip, st)
+                                  clip, wide != 0, st)
           : launch<float>(x0, K, edges, mask, inv_deg, root1, bias1, root2,
                           bias2, fc2_w, fc2_b, window, coords, S, R, W, E, T,
                           depth, predict_delta, head_scale, extrapolate, gamma,
-                          has_clip, clip, st);
+                          has_clip, clip, wide != 0, st);
   return rc != 0 ? rc : (int)cudaGetLastError();
 }

@@ -7,12 +7,13 @@
 // staging of K rows, mma_row() and the counted-store exchange. See
 // conv_head.cu for what bounds it on an H100 and what was measured.
 //
-// One stream is one cluster of NCL blocks. Edges are dealt to blocks by
+// One stream is one cluster of NCL blocks (kWideNCL in conv_head's wide
+// plan, run_mma only: see run_mma). Edges are dealt to blocks by
 // TARGET node (deal()): every block reads the stream's edge list, counts the
-// real (mask > 0) incoming edges of each node and deals the nodes, in index
-// order, each to the block with the least load so far (a node weighs its
-// in-degree plus one, for its root product; ties go to the lowest rank), a
-// rule that sees the stream's own graph only. A block keeps its nodes'
+// real (mask > 0) incoming edges of each node and deals the nodes in order
+// of in-degree (largest first, ties by index) back and forth over the blocks,
+// a big node beside a small one, a rule that sees the stream's own graph
+// only. A block keeps its nodes'
 // incoming edge slots grouped by node, in slot order, and so owns the whole
 // sum of every node it owns: no partial sums cross blocks. As many of its
 // edges' K rows as fit are copied into shared memory once; the 2*depth
@@ -64,7 +65,8 @@
 //
 // The math follows the XLA path (models/gkn.py::gkn_apply_single): gathered
 // rows, messages and the root product's operands are rounded to CD, every
-// sum is f32 and taken in an order the edge list alone fixes. Padded slots
+// sum is f32 and taken in an order the edge list alone fixes (a node's sum,
+// by its own slots: not by the deal). Padded slots
 // (mask 0) add exactly zero to a finite sum and are skipped. Nothing depends
 // on the number of streams in the launch.
 #pragma once
@@ -81,11 +83,14 @@ namespace cg = cooperative_groups;
 constexpr int kThreads = 512;  // run_fma's block
 constexpr int kMaxSmem = 227 * 1024;
 constexpr int NCL = 8;  // blocks per stream (one cluster, a portable size)
+// blocks per stream of conv_head's wide plan (a non-portable cluster size)
+constexpr int kWideNCL = 16;
 constexpr int kMsgRows = 48;  // messages a block of run_fma holds at a time
 constexpr int kMmaW = 64;     // the width run_mma is written for
 constexpr int kMmaRow = kMmaW * kMmaW * 2;  // bytes of one of its K rows
 // run_mma's block and the edges a warp of it keeps in registers across the
-// layers (32 registers a thread each).
+// layers at NCL blocks (32 registers a thread each; twice as many, of 16
+// each, in the wide plan).
 constexpr int kMmaThreads = 256;
 constexpr int kRegEdges = 4;
 
@@ -98,13 +103,13 @@ constexpr int kRegEdges = 4;
 __device__ long long conv_profile[64];
 #define MDNO_MARK(k) \
   if (blockIdx.x == 0 && threadIdx.x == 0 && (k) < 64) conv_profile[k] = clock64();
-// and every warp of stream 0's blocks at moments of layer 3: 0 before the
-// wait for x, 1 after it, 2 after the root product and the edges held in
-// registers, 3 after the other edges, 5 x' sent (its first item), 6 through
-// with the layer
-__device__ long long conv_warp_profile[NCL * 32 * 8];
+// and every warp of stream 0's blocks (ncl of them, at most kWideNCL) at
+// moments of layer 3: 0 before the wait for x, 1 after it, 2 after the root
+// product and the edges held in registers, 3 after the other edges, 5 x'
+// sent (its first item), 6 through with the layer
+__device__ long long conv_warp_profile[kWideNCL * 32 * 8];
 #define MDNO_WARP_MARK(layer, k) \
-  if ((layer) == 3 && blockIdx.x < NCL && threadIdx.x % 32 == 0)         \
+  if ((layer) == 3 && (int)blockIdx.x < ncl && threadIdx.x % 32 == 0)    \
     conv_warp_profile[(blockIdx.x * 32 + threadIdx.x / 32) * 8 + (k)] = clock64();
 #else
 #define MDNO_MARK(k)
@@ -185,6 +190,28 @@ __host__ __device__ inline size_t lists_bytes(int R, int E) {
   return ((size_t)8 * E + 5 * R + 2 + 3) * 4;
 }
 
+// run_fma's chunks of a block's edge list (at most kMsgRows messages held at
+// a time): where the chunk that starts at ``base`` ends. It ends at the last
+// of the owned nodes' boundaries (``nstart``, ascending, nown + 1 of them)
+// that it can hold, or after kMsgRows where one node alone has more. So a
+// node's messages share a chunk, or its chunks start at its first edge and
+// every kMsgRows after it: each per-node sum takes an order that the node's
+// own edge slots fix, whatever other nodes the deal gives its block.
+__device__ inline int chunk_end(const int* nstart, int nown, int base,
+                                int ne) {
+  const int lim = min(ne, base + kMsgRows);
+  int end = lim;
+  for (int k = nown; k >= 0; --k) {
+    const int b = nstart[k];
+    if (b <= base) break;
+    if (b <= lim) {
+      end = b;
+      break;
+    }
+  }
+  return end;
+}
+
 // Every thread of the block calls it; the lists are complete when it returns
 // (it ends in a block barrier, which also covers what the caller wrote to
 // shared memory before the call).
@@ -197,6 +224,19 @@ __host__ __device__ inline size_t lists_bytes(int R, int E) {
 // p at once; the register-held rows leave shared memory for the registers,
 // and places cap .. cap + nreg - 1 then take their rows (p - cap); an edge
 // beyond has no row and is read from L2 in every layer.
+//
+// The deal by in-degree (the note at the top) is each node's place found by
+// a lane at once. It replaced a greedy deal, node after node in index order
+// to the block of least in-degree-plus-one so far, which balanced a sum of
+// work; but a block's warps run its nodes side by side, so what the deal
+// must spread is the big nodes and the K rows a block stages. Measured on
+// an H100 (bench shapes, us; greedy -> by in-degree): conv_head at 8
+// streams 47.9 -> 39.5, fused_gkn at 8 104.6 -> 96.8, train_conv_fwd at 32
+// examples 131.4 -> 120.6 (f32 254.0 -> 241.0), train_conv_bwd 202.8 ->
+// 185.5 (f32 2,535 -> 2,238). It moves no bit of a forward sum (a node's
+// sum stays in its owner; run_fma's chunks, chunk_end); it does move the
+// training backward's droot, whose blocks' partials are added in rank
+// order.
 __device__ inline Lists deal(unsigned char* at, const int* __restrict__ src_g,
                              const int* __restrict__ dst_g,
                              const float* __restrict__ mask_g,
@@ -236,34 +276,52 @@ __device__ inline Lists deal(unsigned char* at, const int* __restrict__ src_g,
   __syncthreads();
   MDNO_MARK(1)
   if (wid == 0) {
-    // One warp deals, every lane the same: key[r] is block r's load so far
-    // with r in its low bits, so the least key names the least loaded block
-    // of lowest rank.
-    unsigned key[NCL];
-#pragma unroll
-    for (int r = 0; r < NCL; ++r) key[r] = r < ncl ? (unsigned)r : 0xffffffffu;
     int nown = 0, ne = 0, nreg = 0;
+    // One warp deals. A node's place is its rank by in-degree
+    // (descending, then index), dealt back and forth over the blocks (0 ..
+    // ncl - 1, then ncl - 1 .. 0, ...); each lane finds one node's. The
+    // lists keep the nodes ascending, and nreg = min(the register-held
+    // so far, cap).
+    const unsigned below = (1u << lane) - 1u;
+    int regsum = 0;
+    for (int j0 = 0; j0 < R; j0 += 32) {
+      const int j = j0 + lane;
+      int d = 0;
+      bool own = false;
+      if (j < R) {
+        d = L.deg[j];
+        int pos = 0;
 #pragma unroll 4
-    for (int j = 0; j < R; ++j) {
-      const int d = L.deg[j];
-      unsigned least = key[0];
-#pragma unroll
-      for (int r = 1; r < NCL; ++r) least = min(least, key[r]);
-      const int b = (int)(least & 31u);
-#pragma unroll
-      for (int r = 0; r < NCL; ++r)
-        if (r == b) key[r] += (unsigned)(d + 1) << 5;
-      if (b == rank) {
-        if (lane == 0) {
-          L.mynode[nown] = j;
-          L.nstart[nown] = ne;
-          L.regoff[nown] = nreg;
+        for (int i = 0; i < R; ++i) {
+          const int di = L.deg[i];
+          pos += di > d || (di == d && i < j);
         }
-        if (nown < reg_nodes) nreg += min(min(reg_edges, d), cap - nreg);
-        ne += d;
-        ++nown;
+        const int k = pos % ncl;
+        own = ((pos / ncl) & 1 ? ncl - 1 - k : k) == rank;
       }
+      const unsigned bits = __ballot_sync(0xffffffffu, own);
+      const int idx = nown + __popc(bits & below);
+      const int r = own && idx < reg_nodes ? min(reg_edges, d) : 0;
+      // inclusive sums over the owned nodes of this chunk, in order
+      int dsum = own ? d : 0, rsum = r;
+      for (int off = 1; off < 32; off <<= 1) {
+        const int dv = __shfl_up_sync(0xffffffffu, dsum, off);
+        const int rv = __shfl_up_sync(0xffffffffu, rsum, off);
+        if (lane >= off) {
+          dsum += dv;
+          rsum += rv;
+        }
+      }
+      if (own) {
+        L.mynode[idx] = j;
+        L.nstart[idx] = ne + dsum - d;
+        L.regoff[idx] = min(regsum + rsum - r, cap);
+      }
+      nown += __popc(bits);
+      ne += __shfl_sync(0xffffffffu, dsum, 31);
+      regsum += __shfl_sync(0xffffffffu, rsum, 31);
     }
+    nreg = min(regsum, cap);
     if (lane == 0) {
       L.nstart[nown] = ne;
       L.regoff[nown] = nreg;
@@ -403,21 +461,22 @@ __device__ __forceinline__ void mma_16816(float (&d)[4], const unsigned (&a)[4],
 // d[m][0] + d[m][1] = the bf16 row whose B registers start at the shared
 // address ``xp`` (its 32 ks + 8 t bytes, see xpos) times the (64, 64) matrix
 // whose fragments are a[m]: [0] sums the first 32 products and [1] the last
-// 32, so four chains run side by side. Lane (g, t) ends with row 16 m + g of
+// 32, so 2 M chains run side by side. Lane (g, t) ends with row 16 m + g of
 // the matrix's tile m in [..][0] (and [1]) and 16 m + 8 + g in [..][2] (and
-// [3]).
-__device__ __forceinline__ void mma_row(float (&d)[2][2][4],
-                                        const unsigned (&a)[2][4][4],
+// [3]). A tile's chains are the same whatever M is: so are its bits.
+template <int M>
+__device__ __forceinline__ void mma_row(float (&d)[M][2][4],
+                                        const unsigned (&a)[M][4][4],
                                         unsigned xp) {
   const uint2 b0 = lds64(xp), b1 = lds64(xp + 32), b2 = lds64(xp + 64),
               b3 = lds64(xp + 96);
 #pragma unroll
-  for (int m = 0; m < 2; ++m) {
+  for (int m = 0; m < M; ++m) {
     mma_16816(d[m][0], a[m][0], b0.x, b0.y);
     mma_16816(d[m][1], a[m][2], b2.x, b2.y);
   }
 #pragma unroll
-  for (int m = 0; m < 2; ++m) {
+  for (int m = 0; m < M; ++m) {
     mma_16816(d[m][0], a[m][1], b1.x, b1.y);
     mma_16816(d[m][1], a[m][3], b3.x, b3.y);
   }
@@ -480,14 +539,35 @@ __device__ __forceinline__ void store_counted16(unsigned dst, const uint4& v,
       : "memory");
 }
 
-// The body for bf16 at width 64 (kMmaThreads threads a block). Same
-// contract as run().
+// The body for bf16 at width 64 (kMmaThreads threads a block) on clusters
+// of NB blocks. Same contract as run().
 //
-// A work item is (owned node, 32 output columns), one warp: two of the
-// mma's 16-column tiles share one load of x_src. The first kRegEdges edges
-// of the node of a warp's first item stay in its registers across the
-// layers (32 registers a thread each), so half of a block's K is never read
-// again; the rest and root come from shared memory by ldmatrix.
+// At NB = NCL a work item is (owned node, 32 output columns), one warp: two
+// of the mma's 16-column tiles share one load of x_src. The first kRegEdges
+// edges of the node of a warp's first item stay in its registers across
+// the layers (32 registers a thread each), so half of a block's K is never
+// read again; the rest and root come from shared memory by ldmatrix.
+//
+// At NB = kWideNCL (conv_head's wide plan) each block holds half as many
+// nodes and K rows, and an item is (owned node, 16 output columns): four
+// warps a node, each keeping 2 kRegEdges edges in registers at 16 registers
+// an edge, so the largest node's tail from shared memory is about half as
+// many reads of half the bytes. A 16-column product is two mma chains, half
+// what the narrow plan keeps in flight, so the wide items form two messages
+// before adding either (the held pairs with no branch, an edge a warp does
+// not hold adding +0). At NB = NCL, whose products are four chains already,
+// that was slower on an H100 (train_conv_fwd at 32 examples 131.4 -> 134.1
+// us, conv_head at one stream 40.7 -> 40.9; with the deal by in-degree
+// 120.6 -> 122.5, and conv_head at 8 streams 39.5 -> 40.9), so it runs at
+// NB = kWideNCL only. Every output is the same sum in the same order at both sizes (a
+// tile's mma chains do not depend on its neighbour, and messages are added
+// in slot order), so the two plans give the same bits.
+//
+// Warps poll for x (mbar_wait_spin) rather than sleep in try_wait: at 16
+// blocks 0.75 us faster a call; at 8 the same within the runs' noise on an
+// H100 (polling against sleeping, us: conv_head 39.5 and 39.5 at one
+// stream, 40.5 and 40.6 at 8, fused_gkn at 8 97.7 and 97.6,
+// train_conv_fwd 120.6 and 121.3).
 //
 // Between the layers there is no cluster barrier: x' travels as counted
 // stores (st.async) and each block's two x buffers have an mbarrier each,
@@ -498,6 +578,7 @@ __device__ __forceinline__ void store_counted16(unsigned dst, const uint4& v,
 // item sends only after its reads: nothing is overwritten while it is read.
 // Only the last layer, whose output is f32 and read by the caller, ends in
 // plain remote stores and the cluster barrier.
+template <int NB = NCL>
 __device__ inline float* run_mma(
     unsigned char* smem_raw, const float* __restrict__ x0,
     const __nv_bfloat16* __restrict__ K, const int* __restrict__ edges,
@@ -505,9 +586,14 @@ __device__ inline float* run_mma(
     const __nv_bfloat16* __restrict__ root1, const float* __restrict__ bias1,
     const __nv_bfloat16* __restrict__ root2, const float* __restrict__ bias2,
     int R, int E, int depth, int cap, float* __restrict__ stack) {
+  static_assert(NB == NCL || NB == kWideNCL, "a cluster of 8 or 16 blocks");
   using bf16 = __nv_bfloat16;
   constexpr int W = kMmaW;
-  constexpr int RE = kRegEdges;
+  constexpr int TI = NB == NCL ? 2 : 1;       // 16-column tiles an item
+  constexpr int IPN = 4 / TI;                 // items a node
+  constexpr int IPN_LOG = IPN == 2 ? 1 : 2;
+  constexpr int RE = kRegEdges * 2 / TI;      // edges a warp holds
+  static_assert(TI == 2 || RE % 2 == 0, "held edges go in pairs at TI = 1");
   MDNO_MARK(0)
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
@@ -542,9 +628,9 @@ __device__ inline float* run_mma(
   cluster_arrive();  // every block's barriers are up before a remote store
   stage_matrix(smem_u32(root_s), root1);
   const int* src_g = edges + (size_t)s * 2 * E;
-  const Lists L = deal(smem_raw + l.ints, src_g, src_g + E, mask + (size_t)s * E,
-                       inv_deg + (size_t)s * R, R, E, rank, ncl, cap, nw / 2,
-                       kRegEdges);
+  const Lists L = deal(smem_raw + l.ints, src_g, src_g + E,
+                           mask + (size_t)s * E, inv_deg + (size_t)s * R, R,
+                           E, rank, ncl, cap, nw / IPN, RE);
   const int nown = L.nown, ne = L.ne;
   const unsigned char* Kb = reinterpret_cast<const unsigned char*>(K);
   stage_rows(smem_u32(ks), Kb, s, E, L.pslot, 0, min(ne, cap), 0);
@@ -584,30 +670,32 @@ __device__ inline float* run_mma(
   // further.
   auto frag_off = [&](int mt) { return frag_cols(lane, mt); };
   // d[m][0] + d[m][1] = x (the row at byte offset ``xoff`` of buffer xc) @ a
-  // (64, 64) matrix, columns 32 h + 16 m .., whose fragments are a[m]
+  // (64, 64) matrix, columns 16 (TI q + m) .., whose fragments are a[m]
   // (mma_row: lane (g, t) ends with column 16 mt + g and 16 mt + 8 + g)
-  auto product = [&](float (&d)[2][2][4], const unsigned (&a)[2][4][4],
+  auto product = [&](float (&d)[TI][2][4], const unsigned (&a)[TI][4][4],
                      unsigned xc, int xoff) { mma_row(d, a, xc + xoff + t * 8); };
-  // the same with the fragments of the two tiles at shared addresses at[m]
-  auto product_staged = [&](float (&d)[2][2][4], unsigned at0, unsigned at1,
+  // the same with the fragments of the item's tiles at shared addresses
+  // at0 (and at1)
+  auto product_staged = [&](float (&d)[TI][2][4], unsigned at0, unsigned at1,
                             unsigned xc, int xoff) {
-    unsigned a[2][4][4];
+    unsigned a[TI][4][4];
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
       ldmatrix_x4_trans(a[0][kk], at0 + kk * 2048);
-      ldmatrix_x4_trans(a[1][kk], at1 + kk * 2048);
+      if constexpr (TI == 2) ldmatrix_x4_trans(a[1][kk], at1 + kk * 2048);
     }
     product(d, a, xc, xoff);
   };
   // the same from a K row in global memory (an edge without a staged row)
-  auto product_global = [&](float (&d)[2][2][4], const unsigned short* kg,
-                            int h, unsigned xc, int xoff) {
-    unsigned a[2][4][4];
+  auto product_global = [&](float (&d)[TI][2][4], const unsigned short* kg,
+                            int q, unsigned xc, int xoff) {
+    unsigned a[TI][4][4];
 #pragma unroll
-    for (int m = 0; m < 2; ++m)
+    for (int m = 0; m < TI; ++m)
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
-        const unsigned short* p = kg + (kk * 16 + 2 * t) * W + (2 * h + m) * 16 + g;
+        const unsigned short* p =
+            kg + (kk * 16 + 2 * t) * W + (TI * q + m) * 16 + g;
         a[m][kk][0] = (unsigned)p[0] | (unsigned)p[W] << 16;
         a[m][kk][1] = (unsigned)p[8] | (unsigned)p[W + 8] << 16;
         a[m][kk][2] = (unsigned)p[8 * W] | (unsigned)p[9 * W] << 16;
@@ -617,32 +705,33 @@ __device__ inline float* run_mma(
   };
 
   // An item: node n (j of the stream), its edges first .. past - 1 of which
-  // those below staged_end have a row, its 32 columns' fragment offsets.
+  // those below staged_end have a row, its tiles' fragment offsets (off1
+  // unused at TI = 1).
   struct Item {
     int j, first, past, staged_end;
     float invd;
     unsigned off0, off1;
   };
   auto item_of = [&](int u, int nheld) {
-    const int n = u >> 1, h = u & 1;
+    const int n = u >> IPN_LOG, q = u & (IPN - 1);
     Item it;
     it.j = L.mynode[n];
     it.first = L.nstart[n] + nheld;
     it.past = L.nstart[n + 1];
     it.staged_end = max(it.first, min(it.past, cap + L.regoff[n + 1]));
     it.invd = L.own_invd[n];
-    it.off0 = frag_off(2 * h);
-    it.off1 = frag_off(2 * h + 1);
+    it.off0 = frag_off(TI * q);
+    it.off1 = frag_off(TI * q + 1);
     return it;
   };
-  const bool works = wid < 2 * nown;  // this warp has items
+  const bool works = wid < IPN * nown;  // this warp has items
   // its first item keeps the fragments of its node's first edges in
   // registers; their rows then go to the edges that had none
-  unsigned held[RE][2][4][4];
+  unsigned held[RE][TI][4][4];
   int nheld = 0;
   Item mine = {};
   if (works) {
-    const int n = wid >> 1;
+    const int n = wid >> IPN_LOG;
     nheld = L.regoff[n + 1] - L.regoff[n];
     mine = item_of(wid, nheld);
 #pragma unroll
@@ -652,7 +741,8 @@ __device__ inline float* run_mma(
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
         ldmatrix_x4_trans(held[e][0][kk], at + mine.off0 + kk * 2048);
-        ldmatrix_x4_trans(held[e][1][kk], at + mine.off1 + kk * 2048);
+        if constexpr (TI == 2)
+          ldmatrix_x4_trans(held[e][1][kk], at + mine.off1 + kk * 2048);
       }
     }
   }
@@ -685,7 +775,7 @@ __device__ inline float* run_mma(
     }
     MDNO_WARP_MARK(layer, 0)
     if (layer > 0 && (works || wid == 0)) {
-      mbar_wait(&xbar[layer & 1], ((layer - 1) >> 1) & 1);
+      mbar_wait_spin(&xbar[layer & 1], ((layer - 1) >> 1) & 1);
       // this buffer is filled again by layer + 1, unless that is the last
       if (tid == 0 && layer + 2 < nlayers)
         mbar_arrive_expect_tx(&xbar[layer & 1], x_bytes);
@@ -694,68 +784,109 @@ __device__ inline float* run_mma(
     MDNO_WARP_MARK(layer, 1)
     // the shared address of this layer's input buffer
     const unsigned xc = smem_u32(smem_raw) + (unsigned)(layer & 1 ? l.xb : l.xa);
-    for (int u = wid; u < 2 * nown; u += nw) {
+    for (int u = wid; u < IPN * nown; u += nw) {
       const bool first_item = u == wid;
       const Item it = first_item ? mine : item_of(u, 0);
-      const int h = u & 1;
-      float bs[2][2];
+      const int q = u & (IPN - 1);
+      float bs[TI][2];
 #pragma unroll
-      for (int m = 0; m < 2; ++m) {
-        bs[m][0] = bias[(2 * h + m) * 16 + g];
-        bs[m][1] = bias[(2 * h + m) * 16 + g + 8];
+      for (int m = 0; m < TI; ++m) {
+        bs[m][0] = bias[(TI * q + m) * 16 + g];
+        bs[m][1] = bias[(TI * q + m) * 16 + g + 8];
       }
       // the root product first: it waits for nothing but x
-      float dr[2][2][4] = {};
+      float dr[TI][2][4] = {};
       product_staged(dr, smem_u32(root_s) + it.off0, smem_u32(root_s) + it.off1,
                      xc, it.j * W * 2);
-      float agg[2][2] = {};
+      float agg[TI][2] = {};
       // a message: the two half sums added, masked, rounded to bf16 (both
       // columns of a tile by one conversion)
-      auto add = [&](const float (&d)[2][2][4], int mk) {
+      auto add = [&](const float (&d)[TI][2][4], int mk) {
 #pragma unroll
-        for (int m = 0; m < 2; ++m) {
+        for (int m = 0; m < TI; ++m) {
           const unsigned p = pack_bf16((d[m][0][0] + d[m][1][0]) * __int_as_float(mk),
                                        (d[m][0][2] + d[m][1][2]) * __int_as_float(mk));
           agg[m][0] += __uint_as_float(p << 16);
           agg[m][1] += __uint_as_float(p & 0xffff0000u);
         }
       };
+      // the same, or +0 where ``keep`` is false: agg starts at +0 and so is
+      // never -0, and adding +0 leaves it as it is (a select, no branch)
+      auto add_if = [&](const float (&d)[TI][2][4], int mk, bool keep) {
+#pragma unroll
+        for (int m = 0; m < TI; ++m) {
+          const unsigned p =
+              keep ? pack_bf16((d[m][0][0] + d[m][1][0]) * __int_as_float(mk),
+                               (d[m][0][2] + d[m][1][2]) * __int_as_float(mk))
+                   : 0u;
+          agg[m][0] += __uint_as_float(p << 16);
+          agg[m][1] += __uint_as_float(p & 0xffff0000u);
+        }
+      };
       // The node's edges in slot order: those held in registers, those with
       // a staged row, those read from L2. Rows are given in list order, so
-      // each kind is a run.
+      // each kind is a run. At TI = 1 two edges are formed before either
+      // message is added, in slot order (see the note above run_mma).
       if (first_item && nheld > 0) {
+        if constexpr (TI == 1) {
+          const int held0 = it.first - nheld;
 #pragma unroll
-        for (int e = 0; e < RE; ++e) {
-          // an edge this warp does not hold repeats the first and is dropped
-          const int4 me = meta[it.first - nheld + (e < nheld ? e : 0)];
-          float d[2][2][4] = {};
-          product(d, held[e], xc, me.y);
-          if (e < nheld) add(d, me.z);
+          for (int e = 0; e < RE; e += 2) {
+            // an edge this warp does not hold repeats the first and adds +0:
+            // no branch, so the products of later pairs can start early
+            const int4 m0 = meta[held0 + (e < nheld ? e : 0)];
+            const int4 m1 = meta[held0 + (e + 1 < nheld ? e + 1 : 0)];
+            float d0[TI][2][4] = {}, d1[TI][2][4] = {};
+            product(d0, held[e], xc, m0.y);
+            product(d1, held[e + 1], xc, m1.y);
+            add_if(d0, m0.z, e < nheld);
+            add_if(d1, m1.z, e + 1 < nheld);
+          }
+        } else {
+#pragma unroll
+          for (int e = 0; e < RE; ++e) {
+            // an edge this warp does not hold repeats the first and is
+            // dropped
+            const int4 me = meta[it.first - nheld + (e < nheld ? e : 0)];
+            float d[TI][2][4] = {};
+            product(d, held[e], xc, me.y);
+            if (e < nheld) add(d, me.z);
+          }
         }
       }
       MDNO_WARP_MARK(layer, 2)
       int i = it.first;
+      if constexpr (TI == 1) {
+        for (; i + 1 < it.staged_end; i += 2) {
+          const int4 m0 = meta[i], m1 = meta[i + 1];
+          float d0[TI][2][4] = {}, d1[TI][2][4] = {};
+          product_staged(d0, smem_u32(ks) + m0.x + it.off0, 0, xc, m0.y);
+          product_staged(d1, smem_u32(ks) + m1.x + it.off0, 0, xc, m1.y);
+          add(d0, m0.z);
+          add(d1, m1.z);
+        }
+      }
       for (; i < it.staged_end; ++i) {
         const int4 me = meta[i];
-        float d[2][2][4] = {};
+        float d[TI][2][4] = {};
         product_staged(d, smem_u32(ks) + me.x + it.off0,
                        smem_u32(ks) + me.x + it.off1, xc, me.y);
         add(d, me.z);
       }
       for (; i < it.past; ++i) {
-        float d[2][2][4] = {};
+        float d[TI][2][4] = {};
         const int4 me = meta[i];
         product_global(d,
                        reinterpret_cast<const unsigned short*>(K) +
                            ((size_t)s * E + me.w) * (W * W),
-                       h, xc, me.y);
+                       q, xc, me.y);
         add(d, me.z);
       }
       MDNO_WARP_MARK(layer, 3)
 #pragma unroll
-      for (int m = 0; m < 2; ++m) {
+      for (int m = 0; m < TI; ++m) {
         // x' = relu(agg * inv_deg + cd(x) @ cd(root) + bias)
-        const int mt = 2 * h + m, col = mt * 16 + g;
+        const int mt = TI * q + m, col = mt * 16 + g;
         const float z0 = __fadd_rn(
             __fadd_rn(__fmul_rn(agg[m][0], it.invd), dr[m][0][0] + dr[m][1][0]),
             bs[m][0]);
@@ -918,9 +1049,10 @@ __device__ float* run_fma(
       __syncthreads();
     }
 
-    // the block's edges in chunks of kMsgRows (one chunk at the bench shapes)
-    for (int base = 0; base == 0 || base < ne; base += kMsgRows) {
-      const int nchunk = max(0, min(kMsgRows, ne - base));
+    // the block's edges in chunks (chunk_end; one at the bench shapes): the
+    // first pass runs even without edges, for the root products
+    for (int base = 0, nchunk = -1; nchunk < 0 || base < ne; base += nchunk) {
+      nchunk = chunk_end(nstart, nown, base, ne) - base;
       const int nitems = nchunk + (base == 0 ? nown : 0);
       // the parts of an item's sum, added across its lanes, and the result
       // stored: a message masked and rounded to CD, a root product as it is
@@ -1020,7 +1152,7 @@ __device__ float* run_fma(
       // per owned node and 4 columns, four lanes: each adds every fourth of
       // the node's messages of this chunk (in slot order), a butterfly adds
       // the four parts, (0 + 1) + (2 + 3)
-      const bool more = base + kMsgRows < ne;
+      const bool more = base + nchunk < ne;
       for (int idx0 = 0; idx0 < total; idx0 += nt) {
         // this thread's output on the first pass (the only one unless a
         // block owns more than threads / w nodes) was decoded once, before
@@ -1090,7 +1222,7 @@ __device__ float* run_fma(
 // stores its f32 value, before the rounding to CD, into
 // stack[s, l + 1, node, columns] (row 0, x0, is the caller's); null (the
 // rollout kernels) compiles that store away.
-template <typename CD, bool MMA>
+template <typename CD, bool MMA, int NB = NCL>
 __device__ float* run(
     unsigned char* smem_raw,
     const float* __restrict__ x0,       // (S, R, W)
@@ -1103,21 +1235,23 @@ __device__ float* run(
     int R, int W, int E, int depth, int cap,
     float* __restrict__ stack = nullptr) {  // (S, 2*depth+1, R, W) or null
   if constexpr (MMA)
-    return run_mma(smem_raw, x0, K, edges, mask, inv_deg, root1, bias1, root2,
-                   bias2, R, E, depth, cap, stack);
+    return run_mma<NB>(smem_raw, x0, K, edges, mask, inv_deg, root1, bias1,
+                       root2, bias2, R, E, depth, cap, stack);
   else
     return run_fma<CD>(smem_raw, x0, K, edges, mask, inv_deg, root1, bias1,
                        root2, bias2, R, W, E, depth, cap, stack);
 }
 
 // The launch shape of a kernel that calls run(): the body (one per width
-// and compute dtype), its threads a block, the K rows staged per block and
-// the dynamic shared memory.
+// and compute dtype), its threads a block, the K rows staged per block, the
+// dynamic shared memory and the blocks of a cluster (NCL unless the caller
+// launches run_mma<kWideNCL>).
 struct Plan {
   bool mma;
   int threads;
   int cap;
   size_t smem;
+  int ncl = NCL;
 };
 
 // cudaErrorInvalidValue for a width the item lanes do not cover,
@@ -1135,8 +1269,9 @@ inline int plan(int R, int W, int E, int cd_size, Plan* out) {
   return 0;
 }
 
-// The launch of ``kernel`` as S clusters of NCL blocks of ``p.threads``
-// threads with ``p.smem`` bytes of dynamic shared memory on ``st``.
+// The launch of ``kernel`` as S clusters of ``p.ncl`` blocks of
+// ``p.threads`` threads with ``p.smem`` bytes of dynamic shared memory on
+// ``st``.
 struct ClusterLaunch {
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t config;
@@ -1148,12 +1283,17 @@ int prepare(void (*kernel)(Params...), int S, const Plan& p, cudaStream_t st,
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
   if (err != cudaSuccess) return (int)err;
+  if (p.ncl > NCL) {  // more than the portable 8 blocks
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return (int)err;
+  }
   cl->attr[0].id = cudaLaunchAttributeClusterDimension;
-  cl->attr[0].val.clusterDim.x = NCL;
+  cl->attr[0].val.clusterDim.x = p.ncl;
   cl->attr[0].val.clusterDim.y = 1;
   cl->attr[0].val.clusterDim.z = 1;
   cl->config = cudaLaunchConfig_t{};
-  cl->config.gridDim = dim3(S * NCL);
+  cl->config.gridDim = dim3(S * p.ncl);
   cl->config.blockDim = dim3(p.threads);
   cl->config.dynamicSmemBytes = p.smem;
   cl->config.stream = st;

@@ -37,7 +37,9 @@
 // Keeping them in shared memory (2 * 2*depth * R * 64 bf16, 86 KB at R =
 // 28, depth 6) leaves 15 staged K rows beside the 16 a block holds in
 // registers, more than the most loaded block needs at the training shapes
-// (15 past its registers); writing dagg to a scratch in device memory
+// (at most 14 past its registers over 570 windows of the training chain
+// under the deal by in-degree, 15 under the greedy deal before it);
+// writing dagg to a scratch in device memory
 // instead would stage 4 more rows that no block uses, and the dK pass
 // would read its operand from L2.
 //
@@ -808,9 +810,10 @@ __device__ void run_fma(
     __syncthreads();
     const float* zl = dzr(layer);
 
-    // the block's edges in chunks of kMsgRows
-    for (int base = 0; base == 0 || base < ne; base += kMsgRows) {
-      const int nchunk = max(0, min(kMsgRows, ne - base));
+    // the block's edges in chunks (chunk_end): the first pass runs even
+    // without edges, for the root products
+    for (int base = 0, nchunk = -1; nchunk < 0 || base < ne; base += nchunk) {
+      nchunk = chunk_end(L.nstart, nown, base, ne) - base;
       const int nitems = nchunk + (base == 0 ? nown : 0);
       // last items first: the root products and the edges read from L2
       for (int rev = wid; rev < nitems; rev += nw) {
@@ -862,7 +865,7 @@ __device__ void run_fma(
       // per owned node and 4 columns, four lanes: each adds every fourth of
       // the node's messages of this chunk (in slot order), a butterfly adds
       // the four parts, (0 + 1) + (2 + 3)
-      const bool more = base + kMsgRows < ne;
+      const bool more = base + nchunk < ne;
       for (int idx0 = 0; idx0 < total; idx0 += nt) {
         const Slot sl = slot_of(idx0 + tid);
         const int part = sl.part, n = sl.n, c4 = sl.c4;

@@ -119,6 +119,9 @@ def _counters() -> dict:
         return (lambda: d[k], lambda v: d.__setitem__(k, v))
 
     out = {fn.__name__: attr(fn) for fn in pr.KERNELS}
+    out["conv_head_wide"] = (
+        lambda: pr.conv_head.wide_launches,
+        lambda v: setattr(pr.conv_head, "wide_launches", v))
     out["fused_edge_conv_stack"] = attr(fused_gkn.fused_edge_conv_stack)
     out.update({k: item(train_conv.launches, k) for k in train_conv.launches})
     return out

@@ -13,7 +13,11 @@ stream, with no host sync inside the loop:
    S*E edge rows, three launches enqueued by one call; the last writes K
    with padded rows zeroed. ``edge_mlp`` is one layer of it, for any K.
 3. ``conv_head`` (``csrc/conv_head.cu``): 2*depth tied convs, fc2 head,
-   prior, clip, window slide, this step's coordinates.
+   prior, clip, window slide, this step's coordinates. A stream is one
+   cluster of 8 blocks, or of 16 (the wide plan, bf16 at width 64) while
+   the card holds every stream's 16-block cluster at once
+   (``conv_head_plan``); ``conv_head.wide_launches`` counts the wide
+   launches.
 
 Each wrapper has a plain PyTorch version of the same function beside it
 (``*_plain``), built from the port's XLA-path modules. A wrapper runs the
@@ -105,9 +109,9 @@ register_kernel("edge_mlp", "mdno_edge_mlp", [_P] * 5 + [_I] * 5 + [_P])
 register_kernel("edge_mlp_stack", "mdno_edge_mlp_stack",
                 [_P] * 11 + [_I] * 5 + [_P], source="edge_mlp")
 register_kernel("conv_head", "mdno_conv_head",
-                [_P] * 13 + [_I] * 7 + [_F, _I, _F, _I, _F, _I, _P])
+                [_P] * 13 + [_I] * 7 + [_F, _I, _F, _I, _F, _I, _I, _P])
 register_kernel("conv_head_clusters", "mdno_conv_head_clusters",
-                [_I] * 4 + [ctypes.POINTER(ctypes.c_int)], source="conv_head")
+                [_I] * 5 + [ctypes.POINTER(ctypes.c_int)], source="conv_head")
 
 
 class StepBuffers(NamedTuple):
@@ -420,10 +424,39 @@ def conv_head_plain(x0, kmat, edges, mask, inv_deg, weights,
     return out
 
 
+_wide_clusters: dict = {}
+
+
+def wide_clusters(num_nodes: int, width: int, max_edges: int, cd,
+                  device) -> int:
+    """How many of ``conv_head``'s wide clusters (16 blocks a stream) the
+    card ``device`` holds at once at these shapes (0 where the shapes run
+    the CUDA-core body, which has no wide plan), asked of that card once
+    per shape and then kept, so that choosing a plan costs a launch
+    nothing."""
+    device = torch.device(device)
+    key = (num_nodes, width, max_edges, cd, device)
+    if key not in _wide_clusters:
+        with torch.cuda.device(device):
+            _wide_clusters[key] = conv_head_clusters(
+                num_nodes, width, max_edges, cd, wide=True)
+    return _wide_clusters[key]
+
+
+def conv_head_plan(streams: int, wide: int) -> str:
+    """``"wide"`` (a 16-block cluster a stream: half the K slice a block,
+    four warps a node) when the card holds all ``streams`` of the wide
+    plan's clusters at once (``wide``, from ``wide_clusters``), else
+    ``"narrow"`` (8 blocks a stream): more streams than that would wait
+    for a second wave, while 8-block clusters run in one."""
+    return "wide" if streams <= wide else "narrow"
+
+
 def conv_head(bufs: StepBuffers, weights, cfg: ModelConfig, clip,
               window: torch.Tensor, coords: torch.Tensor) -> None:
     """Conv stack and head of one step from ``bufs``: writes coords
-    (S, R, 3) and slides window (S, T, R, 3) in place."""
+    (S, R, 3) and slides window (S, T, R, 3) in place, on the plan that
+    ``conv_head_plan`` picks (the two plans give the same bits)."""
     s, t, r, _ = window.shape
     e = bufs.mask.shape[1]
     w = bufs.x0.shape[-1]
@@ -439,6 +472,7 @@ def conv_head(bufs: StepBuffers, weights, cfg: ModelConfig, clip,
         raise ValueError(f"unknown predict_prior: {cfg.predict_prior!r}")
     if cfg.predict_delta and extrapolate and t < 2:
         raise ValueError("predict_prior='extrapolate' needs window_size >= 2")
+    plan = conv_head_plan(s, wide_clusters(r, w, e, cd, dev))
     args = [
         _check(bufs.x0, "x0", f32, (s, r, w), dev),
         _check(bufs.kmat, "kmat", cd, (s * e, w * w), dev),
@@ -455,23 +489,28 @@ def conv_head(bufs: StepBuffers, weights, cfg: ModelConfig, clip,
         _check(coords, "coords", f32, (s, r, 3), dev),
         s, r, w, e, t, cfg.depth, int(cfg.predict_delta),
         float(cfg.head_scale), int(extrapolate), float(cfg.prior_damping),
-        int(clip is not None), float(clip or 0.0), _cd_flag(cd), _stream(),
+        int(clip is not None), float(clip or 0.0), _cd_flag(cd),
+        int(plan == "wide"), _stream(),
     ]
     _raise_on(_kernel("conv_head")(*args), "conv_head")
     conv_head.launches += 1
+    conv_head.wide_launches += int(plan == "wide")
 
 
 conv_head.launches = 0
+conv_head.wide_launches = 0
 
 
 def conv_head_clusters(num_nodes: int, width: int, max_edges: int,
-                       cd) -> int:
+                       cd, wide: bool = False) -> int:
     """How many of ``conv_head``'s clusters (one a stream) the card holds at
-    once at these shapes: streams beyond that wait for a second wave."""
+    once at these shapes, of the narrow plan (8 blocks) or the wide one (16
+    blocks; 0 where the shapes have none): streams beyond that wait for a
+    second wave."""
     out = ctypes.c_int(0)
     _raise_on(_kernel("conv_head_clusters")(
-        num_nodes, width, max_edges, _cd_flag(cd), ctypes.byref(out)),
-        "conv_head_clusters")
+        num_nodes, width, max_edges, _cd_flag(cd), int(wide),
+        ctypes.byref(out)), "conv_head_clusters")
     return out.value
 
 
@@ -481,10 +520,14 @@ KERNELS = (graph_encode, edge_mlp, conv_head)
 def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
+    conv_head.wide_launches = 0
 
 
 def launch_counts() -> dict:
-    return {k.__name__: k.launches for k in KERNELS}
+    """Each kernel's launches, and ``conv_head_wide``: those of
+    ``conv_head`` that took the wide plan."""
+    return {**{k.__name__: k.launches for k in KERNELS},
+            "conv_head_wide": conv_head.wide_launches}
 
 
 # ---- the rollout --------------------------------------------------------

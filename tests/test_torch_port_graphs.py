@@ -208,7 +208,32 @@ def test_graphed_kernel_rollout_is_the_eager_loop_to_the_bit(cuda, cd,
         assert torch.equal(got[2]["edge_overflow"],
                            want[2]["edge_overflow"])
     assert eager_counts == {"graph_encode": 100, "edge_mlp": 300,
-                            "conv_head": 100}
+                            "conv_head": 100, "conv_head_wide": 0}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("streams", [1, 8])
+def test_graphed_kernel_rollout_carries_the_wide_launches(cuda, streams):
+    """At width 64 in bf16 conv_head takes the wide plan at one stream
+    and the narrow one at 8 (an H100 holds fewer than 8 of its 16-block
+    clusters); a replay adds the wide launches its capture made, and the
+    graphs stay bit-equal to the eager loop."""
+    cfg = ModelConfig(**{**SMALL, "width": 64}, compute_dtype="bfloat16")
+    params = gkn_init(cfg, seed=0, device=cuda)
+    prepared = pr.PreparedRollout(params, cfg, _traj().aminoacids,
+                                  clip=100.0, device=cuda)
+    w0 = _windows(streams, cuda)
+    pr.reset_launch_counts()
+    want = prepared.eager(w0, 100)
+    eager_counts = pr.launch_counts()
+    for _ in range(2):
+        pr.reset_launch_counts()
+        got = prepared(w0, 100)
+        assert pr.launch_counts() == eager_counts
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert eager_counts == {"graph_encode": 100, "edge_mlp": 300,
+                            "conv_head": 100,
+                            "conv_head_wide": 100 if streams == 1 else 0}
 
 
 @pytest.mark.gpu

@@ -8,6 +8,8 @@ against its plain version on the card; they skip without a CUDA card
 comparisons at the bench shapes.
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -16,6 +18,9 @@ from molecular_dynamics_neural_operator_tpu_torch.configs import ModelConfig
 from molecular_dynamics_neural_operator_tpu_torch.data import (
     WindowDataset,
     synthetic_trajectory,
+)
+from molecular_dynamics_neural_operator_tpu_torch.geometry.contact import (
+    edge_features_from_edges,
 )
 from molecular_dynamics_neural_operator_tpu_torch.models import gkn_init
 from molecular_dynamics_neural_operator_tpu_torch.models.gkn import (
@@ -90,7 +95,54 @@ def test_wrappers_on_cpu_run_the_plain_versions_and_launch_nothing():
     assert torch.equal(out, pr.edge_mlp_plain(a, layer["w"], layer["b"],
                                               True))
     assert pr.launch_counts() == {"graph_encode": 0, "edge_mlp": 0,
-                                  "conv_head": 0}
+                                  "conv_head": 0, "conv_head_wide": 0}
+
+
+@pytest.mark.parametrize("streams,wide,plan", [
+    (1, 7, "wide"), (2, 7, "wide"), (4, 7, "wide"), (7, 7, "wide"),
+    (8, 7, "narrow"), (32, 7, "narrow"), (1, 0, "narrow"), (8, 8, "wide")])
+def test_conv_head_goes_wide_while_the_card_holds_every_streams_cluster(
+        streams, wide, plan):
+    """A 16-block cluster a stream only while all of them run at once:
+    one more stream would wait for a second wave, which 8-block clusters
+    (15 at once on an H100) never need at 8 streams."""
+    assert pr.conv_head_plan(streams, wide) == plan
+
+
+def test_wide_clusters_asks_each_card_once_a_shape(monkeypatch):
+    """The card is asked once per shape and device, on that device; the
+    count it gives is all the wrapper knows of which shapes have a wide
+    plan (0 for the CUDA-core body: f32, or bf16 at another width), so
+    those stay narrow."""
+    asked, current = [], []
+
+    @contextlib.contextmanager
+    def on(device):
+        current.append(device)
+        yield
+        current.pop()
+
+    def clusters(r, w, e, cd, wide=False):
+        asked.append((r, w, e, cd, wide, current[-1]))
+        return 7 if (cd, w) == (torch.bfloat16, 64) else 0
+
+    monkeypatch.setattr(pr.torch.cuda, "device", on)
+    monkeypatch.setattr(pr, "conv_head_clusters", clusters)
+    monkeypatch.setattr(pr, "_wide_clusters", {})
+    card, other = torch.device("cuda", 0), torch.device("cuda", 1)
+    for _ in range(2):
+        assert pr.wide_clusters(28, 64, 224, torch.bfloat16, card) == 7
+    assert asked == [(28, 64, 224, torch.bfloat16, True, card)]
+    assert pr.wide_clusters(28, 64, 256, torch.bfloat16, card) == 7
+    assert pr.wide_clusters(28, 64, 224, torch.bfloat16, other) == 7
+    assert asked[-1][-1] == other and len(asked) == 3
+    for cd, w in ((torch.float32, 64), (torch.bfloat16, 16),
+                  (torch.bfloat16, 128)):
+        for _ in range(2):
+            assert pr.wide_clusters(28, w, 224, cd, card) == 0
+        assert pr.conv_head_plan(1, pr.wide_clusters(28, w, 224, cd,
+                                                     card)) == "narrow"
+    assert len(asked) == 6
 
 
 def test_edge_mlp_plain_masks_rows_and_keeps_dtype():
@@ -317,6 +369,119 @@ def test_kernels_match_plain_versions_on_the_card(cuda, cd, streams):
     # 12 nodes over 8 blocks of 512 threads: the card holds two a GPC at least
     assert pr.conv_head_clusters(12, cfg.width, cfg.max_edges,
                                  bufs.kmat.dtype) >= 1
+    # the wide plan at the flagship's shapes: 16 blocks of 256 threads
+    assert pr.conv_head_clusters(28, 64, 224, torch.bfloat16, wide=True) >= 1
+    # width 16 runs the CUDA-core body, which has no wide plan
+    assert pr.conv_head_clusters(12, cfg.width, cfg.max_edges,
+                                 bufs.kmat.dtype, wide=True) == 0
+
+
+def _conv_head_steps(shape, streams, device):
+    """One step's conv_head inputs in bf16 at width 64 (the tensor-core
+    body, the only one with a wide plan) from seeded weights (every layer
+    alive): (cfg, weights, windows, [(name, edges, mask, inv_deg, x0,
+    kmat)]) for the contacts graph of seeded windows and _stress_graphs's
+    (a hub of in-degree 60, one of in-degree R - 1, every slot taken), K
+    from the plain edge MLP on each graph's edge features."""
+    if shape == "flagship":    # chip_smoke.py::bench_cfg: 28 residues
+        cfg = ModelConfig(compute_dtype="bfloat16", graph_mode="sparse",
+                          max_edges=224, predict_delta=True)
+        r, real = 28, 200
+    else:
+        cfg = ModelConfig(**{**SMALL, "width": 64},
+                          compute_dtype="bfloat16")
+        r, real = 12, 90
+    e, t = cfg.max_edges, cfg.window_size
+    params = gkn_init(cfg, seed=0, device=device)
+    traj = synthetic_trajectory(num_frames=400, num_residues=r, seed=4)
+    windows = torch.as_tensor(np.stack(
+        [traj.positions[50 * i:50 * i + t] for i in range(streams)]),
+        device=device)
+    weights = pr.rollout_weights(
+        params, cfg, torch.as_tensor(traj.aminoacids, device=device), device)
+    edges, mask, _, _, inv_deg, _, x0 = pr.graph_encode_plain(
+        windows, weights, 8.0, e, torch.bfloat16)
+    graphs = ([("contacts", edges, mask)]
+              + _stress_graphs(5, streams, r, e, real, 60, device)
+              + _stress_graphs(6, streams, r, e, real, r - 1, device)[:1])
+    steps = []
+    for name, g_edges, g_mask in graphs:
+        a = edge_features_from_edges(windows[:, -1], g_edges).to(
+            torch.bfloat16).reshape(streams * e, 6)
+        for i, layer in enumerate(weights["mlp"]):
+            a = pr.edge_mlp_plain(a, layer["w"], layer["b"], i < 2,
+                                  g_mask.reshape(-1) if i == 2 else None)
+        steps.append((name, g_edges, g_mask,
+                      sparse_inv_degree(g_edges, g_mask, r), x0, a))
+    return cfg, weights, windows, steps
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", ["small", "flagship"])
+@pytest.mark.parametrize("streams", [1, 2, 4])
+def test_wide_conv_head_gives_the_narrow_plans_bits_on_the_card(
+        cuda, shape, streams, monkeypatch):
+    """The wide plan (16 blocks a stream, 16 columns a warp) takes the
+    same sums in the same order as the narrow one: the same coordinates
+    and the same slid window, to the bit, and both within the plain
+    version's tolerance (test_kernels_match_plain_versions_on_the_card's).
+    Random weights without the clip: activations grow with every layer."""
+    cfg, weights, windows, steps = _conv_head_steps(shape, streams, cuda)
+    r = windows.shape[2]
+    bufs = pr.alloc_buffers(cfg, streams, r, cuda)
+    pr.reset_launch_counts()
+    for name, edges, mask, inv_deg, x0, kmat in steps:
+        for dst, src in ((bufs.edges, edges), (bufs.mask, mask),
+                         (bufs.inv_deg, inv_deg), (bufs.x0, x0),
+                         (bufs.kmat, kmat)):
+            dst.copy_(src)
+        got = {}
+        for plan in ("narrow", "wide"):
+            # this plan, whatever the rule would pick
+            monkeypatch.setattr(pr, "conv_head_plan",
+                                lambda s, wide, plan=plan: plan)
+            win = windows.clone()
+            coords = torch.empty(streams, r, 3, device=cuda)
+            pr.conv_head(bufs, weights, cfg, None, win, coords)
+            got[plan] = (coords, win)
+        win_p = windows.clone()
+        want = pr.conv_head_plain(x0, kmat, edges, mask, inv_deg, weights,
+                                  cfg, None, win_p)
+        torch.cuda.synchronize()
+        assert torch.equal(got["wide"][0], got["narrow"][0]), name
+        assert torch.equal(got["wide"][1], got["narrow"][1]), name
+        head_out = (want - residual_prior(cfg, windows)).abs().max().item()
+        ulp = torch.finfo(torch.float32).eps * want.abs().max().item()
+        tol_head = 1e-2 * head_out + 2 * ulp
+        assert tol_head < 0.1 * head_out, name
+        assert (got["narrow"][0] - want).abs().max().item() <= tol_head, name
+        assert torch.equal(got["narrow"][1][:, :-1], win_p[:, :-1]), name
+    assert pr.launch_counts()["conv_head"] == 2 * len(steps)
+    assert pr.launch_counts()["conv_head_wide"] == len(steps)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("streams", [1, 2, 4, 8])
+def test_conv_head_picks_its_plan_by_the_streams_on_the_card(cuda, streams):
+    """Left to itself conv_head goes wide at 1, 2 and 4 streams at the
+    flagship's shapes and stays narrow at 8: an H100 holds fewer than 8
+    clusters of 16 blocks (a cluster lies within one GPC)."""
+    cfg, weights, windows, steps = _conv_head_steps("flagship", streams,
+                                                    cuda)
+    wide = pr.wide_clusters(28, 64, 224, torch.bfloat16, cuda)
+    assert 4 <= wide < 8
+    bufs = pr.alloc_buffers(cfg, streams, 28, cuda)
+    _, edges, mask, inv_deg, x0, kmat = steps[0]
+    for dst, src in ((bufs.edges, edges), (bufs.mask, mask),
+                     (bufs.inv_deg, inv_deg), (bufs.x0, x0),
+                     (bufs.kmat, kmat)):
+        dst.copy_(src)
+    coords = torch.empty(streams, 28, 3, device=cuda)
+    pr.reset_launch_counts()
+    pr.conv_head(bufs, weights, cfg, None, windows.clone(), coords)
+    torch.cuda.synchronize()
+    assert pr.launch_counts()["conv_head"] == 1
+    assert pr.launch_counts()["conv_head_wide"] == (1 if streams < 8 else 0)
 
 
 @pytest.mark.gpu
@@ -378,7 +543,7 @@ def test_kernel_rollout_matches_plain_rollout_on_the_card(cuda):
     torch.testing.assert_close(got, want, rtol=0, atol=1e-3)
     torch.testing.assert_close(final, want_final, rtol=0, atol=1e-3)
     assert pr.launch_counts() == {"graph_encode": 8, "edge_mlp": 24,
-                                  "conv_head": 8}
+                                  "conv_head": 8, "conv_head_wide": 0}
 
 
 def _train_conv_operands(seed, cd, device, b=6, r=12, w=16, e=128, real=90,
