@@ -17,6 +17,16 @@ static), ``stop_gradient`` is ``.detach()`` and the burn-in of
 kernel of ``ops/cuda/train_conv.py``: K forward launches and, through
 autograd, one backward launch per supervised step. Every metric stays a
 device tensor; nothing here reads the device.
+
+Spans and counters (``utils/profiling.py``): ``train.curriculum`` around
+each call of the K-step train step (on the card it encloses the step's
+``graph.replay``, whose graph is named ``curriculum``); issued op by op,
+``curriculum.unroll`` around each of the K model steps and
+``curriculum.rebuild`` around each rebuilt graph inside it. A step call
+adds 1 to ``curriculum_steps``, K to ``curriculum_unrolled``, the
+supervised steps to ``curriculum_supervised`` and, on the dense graph,
+B * R^2 for each model step to ``dense_pairs``: host integers from the
+batch's shapes, counted outside any graph.
 """
 
 from __future__ import annotations
@@ -53,6 +63,10 @@ from molecular_dynamics_neural_operator_tpu_torch.train.loop import (
 from molecular_dynamics_neural_operator_tpu_torch.train.state import (
     TrainState,
     apply_update,
+)
+from molecular_dynamics_neural_operator_tpu_torch.utils.profiling import (
+    count,
+    span,
 )
 
 def _example_rel(pred, truth):
@@ -177,7 +191,8 @@ def curriculum_loss_batched(params, cfg: ModelConfig, gbatch: GKNBatch,
         return torch.no_grad() if t < burn else contextlib.nullcontext()
 
     def free_step(cfg_x, window, y_t):
-        graph, ov = _build_graph(cfg_x, window[:, -1], threshold)
+        with span("curriculum.rebuild"):
+            graph, ov = _build_graph(cfg_x, window[:, -1], threshold)
         out = gkn_apply(params, cfg_x, GKNBatch(aa=gbatch.aa, window=window,
                                                 graph=graph, y=y_t),
                         scatter_hint=rebuilt_scatter_hint(
@@ -190,7 +205,7 @@ def curriculum_loss_batched(params, cfg: ModelConfig, gbatch: GKNBatch,
     # burn-in unless every step is supervised. What the burn-in hands on
     # was made under no_grad: the window reaches the supervised span
     # detached, as the JAX package's stop_gradient leaves it.
-    with burn_in(0):
+    with burn_in(0), span("curriculum.unroll"):
         out = gkn_apply(params, cfg_burn, gbatch,
                         scatter_hint=teacher_scatter_hint)
     if burn == 0:
@@ -204,7 +219,7 @@ def curriculum_loss_batched(params, cfg: ModelConfig, gbatch: GKNBatch,
             out = torch.clamp(out, -coord_clip, coord_clip)
         window = torch.cat([gbatch.window[:, 1:], out[:, None]], dim=1)
         for t in range(1, k):
-            with burn_in(t):
+            with burn_in(t), span("curriculum.unroll"):
                 window, out, ov = free_step(cfg_burn if t < burn else cfg,
                                             window, y_seq[:, t])
             if t >= burn:
@@ -294,7 +309,8 @@ def make_curriculum_train_step(cfg: ModelConfig, tx, rollout_steps: int,
     free steps feed back the model's own predictions. The other options
     are ``curriculum_loss_batched``'s. On the card the step, its K
     rebuilds included, replays a CUDA graph as ``make_train_step``'s
-    does; ``step.eager`` is the step issued op by op."""
+    does; ``step.eager`` is the step issued op by op. Both count and
+    trace each call as the module docstring says."""
     loss_fn = make_curriculum_loss(
         cfg, rollout_steps, threshold=threshold, step_weights=step_weights,
         graph_frame=graph_frame, coord_clip=coord_clip,
@@ -308,5 +324,23 @@ def make_curriculum_train_step(cfg: ModelConfig, tx, rollout_steps: int,
         return apply_update(state, grads, tx), {
             "rel_l2": l2, "mse": m, "edge_overflow": overflow}
 
-    return graphed_step(body, noise_std, eager_only=stays_eager(cfg),
-                        name=f"K={rollout_steps} curriculum train step")
+    inner = graphed_step(body, noise_std, eager_only=stays_eager(cfg),
+                         name="curriculum")
+    supervised = rollout_steps if grad_steps is None else int(grad_steps)
+
+    def counted(run):
+        def step(state: TrainState, batch: dict):
+            with span("train.curriculum"):
+                out = run(state, batch)
+            count("curriculum_steps")
+            count("curriculum_unrolled", rollout_steps)
+            count("curriculum_supervised", supervised)
+            if cfg.graph_mode == "dense":
+                b, r = batch["window"].shape[0], batch["window"].shape[-2]
+                count("dense_pairs", rollout_steps * b * r * r)
+            return out
+        return step
+
+    step = counted(inner)
+    step.eager, step.graphed = counted(inner.eager), inner.graphed
+    return step

@@ -10,6 +10,12 @@
 - ``tracing()``: records the spans of every thread while its block runs
   and hands them back when it ends, as ``Span`` tuples, with the names
   and ids of the threads that recorded them.
+- ``count(name, n)``: adds n to the program counter ``name``, a host
+  integer that is always on and never reads the device; ``counters()``
+  returns them all. A reader takes them before and after its block and
+  subtracts. The counters: ``curriculum_steps``, ``curriculum_unrolled``,
+  ``curriculum_supervised`` and ``dense_pairs``
+  (``train/curriculum.py``).
 
 Spans are stamped with ``time.time_ns()``, the clock of the profiler's
 host events, so they lie on one timeline with a ``torch.profiler`` trace
@@ -193,6 +199,19 @@ def tracing():
         got = session.spans()
         out.extend(got)
         out.threads = got.threads
+
+
+_counts: dict = {}
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add n to the program counter ``name`` (a host integer)."""
+    _counts[name] = _counts.get(name, 0) + int(n)
+
+
+def counters() -> dict:
+    """Every program counter's value so far."""
+    return dict(_counts)
 
 
 _SPANS_PID = 0x5350     # the Chrome trace's process of the spans
