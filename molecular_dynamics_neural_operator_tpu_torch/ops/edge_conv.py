@@ -12,7 +12,8 @@ layers. Two graph forms:
   (incidence products; the rule below 512 nodes), ``"segment"`` (a
   gather and a scatter-add, above) or ``"blocked"`` (the cell-list block
   layout, where slot n*max_degree + d targets node n, so the scatter is a
-  per-node sum).
+  per-node sum: with a kernel tensor in the compute dtype, one product of
+  each node's masked slots with its block of the kernel tensor).
 
 The whole tied sparse stack with a hand-written backward is
 ``ops/conv_stack.py``, and as a CUDA kernel ``ops/cuda/train_conv.py``.
@@ -22,7 +23,11 @@ is folded into the message mask.
 Cast points, as in the JAX package: ``"onehot"`` rounds each message to
 the compute dtype before its scatter product; ``"segment"`` and
 ``"blocked"`` sum the f32 messages unrounded; the dense conv contracts the
-rounded x with the rounded kernel tensor and accumulates in f32.
+rounded x with the rounded kernel tensor and accumulates in f32. A bf16
+kernel tensor on the card is multiplied on tensor cores (``torch.bmm``
+with an f32 result) by the dense conv and the blocked layer, outside
+``ops/mlp.py::exact_products``: the same operands and an f32
+accumulation, its additions in another order.
 """
 
 from __future__ import annotations
@@ -31,8 +36,10 @@ import torch
 
 from molecular_dynamics_neural_operator_tpu_torch.ops.mlp import (
     mlp_apply,
+    products_exact,
     round_to,
 )
+from molecular_dynamics_neural_operator_tpu_torch.utils.profiling import count
 
 # Above this node count the "auto" rule aggregates with the segment
 # scatter instead of (E, N) one-hot products.
@@ -107,18 +114,32 @@ class _DenseAggregate(torch.autograd.Function):
         return dx, dop
 
 
+def _bf16_product(op: torch.Tensor) -> bool:
+    """Whether ``_row_product`` multiplies ``op`` on bf16 tensor cores:
+    a bf16 CUDA tensor outside ``exact_products()``."""
+    return op.is_cuda and op.dtype == torch.bfloat16 and not products_exact()
+
+
+def _row_product(row: torch.Tensor, op: torch.Tensor, cd) -> torch.Tensor:
+    """row (..., 1, K) @ op (..., K, M) -> (..., 1, M), accumulated and
+    returned in f32. Under ``_bf16_product`` the row is rounded to bf16
+    and the product is one ``_DenseAggregate`` over the leading axes,
+    with ``op`` read in place; elsewhere the row must come rounded to
+    ``cd`` and the product is f32 of the rounded operands."""
+    k, m = op.shape[-2], op.shape[-1]
+    if _bf16_product(op):
+        n = row.numel() // k
+        out = _DenseAggregate.apply(row.reshape(n, 1, k).to(op.dtype),
+                                    op.reshape(n, k, m))
+        return out.reshape(row.shape[:-1] + (m,))
+    return row @ round_to(op, cd)
+
+
 def _dense_aggregate(xr: torch.Tensor, op: torch.Tensor, cd) -> torch.Tensor:
     """sum over (j, w) of xr[j, w] op[(j, w), (i, v)]: xr (..., R, w)
     already rounded to ``cd``, op (..., R*w, R*w) -> (..., R, w) f32."""
-    rw = op.shape[-1]
-    row = xr.reshape(xr.shape[:-2] + (1, rw))
-    if op.is_cuda and op.dtype == torch.bfloat16:
-        n = row.numel() // rw
-        agg = _DenseAggregate.apply(row.reshape(n, 1, rw).to(op.dtype),
-                                    op.reshape(n, rw, rw))
-    else:
-        agg = row @ round_to(op, cd)
-    return agg.reshape(xr.shape)
+    row = xr.reshape(xr.shape[:-2] + (1, op.shape[-1]))
+    return _row_product(row, op, cd).reshape(xr.shape)
 
 
 def edge_conv_dense(conv_params, x, kernels_masked, inv_deg,
@@ -195,21 +216,45 @@ def edge_conv_sparse(conv_params, x, kernels, edges, mask, inv_deg,
         xs = torch.take_along_dim(x, src.long()[..., None], dim=-2)
     else:
         raise ValueError(f"unknown scatter_mode: {scatter_mode}")
-    m = torch.einsum("...ew,...ewv->...ev", round_to(xs, cd),
-                     round_to(kernels, cd))
-    m = m * mask[..., None]
-    if scatter_mode == "onehot":
-        agg = _onehot(dst, r).transpose(-1, -2) @ round_to(m, cd)
-    elif scatter_mode == "blocked":
-        # slot n*max_degree + d targets node n: a per-node sum, padded
-        # slots add 0 through the mask
-        _check_blocked_layout(m.shape[-2], r)
-        agg = m.reshape(m.shape[:-2] + (r, -1, m.shape[-1])).sum(dim=-2)
+    if scatter_mode == "blocked" and kernels.dtype != torch.int8:
+        agg = _blocked_aggregate(xs, kernels, mask, r, cd)
     else:
-        agg = _segment_sum(m, dst, r)
+        m = torch.einsum("...ew,...ewv->...ev", round_to(xs, cd),
+                         round_to(kernels, cd))
+        m = m * mask[..., None]
+        if scatter_mode == "onehot":
+            agg = _onehot(dst, r).transpose(-1, -2) @ round_to(m, cd)
+        elif scatter_mode == "blocked":
+            # an int8 kernel tensor: its scale rides on the mask
+            _check_blocked_layout(m.shape[-2], r)
+            agg = m.reshape(m.shape[:-2] + (r, -1, m.shape[-1])).sum(dim=-2)
+        else:
+            agg = _segment_sum(m, dst, r)
     agg = agg * inv_deg[..., None]
     root = round_to(x, cd) @ round_to(conv_params["root"], cd)
     return agg + root + conv_params["bias"]
+
+
+def _blocked_aggregate(xs, kernels, mask, num_nodes: int, cd):
+    """The blocked layer's messages, mask and per-node sum as one product:
+    slot n*D + d targets node n (D = max_degree), so
+    agg[n, v] = sum_(d, w) (xs * mask)[n, d, w] K[n, d, w, v], each node's
+    masked slots a row of D*w times its (D*w, w) block of the kernel
+    tensor (..., E, w, w), read in place. The mask must be 0/1: folded
+    into the row before the rounding, it is then exact. Padded slots add
+    0. Each layer that takes the bf16 product adds 1 to the program
+    counter ``blocked_bf16_aggregate`` (a host count: under a CUDA graph
+    it counts the capture, not the replays)."""
+    _check_blocked_layout(kernels.shape[-3], num_nodes)
+    row = xs * mask[..., None]
+    row = row.reshape(row.shape[:-2] + (num_nodes, 1, -1))
+    op = kernels.reshape(kernels.shape[:-3]
+                         + (num_nodes, row.shape[-1], kernels.shape[-1]))
+    if _bf16_product(op):
+        count("blocked_bf16_aggregate")
+    else:
+        row = round_to(row, cd)
+    return _row_product(row, op, cd)[..., 0, :]
 
 
 def sparse_inv_degree(edges, mask, num_nodes: int,

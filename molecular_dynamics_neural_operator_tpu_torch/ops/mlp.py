@@ -17,6 +17,8 @@ from typing import Sequence
 
 import torch
 
+from molecular_dynamics_neural_operator_tpu_torch.utils.profiling import count
+
 
 _exact_only = False
 
@@ -31,6 +33,11 @@ def exact_products():
         yield
     finally:
         _exact_only = before
+
+
+def products_exact() -> bool:
+    """True inside ``exact_products()``."""
+    return _exact_only
 
 
 def mm_f32_out(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -89,8 +96,12 @@ def linear_init(gen: torch.Generator, in_dim: int, out_dim: int,
 
 def linear_apply(params, x: torch.Tensor, compute_dtype=None,
                  tensor_cores: bool = False) -> torch.Tensor:
-    """y = x @ w + b with optional low-precision operands, f32 accumulation."""
+    """y = x @ w + b with optional low-precision operands, f32 accumulation.
+    Each call that takes ``_TensorCoreMatmul`` adds 1 to the program
+    counter ``plain_tc_linear`` (a host count: under a CUDA graph it
+    counts the capture, not the replays)."""
     if _on_tensor_cores(x, params["w"], compute_dtype, tensor_cores):
+        count("plain_tc_linear")
         y = _TensorCoreMatmul.apply(x, params["w"])
     else:
         y = torch.matmul(round_to(x, compute_dtype),

@@ -15,7 +15,10 @@
   returns them all. A reader takes them before and after its block and
   subtracts. The counters: ``curriculum_steps``, ``curriculum_unrolled``,
   ``curriculum_supervised`` and ``dense_pairs``
-  (``train/curriculum.py``).
+  (``train/curriculum.py``); ``plain_tc_linear`` (``ops/mlp.py``: a
+  linear layer on tensor cores) and ``blocked_bf16_aggregate``
+  (``ops/edge_conv.py``: a blocked conv layer as one bf16 product). Under
+  a CUDA graph a counter counts the capture, not the replays.
 
 Spans are stamped with ``time.time_ns()``, the clock of the profiler's
 host events, so they lie on one timeline with a ``torch.profiler`` trace

@@ -119,6 +119,62 @@ def test_edge_conv_sparse_onehot_matches_jax(seed):
     _close(got, want)
 
 
+def _blocked_layer(seed, r=64, d=8, w=16):
+    """A cell-list block layout (slot n*d + k targets node n) with about
+    40 % padded slots between the real ones, naming node 0."""
+    rng = np.random.default_rng(seed)
+    e = r * d
+    mask = (rng.random(e) < 0.6).astype(np.float32)
+    src = (rng.integers(0, r, e) * mask).astype(np.int32)
+    edges = np.stack([src, np.repeat(np.arange(r), d).astype(np.int32)])
+    x = rng.normal(size=(r, w)).astype(np.float32)
+    kernels = (rng.normal(size=(e, w, w)) / w ** 0.5).astype(np.float32)
+    g = rng.normal(size=(r, w)).astype(np.float32)
+    return x, kernels, edges, mask, g
+
+
+@pytest.mark.parametrize("cd", [None, "bfloat16"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_edge_conv_sparse_blocked_matches_jax_with_gradients(seed, cd):
+    """The blocked layer, one product a node over its slots, against the
+    JAX package's message a slot summed per node: forward, dx and dK, in
+    f32 and on bf16-rounded operands (the kernel tensor in bf16, as the
+    model makes it). dK is one product an element rounded once on both
+    sides: equal. dx is rounded to bf16 after an f32 sum taken in another
+    order: within one bf16 step (2**-8) of the largest element."""
+    r, w = 64, 16
+    x, kernels, edges, mask, g = _blocked_layer(seed)
+    conv = _np_tree(jconv.edge_conv_init(jax.random.PRNGKey(seed), w))
+    inv_deg = np.asarray(jconv.sparse_inv_degree(
+        jnp.asarray(edges), jnp.asarray(mask), r, "blocked"))
+    tcd = None if cd is None else torch.bfloat16
+    tk = torch.as_tensor(kernels).to(tcd or torch.float32)
+    kernels = tk.float().numpy()
+
+    def jlayer(x_, k_):
+        return jconv.edge_conv_sparse(
+            conv, x_, k_, jnp.asarray(edges), jnp.asarray(mask),
+            jnp.asarray(inv_deg), "blocked",
+            None if cd is None else jnp.bfloat16)
+
+    want, vjp = jax.vjp(jlayer, jnp.asarray(x), jnp.asarray(kernels))
+    want_dx, want_dk = vjp(jnp.asarray(g))
+    tx = torch.as_tensor(x).requires_grad_(True)
+    tk.requires_grad_(True)
+    got = edge_conv.edge_conv_sparse(
+        params_from_jax(conv, "cpu"), tx, tk, torch.as_tensor(edges),
+        torch.as_tensor(mask), torch.as_tensor(inv_deg), "blocked", tcd)
+    dx, dk = torch.autograd.grad(got, (tx, tk), torch.as_tensor(g))
+    _close(got, want)
+    if cd is None:
+        _close(dx, want_dx)
+    else:
+        np.testing.assert_allclose(
+            dx.numpy(), np.asarray(want_dx), rtol=0,
+            atol=2.0 ** -8 * float(np.abs(np.asarray(want_dx)).max()))
+    np.testing.assert_array_equal(dk.float().numpy(), np.asarray(want_dk))
+
+
 def test_sparse_inv_degree_matches_jax_and_ignores_padding():
     pos, edges, mask = _graph(4)
     got = edge_conv.sparse_inv_degree(torch.as_tensor(edges),

@@ -1,0 +1,290 @@
+"""The 10,000-atom rollout step's products on the card, at the shapes of
+the ``solvated10k.rollout`` cell (``portbench/configs/solvated_10k.json``,
+its traffic ``rollout_8_fresh`` and its seeded weights).
+
+- The edge MLP over the step's 480,000 slots (6 -> 1024 -> 1024 -> 4096):
+  f32 products of bf16-rounded operands, and bf16 tensor cores
+  (``ops/mlp.py::_TensorCoreMatmul``).
+- One blocked conv layer's aggregation in three forms: a message a slot
+  from an f32 copy of the kernel tensor, masked and summed per node (the
+  form before the fold); one bf16 product a node over its D slots
+  (``ops/edge_conv.py::_blocked_aggregate``); one bf16 product a slot.
+- Eager 8-step calls of ``make_rollout_fn`` as the cell makes them, with
+  each half (the MLP on tensor cores, the folded aggregation) on and off,
+  and the program counters of a step.
+- The graphed dense bf16 and f32 scan step of ``bba_1fme_sparse`` on the
+  dense graph, with the MLP on tensor cores and without.
+
+    python3 tools/port_blocked_step_profile.py [--seed 2100000101]
+        [--calls 4] [--out chiprun_out/blocked_step.json]
+
+Times are CUDA events (parts) and host clocks around synchronised calls
+(steps); every number is printed with the card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+from molecular_dynamics_neural_operator_tpu_torch.configs import (  # noqa: E402
+    ModelConfig,
+)
+from molecular_dynamics_neural_operator_tpu_torch.models import (  # noqa: E402
+    gkn_init,
+)
+from molecular_dynamics_neural_operator_tpu_torch.ops import (  # noqa: E402
+    edge_conv,
+    mlp,
+)
+from molecular_dynamics_neural_operator_tpu_torch.rollout import (  # noqa: E402
+    make_rollout_fn,
+    scan,
+)
+from molecular_dynamics_neural_operator_tpu_torch.utils import (  # noqa: E402
+    profiling,
+)
+from portbench import weights  # noqa: E402
+from portbench.traffic import generate  # noqa: E402
+
+CONFIGS = ROOT / "portbench" / "configs"
+TRAFFIC = ROOT / "portbench" / "traffic"
+
+
+def model_config(model: dict) -> ModelConfig:
+    names = {f.name for f in dataclasses.fields(ModelConfig)}
+    return ModelConfig(**{k: v for k, v in model.items() if k in names})
+
+
+def card() -> str:
+    try:
+        return subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=30).stdout.strip()
+    except (OSError, subprocess.SubprocessError):
+        return torch.cuda.get_device_name(0)
+
+
+def event_ms(fn, n: int = 5, warm: int = 2) -> float:
+    for _ in range(warm):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def per_slot_aggregate(xs, kernels, mask, num_nodes, cd):
+    """The blocked layer's sum as it was before the fold: a message a
+    slot from the rounded operands in f32, masked, summed per node."""
+    m = torch.einsum("...ew,...ewv->...ev", mlp.round_to(xs, cd),
+                     mlp.round_to(kernels, cd))
+    m = m * mask[..., None]
+    return m.reshape(m.shape[:-2] + (num_nodes, -1, m.shape[-1])).sum(-2)
+
+
+def per_edge_aggregate(xs, kernels, mask, num_nodes, cd):
+    """One bf16 product a slot, (E, 1, w) @ (E, w, w) with an f32
+    result, then the mask and the per-node sum."""
+    m = torch.bmm((xs * mask[..., None]).to(kernels.dtype)[:, None, :],
+                  kernels, out_dtype=torch.float32)[:, 0, :]
+    return m.reshape(num_nodes, -1, m.shape[-1]).sum(-2)
+
+
+def cell_inputs(seed: int):
+    cfg_doc = json.loads((CONFIGS / "solvated_10k.json").read_text())
+    mix = json.loads((TRAFFIC / "rollout_8_fresh.json").read_text())
+    model = cfg_doc["model"]
+    inputs = generate.make(mix, model, seed, 20.0)
+    params = weights.make(model, cfg_doc["weights"],
+                          generate.seeds(seed)[0], torch.device("cuda"))
+    aa = torch.as_tensor(inputs["aa"], device="cuda")
+    return model, mix, inputs, params, aa
+
+
+def parts(model, inputs, params, aa) -> dict:
+    """The MLP and one layer's aggregation, each form timed alone on the
+    first window's graph."""
+    cfg = model_config(model)
+    cd = torch.bfloat16
+    window = torch.as_tensor(inputs["windows"][0][0], device="cuda")
+    graph, _ = scan._build_graph(cfg, window[-1], model["threshold"])
+    ef = graph.edge_feats
+    e, w, r = ef.shape[0], cfg.width, cfg.num_residues
+    out = {"slots": e, "real_slots": int(graph.mask.sum().item())}
+    mlp_flop = 2 * e * sum(a * b for a, b in zip(
+        [6, cfg.ker_width, cfg.ker_width], [cfg.ker_width, cfg.ker_width,
+                                            w * w]))
+    with torch.no_grad():
+        for name, tc in (("mlp_f32_ms", False), ("mlp_tc_ms", True)):
+            ms = event_ms(lambda: mlp.mlp_apply(params["edge_kernel"], ef,
+                                                compute_dtype=cd,
+                                                tensor_cores=tc), n=3)
+            out[name] = ms
+            out[name.replace("_ms", "_tflops")] = mlp_flop / ms / 1e9
+        kernels = edge_conv.edge_kernel_matrices(
+            params["edge_kernel"], ef, w, cd, tensor_cores=True)
+        x = torch.randn(r, w, device="cuda")
+        xs = torch.take_along_dim(x, graph.edges[0].long()[:, None], dim=-2)
+        mask = graph.mask
+        forms = {
+            "per_slot": lambda: per_slot_aggregate(xs, kernels, mask, r, cd),
+            "folded": lambda: edge_conv._blocked_aggregate(xs, kernels, mask,
+                                                           r, cd),
+            "per_edge": lambda: per_edge_aggregate(xs, kernels, mask, r, cd),
+        }
+        gb = kernels.numel() * kernels.element_size() / 1e9
+        for name, fn in forms.items():
+            ms = event_ms(fn)
+            out[f"layer_{name}_ms"] = ms
+            out[f"layer_{name}_tbps"] = gb / ms
+        want = per_slot_aggregate(xs, kernels, mask, r, cd)
+        scale = want.abs().max().item()
+        for name in ("folded", "per_edge"):
+            got = forms[name]()
+            out[f"layer_{name}_max_rel_gap"] = \
+                (got - want).abs().max().item() / scale
+        del kernels, xs
+    out["kernel_tensor_gb"] = gb
+    return out
+
+
+class Halves:
+    """Turns each half of the change off by replacing a module function
+    for the block: ``mlp`` off sends the rollout step's MLP to f32
+    products, ``aggregate`` off restores the per-slot layer."""
+
+    def __init__(self, mlp_on: bool, aggregate_on: bool):
+        self.mlp_on, self.aggregate_on = mlp_on, aggregate_on
+
+    def __enter__(self):
+        self._apply, self._agg = scan.gkn_apply_single, \
+            edge_conv._blocked_aggregate
+        if not self.mlp_on:
+            apply = self._apply
+            scan.gkn_apply_single = lambda *a, **k: apply(
+                *a, **{**k, "tensor_cores": False})
+        if not self.aggregate_on:
+            edge_conv._blocked_aggregate = per_slot_aggregate
+        return self
+
+    def __exit__(self, *exc):
+        scan.gkn_apply_single = self._apply
+        edge_conv._blocked_aggregate = self._agg
+        return False
+
+
+def steps(model, mix, inputs, params, aa, calls: int) -> dict:
+    """ms a step of eager 8-step calls, as ``portbench/entries/
+    rollout_scan.py`` makes them, under each pair of halves; the peak
+    memory of a call; the counters a step with both halves on."""
+    cfg = model_config(model)
+    n = mix["steps_per_call"]
+    fn = make_rollout_fn(cfg, n, model["threshold"], clip=mix.get("clip"),
+                         batched=True, device="cuda")
+    pool = inputs["windows"]
+    out = {}
+    for label, on in (("both", (True, True)), ("mlp_only", (True, False)),
+                      ("aggregate_only", (False, True)),
+                      ("neither", (False, False)), ("both_again", (True,
+                                                                  True))):
+        with Halves(*on), torch.no_grad():
+            fn(params, aa, pool[0])
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = profiling.counters()
+            t0 = time.perf_counter()
+            for i in range(calls):
+                fn(params, aa, pool[i % len(pool)])[0].cpu()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            after = profiling.counters()
+        out[label] = {
+            "ms_a_step": 1e3 * dt / (calls * n),
+            "steps_per_s": calls * n / dt,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "counters_a_step": {k: (after.get(k, 0) - before.get(k, 0))
+                                / (calls * n)
+                                for k in ("plain_tc_linear",
+                                          "blocked_bf16_aggregate")},
+        }
+        print(label, out[label], flush=True)
+    return out
+
+
+def dense_steps(seed: int) -> dict:
+    """The graphed dense scan step of ``bba_1fme_sparse`` on the dense
+    graph, 128 steps a call, in bf16 and f32, with the MLP on tensor
+    cores (the change) and on f32 products (before it)."""
+    doc = json.loads((CONFIGS / "bba_1fme_sparse.json").read_text())
+    model = {**doc["model"], "graph_mode": "dense"}
+    mix = json.loads((TRAFFIC / "rollout_1000.json").read_text())
+    inputs = generate.make(mix, doc["model"], seed, 20.0)
+    aa = torch.as_tensor(inputs["aa"], device="cuda")
+    w0 = torch.as_tensor(inputs["windows"][0], device="cuda")
+    if w0.dim() == 4:
+        w0 = w0[0]
+    out = {}
+    for cd in ("bfloat16", "float32"):
+        cfg = model_config({**model, "compute_dtype": cd})
+        params = gkn_init(cfg, seed=0, device="cuda")
+        for label, on in (("tc", True), ("f32", False), ("tc_again", True)):
+            with Halves(on, True), torch.no_grad():
+                fn = make_rollout_fn(cfg, 128, model["threshold"],
+                                     clip=100.0, device="cuda")
+                fn(params, aa, w0)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(10):
+                    fn(params, aa, w0)
+                torch.cuda.synchronize()
+                ms = 1e3 * (time.perf_counter() - t0) / (10 * 128)
+            out[f"{cd}_{label}_ms_a_step"] = ms
+            print(cd, label, ms, flush=True)
+    return out
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--seed", type=int, default=2100000101)
+    p.add_argument("--calls", type=int, default=4)
+    p.add_argument("--out", default="chiprun_out/blocked_step.json")
+    args = p.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("needs a CUDA card", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    result = {"card": card(), "torch": torch.__version__,
+              "cuda": torch.version.cuda}
+    print(result, flush=True)
+    model, mix, inputs, params, aa = cell_inputs(args.seed)
+    result["parts"] = parts(model, inputs, params, aa)
+    print(result["parts"], flush=True)
+    result["steps"] = steps(model, mix, inputs, params, aa, args.calls)
+    del params
+    torch.cuda.empty_cache()
+    result["dense"] = dense_steps(args.seed)
+    Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+    Path(args.out).write_text(json.dumps(result, indent=1))
+    print(json.dumps(result), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
