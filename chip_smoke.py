@@ -2320,9 +2320,6 @@ def serve_scan_fused(aa_np, traj, **opts) -> tuple[int, float]:
     weights with the model options ``opts``; returns the fused kernel's
     launch count and the largest error."""
     from molecular_dynamics_neural_operator_tpu_torch.models import gkn_init
-    from molecular_dynamics_neural_operator_tpu_torch.ops.cuda import (
-        fused_gkn as fg,
-    )
     from molecular_dynamics_neural_operator_tpu_torch.serving import (
         RolloutServer,
     )
@@ -2341,13 +2338,13 @@ def serve_scan_fused(aa_np, traj, **opts) -> tuple[int, float]:
                            threshold=THRESHOLD, clip=CLIP,
                            impl="scan") as srv:
             srv.warmup([4])
-            fg.fused_edge_conv_stack.launches = 0
+            start = fused_launches()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             results = [f.result(timeout=600)
                        for f in srv.submit_many(requests)]
             wall = time.perf_counter() - t0
-            return results, wall, srv.stats, fg.fused_edge_conv_stack.launches
+            return results, wall, srv.stats, fused_launches() - start
 
     got, wall_k, stats, launches = serve(cfg_k)
     ref, wall_x, stats_x, launches_x = serve(cfg_x)
@@ -3581,27 +3578,33 @@ def event_ms(fn, reps: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+def fused_launches() -> int:
+    """The fused kernel's launches so far (its program counter)."""
+    from molecular_dynamics_neural_operator_tpu_torch.utils import profiling
+
+    return profiling.counters().get("fused_edge_conv_stack", 0)
+
+
 def reset_all_launches() -> None:
     from molecular_dynamics_neural_operator_tpu_torch.ops.cuda import (
-        fused_gkn,
         persistent_rollout as pr,
         train_conv as tc,
     )
+    from molecular_dynamics_neural_operator_tpu_torch.utils import profiling
 
     pr.reset_launch_counts()
     tc.reset_launch_counts()
-    fused_gkn.fused_edge_conv_stack.launches = 0
+    profiling.count("fused_edge_conv_stack", -fused_launches())
 
 
 def all_launches() -> dict:
     from molecular_dynamics_neural_operator_tpu_torch.ops.cuda import (
-        fused_gkn,
         persistent_rollout as pr,
         train_conv as tc,
     )
 
     return {**pr.launch_counts(), **tc.launch_counts(),
-            "fused_edge_conv_stack": fused_gkn.fused_edge_conv_stack.launches}
+            "fused_edge_conv_stack": fused_launches()}
 
 
 def hold_against_all_pairs(pos, out, max_degree: int, tag: str):
@@ -5255,9 +5258,6 @@ def _par_rollout(mesh, traj) -> dict:
 
     import torch.distributed as dist
 
-    from molecular_dynamics_neural_operator_tpu_torch.ops.cuda import (
-        fused_gkn as fg,
-    )
     from molecular_dynamics_neural_operator_tpu_torch.parallel import (
         gather_streams,
         make_sharded_rollout_fn,
@@ -5277,13 +5277,13 @@ def _par_rollout(mesh, traj) -> dict:
         w0 = _par_windows(traj, cd)
         roll = make_sharded_rollout_fn(cfg, mesh, STEPS, THRESHOLD, clip=CLIP)
         with torch.no_grad():
-            fg.fused_edge_conv_stack.launches = 0
+            start = fused_launches()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             local, _, diags = roll(params, aa, w0)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            launches = fg.fused_edge_conv_stack.launches
+            launches = fused_launches() - start
             coords = gather_streams(mesh, local)
         require(launches > 0, f"sharded rollout {cd}: the fused kernel "
                 "never launched")
@@ -5333,9 +5333,6 @@ def _par_server(mesh, traj) -> dict:
 
     import torch.distributed as dist
 
-    from molecular_dynamics_neural_operator_tpu_torch.ops.cuda import (
-        fused_gkn as fg,
-    )
     from molecular_dynamics_neural_operator_tpu_torch.rollout import (
         make_rollout_fn,
     )
@@ -5352,10 +5349,10 @@ def _par_server(mesh, traj) -> dict:
     cfg = dc.replace(bench_cfg("float32"), conv_impl="pallas")
     params = load_params_npz(CKPT, "cuda")
     opts = dict(segment_steps=SEGMENT, threshold=THRESHOLD, clip=CLIP)
-    fg.fused_edge_conv_stack.launches = 0
+    start = fused_launches()
     if dist.get_rank() > 0:
         serve_follower(params, cfg, mesh, device="cuda", **opts)
-        return {"launches": fg.fused_edge_conv_stack.launches}
+        return {"launches": fused_launches() - start}
     t_len, aa_np = cfg.window_size, np.asarray(traj.aminoacids)
     requests = [((aa_np + 3 * i) % 20, traj.positions[j:j + t_len], n)
                 for i, (j, n) in enumerate(
@@ -5366,7 +5363,7 @@ def _par_server(mesh, traj) -> dict:
         results = [f.result(timeout=600) for f in srv.submit_many(requests)]
         wall = time.perf_counter() - t0
         stats = srv.stats
-    launches = fg.fused_edge_conv_stack.launches
+    launches = fused_launches() - start
     worst = 0.0
     with torch.no_grad():
         for i, ((a, w0, n), res) in enumerate(zip(requests, results)):

@@ -27,3 +27,10 @@ def compute_dtype(cfg) -> torch.dtype:
     if cfg.compute_dtype == "float32":
         return torch.float32
     raise ValueError(f"unknown compute_dtype: {cfg.compute_dtype!r}")
+
+
+def device_of(tree) -> torch.device:
+    """The device of the first tensor leaf of nested dicts."""
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return tree.device

@@ -245,13 +245,11 @@ def _scatter_mode(cfg: ModelConfig, num_nodes: int,
 
 def gkn_apply_single(params, cfg: ModelConfig, aa, window, graph: Graph,
                      return_latent: bool = False,
-                     scatter_hint: Optional[str] = None,
-                     tensor_cores: bool = False):
+                     scatter_hint: Optional[str] = None):
     """Forward one example (or a batch along leading axes).
     window (..., T, R, 3) -> (..., R, out_width). ``scatter_hint``
     overrides the sparse aggregation choice (``_scatter_mode``); pass
-    "blocked" only for graphs in the cell-list block layout.
-    ``tensor_cores`` is passed to the edge-kernel MLP (``ops/mlp.py``)."""
+    "blocked" only for graphs in the cell-list block layout."""
     check_supported(cfg)
     dense = isinstance(graph, DenseGraph)
     if cfg.kernel_quant != "none" and (dense or cfg.conv_impl == "pallas"):
@@ -270,7 +268,7 @@ def gkn_apply_single(params, cfg: ModelConfig, aa, window, graph: Graph,
         for _, mlp in stacks:
             if mlp not in masked:
                 k = edge_kernel_matrices(params[mlp], graph.edge_feats,
-                                         cfg.width, cd, tensor_cores)
+                                         cfg.width, cd)
                 masked[mlp] = masked_dense_kernels(k, graph.adj, cd)
         for conv, mlp in stacks:
             for _ in range(cfg.depth):
@@ -290,7 +288,7 @@ def gkn_apply_single(params, cfg: ModelConfig, aa, window, graph: Graph,
         if mlp in kernels:
             continue
         k = edge_kernel_matrices(params[mlp], graph.edge_feats, cfg.width,
-                                 cd, tensor_cores)
+                                 cd)
         msg_mask[mlp] = graph.mask
         if cfg.kernel_quant == "int8":
             # the degree stays the unscaled mask's; the messages carry
@@ -362,8 +360,7 @@ def gkn_apply(params, cfg: ModelConfig, batch: GKNBatch,
     if takes_train_kernel(cfg, batch):
         return _gkn_apply_kernel_batched(params, cfg, batch, return_latent)
     return gkn_apply_single(params, cfg, batch.aa, batch.window, batch.graph,
-                            return_latent, scatter_hint=scatter_hint,
-                            tensor_cores=True)
+                            return_latent, scatter_hint=scatter_hint)
 
 
 def _gkn_apply_kernel_batched(params, cfg: ModelConfig, batch: GKNBatch,
@@ -377,8 +374,8 @@ def _gkn_apply_kernel_batched(params, cfg: ModelConfig, batch: GKNBatch,
     graph = batch.graph
     r = batch.aa.shape[0]
     x = _encode_nodes(params, cfg, batch.aa, batch.window)       # (B, R, w)
-    kt = mlp_apply(params["edge_kernel"], graph.edge_feats, compute_dtype=cd,
-                   tensor_cores=True).to(cd)
+    kt = mlp_apply(params["edge_kernel"], graph.edge_feats,
+                   compute_dtype=cd).to(cd)
     kt = kt * graph.mask[..., None].to(cd)                       # (B, E, w^2)
     inv_deg = sparse_inv_degree(graph.edges, graph.mask, r)
     x = train_conv(

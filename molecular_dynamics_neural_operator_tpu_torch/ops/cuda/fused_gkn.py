@@ -24,7 +24,8 @@ kernel too, and in bf16 within a few roundings of it.
 
 ``fused_edge_conv_stack_plain`` is the plain PyTorch version; the wrapper
 runs it for CPU tensors only and launches the kernel, or raises, for CUDA
-tensors. ``fused_edge_conv_stack.launches`` counts the launches.
+tensors. The program counter ``fused_edge_conv_stack``
+(``utils/profiling.py::count``) counts the launches.
 """
 
 from __future__ import annotations
@@ -54,6 +55,7 @@ from molecular_dynamics_neural_operator_tpu_torch.ops.cuda.graphs import (
 from molecular_dynamics_neural_operator_tpu_torch.ops.edge_conv import (
     sparse_inv_degree,
 )
+from molecular_dynamics_neural_operator_tpu_torch.utils.profiling import count
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 register_kernel("fused_gkn", "mdno_fused_edge_conv_stack",
@@ -116,11 +118,8 @@ def fused_edge_conv_stack(ef, mask, edges, inv_deg, x0, w1, b1, w2, b2, w3,
         s, r, w, e, kw, f, int(depth), _cd_flag(cd), _stream(),
     ]
     _raise_on(_kernel("fused_gkn")(*args), "fused_edge_conv_stack")
-    fused_edge_conv_stack.launches += 1
+    count("fused_edge_conv_stack")
     return out
-
-
-fused_edge_conv_stack.launches = 0
 
 # The last parameter set in the kernel's operand types, as one tuple
 # (key, sources, cast) that is replaced whole, so that a rollout casts the

@@ -8,9 +8,11 @@ submits the graph, so no Python runs between the launches of a step.
 
 ``capture`` records a body into a graph after an eager warm-up run (the
 card's libraries and the kernels' launch plans are set up outside the
-capture). A graph replays its launches without passing through the kernel
-wrappers, so ``Captured.replay`` adds to each wrapper's ``launches`` what
-one replay launches; the warm-up and the capture itself count nothing.
+capture). A graph replays its launches without passing through the code
+that counts them, so a capture holds the program counts its body makes
+(``utils/profiling.py::held``) and ``Captured.replay`` adds them: a
+counter counts what ran, eager or replayed, and the warm-up and the
+capture itself count nothing.
 ``capture_count()`` counts the captures made: one inside a timed window
 is a graph built again. Under ``utils/profiling.py::tracing()`` a replay
 is the span ``graph.replay`` and a capture ``graph.capture``, each with
@@ -42,6 +44,8 @@ import torch
 import torch.distributed as dist
 
 from molecular_dynamics_neural_operator_tpu_torch.utils.profiling import (
+    count,
+    held,
     paused,
     span,
 )
@@ -103,60 +107,25 @@ def per_capture(key, make: Callable):
     return cache[key]
 
 
-def _counters() -> dict:
-    """name -> (read, write) of every kernel wrapper's launch count."""
-    from molecular_dynamics_neural_operator_tpu_torch.ops.cuda import (
-        fused_gkn,
-        persistent_rollout as pr,
-        train_conv,
-    )
-
-    def attr(fn):
-        return (lambda: fn.launches,
-                lambda v: setattr(fn, "launches", v))
-
-    def item(d, k):
-        return (lambda: d[k], lambda v: d.__setitem__(k, v))
-
-    out = {fn.__name__: attr(fn) for fn in pr.KERNELS}
-    out["conv_head_wide"] = (
-        lambda: pr.conv_head.wide_launches,
-        lambda v: setattr(pr.conv_head, "wide_launches", v))
-    out["fused_edge_conv_stack"] = attr(fused_gkn.fused_edge_conv_stack)
-    out.update({k: item(train_conv.launches, k) for k in train_conv.launches})
-    return out
-
-
-def launch_counts() -> dict:
-    return {k: read() for k, (read, _) in _counters().items()}
-
-
 def capture_count() -> int:
     """The CUDA graphs ``capture`` has made in this process."""
     return _captures
 
 
-def _set_counts(counts: dict) -> None:
-    for k, (_, write) in _counters().items():
-        write(counts[k])
-
-
 class Captured:
-    """A captured graph, the launches one replay makes, and a name for its
-    errors."""
+    """A captured graph, the program counts one replay adds (those its
+    capture held), and a name for its errors."""
 
-    def __init__(self, graph: torch.cuda.CUDAGraph, launches: dict,
+    def __init__(self, graph: torch.cuda.CUDAGraph, counts: dict,
                  name: str):
-        self.graph, self.launches, self.name = graph, launches, name
+        self.graph, self.counts, self.name = graph, counts, name
         self._checked = False
-        counters = _counters()
-        self._counts = [(counters[k], n) for k, n in launches.items()]
 
     def replay(self) -> None:
         with span("graph.replay", self.name):
             self.graph.replay()
-        for (read, write), n in self._counts:
-            write(read() + n)
+        for name, n in self.counts.items():
+            count(name, n)
         if not self._checked:
             try:
                 torch.cuda.current_stream().synchronize()
@@ -173,27 +142,27 @@ def capture(body: Callable, name: str, warmup: Callable | None = None,
     captured on a side stream with ``capture_error_mode="thread_local"``
     (another thread of the process, such as a server's reader, may go on
     allocating pinned memory meanwhile). What the body returns are the
-    graph's static outputs. The launch counts are left as they were."""
+    graph's static outputs. The program counters are left as they
+    were."""
     with span("graph.capture", name):
         return _capture(body, name, warmup, pool)
 
 
 def _capture(body: Callable, name: str, warmup, pool):
     global _captures
-    before = launch_counts()
     graph = torch.cuda.CUDAGraph()
     collecting = gc.isenabled()
     try:
         if warmup is not None:
-            warmup()
-        start = launch_counts()
+            with held():
+                warmup()
         # a garbage collection inside the capture could free another
         # graph, whose teardown the capturing stream refuses; the capture
         # collects once before it begins
         gc.disable()
         _capturing.cache = {}
         try:
-            with paused(), torch.cuda.graph(
+            with paused(), held() as counts, torch.cuda.graph(
                     graph, pool=pool, capture_error_mode="thread_local"):
                 out = body()
         except RuntimeError as exc:
@@ -201,14 +170,11 @@ def _capture(body: Callable, name: str, warmup, pool):
                                f"{exc}") from exc
         finally:
             _capturing.cache = None
-        captured = {k: n - start[k] for k, n in launch_counts().items()
-                    if n != start[k]}
         _captures += 1
     finally:
         if collecting:
             gc.enable()
-        _set_counts(before)
-    return Captured(graph, captured, name), out
+    return Captured(graph, counts, name), out
 
 
 def _blocks(num_steps: int) -> list:
@@ -271,7 +237,7 @@ class StepGraphs:
     or None. For each shape of inputs and carry the object keeps static
     inputs, a static carry and flag, static blocks of ``GRAPH_BLOCK`` of
     each output (shaped by one eager step when the shape is first seen,
-    whose launches count nothing)
+    which counts nothing)
     and their ``BlockLoop``, all in one graph memory pool. ``step`` must
     hold no reference to the owner of this object: the graphs are freed
     with it, not by a later garbage collection. Calls are serialised by
@@ -298,9 +264,8 @@ class StepGraphs:
         st = SimpleNamespace(inputs=tuple(t.clone() for t in inputs),
                              first=carry0.clone())
         # a warm-up step, counted as none as a capture's warm-up is
-        before = launch_counts()
-        carry1, outs, flag = step(st.inputs, st.first)
-        _set_counts(before)
+        with held():
+            carry1, outs, flag = step(st.inputs, st.first)
         st.carry = st.first if carry1.stride() == st.first.stride() \
             else torch.empty_like(carry1)
         st.blocks = [torch.empty((GRAPH_BLOCK,) + tuple(o.shape),

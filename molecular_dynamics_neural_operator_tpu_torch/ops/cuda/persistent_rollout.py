@@ -16,13 +16,15 @@ stream, with no host sync inside the loop:
    prior, clip, window slide, this step's coordinates. A stream is one
    cluster of 8 blocks, or of 16 (the wide plan, bf16 at width 64) while
    the card holds every stream's 16-block cluster at once
-   (``conv_head_plan``); ``conv_head.wide_launches`` counts the wide
+   (``conv_head_plan``); the counter ``conv_head_wide`` counts the wide
    launches.
 
 Each wrapper has a plain PyTorch version of the same function beside it
 (``*_plain``), built from the port's XLA-path modules. A wrapper runs the
 plain version for CPU tensors only; for CUDA tensors it launches its
-kernel or raises. Each counts its launches in ``<wrapper>.launches``.
+kernel or raises. Each counts its launches under its name in the
+program counters (``utils/profiling.py::count``); ``launch_counts()``
+reads them.
 Where the plain versions serve as the oracle on the card, the caller turns
 TF32 off (``torch.backends.cuda.matmul.allow_tf32 = False``,
 ``torch.backends.cudnn.allow_tf32 = False``) so their f32 products are
@@ -97,7 +99,7 @@ from molecular_dynamics_neural_operator_tpu_torch.preprocess.grid import (
     debye_kappa,
     residue_charges,
 )
-from molecular_dynamics_neural_operator_tpu_torch.utils.profiling import span
+from molecular_dynamics_neural_operator_tpu_torch.utils import profiling
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 register_kernel("graph_encode", "mdno_graph_encode",
@@ -304,10 +306,7 @@ def graph_encode(window: torch.Tensor, weights, threshold: float,
         _stream(),
     ]
     _raise_on(_kernel("graph_encode")(*args), "graph_encode")
-    graph_encode.launches += 1
-
-
-graph_encode.launches = 0
+    profiling.count("graph_encode")
 
 
 # ---- edge_mlp -----------------------------------------------------------
@@ -358,11 +357,8 @@ def edge_mlp(a: torch.Tensor, w: torch.Tensor, b: torch.Tensor, relu: bool,
         m, n, k, int(relu), _cd_flag(cd), _stream(),
     ]
     _raise_on(_kernel("edge_mlp")(*args), "edge_mlp")
-    edge_mlp.launches += 1
+    profiling.count("edge_mlp")
     return out
-
-
-edge_mlp.launches = 0
 
 
 def edge_mlp_stack(ef: torch.Tensor, mlp, row_mask: torch.Tensor,
@@ -372,7 +368,7 @@ def edge_mlp_stack(ef: torch.Tensor, mlp, row_mask: torch.Tensor,
     ``{"w", "b"}`` (F -> kw -> kw -> n), row_mask (M,) f32; h1, h2 (M, kw)
     scratch and out (M, n) in the compute dtype. Equal to three ``edge_mlp``
     calls (ReLU, ReLU, row mask). On the card one C call enqueues the three
-    launches; ``edge_mlp.launches`` counts them."""
+    launches; the counter ``edge_mlp`` counts them."""
     (l0, l1, l2) = mlp
     if _on_cpu(ef):
         edge_mlp(ef, l0["w"], l0["b"], True, out=h1)
@@ -403,7 +399,7 @@ def edge_mlp_stack(ef: torch.Tensor, mlp, row_mask: torch.Tensor,
         m, kw, n, f, _cd_flag(cd), _stream(),
     ]
     _raise_on(_kernel("edge_mlp_stack")(*args), "edge_mlp_stack")
-    edge_mlp.launches += 3
+    profiling.count("edge_mlp", 3)
     return out
 
 
@@ -493,12 +489,9 @@ def conv_head(bufs: StepBuffers, weights, cfg: ModelConfig, clip,
         int(plan == "wide"), _stream(),
     ]
     _raise_on(_kernel("conv_head")(*args), "conv_head")
-    conv_head.launches += 1
-    conv_head.wide_launches += int(plan == "wide")
-
-
-conv_head.launches = 0
-conv_head.wide_launches = 0
+    profiling.count("conv_head")
+    if plan == "wide":
+        profiling.count("conv_head_wide")
 
 
 def conv_head_clusters(num_nodes: int, width: int, max_edges: int,
@@ -514,20 +507,19 @@ def conv_head_clusters(num_nodes: int, width: int, max_edges: int,
     return out.value
 
 
-KERNELS = (graph_encode, edge_mlp, conv_head)
-
-
-def reset_launch_counts() -> None:
-    for k in KERNELS:
-        k.launches = 0
-    conv_head.wide_launches = 0
+_LAUNCHES = ("graph_encode", "edge_mlp", "conv_head", "conv_head_wide")
 
 
 def launch_counts() -> dict:
     """Each kernel's launches, and ``conv_head_wide``: those of
     ``conv_head`` that took the wide plan."""
-    return {**{k.__name__: k.launches for k in KERNELS},
-            "conv_head_wide": conv_head.wide_launches}
+    now = profiling.counters()
+    return {name: now.get(name, 0) for name in _LAUNCHES}
+
+
+def reset_launch_counts() -> None:
+    for name, n in launch_counts().items():
+        profiling.count(name, -n)
 
 
 # ---- the rollout --------------------------------------------------------
@@ -646,7 +638,7 @@ class PreparedRollout:
         final window is the last T frames of [window0 ; coords], also when
         num_steps < T. On the card the step loop replays CUDA graphs; on
         the CPU it is ``eager``. The span ``rollout.call``."""
-        with span("rollout.call"):
+        with profiling.span("rollout.call"):
             return self._call(window0, num_steps)
 
     def _call(self, window0, num_steps: int):

@@ -20,8 +20,9 @@ same signature: ``ops/conv_stack.tied_conv_stack`` with a mask of ones
 (kt is pre-masked), so that a padded slot's dK row is what the TPU kernel
 gives it, xs (x) dm of node 0; the caller's ``kt * mask`` zeroes it. The
 wrapper runs the plain version for CPU tensors only; for CUDA tensors it
-launches the kernels or raises. ``launches`` counts the launches of each
-kernel.
+launches the kernels or raises. Each launch is counted under its
+kernel's name in the program counters (``utils/profiling.py::count``);
+``launch_counts()`` reads them.
 
 The kernels take widths that are a multiple of 8, up to 128 in f32 and 256
 in bf16, and shapes whose buffers fit a block's shared memory (their C
@@ -53,6 +54,10 @@ from molecular_dynamics_neural_operator_tpu_torch.ops.cuda._launch import (
     raise_on,
     register_kernel,
 )
+from molecular_dynamics_neural_operator_tpu_torch.utils.profiling import (
+    count,
+    counters,
+)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 register_kernel("train_conv_fwd", "mdno_train_conv_fwd",
@@ -70,16 +75,17 @@ register_kernel("train_conv_bwd_clusters", "mdno_train_conv_bwd_clusters",
 # the C plans' refusals (cudaError_t)
 _BAD_WIDTH, _NO_FIT = 1, 9
 
-launches = {"train_conv_fwd": 0, "train_conv_bwd": 0}
-
-
-def reset_launch_counts() -> None:
-    for name in launches:
-        launches[name] = 0
+_LAUNCHES = ("train_conv_fwd", "train_conv_bwd")
 
 
 def launch_counts() -> dict:
-    return dict(launches)
+    now = counters()
+    return {name: now.get(name, 0) for name in _LAUNCHES}
+
+
+def reset_launch_counts() -> None:
+    for name, n in launch_counts().items():
+        count(name, -n)
 
 
 def _shapes(x0, kt):
@@ -228,7 +234,7 @@ def train_conv_forward(x0, kt, edges, mask, inv_deg, root1, bias1, root2,
         b, r, w, e, depth, cd_flag(cd), current_stream(),
     ]
     raise_on(kernel_fn("train_conv_fwd")(*args), "train_conv_fwd")
-    launches["train_conv_fwd"] += 1
+    count("train_conv_fwd")
     return out, stack
 
 
@@ -268,7 +274,7 @@ def train_conv_backward(g_out, stack, kt, edges, mask, inv_deg, root1,
         b, r, w, e, depth, cd_flag(cd), current_stream(),
     ]
     raise_on(kernel_fn("train_conv_bwd")(*args), "train_conv_bwd")
-    launches["train_conv_bwd"] += 1
+    count("train_conv_bwd")
     return dx0, dkt, droot[0], dbias[0], droot[1], dbias[1]
 
 
@@ -343,4 +349,4 @@ def train_conv_clusters(num_nodes: int, width: int, max_edges: int,
     holds at once at these shapes: a batch of B runs in ceil(B / that)
     waves."""
     plan = train_conv_plan(num_nodes, width, max_edges, depth, cd)
-    return {name: plan[name] for name in launches}
+    return {name: plan[name] for name in _LAUNCHES}

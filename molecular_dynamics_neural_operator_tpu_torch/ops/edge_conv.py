@@ -66,13 +66,11 @@ def edge_conv_init(gen: torch.Generator, width: int, device=None):
 
 
 def edge_kernel_matrices(mlp_params, edge_feats: torch.Tensor, width: int,
-                         compute_dtype=None,
-                         tensor_cores: bool = False) -> torch.Tensor:
+                         compute_dtype=None) -> torch.Tensor:
     """h(e) for every edge as (..., width, width) in ``compute_dtype``
     (f32 if unset). edge_feats: (..., F); the leading axes are edge axes,
     (E,) sparse or (R, R) dense."""
-    h = mlp_apply(mlp_params, edge_feats, compute_dtype=compute_dtype,
-                  tensor_cores=tensor_cores)
+    h = mlp_apply(mlp_params, edge_feats, compute_dtype=compute_dtype)
     out_dtype = compute_dtype or torch.float32
     return h.reshape(edge_feats.shape[:-1] + (width, width)).to(out_dtype)
 
@@ -243,8 +241,7 @@ def _blocked_aggregate(xs, kernels, mask, num_nodes: int, cd):
     tensor (..., E, w, w), read in place. The mask must be 0/1: folded
     into the row before the rounding, it is then exact. Padded slots add
     0. Each layer that takes the bf16 product adds 1 to the program
-    counter ``blocked_bf16_aggregate`` (a host count: under a CUDA graph
-    it counts the capture, not the replays)."""
+    counter ``blocked_bf16_aggregate``."""
     _check_blocked_layout(kernels.shape[-3], num_nodes)
     row = xs * mask[..., None]
     row = row.reshape(row.shape[:-2] + (num_nodes, 1, -1))

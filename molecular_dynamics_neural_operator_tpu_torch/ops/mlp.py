@@ -8,6 +8,10 @@ Cast points follow the JAX package: with a ``compute_dtype`` the input and
 the weight are rounded to it, the product is accumulated in f32 and the
 bias is added in f32. Rounding the operands and multiplying them as f32
 reproduces that exactly (a bf16 x bf16 product is exact in f32).
+
+``_on_tensor_cores`` alone decides which products run on the card's
+tensor cores (``_TensorCoreMatmul``: the same rounded operands, an f32
+accumulation in another order).
 """
 
 from __future__ import annotations
@@ -25,8 +29,7 @@ _exact_only = False
 
 @contextlib.contextmanager
 def exact_products():
-    """Within the block every product takes the exact f32 path, whatever
-    ``tensor_cores`` says."""
+    """Within the block every product takes the exact f32 path."""
     global _exact_only
     before, _exact_only = _exact_only, True
     try:
@@ -72,8 +75,11 @@ class _TensorCoreMatmul(torch.autograd.Function):
         return gx, gw
 
 
-def _on_tensor_cores(x, w, compute_dtype, tensor_cores: bool) -> bool:
-    return (tensor_cores and not _exact_only and x.is_cuda
+def _on_tensor_cores(x, w, compute_dtype) -> bool:
+    """Whether ``linear_apply`` multiplies on tensor cores: a CUDA bf16
+    product whose weight has a multiple of 8 rows, outside
+    ``exact_products()``."""
+    return (not _exact_only and x.is_cuda
             and compute_dtype == torch.bfloat16 and w.shape[0] % 8 == 0)
 
 
@@ -94,13 +100,11 @@ def linear_init(gen: torch.Generator, in_dim: int, out_dim: int,
     return {"w": w.to(device), "b": b.to(device)}
 
 
-def linear_apply(params, x: torch.Tensor, compute_dtype=None,
-                 tensor_cores: bool = False) -> torch.Tensor:
+def linear_apply(params, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
     """y = x @ w + b with optional low-precision operands, f32 accumulation.
     Each call that takes ``_TensorCoreMatmul`` adds 1 to the program
-    counter ``plain_tc_linear`` (a host count: under a CUDA graph it
-    counts the capture, not the replays)."""
-    if _on_tensor_cores(x, params["w"], compute_dtype, tensor_cores):
+    counter ``plain_tc_linear``."""
+    if _on_tensor_cores(x, params["w"], compute_dtype):
         count("plain_tc_linear")
         y = _TensorCoreMatmul.apply(x, params["w"])
     else:
@@ -118,11 +122,11 @@ def mlp_init(gen: torch.Generator, sizes: Sequence[int], device=None):
 
 
 def mlp_apply(params, x: torch.Tensor, activation=torch.relu,
-              compute_dtype=None, tensor_cores: bool = False) -> torch.Tensor:
+              compute_dtype=None) -> torch.Tensor:
     """Activation between layers, none after the last."""
     n = len(params)
     for i in range(n):
-        x = linear_apply(params[f"layer_{i}"], x, compute_dtype, tensor_cores)
+        x = linear_apply(params[f"layer_{i}"], x, compute_dtype)
         if i != n - 1:
             x = activation(x)
     return x

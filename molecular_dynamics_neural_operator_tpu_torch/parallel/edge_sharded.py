@@ -59,7 +59,10 @@ from molecular_dynamics_neural_operator_tpu_torch.ops.edge_conv import (
     _segment_sum,
     edge_kernel_matrices,
 )
-from molecular_dynamics_neural_operator_tpu_torch.ops.mlp import round_to
+from molecular_dynamics_neural_operator_tpu_torch.ops.mlp import (
+    exact_products,
+    round_to,
+)
 from molecular_dynamics_neural_operator_tpu_torch.parallel import comm
 from molecular_dynamics_neural_operator_tpu_torch.parallel.mesh import (
     _rows,
@@ -140,7 +143,9 @@ def _forward_edge_shard(params, cfg: ModelConfig, aa, window, edges, mask,
     def kernel_tensor(name):
         local_params = tree_map(lambda p: copy_to_model(p, group),
                                 params[name])
-        return edge_kernel_matrices(local_params, edge_feats, w, cd)
+        # the edge-sharded step keeps exact products until ROADMAP P8
+        with exact_products():
+            return edge_kernel_matrices(local_params, edge_feats, w, cd)
 
     kernels = kernel_tensor("edge_kernel")
     kernels2 = kernels if cfg.tie_edge_kernel \

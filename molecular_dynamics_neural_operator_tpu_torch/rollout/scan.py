@@ -105,12 +105,10 @@ def _step(params, cfg: ModelConfig, aa, window, threshold: float,
     frame = window[..., -1, :, :] if graph_frame == "last" \
         else window[..., 0, :, :]
     graph, overflow = _build_graph(cfg, frame, threshold)
-    # the rebuild's layout is this step's, not cfg.scatter_mode's; the
-    # edge MLP on tensor cores where ops/mlp.py's rule allows them
+    # the rebuild's layout is this step's, not cfg.scatter_mode's
     out = gkn_apply_single(params, cfg, aa, window, graph,
                            scatter_hint=rebuilt_scatter_hint(
-                               cfg, window.shape[-2]),
-                           tensor_cores=True)
+                               cfg, window.shape[-2]))
     if clip is not None:
         out = torch.clamp(out, -clip, clip)
     new_window = torch.cat([window[..., 1:, :, :], out[..., None, :, :]],

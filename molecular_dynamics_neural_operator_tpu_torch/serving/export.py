@@ -66,7 +66,10 @@ from molecular_dynamics_neural_operator_tpu_torch.configs import (
     ModelConfig,
     _from_dict,
 )
-from molecular_dynamics_neural_operator_tpu_torch.device import resolve_device
+from molecular_dynamics_neural_operator_tpu_torch.device import (
+    device_of,
+    resolve_device,
+)
 from molecular_dynamics_neural_operator_tpu_torch.models import gkn_init
 from molecular_dynamics_neural_operator_tpu_torch.models.fno import (
     fno_init,
@@ -166,12 +169,6 @@ def _example_inputs(cfg, kw: dict, device):
             torch.zeros(shape, device=device))
 
 
-def _device_of(params) -> torch.device:
-    while isinstance(params, dict):
-        params = next(iter(params.values()))
-    return params.device
-
-
 def _canonical(tree, device):
     """A parameter tree with its keys sorted at every level (the order of
     the program's input spec, whatever order a checkpoint or an init gave
@@ -224,7 +221,7 @@ def export_rollout(
         if streams % stream_chunk:
             raise ValueError(f"stream count {streams} not divisible by "
                              f"stream_chunk {stream_chunk}")
-    dev = _device_of(params)
+    dev = device_of(params)
     platforms = _check_platforms(platforms or (dev.type,))
     kw = _rollout_kwargs(num_steps, threshold, graph_frame, collect, clip,
                          streams, stream_chunk)
@@ -270,7 +267,7 @@ def save_bundle(
         "rollout": _rollout_kwargs(num_steps, threshold, graph_frame,
                                    collect, clip, streams, stream_chunk),
         "platforms": list(platforms),
-        "traced_on": str(_device_of(params)),
+        "traced_on": str(device_of(params)),
         "torch_version": torch.__version__,
     }
     if extra_meta:

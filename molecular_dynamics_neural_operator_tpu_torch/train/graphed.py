@@ -37,6 +37,7 @@ from typing import Callable
 
 import torch
 
+from molecular_dynamics_neural_operator_tpu_torch.device import device_of
 from molecular_dynamics_neural_operator_tpu_torch.ops.cuda.graphs import (
     capture,
 )
@@ -187,10 +188,6 @@ class GraphedStep:
         return static._replace(step=state.step + 1, rng=state.rng), metrics
 
 
-def _device_of(state: TrainState) -> torch.device:
-    return tree_leaves(state.params)[0].device
-
-
 def graphed_step(body: Callable, noise_std: float = 0.0,
                  eager_only: bool = False, name: str = "train step",
                  noise_rows: int = 1):
@@ -213,7 +210,7 @@ def graphed_step(body: Callable, noise_std: float = 0.0,
         return body(state, batch)
 
     def step(state: TrainState, batch):
-        if graphed is None or _device_of(state).type != "cuda":
+        if graphed is None or device_of(state.params).type != "cuda":
             return eager(state, batch)
         return graphed(state, batch)
 

@@ -22,6 +22,7 @@ from molecular_dynamics_neural_operator_tpu_torch.data.prefetch import (
 from molecular_dynamics_neural_operator_tpu_torch.data.windows import (
     batch_iterator,
 )
+from molecular_dynamics_neural_operator_tpu_torch.device import device_of
 from molecular_dynamics_neural_operator_tpu_torch.geometry.contact import (
     dense_edge_features,
     edge_features_from_edges,
@@ -156,12 +157,6 @@ def make_eval_step(cfg: ModelConfig, graph_frame: str = "first"):
     return step
 
 
-def _device_of(params):
-    while isinstance(params, dict):
-        params = next(iter(params.values()))
-    return params.device
-
-
 def _read_metrics(acc: list) -> list:
     """Every per-step metric in one transfer, which also waits for the
     device to finish the steps."""
@@ -192,7 +187,7 @@ def train_epoch(state, train_step, dataset, indices, batch_size, *,
             dataset, indices, batch_size, shuffle=shuffle,
             drop_last=drop_last, seed=seed, epoch=epoch,
             rollout_horizon=rollout_horizon)
-        dev = _device_of(state.params)
+        dev = device_of(state.params)
         cuda = dev.type == "cuda"
         acc = []
         t0 = first = None
@@ -236,7 +231,7 @@ def eval_epoch(params, eval_step, dataset, indices, batch_size, *,
     for batch in prefetch_to_device(
             batch_iterator(dataset, indices, batch_size, shuffle=False,
                            drop_last=drop_last, pad_last=not drop_last),
-            size=2, put=put, device=_device_of(params)):
+            size=2, put=put, device=device_of(params)):
         acc.append(eval_step(params, batch))
     if not acc:
         return {"rel_l2": float("nan"), "mse": float("nan")}

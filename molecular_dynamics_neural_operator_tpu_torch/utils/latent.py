@@ -16,6 +16,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from molecular_dynamics_neural_operator_tpu_torch.device import device_of
+
 
 def collect_latents(params, cfg, dataset, start_frame: int, num_frames: int,
                     batch_size: int = 256):
@@ -26,11 +28,10 @@ def collect_latents(params, cfg, dataset, start_frame: int, num_frames: int,
     )
     from molecular_dynamics_neural_operator_tpu_torch.models import gkn_apply
     from molecular_dynamics_neural_operator_tpu_torch.train.loop import (
-        _device_of,
         featurize_batch,
     )
 
-    dev = _device_of(params)
+    dev = device_of(params)
     outs = []
     end = min(start_frame + num_frames, len(dataset))
     with torch.no_grad():

@@ -17,6 +17,9 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from molecular_dynamics_neural_operator_tpu_torch.device import device_of
+
+
 def select_starting_points(num_valid: int, window_size: int,
                            num_points: int = 3):
     """First / middle / last starting windows of the validation span
@@ -98,11 +101,7 @@ def make_propagation_movie(
     from molecular_dynamics_neural_operator_tpu_torch.rollout import (
         make_rollout_fn,
     )
-    from molecular_dynamics_neural_operator_tpu_torch.train.loop import (
-        _device_of,
-    )
-
-    dev = _device_of(params)
+    dev = device_of(params)
     roll = make_rollout_fn(cfg, num_steps=num_steps, threshold=threshold,
                            collect="contact_maps", device=dev)
     aa = torch.as_tensor(dataset.traj.aminoacids, device=dev)

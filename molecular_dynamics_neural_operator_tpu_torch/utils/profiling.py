@@ -13,12 +13,21 @@
 - ``count(name, n)``: adds n to the program counter ``name``, a host
   integer that is always on and never reads the device; ``counters()``
   returns them all. A reader takes them before and after its block and
-  subtracts. The counters: ``curriculum_steps``, ``curriculum_unrolled``,
+  subtracts. This is the program's one store of counts:
+  ``curriculum_steps``, ``curriculum_unrolled``,
   ``curriculum_supervised`` and ``dense_pairs``
   (``train/curriculum.py``); ``plain_tc_linear`` (``ops/mlp.py``: a
   linear layer on tensor cores) and ``blocked_bf16_aggregate``
-  (``ops/edge_conv.py``: a blocked conv layer as one bf16 product). Under
-  a CUDA graph a counter counts the capture, not the replays.
+  (``ops/edge_conv.py``: a blocked conv layer as one bf16 product); and
+  the kernel launches, each under its kernel's name: ``graph_encode``,
+  ``edge_mlp``, ``conv_head`` and ``conv_head_wide`` (those of
+  ``conv_head`` on the wide plan; ``ops/cuda/persistent_rollout.py``),
+  ``train_conv_fwd`` and ``train_conv_bwd`` (``ops/cuda/train_conv.py``)
+  and ``fused_edge_conv_stack`` (``ops/cuda/fused_gkn.py``).
+- ``held()``: the counts this thread makes in the block go into the dict
+  it yields and not into the store. A counter counts what ran, eager or
+  replayed: a CUDA graph's capture and its warm-up hold their counts
+  (``ops/cuda/graphs.py``), and each replay adds what its capture held.
 
 Spans are stamped with ``time.time_ns()``, the clock of the profiler's
 host events, so they lie on one timeline with a ``torch.profiler`` trace
@@ -205,11 +214,27 @@ def tracing():
 
 
 _counts: dict = {}
+_held = threading.local()    # .counts: where this thread's counts go
 
 
 def count(name: str, n: int = 1) -> None:
     """Add n to the program counter ``name`` (a host integer)."""
-    _counts[name] = _counts.get(name, 0) + int(n)
+    into = getattr(_held, "counts", None)
+    if into is None:
+        into = _counts
+    into[name] = into.get(name, 0) + int(n)
+
+
+@contextlib.contextmanager
+def held():
+    """The counts this thread makes in the block go into the dict it
+    yields, not into the store."""
+    before = getattr(_held, "counts", None)
+    out = _held.counts = {}
+    try:
+        yield out
+    finally:
+        _held.counts = before
 
 
 def counters() -> dict:

@@ -1,13 +1,14 @@
 """The blocked conv layer as one product a node
-(``ops/edge_conv.py::_blocked_aggregate``) and the rollout step's edge
-MLP on tensor cores (``rollout/scan.py::_step``).
+(``ops/edge_conv.py::_blocked_aggregate``) and the edge MLP on tensor
+cores (``ops/mlp.py::_on_tensor_cores``).
 
 On the CPU, without JAX (``tests/test_torch_port_ops.py`` holds the same
 layer against the JAX package): the folded layer against the form it
 replaced, a message a slot summed per node, forward and gradients, in
 f32 and on bf16-rounded operands; an int8 kernel tensor, whose scale
-rides on the mask, keeps that form to the bit; the step asks for tensor
-cores; and the two program counters stay at 0 on the CPU.
+rides on the mask, keeps that form to the bit; the rule that puts a
+linear layer on tensor cores; and the two program counters stay at 0 on
+the CPU.
 
 The tests marked ``gpu`` skip without a card and run on it with
 ``python -m pytest --noconftest tests/test_torch_port_blocked_product.py``:
@@ -26,6 +27,9 @@ plus the f32 bound. On the CPU dK is one product an element, rounded
 once, on both sides: equal to the bit. The card's bound is in its
 test.
 """
+
+import contextlib
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -213,27 +217,30 @@ def _step_args(cfg, device, seed=0):
                                                seed=seed)
 
 
-def test_the_rollout_step_asks_for_tensor_cores(monkeypatch):
-    seen = []
-    apply = scan.gkn_apply_single
-
-    def spy(*args, **kw):
-        seen.append(kw.get("tensor_cores"))
-        return apply(*args, **kw)
-
-    monkeypatch.setattr(scan, "gkn_apply_single", spy)
-    cfg = ModelConfig(width=8, ker_width=16, depth=1, window_size=3,
-                      num_residues=10, max_edges=64)
-    params = gkn_init(cfg, seed=0)
-    window = _grid_window(10, 3, "cpu")
-    scan.rollout_scan(params, cfg, torch.zeros(10, dtype=torch.long),
-                      window, 2)
-    assert seen == [True, True]
+@pytest.mark.parametrize(
+    "is_cuda, compute_dtype, rows, exact, want",
+    [(True, torch.bfloat16, 64, False, True),
+     (True, torch.bfloat16, 8, False, True),
+     (False, torch.bfloat16, 64, False, False),
+     (True, torch.float32, 64, False, False),
+     (True, None, 64, False, False),
+     (True, torch.bfloat16, 6, False, False),
+     (True, torch.bfloat16, 64, True, False)],
+    ids=["cuda-bf16", "cuda-bf16-8-rows", "cpu", "f32", "no-dtype",
+         "6-rows", "exact-products"])
+def test_the_tensor_core_rule(is_cuda, compute_dtype, rows, exact, want):
+    """A CUDA bf16 product whose weight has a multiple of 8 rows, outside
+    ``exact_products()``: the rule decides from what it is given alone."""
+    x = SimpleNamespace(is_cuda=is_cuda, shape=(5, rows))
+    w = SimpleNamespace(is_cuda=is_cuda, shape=(rows, 64))
+    with mlp.exact_products() if exact else contextlib.nullcontext():
+        assert mlp._on_tensor_cores(x, w, compute_dtype) is want
+    assert not mlp.products_exact()
 
 
 def test_the_counters_stay_at_zero_on_the_cpu():
     """A bf16 cell-list rollout past 512 atoms takes the blocked layer
-    and asks for tensor cores; on the CPU neither engages."""
+    and a bf16 edge MLP; on the CPU neither engages."""
     cfg = _cell_cfg(520, width=8, ker_width=16, depth=1,
                     electrostatics="none", num_cells=1024)
     assert scan.rebuilt_scatter_hint(cfg, 520) == "blocked"

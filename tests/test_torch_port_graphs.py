@@ -60,6 +60,7 @@ from molecular_dynamics_neural_operator_tpu_torch.train.optim import (
     tree_leaves,
     tree_map,
 )
+from molecular_dynamics_neural_operator_tpu_torch.utils import profiling
 
 SMALL = dict(width=16, ker_width=64, depth=2, window_size=4, num_residues=12,
              max_edges=128, graph_mode="sparse", predict_delta=True)
@@ -260,7 +261,9 @@ def test_graphed_dense_rollout_is_the_eager_loop_to_the_bit(cuda, cd,
                                                             streams):
     """The dense graph's scan, 100 steps (a block and a tail) collecting
     both outputs, twice: bit-equal to the loop issued op by op; eight
-    streams in chunks of four."""
+    streams in chunks of four. Each graphed call counts the linear layers
+    on tensor cores (``plain_tc_linear``, none in f32) that the eager loop
+    counts: the capture holds its counts and every replay adds them."""
     cfg = ModelConfig(**{**SMALL, "graph_mode": "dense"}, compute_dtype=cd)
     params = gkn_init(cfg, seed=0, device=cuda)
     batched = streams > 1
@@ -269,9 +272,18 @@ def test_graphed_dense_rollout_is_the_eager_loop_to_the_bit(cuda, cd,
                          device=cuda)
     aa = torch.as_tensor(_traj().aminoacids, device=cuda)
     w0 = _windows(streams, cuda) if batched else _windows(1, cuda)[0]
+
+    def tc_linear():
+        return profiling.counters().get("plain_tc_linear", 0)
+
+    before = tc_linear()
     want = fn.eager(params, aa, w0)
+    eager = tc_linear() - before
+    assert (eager > 0) == (cd == "bfloat16")
     for _ in range(2):
+        before = tc_linear()
         assert _same(fn(params, aa, w0), want)
+        assert tc_linear() - before == eager
 
 
 @pytest.mark.gpu

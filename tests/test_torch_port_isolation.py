@@ -18,11 +18,14 @@ JAX_PACKAGE = "molecular_dynamics_neural_operator_tpu"
 
 
 def _imported_modules(path: Path):
+    """Every module a file imports and, for ``from X import Y``, X.Y too
+    (Y may be a module of the package X)."""
     for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
         if isinstance(node, ast.Import):
             yield from (alias.name for alias in node.names)
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             yield node.module
+            yield from (f"{node.module}.{alias.name}" for alias in node.names)
         elif (isinstance(node, ast.Call)
               and getattr(node.func, "attr", getattr(node.func, "id", ""))
               in ("import_module", "__import__")
@@ -55,6 +58,37 @@ def test_the_check_tells_the_port_from_the_jax_package():
     assert _forbidden("jax.numpy")
     assert not _forbidden("molecular_dynamics_neural_operator_tpu_torch.ops")
     assert not _forbidden("jaxtyping")
+
+
+def _above_the_loop_layer(module: str) -> bool:
+    """What ``ops/cuda/graphs.py`` may not import: a kernel wrapper of
+    ``ops/cuda/`` (its build and launch helpers excepted) or a layer that
+    builds on the graphs."""
+    port = "molecular_dynamics_neural_operator_tpu_torch."
+    if not module.startswith(port):
+        return False
+    parts = module[len(port):].split(".")
+    if parts[:2] == ["ops", "cuda"]:
+        return len(parts) > 2 and parts[2] not in ("_launch", "_build")
+    return parts[0] in ("models", "rollout", "train", "serving", "parallel")
+
+
+def test_the_graph_layer_imports_no_kernel_wrapper_and_no_layer_above():
+    """The loop layer counts launches through the program counters, so it
+    knows no kernel wrapper by name and nothing that replays its graphs."""
+    path = PORT / "ops" / "cuda" / "graphs.py"
+    bad = sorted({m for m in _imported_modules(path)
+                  if _above_the_loop_layer(m)})
+    assert not bad, f"ops/cuda/graphs.py imports {bad}"
+    port = "molecular_dynamics_neural_operator_tpu_torch"
+    assert _above_the_loop_layer(f"{port}.ops.cuda.persistent_rollout")
+    assert _above_the_loop_layer(f"{port}.ops.cuda.fused_gkn.fused_weights")
+    assert _above_the_loop_layer(f"{port}.train.graphed")
+    assert _above_the_loop_layer(f"{port}.parallel")
+    assert not _above_the_loop_layer(f"{port}.ops.cuda._launch")
+    assert not _above_the_loop_layer(f"{port}.ops.cuda")
+    assert not _above_the_loop_layer(f"{port}.utils.profiling.count")
+    assert not _above_the_loop_layer("torch.distributed")
 
 
 def test_every_kernel_source_names_what_it_replaces_and_its_bound():

@@ -4,8 +4,8 @@ the graphs record the spans their layers promise, on the threads that do
 the work, and the server's queue counters agree with them.
 
 The tests marked ``gpu`` hold the spans against ``torch.profiler``'s
-trace of the card (``portbench/spans.py`` joins the two) and the capture
-counter, and skip without a card:
+trace of the card (``portbench/spans.py`` joins the two), the capture
+counter and the counts a replay adds, and skip without a card:
 ``python -m pytest --noconftest tests/test_torch_port_tracing.py`` there.
 This file imports no JAX."""
 
@@ -62,6 +62,41 @@ def test_off_a_span_is_one_shared_object_and_records_nothing():
     with profiling.tracing() as spans:
         pass
     assert spans == [] and spans.threads == {}
+
+
+def test_held_counts_stay_out_of_the_store_on_their_thread_alone():
+    """Inside ``held()`` this thread's counts go into the block's dict;
+    another thread's go into the store meanwhile."""
+    before = profiling.counters()
+    with profiling.held() as mine:
+        profiling.count("held test", 2)
+        other = threading.Thread(
+            target=lambda: profiling.count("held test other", 3))
+        other.start()
+        other.join(WAIT)
+        assert not other.is_alive()
+    profiling.count("held test", 5)
+    after = profiling.counters()
+    assert mine == {"held test": 2}
+    assert after["held test"] - before.get("held test", 0) == 5
+    assert after["held test other"] - before.get("held test other", 0) == 3
+
+
+def test_each_launch_view_reads_and_resets_its_own_names():
+    from molecular_dynamics_neural_operator_tpu_torch.ops.cuda import (
+        persistent_rollout as pr,
+        train_conv as tc,
+    )
+
+    profiling.count("conv_head_wide", 4)
+    profiling.count("train_conv_fwd", 2)
+    before = tc.launch_counts()
+    pr.reset_launch_counts()
+    assert pr.launch_counts() == {"graph_encode": 0, "edge_mlp": 0,
+                                  "conv_head": 0, "conv_head_wide": 0}
+    assert tc.launch_counts() == before and before["train_conv_fwd"] >= 2
+    tc.reset_launch_counts()
+    assert tc.launch_counts() == {"train_conv_fwd": 0, "train_conv_bwd": 0}
 
 
 def test_on_spans_nest_per_thread_and_come_back_from_every_thread():
@@ -265,3 +300,25 @@ def test_a_capture_counts_and_a_replay_does_not(cuda):
         "tracing test"] * 2
     (cap,) = _names(spans, "graph.capture")
     assert cap.request == "tracing test"
+
+
+@pytest.mark.gpu
+def test_a_replay_adds_the_counts_its_capture_held(cuda):
+    """A counter counts what ran: the warm-up and the capture count
+    nothing, each replay what the captured body counted."""
+    x = torch.zeros(16, device=cuda)
+
+    def body():
+        profiling.count("replay test", 2)
+        x.add_(1)
+
+    def counted():
+        return profiling.counters().get("replay test", 0)
+
+    before = counted()
+    captured, _ = graphs.capture(body, "counter test", warmup=body)
+    assert counted() == before and captured.counts == {"replay test": 2}
+    captured.replay()
+    captured.replay()
+    torch.cuda.synchronize()
+    assert counted() == before + 4 and float(x[0]) == 3.0

@@ -133,13 +133,13 @@ def parts(model, inputs, params, aa) -> dict:
                                             w * w]))
     with torch.no_grad():
         for name, tc in (("mlp_f32_ms", False), ("mlp_tc_ms", True)):
-            ms = event_ms(lambda: mlp.mlp_apply(params["edge_kernel"], ef,
-                                                compute_dtype=cd,
-                                                tensor_cores=tc), n=3)
+            with Halves(tc, True):
+                ms = event_ms(lambda: mlp.mlp_apply(
+                    params["edge_kernel"], ef, compute_dtype=cd), n=3)
             out[name] = ms
             out[name.replace("_ms", "_tflops")] = mlp_flop / ms / 1e9
-        kernels = edge_conv.edge_kernel_matrices(
-            params["edge_kernel"], ef, w, cd, tensor_cores=True)
+        kernels = edge_conv.edge_kernel_matrices(params["edge_kernel"], ef,
+                                                 w, cd)
         x = torch.randn(r, w, device="cuda")
         xs = torch.take_along_dim(x, graph.edges[0].long()[:, None], dim=-2)
         mask = graph.mask
@@ -167,25 +167,24 @@ def parts(model, inputs, params, aa) -> dict:
 
 class Halves:
     """Turns each half of the change off by replacing a module function
-    for the block: ``mlp`` off sends the rollout step's MLP to f32
-    products, ``aggregate`` off restores the per-slot layer."""
+    for the block: ``mlp`` off replaces ``ops/mlp.py``'s tensor-core rule
+    by one that says no, which sends the MLP to f32 products;
+    ``aggregate`` off restores the per-slot layer."""
 
     def __init__(self, mlp_on: bool, aggregate_on: bool):
         self.mlp_on, self.aggregate_on = mlp_on, aggregate_on
 
     def __enter__(self):
-        self._apply, self._agg = scan.gkn_apply_single, \
+        self._rule, self._agg = mlp._on_tensor_cores, \
             edge_conv._blocked_aggregate
         if not self.mlp_on:
-            apply = self._apply
-            scan.gkn_apply_single = lambda *a, **k: apply(
-                *a, **{**k, "tensor_cores": False})
+            mlp._on_tensor_cores = lambda x, w, compute_dtype: False
         if not self.aggregate_on:
             edge_conv._blocked_aggregate = per_slot_aggregate
         return self
 
     def __exit__(self, *exc):
-        scan.gkn_apply_single = self._apply
+        mlp._on_tensor_cores = self._rule
         edge_conv._blocked_aggregate = self._agg
         return False
 
