@@ -14,7 +14,10 @@ padded edge list, aggregated by the ``scatter_mode`` that ``scatter_hint``,
 ``cfg.scatter_mode`` or the node count picks; with ``kernel_quant="int8"``
 the kernel tensor is int8 and the per-edge scale rides on the message
 mask). With ``fused_conv_vjp`` the tied one-hot stack runs through
-``ops/conv_stack.tied_conv_stack`` and its hand-written backward.
+``ops/conv_stack.tied_conv_stack`` and its hand-written backward, and
+the tied dense stack, where its products run on bf16 tensor cores
+(``ops/edge_conv.py::_bf16_product``), through
+``ops/conv_stack.dense_tied_stack``.
 
 ``gkn_apply`` is the batched training and evaluation forward over a
 ``GKNBatch``. With ``train_conv_impl="pallas"`` (the JAX package's name
@@ -41,6 +44,7 @@ import torch
 from molecular_dynamics_neural_operator_tpu_torch.configs import ModelConfig
 from molecular_dynamics_neural_operator_tpu_torch.device import compute_dtype
 from molecular_dynamics_neural_operator_tpu_torch.ops.conv_stack import (
+    dense_tied_stack,
     tied_conv_stack,
 )
 from molecular_dynamics_neural_operator_tpu_torch.ops.cuda.fused_gkn import (
@@ -54,6 +58,7 @@ from molecular_dynamics_neural_operator_tpu_torch.geometry.contact import (
 )
 from molecular_dynamics_neural_operator_tpu_torch.ops.edge_conv import (
     SCATTER_ONEHOT_MAX_NODES,
+    _bf16_product,
     edge_conv_dense,
     edge_conv_init,
     edge_conv_sparse,
@@ -243,6 +248,13 @@ def _scatter_mode(cfg: ModelConfig, num_nodes: int,
                             else "segment")
 
 
+def _tied_stack(cfg: ModelConfig) -> bool:
+    """Whether the conv stack may run as one function with a hand-written
+    backward: ``fused_conv_vjp`` on two stacks of one tied kernel."""
+    return (cfg.fused_conv_vjp and cfg.tie_edge_kernel and cfg.depth > 0
+            and not cfg.legacy_no_lstm)
+
+
 def gkn_apply_single(params, cfg: ModelConfig, aa, window, graph: Graph,
                      return_latent: bool = False,
                      scatter_hint: Optional[str] = None):
@@ -270,10 +282,18 @@ def gkn_apply_single(params, cfg: ModelConfig, aa, window, graph: Graph,
                 k = edge_kernel_matrices(params[mlp], graph.edge_feats,
                                          cfg.width, cd)
                 masked[mlp] = masked_dense_kernels(k, graph.adj, cd)
-        for conv, mlp in stacks:
-            for _ in range(cfg.depth):
-                x = torch.relu(edge_conv_dense(params[conv], x, masked[mlp],
-                                               inv_deg, cd))
+        if _tied_stack(cfg) and _bf16_product(masked["edge_kernel"]):
+            # hand-written backward over the whole tied stack: dK is one
+            # product over the layer axis (ops/conv_stack.py)
+            x = dense_tied_stack(
+                cfg.depth, x, masked["edge_kernel"], inv_deg,
+                params["conv1"]["root"], params["conv1"]["bias"],
+                params["conv2"]["root"], params["conv2"]["bias"])
+        else:
+            for conv, mlp in stacks:
+                for _ in range(cfg.depth):
+                    x = torch.relu(edge_conv_dense(
+                        params[conv], x, masked[mlp], inv_deg, cd))
         return _head(params, cfg, window, x, return_latent)
     if cfg.conv_impl == "pallas":
         # edge MLP and both conv stacks as one hand-written kernel
@@ -296,9 +316,8 @@ def gkn_apply_single(params, cfg: ModelConfig, aa, window, graph: Graph,
             k, kscale = quantize_kernels_int8(k)
             msg_mask[mlp] = graph.mask * kscale
         kernels[mlp] = k
-    if (cfg.fused_conv_vjp and cfg.tie_edge_kernel and cfg.depth > 0
-            and scatter == "onehot" and cfg.kernel_quant == "none"
-            and not cfg.legacy_no_lstm):
+    if (_tied_stack(cfg) and scatter == "onehot"
+            and cfg.kernel_quant == "none"):
         # hand-written backward over the whole tied stack: one-pass
         # kernel-tensor gradient (ops/conv_stack.py)
         x = tied_conv_stack(

@@ -16,6 +16,13 @@ f32 and rounded once to K's dtype. Every leading axis is a batch axis.
 
 It is the ``train_conv_impl="xla"`` path's stack and the oracle for the
 gradients of the CUDA kernel in ``ops/cuda/train_conv.py``.
+
+``dense_tied_stack`` is its twin on the dense graph: the 2*depth layers
+of ``ops/edge_conv.edge_conv_dense`` over one masked kernel tensor, read
+in place as (R*w, R*w) matrices, with the same products and roundings
+forward and backward as the per-layer path, except that the layers'
+bf16 cotangent rows are stacked and dK is one product over the layer
+axis, summed in f32 and rounded once.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ import torch
 
 from molecular_dynamics_neural_operator_tpu_torch.ops.edge_conv import _onehot
 from molecular_dynamics_neural_operator_tpu_torch.ops.mlp import round_to
+from molecular_dynamics_neural_operator_tpu_torch.utils.profiling import count
 
 
 def conv_stack_forward(depth, cd, x0, kernels, edges, mask, inv_deg,
@@ -121,3 +129,91 @@ def tied_conv_stack(depth: int, compute_dtype, x0, kernels, edges, mask,
     kernels, roots and biases."""
     return _TiedConvStack.apply(depth, compute_dtype, x0, kernels, edges,
                                 mask, inv_deg, root1, bias1, root2, bias2)
+
+
+def _rows_times(rows: torch.Tensor, op: torch.Tensor) -> torch.Tensor:
+    """rows (N, L, K) @ op (N, K, M) in f32: on bf16 tensor cores with an
+    f32 accumulation and result for bf16 operands (CUDA only), a plain
+    f32 product otherwise."""
+    if op.dtype == torch.float32:
+        return torch.bmm(rows, op)
+    return torch.bmm(rows, op, out_dtype=torch.float32)
+
+
+class _DenseTiedStack(torch.autograd.Function):
+    """The dense tied stack over op (N, R*w, R*w) in bf16 on the card or
+    f32. Forward: each layer is ``edge_conv_dense``'s, op times the layer
+    input rounded to op's dtype as a row (N, 1, R*w), read in place.
+    Backward: per layer the cotangent through the ReLU, droot and dbias,
+    the row cotangent gb = (dz * inv_deg) rounded to op's dtype, and dx as
+    ``_DenseAggregate`` and autograd form them (gb @ op^T in f32 rounded
+    to op's dtype, plus the root term, rounded as the input's cast
+    rounds it); then dK is one product of the saved rows as columns
+    (N, R*w, L) with the stacked gb (N, L, R*w), f32 accumulated and
+    rounded once to op's dtype."""
+
+    @staticmethod
+    def forward(ctx, depth, x0, op, inv_deg, root1, bias1, root2, bias2):
+        count("dense_tied_stack")
+        cd = op.dtype
+        n, k = op.shape[0], op.shape[-2]
+        x, rows, outs = x0, [], []
+        for layer in range(2 * depth):
+            root, bias = (root1, bias1) if layer < depth else (root2, bias2)
+            xr = round_to(x, cd)
+            row = xr.reshape(n, 1, k).to(cd)
+            agg = _rows_times(row, op).reshape(xr.shape) * inv_deg[..., None]
+            x = torch.relu(agg + xr @ round_to(root, cd) + bias)
+            rows.append(row)
+            outs.append(x)
+        ctx.depth = depth
+        ctx.save_for_backward(op, inv_deg, root1, root2, *rows, *outs)
+        return x
+
+    @staticmethod
+    def backward(ctx, g_out):
+        op, inv_deg, root1, root2, *saved = ctx.saved_tensors
+        depth = ctx.depth
+        layers = 2 * depth
+        rows, outs = saved[:layers], saved[layers:]
+        cd = op.dtype
+        n, k = op.shape[0], op.shape[-2]
+        shape, w = g_out.shape, g_out.shape[-1]
+        roots = (round_to(root1, cd), round_to(root2, cd))
+        gbs = torch.empty((n, layers, k), dtype=cd, device=op.device)
+        droot = [torch.zeros_like(root1), torch.zeros_like(root2)]
+        dbias = [torch.zeros_like(root1[0]), torch.zeros_like(root2[0])]
+        dx = g_out.float()
+        for layer in reversed(range(layers)):
+            which = int(layer >= depth)
+            dz = dx.masked_fill(outs[layer] <= 0.0, 0.0)
+            xr = rows[layer].reshape(shape).float()
+            dr = round_to(xr.reshape(-1, w).transpose(0, 1)
+                          @ dz.reshape(-1, w), cd)
+            db = dz.sum(dim=tuple(range(dz.dim() - 1)))
+            droot[which] = droot[which] + dr
+            dbias[which] = dbias[which] + db
+            gb = (dz * inv_deg[..., None]).reshape(n, 1, k).to(cd)
+            gbs[:, layer] = gb[:, 0]
+            dagg = _rows_times(gb, op.transpose(1, 2)).to(cd).float()
+            dx = round_to(dagg.reshape(shape) + dz @ roots[which].T, cd)
+        # one product over the layer axis: (N, K, L) @ (N, L, K)
+        dk = torch.bmm(torch.cat(rows, dim=1).transpose(1, 2), gbs)
+        return (None, dx, dk, None, droot[0], dbias[0], droot[1], dbias[1])
+
+
+def dense_tied_stack(depth: int, x0, kernels_masked, inv_deg, root1, bias1,
+                     root2, bias2):
+    """relu(conv1)^depth then relu(conv2)^depth on the dense graph with one
+    masked kernel tensor.
+
+    x0 (..., R, w) f32; kernels_masked (..., R, R, w, w) [j, i, w, v] in
+    bf16 on the card or f32, the view ``masked_dense_kernels`` returns
+    (read in place); inv_deg (..., R); root (w, w) and bias (w,) f32.
+    Returns (..., R, w) f32. Differentiable in x0, the kernel tensor,
+    roots and biases. Each call adds 1 to the program counter
+    ``dense_tied_stack``."""
+    r, w = x0.shape[-2], x0.shape[-1]
+    op = kernels_masked.transpose(-3, -2).reshape(-1, r * w, r * w)
+    return _DenseTiedStack.apply(depth, x0, op, inv_deg, root1, bias1,
+                                 root2, bias2)

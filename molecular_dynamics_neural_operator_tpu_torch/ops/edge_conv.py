@@ -16,7 +16,8 @@ layers. Two graph forms:
   each node's masked slots with its block of the kernel tensor).
 
 The whole tied sparse stack with a hand-written backward is
-``ops/conv_stack.py``, and as a CUDA kernel ``ops/cuda/train_conv.py``.
+``ops/conv_stack.py``, and as a CUDA kernel ``ops/cuda/train_conv.py``;
+the whole tied dense stack is ``ops/conv_stack.py::dense_tied_stack``.
 ``quantize_kernels_int8`` is the int8 serving option: the per-edge scale
 is folded into the message mask.
 

@@ -17,8 +17,10 @@
   ``curriculum_steps``, ``curriculum_unrolled``,
   ``curriculum_supervised`` and ``dense_pairs``
   (``train/curriculum.py``); ``plain_tc_linear`` (``ops/mlp.py``: a
-  linear layer on tensor cores) and ``blocked_bf16_aggregate``
-  (``ops/edge_conv.py``: a blocked conv layer as one bf16 product); and
+  linear layer on tensor cores), ``blocked_bf16_aggregate``
+  (``ops/edge_conv.py``: a blocked conv layer as one bf16 product) and
+  ``dense_tied_stack`` (``ops/conv_stack.py``: a dense tied conv stack
+  with one kernel-tensor gradient); and
   the kernel launches, each under its kernel's name: ``graph_encode``,
   ``edge_mlp``, ``conv_head`` and ``conv_head_wide`` (those of
   ``conv_head`` on the wide plan; ``ops/cuda/persistent_rollout.py``),
