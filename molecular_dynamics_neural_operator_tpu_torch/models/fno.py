@@ -21,10 +21,24 @@ then a real inverse FFT over the columns. cuFFT leaves a two-axis C2R of
 a non-Hermitian spectrum undefined, so the port does not hand it one, on
 any device.
 
+Departures from Li et al.'s FNO-2d (arXiv:2010.08895, ``fourier_2d.py``),
+each the model the JAX package defines: the negative row frequencies
+take conj(w) of a layer's one complex weight, where the paper trains a
+second, independent weight for them (``weights2``); and there are no
+grid-coordinate input channels, the channels being the window's
+distance matrices alone.
+
 Everything takes leading batch axes; ``fno_rollout_scan``'s ``lax.scan``
 is a Python loop. The train, eval and curriculum steps have the GKN
 steps' form: (state, batch) -> (state, metrics) with 0-d tensors that
 stay on the device.
+
+Program counters (``utils/profiling.py``): each spectral convolution
+adds 1 to ``fno_spectral_dft`` or ``fno_spectral_fft``, by the form it
+took. The curriculum step opens the trainer's span ``train.curriculum``
+around each call and counts ``curriculum_steps``, ``curriculum_unrolled``
+and ``curriculum_supervised`` as ``train/curriculum.py``'s step does,
+and ``fno_points``, B * R^2 for each unrolled model step.
 """
 
 from __future__ import annotations
@@ -40,6 +54,10 @@ from molecular_dynamics_neural_operator_tpu_torch.configs import FNOConfig
 from molecular_dynamics_neural_operator_tpu_torch.ops.mlp import (
     linear_apply,
     linear_init,
+)
+from molecular_dynamics_neural_operator_tpu_torch.utils.profiling import (
+    count,
+    span,
 )
 
 SPECTRAL_IMPLS = ("auto", "dft", "fft")
@@ -185,6 +203,7 @@ def _spectral_conv(sp_params, x: torch.Tensor, modes1: int, modes2: int,
             f"spectral_impl='dft' requires 2*modes1 <= {r1} and modes2 <= "
             f"{r2 // 2 + 1} (got modes=({m1}, {m2})); use 'fft' or fewer "
             "modes")
+    count(f"fno_spectral_{impl}")
 
     if impl == "dft":
         f1, f2, b1, b2 = _dft_tensors(r1, r2, m1, m2, x.device)
@@ -354,9 +373,27 @@ def make_fno_train_step(cfg: FNOConfig, tx):
 
 def make_fno_curriculum_train_step(cfg: FNOConfig, tx, rollout_steps: int,
                                    step_weights=None):
-    """Train step of ``fno_curriculum_loss``."""
-    return _train_step(fno_curriculum_loss(cfg, rollout_steps, step_weights),
-                       tx)
+    """Train step of ``fno_curriculum_loss``, traced and counted as the
+    module docstring says; ``step.eager`` and ``step.graphed`` are
+    ``_train_step``'s."""
+    inner = _train_step(fno_curriculum_loss(cfg, rollout_steps,
+                                            step_weights), tx)
+
+    def counted(run):
+        def step(state, batch: dict):
+            with span("train.curriculum"):
+                out = run(state, batch)
+            b, r = batch["window"].shape[0], batch["window"].shape[-2]
+            count("curriculum_steps")
+            count("curriculum_unrolled", rollout_steps)
+            count("curriculum_supervised", rollout_steps)
+            count("fno_points", rollout_steps * b * r * r)
+            return out
+        return step
+
+    step = counted(inner)
+    step.eager, step.graphed = counted(inner.eager), inner.graphed
+    return step
 
 
 def fno_curriculum_loss(cfg: FNOConfig, rollout_steps: int,

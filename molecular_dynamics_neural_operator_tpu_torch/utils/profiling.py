@@ -20,7 +20,10 @@
   linear layer on tensor cores), ``blocked_bf16_aggregate``
   (``ops/edge_conv.py``: a blocked conv layer as one bf16 product) and
   ``dense_tied_stack`` (``ops/conv_stack.py``: a dense tied conv stack
-  with one kernel-tensor gradient); and
+  with one kernel-tensor gradient); ``fno_points``,
+  ``fno_spectral_dft`` and ``fno_spectral_fft`` (``models/fno.py``:
+  the FNO curriculum's grid points a model step, a spectral convolution
+  by its form; that step counts the ``curriculum_*`` counters too); and
   the kernel launches, each under its kernel's name: ``graph_encode``,
   ``edge_mlp``, ``conv_head`` and ``conv_head_wide`` (those of
   ``conv_head`` on the wide plan; ``ops/cuda/persistent_rollout.py``),
