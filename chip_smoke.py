@@ -137,7 +137,9 @@ Phases, each fatal:
    ``--graph_mode sparse``, within TOL_TRAIN_LOSS, no training-kernel
    launch; (d) ``rollout_from_trajectory`` with the default graph flags,
    128 steps of the bench checkpoint on the dense scan against ``--impl
-   persistent`` at E = 224 (128/384/128 launches): in f32 the same contact
+   persistent`` at E = 224 (128/384/128 launches; the bf16 dense scan
+   makes its kernel tensor through the hand-written edge MLP, 3 launches
+   a step, the f32 one launches nothing): in f32 the same contact
    maps at every step and coordinates within TOL_DENSE_ROLL, bf16
    reported; (e) four requests through a dense ``RolloutServer(impl=
    "scan")``, each within TOL_ROLL of a dedicated dense rollout; then,
@@ -156,7 +158,9 @@ Phases, each fatal:
    rates; ``legacy_no_lstm`` on the card against the CPU (forward and
    gradient, f32).
 
-17. large systems (no kernel on the path; the launch counts stay 0):
+17. large systems (of the kernels only the hand-written edge MLP, which
+   makes the bf16 10k step's kernel tensor: exactly 3 launches a step,
+   each run counted from just before it to just after; nothing else):
    (a) the cell list at 10,000 atoms on the card against the port's CPU
    cell list (edges, mask and both flags exactly, two frames as one
    batch) and, per node, against an all-pairs search in row blocks, on
@@ -178,7 +182,11 @@ Phases, each fatal:
    their time and peak memory. (d) ``rollout_from_trajectory`` with
    ``--neighbor_impl cell_list`` on the bench checkpoint for 128 f32
    steps against the ranked rebuild: the same contact maps at every
-   step, coordinates within TOL_ROLL.
+   step, coordinates within TOL_ROLL. (e) ``edge_mlp_stack`` at the 10k
+   step's 480,000 rows (its persistent plan) against three plain layers
+   on the same inputs (phase 2's tolerance), its first 1,792 rows the
+   small plans' to the bit; its time, the plain layers', the library's
+   and the bound, the ``kernels`` line's ``edge_mlp_persistent``.
 18. FNO (the CLI's defaults: R = 28, window 10, width 32, modes 12,
    depth 4, f32, B = 128; no kernel on the path): (a) ``_spectral_conv``
    fft against dft and the card's fft against the CPU's at R = 28 and
@@ -191,8 +199,10 @@ Phases, each fatal:
    ``fno_rollout_scan`` of the trained weights, card against CPU; (e) a
    train step's samples/s, device time and busy share, rollout steps/s,
    the spectral conv's times.
-19. export, preprocessing and the host pipeline (none of the seven
-   kernels on the path; the launch counts stay 0): (a) serving bundles
+19. export, preprocessing and the host pipeline (of the kernels only the
+   hand-written edge MLP, 3 launches a bf16 step of a flagship bundle or
+   of the in-process rollout it is held against, counted call by call;
+   nothing else): (a) serving bundles
    (``serving/export.py``) of the flagship with ``tools/bench_ckpt.npz``,
    exported on the card: 128 steps with ``collect="both"`` at one stream
    and at S = 8 in chunks of 4, and with hot-swapped seeded live weights,
@@ -288,8 +298,10 @@ Phases, each fatal:
    and the garbage collector's runs during each; (f) a kernel rollout
    and a fused scan rollout kept across graphed train steps, each equal
    to the bit to the eager rollout of the trained parameters.
-22. the dense graph's loops as CUDA graphs (no kernel on these paths;
-   the launch counts stay 0): (a) the dense scan rollout (BBA preset,
+22. the dense graph's loops as CUDA graphs (of the kernels only the
+   hand-written edge MLP, 3 launches a bf16 kernel tensor, each rollout
+   of (a) counted call by call; nothing else): (a) the dense scan
+   rollout (BBA preset,
    the bench checkpoint) graphed against its loop issued op by op, bit
    for bit, f32 and bf16, one stream and eight in chunks of four, 100
    steps collecting coordinates and contact maps, the second call under
@@ -305,15 +317,17 @@ Phases, each fatal:
    the ``SOLVATED_10K`` step issued op by op, its device busy ms over its
    wall ms (the figure ``ops/cuda/graphs.py::stays_eager`` cites).
 
-The last lines are the ``kernels`` JSON (seven kernels), the card, and
+The last lines are the ``kernels`` JSON (seven kernels, and the edge
+MLP's persistent plan at 480,000 rows from phase 17), the card, and
 ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA card.
 ``--only rollout``, ``--only train``, ``--only serve``, ``--only cli``,
 ``--only dense``, ``--only options``, ``--only large``, ``--only fno``,
 ``--only export``, ``--only parallel`` or ``--only graphs`` (phases
 21 and 22 and the bundles of 19a) runs one path's phases (for
-development; the ``kernels`` line then lists that path's kernels, none
-for ``cli``, ``dense``, ``options``, ``large``, ``fno``, ``export``,
-``parallel`` and ``graphs``, which time no kernel). Imports nothing of
+development; the ``kernels`` line then lists that path's kernels, the
+edge MLP's persistent plan for ``large``, none for ``cli``, ``dense``,
+``options``, ``fno``, ``export``, ``parallel`` and ``graphs``, which
+time no kernel). Imports nothing of
 JAX.
 """
 
@@ -612,6 +626,7 @@ def check_kernels(params, aa, windows, cd: str) -> dict:
     )
     from molecular_dynamics_neural_operator_tpu_torch.models import gkn_init
     from molecular_dynamics_neural_operator_tpu_torch.ops.cuda import (
+        edge_mlp as em,
         persistent_rollout as pr,
     )
     from molecular_dynamics_neural_operator_tpu_torch.ops.edge_conv import (
@@ -635,8 +650,8 @@ def check_kernels(params, aa, windows, cd: str) -> dict:
     mlp_err = 0.0
     for i, layer in enumerate(weights["mlp"]):
         relu, rm = i < 2, (mask.reshape(-1) if i == 2 else None)
-        got = pr.edge_mlp(a, layer["w"], layer["b"], relu, rm)
-        ref = pr.edge_mlp_plain(a, layer["w"], layer["b"], relu, rm)
+        got = em.edge_mlp(a, layer["w"], layer["b"], relu, rm)
+        ref = em.edge_mlp_plain(a, layer["w"], layer["b"], relu, rm)
         torch.cuda.synchronize()
         err, rel = rel_err(got, ref)
         require(bool(torch.isfinite(got).all()), f"edge_mlp layer {i} "
@@ -651,7 +666,7 @@ def check_kernels(params, aa, windows, cd: str) -> dict:
     # the step's own entry: one call, three launches
     h1 = torch.empty(s * e, cfg.ker_width, dtype=ef.dtype, device=dev)
     h2, kmat = torch.empty_like(h1), torch.empty_like(a)
-    pr.edge_mlp_stack(ef.reshape(s * e, 6), weights["mlp"], mask.reshape(-1),
+    em.edge_mlp_stack(ef.reshape(s * e, 6), weights["mlp"], mask.reshape(-1),
                       h1, h2, kmat)
     torch.cuda.synchronize()
     err, rel = rel_err(kmat, a)
@@ -674,7 +689,7 @@ def check_kernels(params, aa, windows, cd: str) -> dict:
         windows, rnd, THRESHOLD, e, bufs.ef.dtype)
     a = ef.reshape(s * e, 6)
     for i, layer in enumerate(rnd["mlp"]):
-        a = pr.edge_mlp_plain(a, layer["w"], layer["b"], i < 2,
+        a = em.edge_mlp_plain(a, layer["w"], layer["b"], i < 2,
                               mask.reshape(-1) if i == 2 else None)
     check_conv_head(rnd, cfg, None, windows, edges, mask, inv_deg, x0, a,
                     f"{tag} random weights, no clip")
@@ -682,7 +697,7 @@ def check_kernels(params, aa, windows, cd: str) -> dict:
         g_ef = edge_features_from_edges(windows[:, -1], g_edges).to(ef.dtype)
         g_a = g_ef.reshape(s * e, 6)
         for i, layer in enumerate(rnd["mlp"]):
-            g_a = pr.edge_mlp_plain(g_a, layer["w"], layer["b"], i < 2,
+            g_a = em.edge_mlp_plain(g_a, layer["w"], layer["b"], i < 2,
                                     g_mask.reshape(-1) if i == 2 else None)
         check_conv_head(rnd, cfg, None, windows, g_edges, g_mask,
                         sparse_inv_degree(g_edges, g_mask, r), x0, g_a,
@@ -946,7 +961,7 @@ def edge_mlp_layer_ms(ef, mlp, row_mask, bufs) -> list:
     """(kernel ms, ``torch.addmm`` ms) of each of the three layers alone,
     on the buffers of a step (h1 and h2 as the stack left them)."""
     from molecular_dynamics_neural_operator_tpu_torch.ops.cuda import (
-        persistent_rollout as pr,
+        edge_mlp as em,
     )
 
     bias_cd = [layer["b"].to(ef.dtype) for layer in mlp]
@@ -956,7 +971,7 @@ def edge_mlp_layer_ms(ef, mlp, row_mask, bufs) -> list:
     times = []
     for i, layer in enumerate(mlp):
         rm = row_mask if i == 2 else None
-        ms = device_ms(lambda: pr.edge_mlp(ins[i], layer["w"], layer["b"],
+        ms = device_ms(lambda: em.edge_mlp(ins[i], layer["w"], layer["b"],
                                            i < 2, rm, out=outs[i]))
         lib = device_ms(lambda: torch.addmm(bias_cd[i], ins[i], layer["w"]))
         times.append((ms, lib))
@@ -966,6 +981,7 @@ def edge_mlp_layer_ms(ef, mlp, row_mask, bufs) -> list:
 def time_kernels(params, aa, window0, counts: dict, errs: dict) -> list:
     """The ``kernels`` records at the main path's shapes."""
     from molecular_dynamics_neural_operator_tpu_torch.ops.cuda import (
+        edge_mlp as em,
         persistent_rollout as pr,
     )
 
@@ -984,13 +1000,13 @@ def time_kernels(params, aa, window0, counts: dict, errs: dict) -> list:
     row_mask = bufs.mask.view(-1)
 
     def kernel_mlp():
-        return pr.edge_mlp_stack(ef, mlp, row_mask, bufs.h1, bufs.h2,
+        return em.edge_mlp_stack(ef, mlp, row_mask, bufs.h1, bufs.h2,
                                  bufs.kmat)
 
     def plain_mlp():
-        h1 = pr.edge_mlp_plain(ef, mlp[0]["w"], mlp[0]["b"], True)
-        h2 = pr.edge_mlp_plain(h1, mlp[1]["w"], mlp[1]["b"], True)
-        return pr.edge_mlp_plain(h2, mlp[2]["w"], mlp[2]["b"], False, row_mask)
+        h1 = em.edge_mlp_plain(ef, mlp[0]["w"], mlp[0]["b"], True)
+        h2 = em.edge_mlp_plain(h1, mlp[1]["w"], mlp[1]["b"], True)
+        return em.edge_mlp_plain(h2, mlp[2]["w"], mlp[2]["b"], False, row_mask)
 
     library_mlp = make_library_mlp(ef, mlp, row_mask)
     kernel_mlp()
@@ -2100,6 +2116,7 @@ def step_device_ms(prepared, streams: int, windows) -> dict:
     MLP as PyTorch's own calls at the same rows (``library_mlp``, the
     yardstick)."""
     from molecular_dynamics_neural_operator_tpu_torch.ops.cuda import (
+        edge_mlp as em,
         persistent_rollout as pr,
     )
 
@@ -2116,7 +2133,7 @@ def step_device_ms(prepared, streams: int, windows) -> dict:
                                           CLIP, win, coords)),
         "graph_encode": device_ms(lambda: pr.graph_encode(
             win, weights, THRESHOLD, bufs)),
-        "edge_mlp": device_ms(lambda: pr.edge_mlp_stack(
+        "edge_mlp": device_ms(lambda: em.edge_mlp_stack(
             ef, weights["mlp"], row_mask, bufs.h1, bufs.h2, bufs.kmat)),
         "edge_mlp_layers": edge_mlp_layer_ms(ef, weights["mlp"], row_mask,
                                              bufs),
@@ -3033,9 +3050,11 @@ def dense_cli_phase(traj, root) -> dict:
                                   flags + ["--impl", "persistent"],
                                   dense=True)
         want = rollout_launches(n, bench_cfg(cd), 1)
-        require(sum(dn.values()) == 0 and kn == want,
+        # the dense scan's kernel tensor: the hand-written edge MLP in bf16
+        want_d = {k: scan_launches(n, dense_cfg(cd)).get(k, 0) for k in dn}
+        require(dn == want_d and kn == want,
                 f"dense rollout {cd}: launches {dn} on the scan, {kn} under "
-                f"--impl persistent, expected {want}")
+                f"--impl persistent, expected {want_d} and {want}")
         for name, v in kn.items():
             total[name] = total.get(name, 0) + v
         differing = same_edge_lists(w0, dc, kc)
@@ -3595,16 +3614,60 @@ def reset_all_launches() -> None:
     pr.reset_launch_counts()
     tc.reset_launch_counts()
     profiling.count("fused_edge_conv_stack", -fused_launches())
+    profiling.count("fused_edge_mlp",
+                    -profiling.counters().get("fused_edge_mlp", 0))
 
 
 def all_launches() -> dict:
+    """Every kernel's launches so far, and ``fused_edge_mlp``: the kernel
+    tensors the plain model step made through the hand-written edge MLP
+    (``ops/edge_conv.py::hand_mlp``), three ``edge_mlp`` launches each."""
     from molecular_dynamics_neural_operator_tpu_torch.ops.cuda import (
         persistent_rollout as pr,
         train_conv as tc,
     )
+    from molecular_dynamics_neural_operator_tpu_torch.utils import profiling
 
     return {**pr.launch_counts(), **tc.launch_counts(),
-            "fused_edge_conv_stack": fused_launches()}
+            "fused_edge_conv_stack": fused_launches(),
+            "fused_edge_mlp": profiling.counters().get("fused_edge_mlp", 0)}
+
+
+def counted(fn):
+    """fn()'s result and what it launched: ``all_launches()`` read just
+    before and just after, the names that moved."""
+    before = all_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    after = all_launches()
+    return out, {k: n - before[k] for k, n in after.items() if n != before[k]}
+
+
+def scan_launches(n: int, cfg) -> dict:
+    """What n steps of the plain model step of ``cfg`` launch on the card
+    without a gradient, issued op by op or replayed: where
+    ``ops/edge_conv.py::hand_mlp`` takes the kernel tensor (bf16, the
+    edge MLP's widths multiples of 64, at most 16 edge features; not the
+    fused sparse stack, which makes its own), three ``edge_mlp`` launches
+    and one ``fused_edge_mlp`` a kernel tensor, one a step or two where
+    conv2 has its own edge kernel; else nothing."""
+    hand = (cfg.compute_dtype == "bfloat16" and cfg.ker_width % 64 == 0
+            and cfg.width ** 2 % 64 == 0 and cfg.edge_features <= 16
+            and (cfg.graph_mode == "dense" or cfg.conv_impl == "xla"))
+    k = n * (1 if cfg.tie_edge_kernel or cfg.legacy_no_lstm else 2)
+    return {"edge_mlp": 3 * k, "fused_edge_mlp": k} if hand and n else {}
+
+
+def require_hand_mlp_only(counts: dict, where: str) -> None:
+    """A path on which no kernel lies but the hand-written edge MLP that
+    makes the plain step's kernel tensor: each of its ``edge_mlp``
+    launches is one of the three of a ``fused_edge_mlp`` call."""
+    other = {k: v for k, v in counts.items()
+             if v and k not in ("edge_mlp", "fused_edge_mlp")}
+    require(not other and counts.get("edge_mlp", 0)
+            == 3 * counts.get("fused_edge_mlp", 0),
+            f"a kernel launched on {where} other than the hand-written "
+            f"edge MLP's three a kernel tensor: {counts}")
 
 
 def hold_against_all_pairs(pos, out, max_degree: int, tag: str):
@@ -3723,15 +3786,17 @@ def step_flags(params, cfg, aa, window, steps: int):
     return torch.stack(outs), [bool(f) for f in flags]
 
 
-def solvated_rollout(dev) -> None:
+def solvated_rollout(dev):
     """Phase 17b: the SOLVATED_10K preset at its full width with the cell
     list and dh, seeded weights (``solvated_cfg``): 16 bf16 steps with the
     rollout's clip at CURRICULUM_CLIP on the config-5 grid (no overflow on
     its first frame) and on the loose chain (which overflows the
     settings: its largest in-degree is 101, and the seeded model drives
-    its 470 A span apart), each step's flags printed; 4 f32 steps with the
-    blocked reduction against a forced segment scatter on the same graphs;
-    steps/s, device ms by part, peak memory."""
+    its 470 A span apart), each step's flags printed, each run launching
+    the hand-written edge MLP's three kernels a step and nothing else; 4
+    f32 steps with the blocked reduction against a forced segment scatter
+    on the same graphs; steps/s, device ms by part, peak memory. Returns
+    the edge MLP's weights and the grid's last graph's edge features."""
     from molecular_dynamics_neural_operator_tpu_torch.device import (
         compute_dtype,
     )
@@ -3761,9 +3826,15 @@ def solvated_rollout(dev) -> None:
     chain = torch.as_tensor(loose_chain(LARGE_N, t), device=dev)
     _, first = scan._build_graph(cfg, grid[-1], THRESHOLD)
     require(not bool(first), "the config-5 grid's first frame overflows")
+    want = scan_launches(LARGE_STEPS, cfg)
+    require(want.get("edge_mlp") == 3 * LARGE_STEPS,
+            "the 10k step does not take the hand-written edge MLP")
     with torch.no_grad():
         for name, window in (("config-5 grid", grid), ("loose chain", chain)):
-            coords, flags = step_flags(params, cfg, aa, window, LARGE_STEPS)
+            (coords, flags), n = counted(lambda: step_flags(
+                params, cfg, aa, window, LARGE_STEPS))
+            require(n == want, f"10k rollout on the {name}: launches {n}, "
+                    f"expected {want}")
             require(bool(torch.isfinite(coords).all()),
                     f"10k rollout on the {name}: coordinates not finite")
             moved = (coords - window[-1]).abs().amax(dim=(1, 2))
@@ -3776,17 +3847,19 @@ def solvated_rollout(dev) -> None:
                                clip=CURRICULUM_CLIP)
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        coords, _, diags = roll(params, aa, grid)
-        torch.cuda.synchronize()
+        (coords, _, diags), n = counted(lambda: roll(params, aa, grid))
         dt = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated() / 1e9
         require(bool(torch.isfinite(coords).all()),
                 "make_rollout_fn on the grid: not finite")
+        require(n == want, f"make_rollout_fn on the grid: launches {n}, "
+                f"expected {want}")
 
         # the step by part, on the grid's last frame
         cd = compute_dtype(cfg)
         frame = grid[-1]
         graph, _ = scan._build_graph(cfg, frame, THRESHOLD)
+        last_ef = graph.edge_feats
         charges = residue_charges(aa)
         kern = edge_kernel_matrices(params["edge_kernel"], graph.edge_feats,
                                     cfg.width, cd)
@@ -3851,6 +3924,90 @@ def solvated_rollout(dev) -> None:
         f"graphs: worst error {worst[0]:.2e} of the coordinates' scale "
         f"(limit {TOL_F32}, the JAX package's tests/test_cells.py), "
         f"{worst[1]:.2e} of the head's output")
+    return params["edge_kernel"], last_ef
+
+
+def hold_large_edge_mlp(mlp_params, ef, launches: int) -> dict:
+    """Phase 17e: ``edge_mlp_stack`` at the 10k step's rows (480,000 cell
+    list slots, the persistent plan; no row mask, as the model step calls
+    it) against three ``edge_mlp_plain`` layers on the same bf16 inputs,
+    held as phase 2 holds the stack; its first 1,792 rows against the
+    same rows through the small plans, to the bit. Returns its
+    ``kernels`` record: device time, the plain layers', three bf16
+    ``torch.addmm`` with ReLUs (the library's), the bound, and
+    ``launches``: phase 17's steps' (``launches``) and the hold's own
+    three."""
+    from molecular_dynamics_neural_operator_tpu_torch.ops.cuda import (
+        edge_mlp as em,
+    )
+
+    cd = torch.bfloat16
+    mlp = [{"w": mlp_params[f"layer_{i}"]["w"].to(cd).contiguous(),
+            "b": mlp_params[f"layer_{i}"]["b"].float().contiguous()}
+           for i in range(3)]
+    a = ef.to(cd).contiguous()
+    m, kw, n = a.shape[0], mlp[1]["w"].shape[0], mlp[2]["w"].shape[1]
+    require(m >= 16384, f"the 10k step has {m} rows, fewer than the "
+            f"persistent plan's 16,384")
+    h1 = torch.empty(m, kw, dtype=cd, device=a.device)
+    h2, out = torch.empty_like(h1), torch.empty(m, n, dtype=cd,
+                                                device=a.device)
+
+    def kernel_mlp():
+        em.edge_mlp_stack(a, mlp, None, h1, h2, out)
+
+    def plain_mlp():
+        x = a
+        for i, layer in enumerate(mlp):
+            x = em.edge_mlp_plain(x, layer["w"], layer["b"], i < 2)
+        return x
+
+    bias_cd = [layer["b"].to(cd) for layer in mlp]
+
+    def library_mlp():
+        x = a
+        for i, layer in enumerate(mlp):
+            x = torch.addmm(bias_cd[i], x, layer["w"])
+            x = torch.relu(x) if i < 2 else x
+        return x
+
+    _, n_launch = counted(kernel_mlp)
+    require(n_launch == {"edge_mlp": 3}, f"edge_mlp_stack at {m:,} rows "
+            f"launched {n_launch}")
+    ref = plain_mlp()
+    err, rel = rel_err(out, ref)
+    del ref
+    require(bool(torch.isfinite(out).all()) and rel <= 3 * TOL_BF16,
+            f"edge_mlp_stack at {m:,} rows: error {err} ({rel:.2e} of "
+            f"scale)")
+    small = 1792
+    s_h1, s_h2 = h1[:small].clone(), h2[:small].clone()
+    s_out = torch.empty(small, n, dtype=cd, device=a.device)
+    em.edge_mlp_stack(a[:small].contiguous(), mlp, None, s_h1, s_h2, s_out)
+    require(torch.equal(s_out, out[:small]), f"the persistent plan's first "
+            f"{small} rows differ from the small plans'")
+    mlp_ops = 2 * m * (a.shape[1] * kw + kw * kw + kw * n)
+    mlp_bytes = nbytes(*(t for layer in mlp for t in layer.values())) \
+        + m * (a.shape[1] + n) * 2
+    t_bytes, t_ops = mlp_bytes / HBM_BYTES_PER_S, mlp_ops / PEAK_FLOPS[cd]
+    rec = {
+        "name": "edge_mlp_persistent", "route": "cuda",
+        "source": f"{PKG}/csrc/edge_mlp.cu", "replaces": f"{TPU_KERNEL}:264",
+        "rows": m, "launches": launches + 3, "max_abs_err": err,
+        "ms": device_ms(kernel_mlp, reps=5, iters=3),
+        "plain_ms": device_ms(plain_mlp, reps=1, iters=2),
+        "bound_ms": max(t_bytes, t_ops) * 1e3,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": device_ms(library_mlp, reps=2, iters=2),
+    }
+    log(f"edge_mlp_stack at the 10k step's {m:,} rows (the persistent "
+        f"plan): max abs err {err:.3e} ({rel:.2e} of scale) against the "
+        f"plain layers, its first {small} rows the small plans' to the bit; "
+        f"{rec['ms']:.3f} ms (plain {rec['plain_ms']:.3f} ms, bound "
+        f"{rec['bound_ms']:.3f} ms by {rec['bound_by']}, "
+        f"{rec['bound_ms'] / rec['ms']:.1%} of it; library "
+        f"{rec['library_ms']:.3f} ms)")
+    return rec
 
 
 def config5_data(n: int):
@@ -4025,23 +4182,32 @@ def large_cli_phase(traj, root) -> None:
 
 
 def large_phase(traj) -> dict:
-    """Phase 17; no kernel lies on its path."""
+    """Phase 17. Of the kernels only the hand-written edge MLP lies on its
+    path: it makes the bf16 10k step's kernel tensor (480,000 rows, the
+    persistent plan), three launches a step. Returns {"kernels": [the
+    persistent plan's record]}."""
     import tempfile
 
     t0 = time.perf_counter()
     dev = torch.device("cuda")
     reset_all_launches()
-    check_cell_lists(dev)
-    solvated_rollout(dev)
-    config5_training(dev)
+    _, n_cells = counted(lambda: check_cell_lists(dev))
+    mlp_params, ef = solvated_rollout(dev)
+    _, n_train = counted(lambda: config5_training(dev))
+    require(not n_cells and not n_train,
+            f"a kernel launched by the cell lists ({n_cells}) or the "
+            f"config-5 training ({n_train})")
+    counts = all_launches()
+    require_hand_mlp_only(counts, "the large-system path")
+    # the f32 cell-list CLI holds its own launches at none (its runs
+    # zero the rollout kernels' counts first)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_large_") as tmp:
         large_cli_phase(traj, Path(tmp))
-    counts = all_launches()
-    require(not any(counts.values()),
-            f"a kernel launched on the large-system path: {counts}")
-    log(f"large-system path launches: none {counts}; the phase took "
+    rec = hold_large_edge_mlp(mlp_params, ef, counts["edge_mlp"])
+    log(f"large-system path launches: {counts}, every edge_mlp launch the "
+        f"10k step's kernel tensor; the phase took "
         f"{time.perf_counter() - t0:.1f} s")
-    return {}
+    return {"kernels": [rec]}
 
 
 # ---- phase 18: the FNO ----------------------------------------------------
@@ -4375,19 +4541,25 @@ def timed_call(fn):
     return out, time.perf_counter() - t0
 
 
-def held_bundle(bundle, inputs, want, tag: str, **kw) -> None:
+def held_bundle(bundle, inputs, want, tag: str, launches=None,
+                **kw) -> None:
     """The bundle's call (CUDA graphs of its step) against the in-process
     result and against ``bundle.eager`` (its step loop issued from
     Python), bit for bit; the second graphed call under
-    ``set_sync_debug_mode("error")``. ``kw`` goes to every call."""
+    ``set_sync_debug_mode("error")``. With ``launches`` each of the three
+    calls launches exactly that (``counted``). ``kw`` goes to every
+    call."""
     from molecular_dynamics_neural_operator_tpu_torch.cli.export import (
         same_outputs,
     )
 
-    got = bundle(*inputs, **kw)
+    got, n_got = counted(lambda: bundle(*inputs, **kw))
     with sync_errors():
         again = bundle(*inputs, **kw)
-    eager = bundle.eager(*inputs, **kw)
+    eager, n_eager = counted(lambda: bundle.eager(*inputs, **kw))
+    require(launches is None or n_got == n_eager == launches,
+            f"{tag}: launches {n_got} graphed and {n_eager} eager, "
+            f"expected {launches}")
     require(same_outputs(got, want) and same_outputs(again, want),
             f"{tag}: the bundle differs from the in-process rollout")
     require(same_outputs(eager, got), f"{tag}: the bundle's graphs differ "
@@ -4459,10 +4631,20 @@ def export_bundles(traj, root: Path) -> None:
     path, export_s = timed_call(lambda: save_bundle(
         root / "one", params, cfg, EXPORT_STEPS, **kw))
     bundle, load_s = timed_call(lambda: load_bundle(path, device=dev))
+    # the bf16 step makes its kernel tensor through the hand-written edge
+    # MLP, in process and in the bundle alike
+    one = scan_launches(EXPORT_STEPS, cfg)
+    require(one.get("edge_mlp") == 3 * EXPORT_STEPS, "the bench "
+            "configuration's step does not take the hand-written edge MLP")
     with torch.no_grad():
-        want = in_process()(params, aa, window0)
+        want, n_want = counted(lambda: in_process()(params, aa, window0))
+        eager = in_process().eager(params, aa, window0)
+    require(n_want == one and same_outputs(eager, want),
+            f"in-process graphed rollout: launches {n_want}, expected {one}; "
+            f"bit-equal to its eager loop {same_outputs(eager, want)}")
     held_bundle(bundle, (aa, window0), want,
-                f"bundle, one stream, {EXPORT_STEPS} steps, collect=both")
+                f"bundle, one stream, {EXPORT_STEPS} steps, collect=both",
+                launches=one)
     sizes = bundle_bytes(path)
     log(f"bundle export (trace + save) {export_s:.2f} s, load {load_s:.2f} "
         f"s; bytes {sizes}")
@@ -4482,7 +4664,7 @@ def export_bundles(traj, root: Path) -> None:
     with torch.no_grad():
         want = in_process()(live, aa, window0)
     held_bundle(bundle, (aa, window0), want, "bundle with hot-swapped live "
-                "weights", params=live)
+                "weights", launches=one, params=live)
     require(not torch.equal(want[0][0], bundle(aa, window0)[0][0]),
             "hot-swapped weights gave the bundled weights' rollout")
     held_bundle(bundle, (aa, window0), in_process()(params, aa, window0),
@@ -4496,7 +4678,8 @@ def export_bundles(traj, root: Path) -> None:
         want = in_process(True, EXPORT_CHUNK)(params, aa, windows)
     held_bundle(sbundle, (aa, windows), want,
                 f"bundle, S = {EXPORT_STREAMS} with stream_chunk "
-                f"{EXPORT_CHUNK}")
+                f"{EXPORT_CHUNK}", launches=scan_launches(
+                    EXPORT_STEPS * EXPORT_STREAMS // EXPORT_CHUNK, cfg))
     log(f"S = {EXPORT_STREAMS}: export {s_export:.2f} s")
     splain = in_process(True, EXPORT_CHUNK)
     with torch.no_grad():
@@ -4547,7 +4730,7 @@ def export_bundles(traj, root: Path) -> None:
         want = fno.fno_rollout_scan(fparams, fcfg, ch0, EXPORT_STEPS)
     held_bundle(fbundle, (ch0,), want,
                 f"FNO bundle at the CLI defaults, {EXPORT_STEPS} steps "
-                f"(export {f_export:.2f} s)")
+                f"(export {f_export:.2f} s)", launches={})
     fother = fno.fno_init(fcfg, seed=1, device=dev)
     with torch.no_grad():
         want = fno.fno_rollout_scan(fother, fcfg, ch0, EXPORT_STEPS)
@@ -4811,7 +4994,8 @@ def host_pipeline(traj, root: Path) -> None:
 
 
 def export_phase(traj) -> dict:
-    """Phase 19; none of the seven kernels lies on its path."""
+    """Phase 19; of the kernels only the hand-written edge MLP lies on its
+    path, three launches a bf16 step of a flagship bundle."""
     import tempfile
 
     t0 = time.perf_counter()
@@ -4834,10 +5018,10 @@ def export_phase(traj) -> dict:
         apbs_stub_run(root / "apbs")
         host_pipeline(traj, root / "runs")
     counts = all_launches()
-    require(not any(counts.values()),
-            f"a kernel launched on the export path: {counts}")
-    log(f"export, preprocessing and host-pipeline path launches: none "
-        f"{counts}; the phase took {time.perf_counter() - t0:.1f} s")
+    require_hand_mlp_only(counts, "the export path")
+    log(f"export, preprocessing and host-pipeline path launches: {counts}, "
+        f"every edge_mlp launch a bf16 step's kernel tensor; the phase "
+        f"took {time.perf_counter() - t0:.1f} s")
     return {}
 
 
@@ -6088,9 +6272,6 @@ def hold_graphed_steps(tag, step, state0, batches, nan_at: int,
     bool, "loss": worst relative loss gap, "move": worst movement gap,
     "launches": the graphed steps' launches summed, "state": the graphed
     steps' last state}."""
-    from molecular_dynamics_neural_operator_tpu_torch.ops.cuda.graphs import (
-        launch_counts,
-    )
     from molecular_dynamics_neural_operator_tpu_torch.train.graphed import (
         copy_state,
     )
@@ -6099,9 +6280,9 @@ def hold_graphed_steps(tag, step, state0, batches, nan_at: int,
     )
 
     def launched(run, *args):
-        start = launch_counts()
+        start = all_launches()
         out = run(*args)
-        return out, {k: n - start[k] for k, n in launch_counts().items()
+        return out, {k: n - start[k] for k, n in all_launches().items()
                      if n != start[k]}
 
     eager, graphed = state0, state0
@@ -6516,14 +6697,22 @@ def dense_graph_rollouts(params, aa, traj) -> None:
                 stream_chunk=DENSE_GRAPH_CHUNK if batched else None)
             w0 = dense_windows(traj, s, dev)
             w0 = w0 if batched else w0[0]
+            # a step of each chunk of streams: one kernel tensor, in bf16
+            # through the hand-written edge MLP
+            expect = scan_launches(
+                GRAPH_ODD_STEPS * (s // DENSE_GRAPH_CHUNK if batched else 1),
+                cfg)
             with torch.no_grad():
-                want = fn.eager(params, aa, w0)
-                first = fn(params, aa, w0)
+                want, n_eager = counted(lambda: fn.eager(params, aa, w0))
+                first, n_first = counted(lambda: fn(params, aa, w0))
                 with sync_errors():
-                    again = fn(params, aa, w0)
+                    again, n_again = counted(lambda: fn(params, aa, w0))
             require(same_outputs(first, want) and same_outputs(again, want),
                     f"graphed dense rollout, {cd}, S={s}: not bit-equal to "
                     f"the loop issued op by op")
+            require(n_eager == n_first == n_again == expect,
+                    f"dense rollout, {cd}, S={s}: launches {n_eager} eager, "
+                    f"{n_first} and {n_again} graphed, expected {expect}")
             require(bool(torch.isfinite(want[0][0]).all()),
                     f"dense rollout, {cd}, S={s}: not finite")
     log(f"graphed dense rollout (BBA preset, the bench checkpoint), f32 and "
@@ -6531,7 +6720,8 @@ def dense_graph_rollouts(params, aa, traj) -> None:
         f"{DENSE_GRAPH_CHUNK}), {GRAPH_ODD_STEPS} steps collecting both: "
         f"coordinates, contact maps, final window and overflow equal to the "
         f"bit to the loop issued op by op; no second call waited for the "
-        f"card")
+        f"card; graphed and eager alike, bf16 launched the hand-written "
+        f"edge MLP's three kernels a step and a chunk, f32 nothing")
 
 
 def dense_graph_rates(params, aa, traj) -> None:
@@ -6723,8 +6913,9 @@ def large_busy_share(dev) -> None:
 
 def dense_graph_phases(traj) -> None:
     """Phase 22: the dense graph's loops replayed as graphs against their
-    loops issued op by op (a to d), and the 10k step's busy share (e). No
-    kernel lies on these paths."""
+    loops issued op by op (a to d), and the 10k step's busy share (e). Of
+    the kernels only the hand-written edge MLP lies on these paths, three
+    launches a bf16 kernel tensor."""
     from molecular_dynamics_neural_operator_tpu_torch.utils.checkpoint import (
         load_params_npz,
     )
@@ -6739,10 +6930,9 @@ def dense_graph_phases(traj) -> None:
     dense_graph_rates(ckpt, aa, traj)
     dense_graph_serving(ckpt, aa_np, traj)
     dense_graph_training(traj)
-    counts = all_launches()
-    require(not any(counts.values()),
-            f"a kernel launched on the dense path: {counts}")
     large_busy_share(dev)
+    counts = all_launches()
+    require_hand_mlp_only(counts, "the dense path")
     log(f"phase 22 (the dense graph's loops as graphs) took "
         f"{time.perf_counter() - t0:.1f} s")
 
@@ -6948,8 +7138,10 @@ def main() -> int:
                             t, bundles=only == "graphs"))):
         if only in (None, path):
             counts = phase(traj)
+            records = counts.pop("kernels", [])
             for rec in kernels:
                 rec["launches"] += counts.get(rec["name"], 0)
+            kernels += records
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -10,6 +10,12 @@
 // the last layer writes the per-edge kernel matrices K with padded edge rows
 // zeroed by the mask (as the TPU kernel does, :280).
 //
+// The same three launches make the kernel tensor of the plain rollout step
+// wherever nothing will differentiate it (ops/edge_conv.py::hand_mlp, as
+// the operator mdno::edge_mlp_stack, with no row mask: its consumers mask
+// their own rows): the large-system step's 480,000 cell-list slots, the
+// dense and sparse scan rollouts and exported bundles in bf16.
+//
 // Bound: at one stream (M = 224 rows) the three layers do 2.35 GFLOP and
 // must read 10.5 MB of bf16 weights: 2.4 us at the 989 TFLOP/s bf16 tensor
 // peak against 3.1 us at 3.35 TB/s, so the weights' bytes bound it (they
@@ -43,6 +49,37 @@
 // Measured on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py): the three
 // layers take 17.2 us at one stream and 58.3 us at eight (322 TFLOP/s),
 // where the wmma kernel they replace took 47.5 and 168.4.
+//
+// The large-system step (M = 480,000 rows, 6 -> 1024 -> 1024 -> 4096):
+// 5.04 TFLOP, 5.10 ms at the bf16 peak, against 7.9 GB of h1, h2 and K
+// written and read, 2.4 ms at 3.35 TB/s: the operations bound it. What
+// holds it back is the path from L2: a 128 x 128 tile takes 64 operations
+// a byte it pulls from L2 and a 128 x 256 tile 85, and both plans below run
+// at about 6.5 to 7 TB/s from L2. Measured on one H100 (the hand form of
+// tools/port_blocked_step_profile.py's parts): the small-M plans (128 x 128
+// tiles, a block a tile, timed before the persistent plan existed)
+// 12.1 to 12.3 ms (411 to 415 TFLOP/s, 42 % of the bound); the persistent
+// plan 9.89 to 9.95 ms (506 to 509 TFLOP/s, 51 %): the narrow layer 0.78
+// ms, the second 1.74 ms (578 TFLOP/s), the third 7.24 to 7.44 ms (541 to
+// 556 TFLOP/s). cuBLAS through ops/mlp.py with its f32 bias adds, ReLUs
+// and casts took 26.0 ms and a 17.7 GB peak where the kernels take 5.9 GB;
+// both give the same bits on the step's first graph.
+//
+// The persistent plan (from 16,384 rows on; the rollout and serving launches
+// stay at 1,792 or fewer and keep the plans above): one block an SM walks
+// the 128 x 256 output tiles row band by row band, the producer running on
+// into the next tile's k-tiles while the consumers finish a tile's
+// epilogue; a k16 step is one m64n256k16 wgmma a warpgroup, summed in k
+// order, and its rows equal the small plans' to the bit. End to end the
+// solvated10k.rollout cell runs 26.10 steps/s with it against 24.61 with
+// the small plans at every M (medians of six runs each, in turns on one
+// H100 at 700 W: +6.0 %). Tried on the same
+// card and left out: the same plan with four m64n64k16 products a k16 step
+// (9.90 to 10.01 ms: the product shape is not what limits it); clusters of
+// two blocks on neighbouring row bands that split each B tile between them
+// by TMA multicast and free a stage only when both blocks' consumers have,
+// 66 clusters for the 132 SMs or as many as the card holds at once (15.1
+// and 15.4 to 15.6 ms, slower).
 //
 // Tried on the same card and left out. The variants' code is gone. Of the
 // first three only the verdict below was kept: no time of the folded layer

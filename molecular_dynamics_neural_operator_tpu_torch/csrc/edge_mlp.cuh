@@ -18,7 +18,9 @@
 //     full[] counts the TMA bytes, empty[] one arrival per consumer warp;
 //   - every product is the same wgmma shape, m64n64k16, run in k
 //     order, so the order in which an output's K products are summed does
-//     not depend on the tile shape, the grid or M;
+//     not depend on the tile shape, the grid or M; the persistent plan of
+//     large M (edge_mlp_persistent_kernel, from kPersistentMinRows rows on)
+//     runs m64n256k16 in k order and gives the same bits;
 //   - bias, ReLU, the row mask and the single rounding to bf16 are applied
 //     on the accumulator registers; two lanes swap halves so that each
 //     writes 8 contiguous bytes.
@@ -104,10 +106,122 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a,
       : "l"(desc_a), "l"(desc_b), "r"(1));
 }
 
+// d (64 x 256, f32) += A (64 x 16) @ B (16 x 256): the four 64-column
+// blocks of B lie kBoxBytes apart (the descriptor's leading byte offset).
+// d[j][i] holds what d[i] of the m64n64 form holds for block j.
+#define MDNO_ACC128(d) \
+  "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), \
+  "+f"(d[0][4]), "+f"(d[0][5]), "+f"(d[0][6]), "+f"(d[0][7]), \
+  "+f"(d[0][8]), "+f"(d[0][9]), "+f"(d[0][10]), "+f"(d[0][11]), \
+  "+f"(d[0][12]), "+f"(d[0][13]), "+f"(d[0][14]), "+f"(d[0][15]), \
+  "+f"(d[0][16]), "+f"(d[0][17]), "+f"(d[0][18]), "+f"(d[0][19]), \
+  "+f"(d[0][20]), "+f"(d[0][21]), "+f"(d[0][22]), "+f"(d[0][23]), \
+  "+f"(d[0][24]), "+f"(d[0][25]), "+f"(d[0][26]), "+f"(d[0][27]), \
+  "+f"(d[0][28]), "+f"(d[0][29]), "+f"(d[0][30]), "+f"(d[0][31]), \
+  "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), \
+  "+f"(d[1][4]), "+f"(d[1][5]), "+f"(d[1][6]), "+f"(d[1][7]), \
+  "+f"(d[1][8]), "+f"(d[1][9]), "+f"(d[1][10]), "+f"(d[1][11]), \
+  "+f"(d[1][12]), "+f"(d[1][13]), "+f"(d[1][14]), "+f"(d[1][15]), \
+  "+f"(d[1][16]), "+f"(d[1][17]), "+f"(d[1][18]), "+f"(d[1][19]), \
+  "+f"(d[1][20]), "+f"(d[1][21]), "+f"(d[1][22]), "+f"(d[1][23]), \
+  "+f"(d[1][24]), "+f"(d[1][25]), "+f"(d[1][26]), "+f"(d[1][27]), \
+  "+f"(d[1][28]), "+f"(d[1][29]), "+f"(d[1][30]), "+f"(d[1][31]), \
+  "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), \
+  "+f"(d[2][4]), "+f"(d[2][5]), "+f"(d[2][6]), "+f"(d[2][7]), \
+  "+f"(d[2][8]), "+f"(d[2][9]), "+f"(d[2][10]), "+f"(d[2][11]), \
+  "+f"(d[2][12]), "+f"(d[2][13]), "+f"(d[2][14]), "+f"(d[2][15]), \
+  "+f"(d[2][16]), "+f"(d[2][17]), "+f"(d[2][18]), "+f"(d[2][19]), \
+  "+f"(d[2][20]), "+f"(d[2][21]), "+f"(d[2][22]), "+f"(d[2][23]), \
+  "+f"(d[2][24]), "+f"(d[2][25]), "+f"(d[2][26]), "+f"(d[2][27]), \
+  "+f"(d[2][28]), "+f"(d[2][29]), "+f"(d[2][30]), "+f"(d[2][31]), \
+  "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), \
+  "+f"(d[3][4]), "+f"(d[3][5]), "+f"(d[3][6]), "+f"(d[3][7]), \
+  "+f"(d[3][8]), "+f"(d[3][9]), "+f"(d[3][10]), "+f"(d[3][11]), \
+  "+f"(d[3][12]), "+f"(d[3][13]), "+f"(d[3][14]), "+f"(d[3][15]), \
+  "+f"(d[3][16]), "+f"(d[3][17]), "+f"(d[3][18]), "+f"(d[3][19]), \
+  "+f"(d[3][20]), "+f"(d[3][21]), "+f"(d[3][22]), "+f"(d[3][23]), \
+  "+f"(d[3][24]), "+f"(d[3][25]), "+f"(d[3][26]), "+f"(d[3][27]), \
+  "+f"(d[3][28]), "+f"(d[3][29]), "+f"(d[3][30]), "+f"(d[3][31])
+
+#define MDNO_ACC128_REGS \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, " \
+  "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, " \
+  "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, " \
+  "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, " \
+  "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, " \
+  "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, " \
+  "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, " \
+  "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, " \
+  "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, " \
+  "%120, %121, %122, %123, %124, %125, %126, %127}"
+
+__device__ __forceinline__ void wgmma_ss_n256(float (&d)[4][32],
+                                              uint64_t desc_a,
+                                              uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " MDNO_ACC128_REGS
+      ", %128, %129, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : MDNO_ACC128(d)
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
 // Dynamic shared memory of the kernel below, with 1024 bytes of slack to
 // align the first stage to the swizzle pattern's period.
 constexpr size_t wgmma_smem_bytes(int nc, int bn) {
   return 1024 + (size_t)kStages * (nc + bn / 64) * kBoxBytes + 2 * kStages * 8;
+}
+
+// The epilogue of a consumer warpgroup: bias, ReLU, the row mask and the
+// single rounding to bf16 on its accumulators of the 64 x (64 NJ) output
+// tile at column n0, stored to C (M, N). d[4 c + 0, 1] of a 64-column block
+// is (row_a, 8 c + 2 quad + 0, 1), d[4 c + 2, 3] the same columns of
+// row_b = row_a + 8. Lanes quad and quad ^ 1 swap so that the even lane
+// stores four columns of chunk c and the odd lane four of chunk c + 1.
+template <int NJ>
+__device__ __forceinline__ void store_tile(
+    const float (&acc)[NJ][32], const float* __restrict__ bias,
+    const float* __restrict__ row_mask, __nv_bfloat16* __restrict__ C, int M,
+    int N, int n0, int row_a, int quad, int relu) {
+  const int row_b = row_a + 8;
+  const float mask_a = (row_mask && row_a < M) ? row_mask[row_a] : 1.f;
+  const float mask_b = (row_mask && row_b < M) ? row_mask[row_b] : 1.f;
+  const bool odd = quad & 1;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int c = 0; c < 8; c += 2) {
+      const int col = n0 + j * 64 + c * 8 + quad * 2;
+      const float2 bc0 = *reinterpret_cast<const float2*>(bias + col);
+      const float2 bc1 = *reinterpret_cast<const float2*>(bias + col + 8);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float mk = h ? mask_b : mask_a;
+        float v[4] = {acc[j][4 * c + 2 * h] + bc0.x,
+                      acc[j][4 * c + 2 * h + 1] + bc0.y,
+                      acc[j][4 * (c + 1) + 2 * h] + bc1.x,
+                      acc[j][4 * (c + 1) + 2 * h + 1] + bc1.y};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if (relu) v[i] = relu_nan(v[i]);
+          if (row_mask) v[i] = v[i] * mk;
+        }
+        const __nv_bfloat162 q0 = __floats2bfloat162_rn(v[0], v[1]);
+        const __nv_bfloat162 q1 = __floats2bfloat162_rn(v[2], v[3]);
+        const uint32_t p0 = *reinterpret_cast<const uint32_t*>(&q0);
+        const uint32_t p1 = *reinterpret_cast<const uint32_t*>(&q1);
+        const uint32_t got = __shfl_xor_sync(0xffffffffu, odd ? p0 : p1, 1);
+        const int row = h ? row_b : row_a;
+        if (row < M) {
+          const uint2 out = odd ? make_uint2(got, p1) : make_uint2(p0, got);
+          *reinterpret_cast<uint2*>(C + (size_t)row * N + (odd ? col + 6 : col)) = out;
+        }
+      }
+    }
 }
 
 template <int NC, int BN>
@@ -161,7 +275,7 @@ __global__ void __launch_bounds__(NC * 128 + 32) edge_mlp_wgmma_kernel(
   // ---- consumers: warpgroup wg holds rows m0 + 64 wg .. + 63 ---------------
   const int wg = warp / 4;
   const int quad = lane % 4;
-  const int row_a = m0 + wg * 64 + (warp % 4) * 16 + lane / 4, row_b = row_a + 8;
+  const int row_a = m0 + wg * 64 + (warp % 4) * 16 + lane / 4;
   float acc[NJ][32];
 #pragma unroll
   for (int j = 0; j < NJ; ++j)
@@ -192,44 +306,105 @@ __global__ void __launch_bounds__(NC * 128 + 32) edge_mlp_wgmma_kernel(
   }
   wgmma_wait<0>();
 
-  // ---- epilogue on the accumulators ---------------------------------------
-  // d[4 c + 0, 1] is (row_a, 8 c + 2 quad + 0, 1), d[4 c + 2, 3] the same
-  // columns of row_b. Lanes quad and quad ^ 1 swap so that the even lane
-  // stores four columns of chunk c and the odd lane four of chunk c + 1.
-  const float mask_a = (row_mask && row_a < M) ? row_mask[row_a] : 1.f;
-  const float mask_b = (row_mask && row_b < M) ? row_mask[row_b] : 1.f;
-  const bool odd = quad & 1;
-#pragma unroll
-  for (int j = 0; j < NJ; ++j)
-#pragma unroll
-    for (int c = 0; c < 8; c += 2) {
-      const int col = n0 + j * 64 + c * 8 + quad * 2;
-      const float2 bc0 = *reinterpret_cast<const float2*>(bias + col);
-      const float2 bc1 = *reinterpret_cast<const float2*>(bias + col + 8);
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const float mk = h ? mask_b : mask_a;
-        float v[4] = {acc[j][4 * c + 2 * h] + bc0.x,
-                      acc[j][4 * c + 2 * h + 1] + bc0.y,
-                      acc[j][4 * (c + 1) + 2 * h] + bc1.x,
-                      acc[j][4 * (c + 1) + 2 * h + 1] + bc1.y};
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          if (relu) v[i] = relu_nan(v[i]);
-          if (row_mask) v[i] = v[i] * mk;
-        }
-        const __nv_bfloat162 q0 = __floats2bfloat162_rn(v[0], v[1]);
-        const __nv_bfloat162 q1 = __floats2bfloat162_rn(v[2], v[3]);
-        const uint32_t p0 = *reinterpret_cast<const uint32_t*>(&q0);
-        const uint32_t p1 = *reinterpret_cast<const uint32_t*>(&q1);
-        const uint32_t got = __shfl_xor_sync(0xffffffffu, odd ? p0 : p1, 1);
-        const int row = h ? row_b : row_a;
-        if (row < M) {
-          const uint2 out = odd ? make_uint2(got, p1) : make_uint2(p0, got);
-          *reinterpret_cast<uint2*>(C + (size_t)row * N + (odd ? col + 6 : col)) = out;
+  store_tile(acc, bias, row_mask, C, M, N, n0, row_a, quad, relu);
+}
+
+// ---- large M: persistent blocks over 128 x 256 tiles -------------------------
+// From kPersistentMinRows rows on (the 10,000-atom step's 480,000 slots; no
+// rollout or serving launch comes near), a block an SM walks over the output
+// tiles, row band by row band, so that B stays in L2 and a band's A is read
+// from it by the band's column tiles. The producer runs on into the next
+// tile's k-tiles while the consumers finish a tile's epilogue, so that a
+// tile starts on loads already in flight. Each k16 step is one m64n256k16
+// wgmma a warpgroup (n256 reads a quarter of the A bytes a product that
+// four m64n64k16 read); an output still sums its K products in k order.
+constexpr int kPersistentMinRows = 16384;
+constexpr int kPBN = 256;  // tile columns; two consumer warpgroups, 128 rows
+
+__global__ void __launch_bounds__(2 * 128 + 32, 1) edge_mlp_persistent_kernel(
+    const __grid_constant__ CUtensorMap map_a,  // A (M, K), 128-row boxes
+    const __grid_constant__ CUtensorMap map_b,  // B (K, N)
+    const float* __restrict__ bias,             // (N)
+    const float* __restrict__ row_mask,         // (M) or null
+    __nv_bfloat16* __restrict__ C,              // (M, N)
+    int M, int N, int K, int relu) {
+  constexpr int NC = 2, NJ = kPBN / 64;
+  constexpr int kABytes = NC * kBoxBytes;
+  constexpr int kStageBytes = kABytes + NJ * kBoxBytes;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* stages = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned long long* full =
+      reinterpret_cast<unsigned long long*>(stages + kStages * kStageBytes);
+  unsigned long long* empty = full + kStages;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int n_tiles = N / kPBN;
+  const int tiles = n_tiles * ((M + NC * 64 - 1) / (NC * 64));
+  const int nk = K / BK;
+
+  if (tid == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], NC * 4);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  // it counts the block's k-tiles over all its tiles: the ring's stage and
+  // phase run on from one tile into the next
+  if (warp == NC * 4) {
+    if (lane == 0) {
+      int it = 0;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int m0 = (t / n_tiles) * (NC * 64), n0 = (t % n_tiles) * kPBN;
+        for (int kt = 0; kt < nk; ++kt, ++it) {
+          const int stage = it % kStages, round = it / kStages;
+          if (round > 0) mbar_wait(&empty[stage], (round - 1) & 1);
+          unsigned char* st = stages + stage * kStageBytes;
+          mbar_arrive_expect_tx(&full[stage], kStageBytes);
+          tma_load_2d(st, &map_a, &full[stage], kt * BK, m0);
+          for (int j = 0; j < NJ; ++j)
+            tma_load_2d(st + kABytes + j * kBoxBytes, &map_b, &full[stage],
+                        n0 + j * 64, kt * BK);
         }
       }
     }
+    return;
+  }
+
+  const int wg = warp / 4, quad = lane % 4;
+  int it = 0;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int m0 = (t / n_tiles) * (NC * 64), n0 = (t % n_tiles) * kPBN;
+    float acc[NJ][32];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[j][i] = 0.f;
+    for (int kt = 0; kt < nk; ++kt, ++it) {
+      const int stage = it % kStages;
+      mbar_wait(&full[stage], (it / kStages) & 1);
+      const unsigned a_addr =
+          smem_u32(stages + stage * kStageBytes) + wg * kBoxBytes;
+      const unsigned b_addr = smem_u32(stages + stage * kStageBytes) + kABytes;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_ss_n256(acc, smem_desc(a_addr + kk * 32, 1),
+                      smem_desc(b_addr + kk * 2048, kBoxBytes >> 4));
+      wgmma_commit();
+      if (kt > 0) {
+        wgmma_wait<1>();
+        if (lane == 0) mbar_arrive(&empty[(it - 1) % kStages]);
+      }
+    }
+    wgmma_wait<0>();
+    if (lane == 0) mbar_arrive(&empty[(it - 1) % kStages]);
+    store_tile(acc, bias, row_mask, C, M, N, n0,
+               m0 + wg * 64 + (warp % 4) * 16 + lane / 4, quad, relu);
+  }
 }
 
 // ---- FMA kernel: f32, and bf16 layers the wgmma kernel does not take --------
@@ -394,6 +569,33 @@ int launch_wgmma(const void* A, const void* B, const float* bias,
   return (int)cudaGetLastError();
 }
 
+// The persistent plan at kPersistentMinRows rows and more: a block an SM,
+// never more blocks than tiles. Returns a CUDA error code.
+inline int launch_persistent(const void* A, const void* B, const float* bias,
+                             const float* row_mask, void* C, int M, int N,
+                             int K, int relu, cudaStream_t st) {
+  CUtensorMap map_a, map_b;
+  int rc = tensor_map(B, K, N, 64, &map_b);
+  if (rc == 0) rc = tensor_map(A, M, K, 128, &map_a);
+  if (rc != 0) return rc;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  constexpr size_t smem = wgmma_smem_bytes(2, kPBN);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(edge_mlp_persistent_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles = (N / kPBN) * ((M + 127) / 128);
+  edge_mlp_persistent_kernel<<<tiles < sms ? tiles : sms, 2 * 128 + 32, smem,
+                               st>>>(map_a, map_b, bias, row_mask,
+                                     static_cast<__nv_bfloat16*>(C), M, N, K,
+                                     relu);
+  return (int)cudaGetLastError();
+}
+
 // 128 x 128 tiles (two consumer warpgroups) where they still give the card
 // about a block an SM, 64 x 64 tiles otherwise: at one stream (224 rows)
 // the wide layer is 256 small blocks, two an SM, in one wave. The choice
@@ -411,8 +613,9 @@ inline bool tall_tiles(int M, int N) {
 // Enqueues one layer C = act(A @ B + bias) * row_mask on ``st``; A (M, K),
 // B (K, N), C (M, N) in the compute dtype, N a multiple of 64, any K.
 // Which kernel runs depends on the dtype and K alone: bf16 with K a multiple
-// of 64 the wgmma kernel, bf16 with K <= 16 the narrow kernel, anything else
-// the FMA kernel. The first two need 16-byte-aligned matrices (A too for
+// of 64 the wgmma kernel (persistent from kPersistentMinRows rows on where
+// N is a multiple of 256), bf16 with K <= 16 the narrow kernel, anything
+// else the FMA kernel. The first two need 16-byte-aligned matrices (A too for
 // TMA); a misaligned one is cudaErrorInvalidValue, never another kernel.
 // Returns a CUDA error code.
 inline int launch(const void* A, const void* B, const float* bias,
@@ -422,6 +625,8 @@ inline int launch(const void* A, const void* B, const float* bias,
   if (cd_bf16 && K % BK == 0) {
     if (!aligned16(A) || !aligned16(B) || !aligned16(C))
       return (int)cudaErrorInvalidValue;
+    if (M >= kPersistentMinRows && N % kPBN == 0)
+      return launch_persistent(A, B, bias, row_mask, C, M, N, K, relu, st);
     if (big_tiles(M, N))
       return launch_wgmma<2, 128>(A, B, bias, row_mask, C, M, N, K, relu, st);
     if (tall_tiles(M, N))

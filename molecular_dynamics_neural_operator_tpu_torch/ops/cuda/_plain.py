@@ -1,6 +1,7 @@
-"""Plain PyTorch versions of the stages that several kernels share: one
-edge-MLP layer and the 2*depth tied conv layers. Built from the port's
-XLA-path modules, so they round where ``gkn_apply_single`` rounds."""
+"""Plain PyTorch version of a stage that several kernels share: the
+2*depth tied conv layers. Built from the port's XLA-path modules, so it
+rounds where ``gkn_apply_single`` rounds. The plain edge-MLP layer is
+``ops/cuda/edge_mlp.py::edge_mlp_plain``."""
 
 from __future__ import annotations
 
@@ -9,17 +10,6 @@ import torch
 from molecular_dynamics_neural_operator_tpu_torch.ops.edge_conv import (
     edge_conv_sparse,
 )
-
-
-def edge_mlp_plain(a, w, b, relu: bool, row_mask=None):
-    """act(a @ w + b) * row_mask in a's dtype, with the products of the
-    (already rounded) operands summed in f32."""
-    y = a.float() @ w.float() + b
-    if relu:
-        y = torch.relu(y)
-    if row_mask is not None:
-        y = y * row_mask[:, None]
-    return y.to(a.dtype)
 
 
 def conv_stack_plain(x0, kmat, edges, mask, inv_deg, conv1, conv2,

@@ -47,6 +47,8 @@ from molecular_dynamics_neural_operator_tpu_torch.ops.cuda._launch import (
 )
 from molecular_dynamics_neural_operator_tpu_torch.ops.cuda._plain import (
     conv_stack_plain,
+)
+from molecular_dynamics_neural_operator_tpu_torch.ops.cuda.edge_mlp import (
     edge_mlp_plain,
 )
 from molecular_dynamics_neural_operator_tpu_torch.ops.cuda.graphs import (

@@ -9,9 +9,10 @@ stream, with no host sync inside the loop:
 
 1. ``graph_encode`` (``csrc/graph_encode.cu``): contact test, padded edge
    list, overflow flag, inverse degrees, edge features, LSTM + fc1.
-2. ``edge_mlp_stack`` (``csrc/edge_mlp.cu``): the edge-kernel MLP over the
-   S*E edge rows, three launches enqueued by one call; the last writes K
-   with padded rows zeroed. ``edge_mlp`` is one layer of it, for any K.
+2. ``edge_mlp_stack`` (``csrc/edge_mlp.cu``, wrapped in
+   ``ops/cuda/edge_mlp.py``): the edge-kernel MLP over the S*E edge rows,
+   three launches enqueued by one call; the last writes K with padded
+   rows zeroed.
 3. ``conv_head`` (``csrc/conv_head.cu``): 2*depth tied convs, fc2 head,
    prior, clip, window slide, this step's coordinates. A stream is one
    cluster of 8 blocks, or of 16 (the wide plan, bf16 at width 64) while
@@ -87,7 +88,9 @@ from molecular_dynamics_neural_operator_tpu_torch.ops.cuda.graphs import (
 )
 from molecular_dynamics_neural_operator_tpu_torch.ops.cuda._plain import (
     conv_stack_plain,
-    edge_mlp_plain,
+)
+from molecular_dynamics_neural_operator_tpu_torch.ops.cuda.edge_mlp import (
+    edge_mlp_stack,
 )
 from molecular_dynamics_neural_operator_tpu_torch.ops.edge_conv import (
     sparse_inv_degree,
@@ -107,9 +110,6 @@ register_kernel("graph_encode", "mdno_graph_encode",
 register_kernel("graph_encode_plan", "mdno_graph_encode_plan",
                 [_I] * 5 + [ctypes.POINTER(ctypes.c_int)] * 5,
                 source="graph_encode")
-register_kernel("edge_mlp", "mdno_edge_mlp", [_P] * 5 + [_I] * 5 + [_P])
-register_kernel("edge_mlp_stack", "mdno_edge_mlp_stack",
-                [_P] * 11 + [_I] * 5 + [_P], source="edge_mlp")
 register_kernel("conv_head", "mdno_conv_head",
                 [_P] * 13 + [_I] * 7 + [_F, _I, _F, _I, _F, _I, _I, _P])
 register_kernel("conv_head_clusters", "mdno_conv_head_clusters",
@@ -307,100 +307,6 @@ def graph_encode(window: torch.Tensor, weights, threshold: float,
     ]
     _raise_on(_kernel("graph_encode")(*args), "graph_encode")
     profiling.count("graph_encode")
-
-
-# ---- edge_mlp -----------------------------------------------------------
-
-def _check_mlp_alignment(a, w, out, k: int, tag: str) -> None:
-    """The bf16 kernels read and write 16 bytes at a time (TMA boxes,
-    vector loads and stores): K a multiple of 64 needs a, w and out on
-    16-byte boundaries, K <= 16 needs w and out there. A view that starts
-    elsewhere raises; no other kernel takes its place."""
-    if a.dtype != torch.bfloat16:
-        return
-    if k % 64 == 0:
-        operands = (("a", a), ("w", w), ("out", out))
-    elif k <= 16:
-        operands = (("w", w), ("out", out))
-    else:
-        return
-    for name, t in operands:
-        if t.data_ptr() % 16:
-            raise ValueError(f"{tag}: {name} must start on a 16-byte "
-                             f"boundary (offset {t.data_ptr() % 16})")
-
-
-def edge_mlp(a: torch.Tensor, w: torch.Tensor, b: torch.Tensor, relu: bool,
-             row_mask: torch.Tensor | None = None,
-             out: torch.Tensor | None = None) -> torch.Tensor:
-    """One edge-MLP layer: a (M, K) and w (K, N) in one compute dtype
-    (f32 or bf16), b (N,) f32, row_mask (M,) f32 or None; returns out
-    (M, N) in the compute dtype. N must be a multiple of 64."""
-    m, k = a.shape
-    n = w.shape[1]
-    if out is None:
-        out = torch.empty(m, n, dtype=a.dtype, device=a.device)
-    if _on_cpu(a):
-        out.copy_(edge_mlp_plain(a, w, b, relu, row_mask))
-        return out
-    dev, cd = a.device, a.dtype
-    if n % 64:
-        raise ValueError(f"edge_mlp needs N % 64 == 0, got N={n}")
-    _check_mlp_alignment(a, w, out, k, "edge_mlp")
-    args = [
-        _check(a, "a", cd, (m, k), dev),
-        _check(w, "w", cd, (k, n), dev),
-        _check(b, "b", torch.float32, (n,), dev),
-        None if row_mask is None else _check(row_mask, "row_mask",
-                                             torch.float32, (m,), dev),
-        _check(out, "out", cd, (m, n), dev),
-        m, n, k, int(relu), _cd_flag(cd), _stream(),
-    ]
-    _raise_on(_kernel("edge_mlp")(*args), "edge_mlp")
-    profiling.count("edge_mlp")
-    return out
-
-
-def edge_mlp_stack(ef: torch.Tensor, mlp, row_mask: torch.Tensor,
-                   h1: torch.Tensor, h2: torch.Tensor,
-                   out: torch.Tensor) -> torch.Tensor:
-    """The whole edge-kernel MLP of a step: ef (M, F), ``mlp`` three layers
-    ``{"w", "b"}`` (F -> kw -> kw -> n), row_mask (M,) f32; h1, h2 (M, kw)
-    scratch and out (M, n) in the compute dtype. Equal to three ``edge_mlp``
-    calls (ReLU, ReLU, row mask). On the card one C call enqueues the three
-    launches; the counter ``edge_mlp`` counts them."""
-    (l0, l1, l2) = mlp
-    if _on_cpu(ef):
-        edge_mlp(ef, l0["w"], l0["b"], True, out=h1)
-        edge_mlp(h1, l1["w"], l1["b"], True, out=h2)
-        return edge_mlp(h2, l2["w"], l2["b"], False, row_mask=row_mask,
-                        out=out)
-    dev, cd, f32 = ef.device, ef.dtype, torch.float32
-    m, f = ef.shape
-    kw, n = l1["w"].shape[0], l2["w"].shape[1]
-    if kw % 64 or n % 64:
-        raise ValueError(f"edge_mlp_stack needs widths that are multiples "
-                         f"of 64, got {kw} and {n}")
-    for a_i, layer, out_i in ((ef, l0, h1), (h1, l1, h2), (h2, l2, out)):
-        _check_mlp_alignment(a_i, layer["w"], out_i, layer["w"].shape[0],
-                             "edge_mlp_stack")
-    args = [
-        _check(ef, "ef", cd, (m, f), dev),
-        _check(l0["w"], "w1", cd, (f, kw), dev),
-        _check(l0["b"], "b1", f32, (kw,), dev),
-        _check(l1["w"], "w2", cd, (kw, kw), dev),
-        _check(l1["b"], "b2", f32, (kw,), dev),
-        _check(l2["w"], "w3", cd, (kw, n), dev),
-        _check(l2["b"], "b3", f32, (n,), dev),
-        _check(row_mask, "row_mask", f32, (m,), dev),
-        _check(h1, "h1", cd, (m, kw), dev),
-        _check(h2, "h2", cd, (m, kw), dev),
-        _check(out, "out", cd, (m, n), dev),
-        m, kw, n, f, _cd_flag(cd), _stream(),
-    ]
-    _raise_on(_kernel("edge_mlp_stack")(*args), "edge_mlp_stack")
-    profiling.count("edge_mlp", 3)
-    return out
 
 
 # ---- conv_head ----------------------------------------------------------

@@ -35,6 +35,9 @@ from __future__ import annotations
 
 import torch
 
+from molecular_dynamics_neural_operator_tpu_torch.ops.cuda.edge_mlp import (
+    edge_mlp_stack,
+)
 from molecular_dynamics_neural_operator_tpu_torch.ops.mlp import (
     mlp_apply,
     products_exact,
@@ -66,14 +69,79 @@ def edge_conv_init(gen: torch.Generator, width: int, device=None):
     return {"root": root.to(device), "bias": bias.to(device)}
 
 
+def _edge_mlp_stack(ef, w1, b1, w2, b2, w3, b3):
+    """relu(relu(ef @ w1 + b1) @ w2 + b2) @ w3 + b3 through
+    ``ops/cuda/edge_mlp.py::edge_mlp_stack`` (its plain version on the
+    CPU), every row kept: ef (M, F) and the weights bf16, the biases f32;
+    returns (M, N) bf16. Each call adds 1 to the program counter
+    ``fused_edge_mlp``."""
+    m, kw = ef.shape[0], w2.shape[0]
+    out = ef.new_empty(m, w3.shape[1])
+    edge_mlp_stack(ef, ({"w": w1, "b": b1}, {"w": w2, "b": b2},
+                        {"w": w3, "b": b3}), None, ef.new_empty(m, kw),
+                   ef.new_empty(m, kw), out)
+    count("fused_edge_mlp")
+    return out
+
+
+# The stack as the operator mdno::edge_mlp_stack, so that ``torch.export``
+# keeps the kernels in the program it traces. Defined through
+# ``torch.library.Library``: ``custom_op`` would import ``torch._dynamo``
+# at the first call, seconds of every process's set-up.
+_LIB = torch.library.Library("mdno", "DEF")
+_LIB.define("edge_mlp_stack(Tensor ef, Tensor w1, Tensor b1, Tensor w2, "
+            "Tensor b2, Tensor w3, Tensor b3) -> Tensor")
+_LIB.impl("edge_mlp_stack", _edge_mlp_stack, "CompositeExplicitAutograd")
+
+
+@torch.library.register_fake("mdno::edge_mlp_stack", lib=_LIB)
+def _(ef, w1, b1, w2, b2, w3, b3):
+    return ef.new_empty(ef.shape[0], w3.shape[1])
+
+
+def hand_mlp(mlp_params, edge_feats, width: int, compute_dtype) -> bool:
+    """Whether ``edge_kernel_matrices`` makes the kernel tensor through
+    the hand-written edge-MLP kernels: a CUDA bf16 call outside
+    ``exact_products()`` whose output will not be differentiated (grad
+    mode off, or no operand requires grad), of an MLP F -> kw -> kw ->
+    width**2 with F <= 16 and kw and width**2 multiples of 64, the shapes
+    that take the narrow kernel and then the wgmma kernel."""
+    if not (edge_feats.is_cuda and compute_dtype == torch.bfloat16
+            and not products_exact() and len(mlp_params) == 3):
+        return False
+    layers = [mlp_params[f"layer_{i}"] for i in range(3)]
+    operands = [edge_feats] + [p[k] for p in layers for k in ("w", "b")]
+    if torch.is_grad_enabled() and any(t.requires_grad for t in operands):
+        return False
+    f, kw = layers[0]["w"].shape
+    n = width * width
+    return (f <= 16 and kw % 64 == 0 and n % 64 == 0
+            and tuple(layers[1]["w"].shape) == (kw, kw)
+            and tuple(layers[2]["w"].shape) == (kw, n))
+
+
 def edge_kernel_matrices(mlp_params, edge_feats: torch.Tensor, width: int,
                          compute_dtype=None) -> torch.Tensor:
     """h(e) for every edge as (..., width, width) in ``compute_dtype``
     (f32 if unset). edge_feats: (..., F); the leading axes are edge axes,
-    (E,) sparse or (R, R) dense."""
+    (E,) sparse or (R, R) dense. Under ``hand_mlp`` the three layers are
+    the hand-written kernels, bias, ReLU and the rounding to bf16 done on
+    their accumulators (no f32 (E, width**2) tensor); elsewhere
+    ``mlp_apply``. The two round at the same points; their f32 sums run
+    in another order."""
+    lead = edge_feats.shape[:-1]
+    if hand_mlp(mlp_params, edge_feats, width, compute_dtype):
+        bf16 = torch.bfloat16
+        weights = [t for i in range(3) for t in (
+            mlp_params[f"layer_{i}"]["w"].to(bf16).contiguous(),
+            mlp_params[f"layer_{i}"]["b"].float().contiguous())]
+        h = torch.ops.mdno.edge_mlp_stack(
+            edge_feats.reshape(-1, edge_feats.shape[-1]).to(bf16)
+            .contiguous(), *weights)
+        return h.reshape(lead + (width, width))
     h = mlp_apply(mlp_params, edge_feats, compute_dtype=compute_dtype)
     out_dtype = compute_dtype or torch.float32
-    return h.reshape(edge_feats.shape[:-1] + (width, width)).to(out_dtype)
+    return h.reshape(lead + (width, width)).to(out_dtype)
 
 
 def quantize_kernels_int8(kernels: torch.Tensor):

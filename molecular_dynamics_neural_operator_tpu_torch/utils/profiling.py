@@ -18,7 +18,9 @@
   ``curriculum_supervised`` and ``dense_pairs``
   (``train/curriculum.py``); ``plain_tc_linear`` (``ops/mlp.py``: a
   linear layer on tensor cores), ``blocked_bf16_aggregate``
-  (``ops/edge_conv.py``: a blocked conv layer as one bf16 product) and
+  (``ops/edge_conv.py``: a blocked conv layer as one bf16 product),
+  ``fused_edge_mlp`` (``ops/edge_conv.py``: a kernel tensor made by the
+  hand-written edge-MLP kernels, whose launches ``edge_mlp`` counts) and
   ``dense_tied_stack`` (``ops/conv_stack.py``: a dense tied conv stack
   with one kernel-tensor gradient); ``fno_points``,
   ``fno_spectral_dft`` and ``fno_spectral_fft`` (``models/fno.py``:
@@ -220,11 +222,20 @@ def tracing():
 
 _counts: dict = {}
 _held = threading.local()    # .counts: where this thread's counts go
+_holding: list = []          # the dicts of every open held(), oldest first
 
 
 def count(name: str, n: int = 1) -> None:
-    """Add n to the program counter ``name`` (a host integer)."""
+    """Add n to the program counter ``name`` (a host integer). Inside
+    ``held()`` the count goes to its dict instead. So does a count made
+    by a backward node on a thread that holds nothing while a ``held()``
+    is open (the latest): the autograd engine runs a CUDA backward on a
+    thread of its own while the thread that called it waits, as the
+    warm-up and the capture of a graphed training step do."""
     into = getattr(_held, "counts", None)
+    if (into is None and _holding
+            and torch._C._current_autograd_node() is not None):
+        into = _holding[-1]
     if into is None:
         into = _counts
     into[name] = into.get(name, 0) + int(n)
@@ -232,13 +243,16 @@ def count(name: str, n: int = 1) -> None:
 
 @contextlib.contextmanager
 def held():
-    """The counts this thread makes in the block go into the dict it
-    yields, not into the store."""
+    """The counts this thread makes in the block, and its backward's on
+    the autograd engine's threads, go into the dict it yields, not into
+    the store."""
     before = getattr(_held, "counts", None)
     out = _held.counts = {}
+    _holding.append(out)
     try:
         yield out
     finally:
+        _holding.remove(out)
         _held.counts = before
 
 

@@ -1,21 +1,25 @@
 """The blocked conv layer as one product a node
-(``ops/edge_conv.py::_blocked_aggregate``) and the edge MLP on tensor
-cores (``ops/mlp.py::_on_tensor_cores``).
+(``ops/edge_conv.py::_blocked_aggregate``), the edge MLP on tensor
+cores (``ops/mlp.py::_on_tensor_cores``) and the kernel tensor from the
+hand-written edge-MLP kernels (``ops/edge_conv.py::hand_mlp``).
 
 On the CPU, without JAX (``tests/test_torch_port_ops.py`` holds the same
 layer against the JAX package): the folded layer against the form it
 replaced, a message a slot summed per node, forward and gradients, in
 f32 and on bf16-rounded operands; an int8 kernel tensor, whose scale
 rides on the mask, keeps that form to the bit; the rule that puts a
-linear layer on tensor cores; and the two program counters stay at 0 on
-the CPU.
+linear layer on tensor cores; the rule that sends the kernel tensor to
+the hand-written MLP, the operator's plain form against ``mlp_apply``
+at the 10,000-atom cell's widths, a training-shaped call that keeps its
+gradient, an exported step that keeps the operator; and the program
+counters stay at 0 on the CPU.
 
 The tests marked ``gpu`` skip without a card and run on it with
 ``python -m pytest --noconftest tests/test_torch_port_blocked_product.py``:
 the bf16 product against the exact f32 path on the same rounded
-operands, a few steps at the 10,000-atom cell's widths against
-``exact_products()``, the counters a step, and a bf16 bundle exported on
-the card against the in-process rollout.
+operands, the hand-written MLP and a few steps at the 10,000-atom cell's
+widths against ``exact_products()``, the counters a step, and a bf16
+bundle exported on the card against the in-process rollout.
 
 Tolerances. The folded and the per-slot form add the same f32 products
 in another order: at most gamma_K = K * 2**-24 of the sum of the
@@ -41,7 +45,8 @@ from molecular_dynamics_neural_operator_tpu_torch.ops import edge_conv, mlp
 from molecular_dynamics_neural_operator_tpu_torch.rollout import scan
 from molecular_dynamics_neural_operator_tpu_torch.utils import profiling
 
-COUNTERS = ("plain_tc_linear", "blocked_bf16_aggregate")
+COUNTERS = ("plain_tc_linear", "blocked_bf16_aggregate", "fused_edge_mlp",
+            "edge_mlp")
 F32_EPS = 2.0 ** -24
 BF16_STEP = 2.0 ** -8
 
@@ -253,6 +258,142 @@ def test_the_counters_stay_at_zero_on_the_cpu():
         assert after.get(name, 0) == before.get(name, 0), name
 
 
+def _edge_mlp(f, kw, width, seed=0, requires_grad=False):
+    params = mlp.mlp_init(torch.Generator().manual_seed(seed),
+                          [f, kw, kw, width * width])
+    for layer in params.values():
+        for t in layer.values():
+            t.requires_grad_(requires_grad)
+    return params
+
+
+@pytest.mark.parametrize(
+    "is_cuda, cd, f, kw, width, exact, grad, want",
+    [(True, torch.bfloat16, 6, 1024, 64, False, "off", True),
+     (True, torch.bfloat16, 16, 64, 8, False, "off", True),
+     (True, torch.bfloat16, 6, 1024, 64, False, "on, no operand", True),
+     (True, torch.bfloat16, 6, 1024, 64, False, "on, weights", False),
+     (True, torch.bfloat16, 6, 1024, 64, False, "on, features", False),
+     (True, torch.bfloat16, 6, 1024, 64, True, "off", False),
+     (True, torch.float32, 6, 1024, 64, False, "off", False),
+     (True, None, 6, 1024, 64, False, "off", False),
+     (True, torch.bfloat16, 6, 96, 64, False, "off", False),
+     (True, torch.bfloat16, 6, 1024, 12, False, "off", False),
+     (True, torch.bfloat16, 17, 1024, 64, False, "off", False),
+     (False, torch.bfloat16, 6, 1024, 64, False, "off", False)],
+    ids=["cuda-bf16", "narrowest", "grad-on-no-operand", "grad-on-weights",
+         "grad-on-features", "exact-products", "f32", "no-dtype",
+         "ker-width-96", "width-12", "17-features", "cpu"])
+def test_the_hand_mlp_rule(is_cuda, cd, f, kw, width, exact, grad, want):
+    """The kernel tensor goes through the hand-written MLP only where
+    nothing will differentiate it and the shapes take the narrow and the
+    wgmma kernel: the rule decides from what the call can observe."""
+    params = _edge_mlp(f, kw, width, requires_grad=grad == "on, weights")
+    ef = SimpleNamespace(is_cuda=is_cuda,
+                         requires_grad=grad == "on, features")
+    with contextlib.ExitStack() as stack:
+        if exact:
+            stack.enter_context(mlp.exact_products())
+        if grad == "off":
+            stack.enter_context(torch.no_grad())
+        assert edge_conv.hand_mlp(params, ef, width, cd) is want
+    assert not mlp.products_exact()
+
+
+def test_the_rule_wants_three_layers():
+    params = mlp.mlp_init(torch.Generator().manual_seed(0), [6, 64, 256])
+    ef = SimpleNamespace(is_cuda=True, requires_grad=False)
+    with torch.no_grad():
+        assert not edge_conv.hand_mlp(params, ef, 16, torch.bfloat16)
+
+
+def _cell_edge_features(r=1000, seed=0):
+    """The edge features of the cell-list graph of ``r`` atoms at the
+    10,000-atom cell's settings: (r * 48, 6) f32 and the mask."""
+    cfg = _cell_cfg(r)
+    graph, overflow = scan._build_graph(
+        cfg, _grid_window(r, 1, "cpu", seed=seed)[-1], 8.0)
+    assert not bool(overflow)
+    return graph.edge_feats, graph.mask
+
+
+def test_the_hand_mlp_plain_form_is_the_kernel_tensor_at_the_cell_widths():
+    """1,000 atoms x 48 slots at the cell's widths (6 -> 1024 -> 1024 ->
+    4096, bf16): the operator's plain form (``edge_mlp_plain`` layer by
+    layer, what the hand-written kernels compute) against
+    ``edge_kernel_matrices`` by ``mlp_apply``. Both round the same
+    operands at the same points and sum the same f32 products; on the
+    CPU they add them in the same order, so the bits are equal."""
+    ef, mask = _cell_edge_features()
+    assert ef.shape == (48000, 6) and 0 < int(mask.sum()) < 48000
+    params = _edge_mlp(6, 1024, 64, seed=3)
+    bf16 = torch.bfloat16
+    weights = [t for i in range(3) for t in (
+        params[f"layer_{i}"]["w"].to(bf16), params[f"layer_{i}"]["b"])]
+    before = profiling.counters()
+    want = edge_conv.edge_kernel_matrices(params, ef, 64, bf16)
+    middle = profiling.counters()
+    got = torch.ops.mdno.edge_mlp_stack(ef.to(bf16), *weights)
+    after = profiling.counters()
+    assert want.dtype == got.dtype == bf16 and want.shape == (48000, 64, 64)
+    assert torch.equal(got.reshape(want.shape), want)
+    assert middle.get("fused_edge_mlp", 0) == before.get("fused_edge_mlp", 0)
+    assert after["fused_edge_mlp"] == middle.get("fused_edge_mlp", 0) + 1
+
+
+def test_a_training_shaped_call_keeps_its_gradient():
+    """Grad on with weights that require it, as every training step
+    makes the kernel tensor: the rule says no even on the card, and the
+    kernel tensor carries a gradient into every layer."""
+    params = _edge_mlp(6, 64, 16, seed=5, requires_grad=True)
+    ef = torch.randn(96, 6, generator=torch.Generator().manual_seed(6))
+    cuda_like = SimpleNamespace(is_cuda=True, requires_grad=False)
+    assert not edge_conv.hand_mlp(params, cuda_like, 16, torch.bfloat16)
+    k = edge_conv.edge_kernel_matrices(params, ef, 16, torch.bfloat16)
+    assert k.requires_grad and k.dtype == torch.bfloat16
+    k.float().square().sum().backward()
+    for layer in params.values():
+        for t in layer.values():
+            assert t.grad is not None and torch.count_nonzero(t.grad) > 0
+
+
+def test_an_exported_step_keeps_the_hand_mlp_operator(tmp_path, monkeypatch):
+    """With the rule forced on the CPU (where the operator runs its plain
+    form), a bundle's exported step holds ``mdno::edge_mlp_stack`` and its
+    step loop gives the in-process eager loop's bits; each step of each
+    counts one call."""
+    from molecular_dynamics_neural_operator_tpu_torch.rollout import (
+        make_rollout_fn,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.serving.export import (
+        load_bundle,
+        save_bundle,
+    )
+
+    monkeypatch.setattr(edge_conv, "hand_mlp", lambda *a: True)
+    cfg = ModelConfig(width=8, ker_width=64, depth=1, window_size=4,
+                      num_residues=12, max_edges=128, graph_mode="sparse",
+                      predict_delta=True, compute_dtype="bfloat16")
+    params = gkn_init(cfg, seed=0)
+    aa = torch.randint(0, 20, (12,),
+                       generator=torch.Generator().manual_seed(0))
+    window = _grid_window(12, 4, "cpu", spacing=3.8)
+    bundle = load_bundle(save_bundle(tmp_path / "b", params, cfg, 3,
+                                     clip=100.0), device="cpu")
+    ops = {str(n.target) for n in bundle.program.graph.nodes
+           if n.op == "call_function"}
+    assert "mdno.edge_mlp_stack.default" in ops
+    before = profiling.counters().get("fused_edge_mlp", 0)
+    with torch.no_grad():
+        want = make_rollout_fn(cfg, 3, clip=100.0, device="cpu").eager(
+            params, aa, window)
+    middle = profiling.counters()["fused_edge_mlp"]
+    got = bundle.eager(aa, window)
+    assert middle == before + 3
+    assert profiling.counters()["fused_edge_mlp"] == middle + 3
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
 # ---- on the card ---------------------------------------------------------
 
 @pytest.mark.gpu
@@ -316,7 +457,43 @@ def test_cell_shaped_steps_on_tensor_cores_follow_the_exact_products(cuda):
 
 
 @pytest.mark.gpu
-def test_an_eager_cell_step_counts_two_products_and_twelve_layers(cuda):
+def test_the_hand_mlp_on_the_card_follows_the_exact_products(cuda):
+    """The kernel tensor of 1,000 atoms x 48 slots at the cell's widths:
+    the hand-written kernels (three launches, one ``fused_edge_mlp``)
+    against ``mlp_apply`` under ``exact_products()`` (none). Both round
+    h1, h2 and the output to bf16 at the same points and add the same
+    f32 products in another order; a last-bit change flips some bf16
+    roundings of the next layer's operands, each 2**-8 of an element.
+    Held, as the cell-shaped steps are, to 1 % of the largest element."""
+    ef, _ = _cell_edge_features()
+    ef = ef.to(cuda)
+    params = _edge_mlp(6, 1024, 64, seed=3)
+    params = {k: {n: t.to(cuda) for n, t in v.items()}
+              for k, v in params.items()}
+    bf16 = torch.bfloat16
+    before = profiling.counters()
+    with torch.no_grad():
+        got = edge_conv.edge_kernel_matrices(params, ef, 64, bf16)
+        middle = profiling.counters()
+        with mlp.exact_products():
+            want = edge_conv.edge_kernel_matrices(params, ef, 64, bf16)
+    after = profiling.counters()
+    assert [middle.get(n, 0) - before.get(n, 0) for n in COUNTERS] == \
+        [0, 0, 1, 3]
+    assert [after.get(n, 0) - middle.get(n, 0) for n in COUNTERS] == \
+        [0, 0, 0, 0]
+    assert got.dtype == want.dtype == bf16 and got.shape == want.shape
+    scale = want.float().abs().max()
+    gap = (got.float() - want.float()).abs().max() / scale
+    assert scale > 0 and gap <= 0.01, float(gap)
+
+
+@pytest.mark.gpu
+def test_an_eager_cell_step_counts_one_hand_mlp_and_twelve_layers(cuda):
+    """A step makes its kernel tensor through the hand-written MLP (one
+    ``fused_edge_mlp``, three ``edge_mlp`` launches, no linear layer on
+    ``_TensorCoreMatmul``) and runs its 12 blocked layers as bf16
+    products; under ``exact_products()`` none of the four counts."""
     cfg = _cell_cfg(600)
     params, aa, window = _step_args(cfg, cuda)
     with torch.no_grad():
@@ -327,15 +504,18 @@ def test_an_eager_cell_step_counts_two_products_and_twelve_layers(cuda):
         with mlp.exact_products():
             scan.rollout_scan(params, cfg, aa, window, 1)
     last = profiling.counters()
-    assert [after[n] - before[n] for n in COUNTERS] == [4, 24]
-    assert [last[n] - after[n] for n in COUNTERS] == [0, 0]
+    assert [after.get(n, 0) - before.get(n, 0) for n in COUNTERS] == \
+        [0, 24, 2, 6]
+    assert [last.get(n, 0) - after.get(n, 0) for n in COUNTERS] == \
+        [0, 0, 0, 0]
 
 
 @pytest.mark.gpu
 def test_a_bf16_bundle_exported_on_the_card_is_the_in_process_rollout(
         cuda, tmp_path):
-    """``torch.export`` of the step keeps its tensor-core products: the
-    bundle's step loop equals ``make_rollout_fn``'s eager loop to the
+    """``torch.export`` of the step keeps the hand-written edge MLP: the
+    bundle's step loop runs it (one ``fused_edge_mlp`` a step, as the
+    eager loop does) and equals ``make_rollout_fn``'s eager loop to the
     bit."""
     from molecular_dynamics_neural_operator_tpu_torch.rollout import (
         make_rollout_fn,
@@ -353,10 +533,14 @@ def test_a_bf16_bundle_exported_on_the_card_is_the_in_process_rollout(
     window = _grid_window(12, 4, cuda, spacing=3.8)
     bundle = load_bundle(save_bundle(tmp_path / "b", params, cfg, 6,
                                      clip=100.0), device=cuda)
-    before = profiling.counters().get("plain_tc_linear", 0)
+    before = profiling.counters()
     with torch.no_grad():
         want = make_rollout_fn(cfg, 6, clip=100.0, device=cuda).eager(
             params, aa, window)
-    assert profiling.counters()["plain_tc_linear"] == before + 12
+    middle = profiling.counters()
     got = bundle.eager(aa, window)
+    after = profiling.counters()
+    for a, b in ((before, middle), (middle, after)):
+        assert [b.get(n, 0) - a.get(n, 0) for n in COUNTERS] == \
+            [0, 0, 6, 18]
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

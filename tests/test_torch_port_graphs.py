@@ -261,9 +261,10 @@ def test_graphed_dense_rollout_is_the_eager_loop_to_the_bit(cuda, cd,
                                                             streams):
     """The dense graph's scan, 100 steps (a block and a tail) collecting
     both outputs, twice: bit-equal to the loop issued op by op; eight
-    streams in chunks of four. Each graphed call counts the linear layers
-    on tensor cores (``plain_tc_linear``, none in f32) that the eager loop
-    counts: the capture holds its counts and every replay adds them."""
+    streams in chunks of four. Each graphed call counts the kernel tensors
+    made by the hand-written edge MLP (``fused_edge_mlp``, none in f32)
+    that the eager loop counts: the capture holds its counts and every
+    replay adds them."""
     cfg = ModelConfig(**{**SMALL, "graph_mode": "dense"}, compute_dtype=cd)
     params = gkn_init(cfg, seed=0, device=cuda)
     batched = streams > 1
@@ -273,17 +274,17 @@ def test_graphed_dense_rollout_is_the_eager_loop_to_the_bit(cuda, cd,
     aa = torch.as_tensor(_traj().aminoacids, device=cuda)
     w0 = _windows(streams, cuda) if batched else _windows(1, cuda)[0]
 
-    def tc_linear():
-        return profiling.counters().get("plain_tc_linear", 0)
+    def hand_mlp():
+        return profiling.counters().get("fused_edge_mlp", 0)
 
-    before = tc_linear()
+    before = hand_mlp()
     want = fn.eager(params, aa, w0)
-    eager = tc_linear() - before
+    eager = hand_mlp() - before
     assert (eager > 0) == (cd == "bfloat16")
     for _ in range(2):
-        before = tc_linear()
+        before = hand_mlp()
         assert _same(fn(params, aa, w0), want)
-        assert tc_linear() - before == eager
+        assert hand_mlp() - before == eager
 
 
 @pytest.mark.gpu

@@ -91,6 +91,25 @@ def test_the_graph_layer_imports_no_kernel_wrapper_and_no_layer_above():
     assert not _above_the_loop_layer("torch.distributed")
 
 
+@pytest.mark.parametrize("path, allowed", [
+    ("ops/edge_conv.py", {"ops.cuda.edge_mlp", "ops.mlp"}),
+    ("ops/cuda/edge_mlp.py", {"ops.cuda._launch"}),
+])
+def test_the_edge_mlp_wrapper_sits_below_the_op_layer(path, allowed):
+    """``ops/edge_conv.py`` reaches the hand-written edge MLP through its
+    own wrapper module, and that module needs nothing of the port but the
+    launch helpers and the counters: neither imports a rollout module,
+    and the wrapper no op layer."""
+    port = "molecular_dynamics_neural_operator_tpu_torch."
+    reached = {m[len(port):] for m in _imported_modules(PORT / path)
+               if m.startswith((port + "ops.", port + "rollout",
+                                port + "models", port + "serving"))}
+    bad = {m for m in reached
+           if not any(m == a or m.startswith(a + ".") for a in allowed)}
+    assert not bad, f"{path} imports {sorted(bad)}"
+    assert allowed <= reached
+
+
 def test_every_kernel_source_names_what_it_replaces_and_its_bound():
     sources = sorted((PORT / "csrc").glob("*.cu"))
     replaced = {"graph_encode": "ops/pallas/persistent_rollout.py",

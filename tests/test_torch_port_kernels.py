@@ -30,6 +30,9 @@ from molecular_dynamics_neural_operator_tpu_torch.ops.cuda import (
     fused_gkn as fg,
 )
 from molecular_dynamics_neural_operator_tpu_torch.ops.cuda import (
+    edge_mlp as em,
+)
+from molecular_dynamics_neural_operator_tpu_torch.ops.cuda import (
     persistent_rollout as pr,
 )
 from molecular_dynamics_neural_operator_tpu_torch.ops.cuda import (
@@ -92,8 +95,8 @@ def test_wrappers_on_cpu_run_the_plain_versions_and_launch_nothing():
         assert torch.equal(got, want)
     layer = weights["mlp"][0]
     a = ef.reshape(-1, 6)
-    out = pr.edge_mlp(a, layer["w"], layer["b"], True)
-    assert torch.equal(out, pr.edge_mlp_plain(a, layer["w"], layer["b"],
+    out = em.edge_mlp(a, layer["w"], layer["b"], True)
+    assert torch.equal(out, em.edge_mlp_plain(a, layer["w"], layer["b"],
                                               True))
     assert pr.launch_counts() == {"graph_encode": 0, "edge_mlp": 0,
                                   "conv_head": 0, "conv_head_wide": 0}
@@ -152,7 +155,7 @@ def test_edge_mlp_plain_masks_rows_and_keeps_dtype():
     w = torch.randn(8, 64, generator=g).to(torch.bfloat16)
     b = torch.randn(64, generator=g)
     mask = torch.tensor([1.0, 0.0, 1.0, 0.0, 1.0])
-    out = pr.edge_mlp_plain(a, w, b, False, mask)
+    out = em.edge_mlp_plain(a, w, b, False, mask)
     assert out.dtype == torch.bfloat16
     assert not out[1].any() and not out[3].any()
     want = (a.float() @ w.float() + b).to(torch.bfloat16)
@@ -187,9 +190,9 @@ def test_misaligned_bf16_operands_of_the_edge_mlp_raise(k, which):
         return [ops[n][(1 if n == shifted else 0):][:np.prod(shapes[n])]
                 .view(shapes[n]) for n in ("a", "w", "out")]
 
-    pr._check_mlp_alignment(*views(None), k, "edge_mlp")
+    em._check_mlp_alignment(*views(None), k, "edge_mlp")
     with pytest.raises(ValueError, match=f"{which} must start on a 16-byte"):
-        pr._check_mlp_alignment(*views(which), k, "edge_mlp")
+        em._check_mlp_alignment(*views(which), k, "edge_mlp")
 
 
 def test_alignment_rule_leaves_the_fma_layers_alone():
@@ -201,7 +204,7 @@ def test_alignment_rule_leaves_the_fma_layers_alone():
         w = torch.zeros(k * 64 + 8, dtype=cd)
         out = torch.zeros(8 * 64 + 8, dtype=cd)
         shift = 0 if (cd, k) == (torch.bfloat16, 6) else 1
-        pr._check_mlp_alignment(a, w[shift:][:k * 64].view(k, 64),
+        em._check_mlp_alignment(a, w[shift:][:k * 64].view(k, 64),
                                 out[shift:][:8 * 64].view(8, 64), k, "edge_mlp")
 
 
@@ -231,10 +234,10 @@ def test_edge_mlp_stack_on_cpu_equals_the_three_call_form_to_the_bit(
     h1 = torch.full((m, kw), 7.0, dtype=cd)
     h2, out = torch.empty(m, kw, dtype=cd), torch.empty(m, n, dtype=cd)
     pr.reset_launch_counts()
-    got = pr.edge_mlp_stack(ef, mlp, row_mask, h1, h2, out)
-    a = pr.edge_mlp(ef, mlp[0]["w"], mlp[0]["b"], True)
-    b = pr.edge_mlp(a, mlp[1]["w"], mlp[1]["b"], True)
-    want = pr.edge_mlp(b, mlp[2]["w"], mlp[2]["b"], False, row_mask)
+    got = em.edge_mlp_stack(ef, mlp, row_mask, h1, h2, out)
+    a = em.edge_mlp(ef, mlp[0]["w"], mlp[0]["b"], True)
+    b = em.edge_mlp(a, mlp[1]["w"], mlp[1]["b"], True)
+    want = em.edge_mlp(b, mlp[2]["w"], mlp[2]["b"], False, row_mask)
     assert got is out and got.dtype == cd
     assert torch.equal(h1, a) and torch.equal(h2, b)
     assert torch.equal(got, want)
@@ -250,7 +253,7 @@ def test_edge_mlp_stack_is_what_a_step_runs_on_cpu():
     pr.step(bufs, weights, cfg, 8.0, 100.0, win, coords)
     a = bufs.ef.view(-1, 6)
     for i, layer in enumerate(weights["mlp"]):
-        a = pr.edge_mlp_plain(a, layer["w"], layer["b"], i < 2,
+        a = em.edge_mlp_plain(a, layer["w"], layer["b"], i < 2,
                               bufs.mask.view(-1) if i == 2 else None)
     assert torch.equal(bufs.kmat, a)
     assert torch.equal(win[:, -1], coords)
@@ -323,8 +326,8 @@ def test_kernels_match_plain_versions_on_the_card(cuda, cd, streams):
     a = ef.reshape(-1, 6)
     for i, layer in enumerate(weights["mlp"]):
         rm = mask.reshape(-1) if i == 2 else None
-        got = pr.edge_mlp(a, layer["w"], layer["b"], i < 2, rm)
-        want = pr.edge_mlp_plain(a, layer["w"], layer["b"], i < 2, rm)
+        got = em.edge_mlp(a, layer["w"], layer["b"], i < 2, rm)
+        want = em.edge_mlp_plain(a, layer["w"], layer["b"], i < 2, rm)
         # f32: ulp-level order differences; bf16: one flipped rounding
         # of the output, 2^-8 relative
         tol = 1e-5 if cd == "float32" else 2.0 ** -7
@@ -334,7 +337,7 @@ def test_kernels_match_plain_versions_on_the_card(cuda, cd, streams):
 
     # the step's entry: one call, three launches, the same function
     pr.reset_launch_counts()
-    pr.edge_mlp_stack(ef.reshape(-1, 6), weights["mlp"], mask.reshape(-1),
+    em.edge_mlp_stack(ef.reshape(-1, 6), weights["mlp"], mask.reshape(-1),
                       bufs.h1, bufs.h2, bufs.kmat)
     torch.cuda.synchronize()
     assert pr.launch_counts()["edge_mlp"] == 3
@@ -410,7 +413,7 @@ def _conv_head_steps(shape, streams, device):
         a = edge_features_from_edges(windows[:, -1], g_edges).to(
             torch.bfloat16).reshape(streams * e, 6)
         for i, layer in enumerate(weights["mlp"]):
-            a = pr.edge_mlp_plain(a, layer["w"], layer["b"], i < 2,
+            a = em.edge_mlp_plain(a, layer["w"], layer["b"], i < 2,
                                   g_mask.reshape(-1) if i == 2 else None)
         steps.append((name, g_edges, g_mask,
                       sparse_inv_degree(g_edges, g_mask, r), x0, a))
@@ -486,20 +489,22 @@ def test_conv_head_picks_its_plan_by_the_streams_on_the_card(cuda, streams):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("m", [224, 672, 896, 1792])
+@pytest.mark.parametrize("m", [224, 672, 896, 1792, 20000])
 def test_edge_mlp_tilings_match_plain_on_the_card(cuda, m):
     """The bench widths at 1, 3, 4 and 8 streams' rows: each row count takes
-    another tiling of the tensor-core kernel (672 is no multiple of 128)."""
+    another tiling of the tensor-core kernel (672 is no multiple of 128);
+    20,000 rows (a ragged last band) take the persistent plan of the
+    large-system step, whose rows are the small plans' to the bit."""
     ef, mlp, row_mask = _mlp_operands(9, torch.bfloat16, m, 1024, 4096, cuda)
     h1 = torch.empty(m, 1024, dtype=torch.bfloat16, device=cuda)
     h2, out = torch.empty_like(h1), torch.empty(
         m, 4096, dtype=torch.bfloat16, device=cuda)
-    pr.edge_mlp_stack(ef, mlp, row_mask, h1, h2, out)
+    em.edge_mlp_stack(ef, mlp, row_mask, h1, h2, out)
     a = ef
     for i, (layer, got) in enumerate(zip(mlp, (h1, h2, out))):
         rm = row_mask if i == 2 else None
-        want = pr.edge_mlp_plain(a, layer["w"], layer["b"], i < 2, rm)
-        alone = pr.edge_mlp(a, layer["w"], layer["b"], i < 2, rm)
+        want = em.edge_mlp_plain(a, layer["w"], layer["b"], i < 2, rm)
+        alone = em.edge_mlp(a, layer["w"], layer["b"], i < 2, rm)
         torch.cuda.synchronize()
         scale = max(1.0, want.float().abs().max().item())
         # one flipped bf16 rounding of the output, 2^-8 relative
@@ -510,7 +515,7 @@ def test_edge_mlp_tilings_match_plain_on_the_card(cuda, m):
     assert not out[row_mask == 0].any()
     # a stream's rows do not depend on how many streams share the launch
     first = torch.empty(224, 4096, dtype=torch.bfloat16, device=cuda)
-    pr.edge_mlp_stack(ef[:224].contiguous(), mlp, row_mask[:224].contiguous(),
+    em.edge_mlp_stack(ef[:224].contiguous(), mlp, row_mask[:224].contiguous(),
                       torch.empty_like(h1[:224]), torch.empty_like(h1[:224]),
                       first)
     torch.cuda.synchronize()
@@ -520,15 +525,15 @@ def test_edge_mlp_tilings_match_plain_on_the_card(cuda, m):
 @pytest.mark.gpu
 def test_edge_mlp_raises_on_a_misaligned_view_on_the_card(cuda):
     ef, mlp, row_mask = _mlp_operands(9, torch.bfloat16, 224, 64, 64, cuda)
-    h1 = pr.edge_mlp(ef, mlp[0]["w"], mlp[0]["b"], True)
+    h1 = em.edge_mlp(ef, mlp[0]["w"], mlp[0]["b"], True)
     shifted = torch.empty(224 * 64 + 1, dtype=torch.bfloat16,
                           device=cuda)[1:].view(224, 64)
     shifted.copy_(h1)
     pr.reset_launch_counts()
     with pytest.raises(ValueError, match="16-byte"):
-        pr.edge_mlp(shifted, mlp[1]["w"], mlp[1]["b"], True)
+        em.edge_mlp(shifted, mlp[1]["w"], mlp[1]["b"], True)
     with pytest.raises(ValueError, match="16-byte"):
-        pr.edge_mlp(h1, mlp[1]["w"], mlp[1]["b"], True, out=shifted)
+        em.edge_mlp(h1, mlp[1]["w"], mlp[1]["b"], True, out=shifted)
     assert pr.launch_counts()["edge_mlp"] == 0
 
 

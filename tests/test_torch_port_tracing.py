@@ -82,6 +82,42 @@ def test_held_counts_stay_out_of_the_store_on_their_thread_alone():
     assert after["held test other"] - before.get("held test other", 0) == 3
 
 
+def test_a_backward_nodes_counts_go_into_the_open_held_block():
+    """A CUDA backward runs on the autograd engine's own thread while the
+    thread that called it waits, inside that thread's ``held()`` when a
+    graphed training step is warmed up or captured: a count made by a
+    backward node on a thread that holds nothing goes into the open
+    block's dict; that thread's other counts go into the store."""
+
+    class Counted(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x):
+            profiling.count("held test forward")
+            return 2 * x
+
+        @staticmethod
+        def backward(ctx, g):
+            profiling.count("held test backward")
+            return 2 * g
+
+    def engine_thread():
+        Counted.apply(torch.ones(3, requires_grad=True)).sum().backward()
+
+    before = profiling.counters()
+    with profiling.held() as mine:
+        other = threading.Thread(target=engine_thread)
+        other.start()
+        other.join(WAIT)
+        assert not other.is_alive()
+    engine_thread()
+    after = profiling.counters()
+    assert mine == {"held test backward": 1}
+    assert after["held test forward"] - before.get("held test forward",
+                                                   0) == 2
+    assert after["held test backward"] - before.get("held test backward",
+                                                    0) == 1
+
+
 def test_each_launch_view_reads_and_resets_its_own_names():
     from molecular_dynamics_neural_operator_tpu_torch.ops.cuda import (
         persistent_rollout as pr,

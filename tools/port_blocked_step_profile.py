@@ -2,18 +2,24 @@
 the ``solvated10k.rollout`` cell (``portbench/configs/solvated_10k.json``,
 its traffic ``rollout_8_fresh`` and its seeded weights).
 
-- The edge MLP over the step's 480,000 slots (6 -> 1024 -> 1024 -> 4096):
-  f32 products of bf16-rounded operands, and bf16 tensor cores
-  (``ops/mlp.py::_TensorCoreMatmul``).
+- The kernel tensor of the step's 480,000 slots (6 -> 1024 -> 1024 ->
+  4096, ``ops/edge_conv.py::edge_kernel_matrices``) three ways: f32
+  products of bf16-rounded operands; bf16 tensor cores
+  (``ops/mlp.py::_TensorCoreMatmul``) with the f32 bias adds, ReLUs and
+  casts between them; and the hand-written edge-MLP kernels
+  (``hand_mlp``: bias, ReLU and the bf16 rounding on the accumulators),
+  each layer of these also timed alone. Time, TFLOP/s, share of the
+  bound (operations at 989 TFLOP/s), peak memory, and the gap between
+  the hand kernels and the tensor-core form.
 - One blocked conv layer's aggregation in three forms: a message a slot
   from an f32 copy of the kernel tensor, masked and summed per node (the
   form before the fold); one bf16 product a node over its D slots
   (``ops/edge_conv.py::_blocked_aggregate``); one bf16 product a slot.
 - Eager 8-step calls of ``make_rollout_fn`` as the cell makes them, with
-  each half (the MLP on tensor cores, the folded aggregation) on and off,
-  and the program counters of a step.
+  the MLP in each form and the folded aggregation on and off, and the
+  program counters of a step.
 - The graphed dense bf16 and f32 scan step of ``bba_1fme_sparse`` on the
-  dense graph, with the MLP on tensor cores and without.
+  dense graph, with the MLP in each form.
 
     python3 tools/port_blocked_step_profile.py [--seed 2100000101]
         [--calls 4] [--out chiprun_out/blocked_step.json]
@@ -47,6 +53,9 @@ from molecular_dynamics_neural_operator_tpu_torch.ops import (  # noqa: E402
     edge_conv,
     mlp,
 )
+from molecular_dynamics_neural_operator_tpu_torch.ops.cuda import (  # noqa: E402
+    edge_mlp as em,
+)
 from molecular_dynamics_neural_operator_tpu_torch.rollout import (  # noqa: E402
     make_rollout_fn,
     scan,
@@ -59,6 +68,7 @@ from portbench.traffic import generate  # noqa: E402
 
 CONFIGS = ROOT / "portbench" / "configs"
 TRAFFIC = ROOT / "portbench" / "traffic"
+PEAK_BF16 = 989e12
 
 
 def model_config(model: dict) -> ModelConfig:
@@ -90,6 +100,16 @@ def event_ms(fn, n: int = 5, warm: int = 2) -> float:
     return start.elapsed_time(end) / n
 
 
+def peak_gb(fn) -> float:
+    """Device memory that one call of fn allocates beyond what is held."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 1e9
+
+
 def per_slot_aggregate(xs, kernels, mask, num_nodes, cd):
     """The blocked layer's sum as it was before the fold: a message a
     slot from the rounded operands in f32, masked, summed per node."""
@@ -119,27 +139,57 @@ def cell_inputs(seed: int):
 
 
 def parts(model, inputs, params, aa) -> dict:
-    """The MLP and one layer's aggregation, each form timed alone on the
-    first window's graph."""
+    """The kernel tensor and one layer's aggregation, each form timed
+    alone on the first window's graph."""
     cfg = model_config(model)
     cd = torch.bfloat16
     window = torch.as_tensor(inputs["windows"][0][0], device="cuda")
     graph, _ = scan._build_graph(cfg, window[-1], model["threshold"])
     ef = graph.edge_feats
     e, w, r = ef.shape[0], cfg.width, cfg.num_residues
-    out = {"slots": e, "real_slots": int(graph.mask.sum().item())}
-    mlp_flop = 2 * e * sum(a * b for a, b in zip(
-        [6, cfg.ker_width, cfg.ker_width], [cfg.ker_width, cfg.ker_width,
-                                            w * w]))
+    sizes = [ef.shape[-1], cfg.ker_width, cfg.ker_width, w * w]
+    mlp_flop = 2 * e * sum(a * b for a, b in zip(sizes[:-1], sizes[1:]))
+    out = {"slots": e, "real_slots": int(graph.mask.sum().item()),
+           "mlp_bound_ms": 1e3 * mlp_flop / PEAK_BF16}
+
+    def kernel_tensor():
+        return edge_conv.edge_kernel_matrices(params["edge_kernel"], ef, w,
+                                              cd)
+
     with torch.no_grad():
-        for name, tc in (("mlp_f32_ms", False), ("mlp_tc_ms", True)):
-            with Halves(tc, True):
-                ms = event_ms(lambda: mlp.mlp_apply(
-                    params["edge_kernel"], ef, compute_dtype=cd), n=3)
-            out[name] = ms
-            out[name.replace("_ms", "_tflops")] = mlp_flop / ms / 1e9
-        kernels = edge_conv.edge_kernel_matrices(params["edge_kernel"], ef,
-                                                 w, cd)
+        for name, form in (("mlp_f32", "f32"), ("mlp_tc", "tc"),
+                           ("mlp_hand", "hand"), ("mlp_tc_again", "tc"),
+                           ("mlp_hand_again", "hand")):
+            with Halves(form, True):
+                ms = event_ms(kernel_tensor, n=3)
+                out[f"{name}_peak_gb"] = peak_gb(kernel_tensor)
+            out[f"{name}_ms"] = ms
+            out[f"{name}_tflops"] = mlp_flop / ms / 1e9
+            out[f"{name}_bound_share"] = out["mlp_bound_ms"] / ms
+            print(name, ms, flush=True)
+        with Halves("tc", True):
+            want = kernel_tensor()
+        with Halves("hand", True):
+            kernels = kernel_tensor()
+        gap = (kernels.float() - want.float()).abs().max()
+        out["mlp_hand_max_gap_over_max"] = \
+            (gap / want.float().abs().max()).item()
+        out["mlp_hand_share_unequal"] = \
+            (kernels != want).float().mean().item()
+        del want
+        # each hand-written layer alone, on the previous layer's output
+        a = ef.to(cd).contiguous()
+        for i in range(3):
+            layer = params["edge_kernel"][f"layer_{i}"]
+            wt = layer["w"].to(cd).contiguous()
+            b = layer["b"].float().contiguous()
+            o = torch.empty(e, wt.shape[1], dtype=cd, device="cuda")
+            ms = event_ms(lambda: em.edge_mlp(a, wt, b, i < 2, out=o), n=3)
+            out[f"mlp_hand_layer{i}_ms"] = ms
+            out[f"mlp_hand_layer{i}_tflops"] = \
+                2 * e * wt.shape[0] * wt.shape[1] / ms / 1e9
+            a = o
+        del a, o
         x = torch.randn(r, w, device="cuda")
         xs = torch.take_along_dim(x, graph.edges[0].long()[:, None], dim=-2)
         mask = graph.mask
@@ -166,18 +216,23 @@ def parts(model, inputs, params, aa) -> dict:
 
 
 class Halves:
-    """Turns each half of the change off by replacing a module function
-    for the block: ``mlp`` off replaces ``ops/mlp.py``'s tensor-core rule
-    by one that says no, which sends the MLP to f32 products;
-    ``aggregate`` off restores the per-slot layer."""
+    """Picks the MLP's form and the layer's for the block by replacing
+    module functions: ``mlp`` "hand" keeps the rules as they are, "tc"
+    replaces ``ops/edge_conv.py``'s hand-written-MLP rule by one that says
+    no, which sends the MLP to ``_TensorCoreMatmul`` and its f32 passes,
+    and "f32" also ``ops/mlp.py``'s tensor-core rule, which sends it to
+    f32 products; ``aggregate`` off restores the per-slot layer."""
 
-    def __init__(self, mlp_on: bool, aggregate_on: bool):
-        self.mlp_on, self.aggregate_on = mlp_on, aggregate_on
+    def __init__(self, mlp_form: str, aggregate_on: bool):
+        assert mlp_form in ("hand", "tc", "f32"), mlp_form
+        self.mlp_form, self.aggregate_on = mlp_form, aggregate_on
 
     def __enter__(self):
-        self._rule, self._agg = mlp._on_tensor_cores, \
-            edge_conv._blocked_aggregate
-        if not self.mlp_on:
+        self._rule, self._hand, self._agg = mlp._on_tensor_cores, \
+            edge_conv.hand_mlp, edge_conv._blocked_aggregate
+        if self.mlp_form != "hand":
+            edge_conv.hand_mlp = lambda *a: False
+        if self.mlp_form == "f32":
             mlp._on_tensor_cores = lambda x, w, compute_dtype: False
         if not self.aggregate_on:
             edge_conv._blocked_aggregate = per_slot_aggregate
@@ -185,6 +240,7 @@ class Halves:
 
     def __exit__(self, *exc):
         mlp._on_tensor_cores = self._rule
+        edge_conv.hand_mlp = self._hand
         edge_conv._blocked_aggregate = self._agg
         return False
 
@@ -192,17 +248,18 @@ class Halves:
 def steps(model, mix, inputs, params, aa, calls: int) -> dict:
     """ms a step of eager 8-step calls, as ``portbench/entries/
     rollout_scan.py`` makes them, under each pair of halves; the peak
-    memory of a call; the counters a step with both halves on."""
+    memory of a call; the counters a step."""
     cfg = model_config(model)
     n = mix["steps_per_call"]
     fn = make_rollout_fn(cfg, n, model["threshold"], clip=mix.get("clip"),
                          batched=True, device="cuda")
     pool = inputs["windows"]
     out = {}
-    for label, on in (("both", (True, True)), ("mlp_only", (True, False)),
-                      ("aggregate_only", (False, True)),
-                      ("neither", (False, False)), ("both_again", (True,
-                                                                  True))):
+    for label, on in (("hand", ("hand", True)), ("tc", ("tc", True)),
+                      ("tc_per_slot", ("tc", False)),
+                      ("f32_folded", ("f32", True)),
+                      ("f32_per_slot", ("f32", False)),
+                      ("hand_again", ("hand", True))):
         with Halves(*on), torch.no_grad():
             fn(params, aa, pool[0])
             torch.cuda.synchronize()
@@ -221,7 +278,8 @@ def steps(model, mix, inputs, params, aa, calls: int) -> dict:
             "counters_a_step": {k: (after.get(k, 0) - before.get(k, 0))
                                 / (calls * n)
                                 for k in ("plain_tc_linear",
-                                          "blocked_bf16_aggregate")},
+                                          "blocked_bf16_aggregate",
+                                          "fused_edge_mlp", "edge_mlp")},
         }
         print(label, out[label], flush=True)
     return out
@@ -229,8 +287,8 @@ def steps(model, mix, inputs, params, aa, calls: int) -> dict:
 
 def dense_steps(seed: int) -> dict:
     """The graphed dense scan step of ``bba_1fme_sparse`` on the dense
-    graph, 128 steps a call, in bf16 and f32, with the MLP on tensor
-    cores (the change) and on f32 products (before it)."""
+    graph, 128 steps a call, in bf16 and f32, with the MLP in each
+    form."""
     doc = json.loads((CONFIGS / "bba_1fme_sparse.json").read_text())
     model = {**doc["model"], "graph_mode": "dense"}
     mix = json.loads((TRAFFIC / "rollout_1000.json").read_text())
@@ -243,8 +301,8 @@ def dense_steps(seed: int) -> dict:
     for cd in ("bfloat16", "float32"):
         cfg = model_config({**model, "compute_dtype": cd})
         params = gkn_init(cfg, seed=0, device="cuda")
-        for label, on in (("tc", True), ("f32", False), ("tc_again", True)):
-            with Halves(on, True), torch.no_grad():
+        for label in ("hand", "tc", "f32", "hand_again"):
+            with Halves(label.split("_")[0], True), torch.no_grad():
                 fn = make_rollout_fn(cfg, 128, model["threshold"],
                                      clip=100.0, device="cuda")
                 fn(params, aa, w0)

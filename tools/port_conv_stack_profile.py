@@ -33,6 +33,7 @@ from molecular_dynamics_neural_operator_tpu_torch.data import (  # noqa: E402
 )
 from molecular_dynamics_neural_operator_tpu_torch.ops.cuda import (  # noqa: E402
     _build,
+    edge_mlp as em,
     persistent_rollout as pr,
 )
 from molecular_dynamics_neural_operator_tpu_torch.utils.checkpoint import (  # noqa: E402
@@ -67,7 +68,7 @@ def main() -> int:
             bufs = prepared.buffers(s, 28)
             coords = torch.empty(s, 28, 3, device=dev)
             pr.graph_encode(win, prepared.weights, cs.THRESHOLD, bufs)
-            pr.edge_mlp_stack(bufs.ef.view(s * cfg.max_edges, 6),
+            em.edge_mlp_stack(bufs.ef.view(s * cfg.max_edges, 6),
                               prepared.weights["mlp"], bufs.mask.view(-1),
                               bufs.h1, bufs.h2, bufs.kmat)
             ms = cs.device_ms(lambda: pr.conv_head(
