@@ -32,6 +32,15 @@ input channels): the same run directory with the ``fno`` section in
 contact maps; the GKN's model flags, ``--profile`` and the latent sweep
 do not apply to it.
 
+``--operator fno3d`` trains FNO-3d (``models/fno3d.py``, at its
+published sizes unless ``--fno3d_*`` say otherwise; ``--window_size``
+input frames) on one device through ``train_epoch``: each step forecasts
+``--fno3d_out_frames`` distance matrices in one call and trains one loss
+over the block. The run directory gets ``config.json`` (data and
+training), ``fno3d.json`` (the model's ``FNO3dConfig``), the metrics and
+the checkpoints; ``--resume`` continues from one. It has no movie, no
+latent sweep and no ``--data_parallel``.
+
 ``--data_parallel`` trains on every rank of a ``torchrun`` launch, the
 batch's rows spread over the ranks and the gradients summed
 (``parallel/mesh.py``): the teacher-forced step, the curriculum and the
@@ -132,15 +141,24 @@ def parse_args(argv=None):
                    default=None,
                    help="reject NaN/inf update steps (default: on when the "
                         "curriculum is on)")
-    p.add_argument("--operator", choices=["gkn", "fno"], default="gkn",
-                   help="operator family: graph kernel network or FNO "
-                        "on distance matrices")
+    p.add_argument("--operator", choices=["gkn", "fno", "fno3d"],
+                   default="gkn",
+                   help="operator family: graph kernel network, FNO or "
+                        "the space-time FNO-3d on distance matrices")
     p.add_argument("--fno_modes", type=int, default=12)
     p.add_argument("--fno_width", type=int, default=32)
     p.add_argument("--fno_depth", type=int, default=4)
     p.add_argument("--fno_predict_prior", choices=["last", "extrapolate"],
                    default="last")
     p.add_argument("--fno_predict_delta", action="store_true")
+    p.add_argument("--fno3d_width", type=int, default=20)
+    p.add_argument("--fno3d_modes", type=int, default=8,
+                   help="kept modes on each residue axis")
+    p.add_argument("--fno3d_modes3", type=int, default=8,
+                   help="kept modes on the padded time axis")
+    p.add_argument("--fno3d_depth", type=int, default=4)
+    p.add_argument("--fno3d_out_frames", type=int, default=40,
+                   help="distance matrices forecast in one call")
     p.add_argument("--graph_mode", choices=["dense", "sparse"], default="dense")
     p.add_argument("--max_edges", type=int, default=384,
                    help="padded edge capacity for sparse mode")
@@ -470,6 +488,100 @@ def _train_fno(args, traj, data_cfg, train_cfg, ranks):
     return state
 
 
+def _train_fno3d(args, traj, data_cfg, train_cfg, ranks):
+    """The ``--operator fno3d`` run: the GKN run's data, split, checkpoint
+    and metrics machinery with FNO-3d's block steps through
+    ``train_epoch``. Returns the final ``TrainState``."""
+    from molecular_dynamics_neural_operator_tpu_torch import configs
+    from molecular_dynamics_neural_operator_tpu_torch.data import (
+        WindowDataset,
+        batch_iterator,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.data.prefetch import (
+        prefetch_to_device,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.models.fno3d import (
+        fno3d_init,
+        make_fno3d_eval_step,
+        make_fno3d_train_step,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.train import (
+        train_epoch,
+        train_valid_split,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.train.loop import (
+        _read_metrics,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.train.optim import (
+        make_optimizer,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.train.state import (
+        TrainState,
+    )
+    from molecular_dynamics_neural_operator_tpu_torch.utils import (
+        BestCheckpointer,
+        MetricLogger,
+        restore_checkpoint,
+    )
+
+    if ranks.mesh is not None:
+        raise ValueError("--operator fno3d trains on one device; drop "
+                         "--data_parallel")
+    device = ranks.device
+    run_dir = Path(train_cfg.run_path)
+    cfg = configs.FNO3dConfig(
+        width=args.fno3d_width, modes1=args.fno3d_modes,
+        modes2=args.fno3d_modes, modes3=args.fno3d_modes3,
+        depth=args.fno3d_depth, in_frames=args.window_size,
+        out_frames=args.fno3d_out_frames, num_residues=traj.num_residues)
+    run_dir.mkdir(parents=True, exist_ok=True)
+    (run_dir / "config.json").write_text(configs.to_json(
+        configs.ExperimentConfig(data=data_cfg, train=train_cfg)))
+    (run_dir / "fno3d.json").write_text(configs.to_json(cfg))
+    ds = WindowDataset(traj, window_size=args.window_size,
+                       horizon=data_cfg.horizon, graph_mode="none")
+    tr_idx, va_idx = train_valid_split(len(ds), data_cfg.split_pct,
+                                       data_cfg.split_method)
+    tx, _ = make_optimizer(
+        train_cfg.lr, train_cfg.weight_decay, train_cfg.scheduler_step,
+        train_cfg.scheduler_gamma,
+        max(1, len(tr_idx) // train_cfg.batch_size),
+        grad_clip_norm=train_cfg.grad_clip_norm,
+        skip_nonfinite_updates=train_cfg.skip_nonfinite_updates,
+        grad_accum=train_cfg.grad_accum)
+    params = fno3d_init(cfg, seed=train_cfg.seed, device=device)
+    state = TrainState(params, tx.init(params), 0, train_cfg.seed)
+    start_epoch = 0
+    if args.resume is not None:
+        state, meta = restore_checkpoint(args.resume, state)
+        start_epoch = int(meta.get("epoch", -1)) + 1
+        print(f"Resumed from {args.resume} at epoch {start_epoch}")
+    step = make_fno3d_train_step(cfg, tx)
+    eval_step = make_fno3d_eval_step(cfg)
+    logger = MetricLogger(run_dir, use_wandb=train_cfg.log_wandb,
+                          config=vars(args))
+    ckpt = BestCheckpointer(run_dir, resume=args.resume is not None)
+    print(f"FNO-3d training: {len(ds)} windows, R={traj.num_residues}, "
+          f"{cfg.in_frames} frames in and {cfg.out_frames} out, on {device}",
+          flush=True)
+    for epoch in range(start_epoch, train_cfg.epochs):
+        t0 = time.time()
+        state, metrics = train_epoch(
+            state, step, ds, tr_idx, train_cfg.batch_size,
+            seed=train_cfg.seed, epoch=epoch, rollout_horizon=cfg.out_frames,
+            prefetch=args.prefetch_factor)
+        acc = [eval_step(state.params, batch) for batch in prefetch_to_device(
+            batch_iterator(ds, va_idx, train_cfg.batch_size, shuffle=False,
+                           drop_last=False, rollout_horizon=cfg.out_frames),
+            size=2, device=device)]
+        va_loss = (sum(m["rel_l2"] for m in _read_metrics(acc)) / len(acc)
+                   if acc else float("nan"))
+        logger.log_epoch(epoch, time.time() - t0, metrics["rel_l2"], va_loss)
+        ckpt.update(epoch, va_loss, state)
+    logger.close()
+    return state
+
+
 def train_from_trajectory(args, traj):
     """Everything of ``main`` after the trajectory is loaded: the run
     directory, the dataset and split, the train state (or ``--resume``),
@@ -525,6 +637,8 @@ def train_from_trajectory(args, traj):
 
     if args.operator == "fno":
         return _train_fno(args, traj, data_cfg, train_cfg, ranks)
+    if args.operator == "fno3d":
+        return _train_fno3d(args, traj, data_cfg, train_cfg, ranks)
 
     run_dir = Path(train_cfg.run_path)
     if ranks.rank0:

@@ -90,6 +90,27 @@ class FNOConfig:
 
 
 @dataclass(frozen=True)
+class FNO3dConfig:
+    """FNO-3d, the space-time FNO (``models/fno3d.py``, f32) at its
+    published sizes: ``in_frames`` distance matrices in, ``out_frames``
+    out in one call. The port's own: the JAX package has no FNO-3d, so
+    this stays outside ``ExperimentConfig``, whose text is the JAX
+    package's."""
+
+    width: int = 20
+    modes1: int = 8
+    modes2: int = 8
+    modes3: int = 8  # kept time frequencies of the padded time axis
+    depth: int = 4
+    in_frames: int = 10
+    out_frames: int = 40
+    time_pad: int = 6  # zeros after the time axis; cropped at the end
+    projection: int = 128
+    num_residues: int = 80
+    spectral_impl: str = "auto"  # "dft" | "fft" | "auto"
+
+
+@dataclass(frozen=True)
 class DataConfig:
     """Trajectory dataset parameters."""
 

@@ -25,7 +25,11 @@
   with one kernel-tensor gradient); ``fno_points``,
   ``fno_spectral_dft`` and ``fno_spectral_fft`` (``models/fno.py``:
   the FNO curriculum's grid points a model step, a spectral convolution
-  by its form; that step counts the ``curriculum_*`` counters too); and
+  by its form; that step counts the ``curriculum_*`` counters too);
+  ``fno3d_steps``, ``fno3d_points``, ``fno3d_frames``,
+  ``fno3d_spectral_dft`` and ``fno3d_spectral_fft`` (``models/fno3d.py``:
+  FNO-3d's block steps, the padded grid points and the forecast frames
+  they cover, a spectral convolution by its form); and
   the kernel launches, each under its kernel's name: ``graph_encode``,
   ``edge_mlp``, ``conv_head`` and ``conv_head_wide`` (those of
   ``conv_head`` on the wide plan; ``ops/cuda/persistent_rollout.py``),
